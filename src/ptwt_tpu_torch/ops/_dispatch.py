@@ -61,7 +61,9 @@ def analysis_nd(
         return fused2_dwt_level(data, dec_lo, dec_hi, mode)
     rows = dwt_axis(data, -2, dec_lo, dec_hi, mode)  # [2 (H bit), B, m_h, w]
     both = dwt_axis(rows, -1, dec_lo, dec_hi, mode)  # [2 (W bit), 2, B, m_h, m_w]
-    return both[0, 0], both[0, 1], both[1, 0], both[1, 1]
+    # unbind, not indexing: its backward stacks the four cotangents once
+    (ll, lh), (hl, hh) = (half.unbind(0) for half in both.unbind(0))
+    return ll, lh, hl, hh
 
 
 def synthesis_nd(
@@ -85,5 +87,5 @@ def synthesis_nd(
         ll.shape[-2], ll.shape[-1], len(rec_lo), mode, pads
     ):
         return fused2_idwt_level(subbands, rec_lo, rec_hi, mode)
-    cols = idwt_axis((ll, lh), (hl, hh), -1, rec_lo, rec_hi, *pads[1], mode)
-    return idwt_axis((cols[0],), (cols[1],), -2, rec_lo, rec_hi, *pads[0], mode)[0]
+    lo, hi = idwt_axis((ll, lh), (hl, hh), -1, rec_lo, rec_hi, *pads[1], mode).unbind(0)
+    return idwt_axis((lo,), (hi,), -2, rec_lo, rec_hi, *pads[0], mode).squeeze(0)

@@ -32,7 +32,6 @@ __all__ = [
     "build",
     "check_tensor",
     "launch",
-    "refuse_grad",
     "reset_launch_counts",
     "static_taps",
 ]
@@ -64,15 +63,25 @@ _ENTRY_POINTS = {
         "axis",
         [_I, _P, _P, _P, _P, _I, _P, _D, _D, _I, _LL, _I, _I, _LL, _I, _I, _P],
     ),
-    "ptwt_dwt2": ("dwt2", [_I, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "ptwt_analysis_axis_t": (
+        "axis_vjp", [_I, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _LL, _I, _I, _P]
+    ),
+    "ptwt_synthesis_axis_t": (
+        "axis_vjp", [_I, _P, _I, _P, _D, _D, _I, _LL, _I, _I, _LL, _I, _I, _P]
+    ),
+    "ptwt_dwt2": (
+        "dwt2", [_I, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    ),
     "ptwt_idwt2": (
         "dwt2",
-        [_I, _P, _P, _P, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+        [_I, _P, _P, _P, _P, _P, _D, _D, _I, _LL, *[_I] * 11, _P],
     ),
 }
 
-#: Launches per kernel since the last :func:`reset_launch_counts`.
-LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+#: Launches per kernel since the last :func:`reset_launch_counts`.  A VJP
+#: counts under the kernel that runs it: K1 and K2 are each other's VJP,
+#: K3T and K4T those of K3 and K4.
+LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K3T": 0, "K4T": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -106,7 +115,7 @@ def _library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{source}_{digest.hexdigest()[:16]}.so"
 
 
-def build(sources: Sequence[str] = ("axis", "dwt2")) -> dict[str, float]:
+def build(sources: Sequence[str] = ("axis", "axis_vjp", "dwt2")) -> dict[str, float]:
     """Compile the given ``csrc`` sources that are not built yet.
 
     All ``nvcc`` processes start together.  Returns the seconds each build
@@ -163,23 +172,24 @@ def _library(source: str) -> ctypes.CDLL:
         return lib
 
 
-_NO_BACKWARD = (
-    "the CUDA kernels have no backward yet: their VJP kernels come with the "
-    "next slice of the port (autograd Functions for K1-K4). Use CPU "
-    "tensors, or torch.no_grad(), meanwhile."
+_NO_FILTER_GRAD = (
+    "the CUDA kernels take their filters as constants and give no filter "
+    "gradient: learnable wavelets on the card come with their own slice "
+    "(ROADMAP Queue 1 item 12). Data gradients do run on the card. Detach "
+    "the filters, or use CPU tensors, whose plain path carries filter "
+    "gradients."
 )
 
 
-def refuse_grad(*tensors: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` if autograd would need a backward."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(_NO_BACKWARD)
-
-
 def static_taps(filt) -> list[float]:
-    """A filter's taps as python floats for the kernel-parameter bank."""
+    """A filter's taps as python floats for the kernel-parameter bank.
+
+    Raises ``NotImplementedError`` for a filter tensor that autograd would
+    have to differentiate.
+    """
     if isinstance(filt, torch.Tensor):
-        refuse_grad(filt)
+        if torch.is_grad_enabled() and filt.requires_grad:
+            raise NotImplementedError(_NO_FILTER_GRAD)
         return filt.detach().double().cpu().tolist()
     return [float(v) for v in np.asarray(filt).ravel()]
 

@@ -18,9 +18,26 @@ stencils do the arithmetic; here two hand-written CUDA kernels
   circular for ``periodization``.  Up to two (lo, hi) pairs of one shape
   go through one launch, so a 2d level needs no stacking copy.
 
+Gradients: one :class:`torch.autograd.Function` per direction wraps each
+launch, and its backward launches the transposed kernel
+(``csrc/axis_vjp.cu``), as the JAX package's ``custom_vjp``s do:
+
+* **K3T** (``_analysis_transpose_kernel``) — the VJP of K3, in gather
+  form over the positions K3 read (several periods for a long filter on
+  a short axis).  For the padded modes it yields the padded signal's
+  cotangent; torch's own backward of the padding gather takes it home.
+* **K4T** (``_synthesis_transpose_kernel``) — the VJP of K4, every
+  (lo, hi) pair of the launch at once.
+
+Data gradients run on the card; a filter tensor that requires grad
+raises there (the kernels take taps as constants).  Double backward
+raises too.
+
 Each kernel has a plain torch version here (:func:`dwt_axis_plain`,
-:func:`idwt_axis_plain`), built on :mod:`._slices`.  The wrappers take it
-for CPU tensors only; a CUDA tensor launches the kernel or raises.
+:func:`idwt_axis_plain`, and for the VJPs :func:`dwt_axis_vjp_plain`,
+:func:`idwt_axis_vjp_plain`, autograd through the former), built on
+:mod:`._slices`.  The wrappers take it for CPU tensors only; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,6 +46,7 @@ import math
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..utils._padding import fwt_pad
 from . import _kernels
@@ -37,7 +55,9 @@ from ._slices import analysis_slices_lastaxis, synthesis_slices_lastaxis
 
 __all__ = [
     "dwt_axis_plain",
+    "dwt_axis_vjp_plain",
     "idwt_axis_plain",
+    "idwt_axis_vjp_plain",
     "pallas_dwt_axis",
     "pallas_idwt_axis",
 ]
@@ -96,6 +116,39 @@ def idwt_axis_plain(
     return out.movedim(-1, axis)
 
 
+def dwt_axis_vjp_plain(
+    x: torch.Tensor, axis: int, dec_lo, dec_hi, mode: str, ct: torch.Tensor
+) -> torch.Tensor:
+    """VJP of :func:`dwt_axis_plain` at ``x`` for the packed cotangent
+    ``ct`` (``[2, ...]``, lo then hi): the plain version of K3T."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        lo, hi = dwt_axis_plain(x, axis, dec_lo, dec_hi, mode)
+        (grad,) = torch.autograd.grad((lo, hi), x, (ct[0], ct[1]))
+    return grad
+
+
+def idwt_axis_vjp_plain(
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    axis: int,
+    rec_lo,
+    rec_hi,
+    padl: int,
+    padr: int,
+    mode: str,
+    ct: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """VJP of :func:`idwt_axis_plain` for the output cotangent ``ct``:
+    ``(lo_bar, hi_bar)``, the plain version of K4T."""
+    with torch.enable_grad():
+        lo = lo.detach().requires_grad_()
+        hi = hi.detach().requires_grad_()
+        out = idwt_axis_plain(lo, hi, axis, rec_lo, rec_hi, padl, padr, mode)
+        grads = torch.autograd.grad(out, (lo, hi), ct)
+    return grads[0], grads[1]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -109,7 +162,6 @@ def _analysis_kernel(
     x: torch.Tensor, ax: int, lo, hi, m: int, period: int, pad: int, circular: bool
 ) -> torch.Tensor:
     """Launch K3 on ``x`` viewed as ``[outer, n, inner]`` -> ``[2, ..., m, ...]``."""
-    _kernels.refuse_grad(x)
     _kernels.check_tensor("x", x, x.dtype, x.device)
     n = x.shape[ax]
     outer, inner = _outer_inner(x.shape, ax)
@@ -125,6 +177,29 @@ def _analysis_kernel(
     return out
 
 
+def _analysis_transpose_kernel(
+    ct: torch.Tensor, ax: int, n: int, lo, hi, period: int, pad: int, circular: bool
+) -> torch.Tensor:
+    """Launch K3T: the ``[2, ..., m, ...]`` cotangent of a K3 launch ->
+    the cotangent of its ``[..., n, ...]`` input."""
+    _kernels.check_tensor("ct", ct, ct.dtype, ct.device)
+    shape = list(ct.shape[1:])
+    m = shape[ax]
+    shape[ax] = n
+    out = torch.empty(shape, dtype=ct.dtype, device=ct.device)
+    if not out.numel():
+        return out
+    if not m:  # K3 read nothing (a signal shorter than the filter)
+        return out.zero_()
+    outer, inner = _outer_inner(shape, ax)
+    _kernels.launch(
+        "K3T", "ptwt_analysis_axis_t", ct.device, ct.dtype,
+        ct, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
+        outer, n, period, m, inner, pad, int(circular),
+    )
+    return out
+
+
 def _synthesis_kernel(
     los: Sequence[torch.Tensor],
     his: Sequence[torch.Tensor],
@@ -136,7 +211,6 @@ def _synthesis_kernel(
     circular: bool,
 ) -> torch.Tensor:
     """Launch K4 on up to two (lo, hi) pairs -> ``[G, ..., out_len, ...]``."""
-    _kernels.refuse_grad(*los, *his)
     ref = los[0]
     if not 1 <= len(los) == len(his) <= 2:
         raise ValueError("K4 takes one or two (lo, hi) pairs")
@@ -160,6 +234,64 @@ def _synthesis_kernel(
     return out
 
 
+def _synthesis_transpose_kernel(
+    ct: torch.Tensor, ax: int, m: int, lo, hi, off: int, circular: bool
+) -> torch.Tensor:
+    """Launch K4T: the ``[G, ..., out_len, ...]`` cotangent of a K4 launch
+    -> ``[G, 2, ..., m, ...]``, each pair's (lo, hi) cotangents."""
+    _kernels.check_tensor("ct", ct, ct.dtype, ct.device)
+    groups = ct.shape[0]
+    shape = list(ct.shape[1:])
+    out_len = shape[ax]
+    shape[ax] = m
+    out = torch.empty([groups, 2, *shape], dtype=ct.dtype, device=ct.device)
+    if not out.numel():
+        return out
+    if not out_len:  # K4 wrote nothing
+        return out.zero_()
+    outer, inner = _outer_inner(shape, ax)
+    _kernels.launch(
+        "K4T", "ptwt_synthesis_axis_t", ct.device, ct.dtype,
+        ct, groups, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
+        outer, m, out_len, inner, off, int(circular),
+    )
+    return out
+
+
+class _AnalysisAxis(torch.autograd.Function):
+    """K3 forward, K3T backward.  Only the geometry is saved: the map is
+    linear."""
+
+    @staticmethod
+    def forward(ctx, x, ax, lo, hi, m, period, pad, circular):
+        ctx.plan = (ax, x.shape[ax], lo, hi, period, pad, circular)
+        return _analysis_kernel(x, ax, lo, hi, m, period, pad, circular)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        grad = _analysis_transpose_kernel(ct.contiguous(), *ctx.plan)
+        return (grad,) + (None,) * 7
+
+
+class _SynthesisAxis(torch.autograd.Function):
+    """K4 forward on ``G`` (lo, hi) pairs, K4T backward."""
+
+    @staticmethod
+    def forward(ctx, ax, lo, hi, out_len, off, circular, *bands):
+        groups = len(bands) // 2
+        ctx.plan = (ax, bands[0].shape[ax], lo, hi, off, circular)
+        return _synthesis_kernel(
+            bands[:groups], bands[groups:], ax, lo, hi, out_len, off, circular
+        )
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        grads = _synthesis_transpose_kernel(ct.contiguous(), *ctx.plan)
+        return (None,) * 6 + tuple(grads[:, 0]) + tuple(grads[:, 1])
+
+
 def pallas_dwt_axis(
     x: torch.Tensor, axis: int, dec_lo, dec_hi, mode: str
 ) -> torch.Tensor:
@@ -180,7 +312,7 @@ def pallas_dwt_axis(
     if mode == "periodization":
         # odd axes repeat their last sample (pywt's edge pad to even)
         period = n + n % 2
-        return _analysis_kernel(
+        return _AnalysisAxis.apply(
             x, ax, lo, hi, period // 2, period, filt_len // 2 - 1, True
         )
     if mode == "periodic":
@@ -188,11 +320,11 @@ def pallas_dwt_axis(
         # band's wrap entries come out of the same modulo read
         pad = _std_pad(filt_len)
         m = (n + 2 * pad + n % 2 - filt_len) // 2 + 1
-        return _analysis_kernel(x, ax, lo, hi, m, n, pad, True)
+        return _AnalysisAxis.apply(x, ax, lo, hi, m, n, pad, True)
     ext = x if mode == "valid" else fwt_pad(x, filt_len, mode=mode, axes=(ax,))
     n_ext = ext.shape[ax]
     m = max((n_ext - filt_len) // 2 + 1, 0)
-    return _analysis_kernel(ext.contiguous(), ax, lo, hi, m, n_ext, 0, False)
+    return _AnalysisAxis.apply(ext.contiguous(), ax, lo, hi, m, n_ext, 0, False)
 
 
 def pallas_idwt_axis(
@@ -233,6 +365,6 @@ def pallas_idwt_axis(
     else:
         off = padl
         out_len = 2 * (m - 1) + filt_len - padl - padr
-    return _synthesis_kernel(
-        los, his, ax, lo, hi, max(out_len, 0), off, mode == "periodization"
+    return _SynthesisAxis.apply(
+        ax, lo, hi, max(out_len, 0), off, mode == "periodization", *los, *his
     )

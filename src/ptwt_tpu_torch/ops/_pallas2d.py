@@ -18,9 +18,20 @@ once (``csrc/dwt2.cu``):
   which is exact for any coefficients, so neither the fold nor the strips
   are needed.
 
+Gradients: K1 and K2 are each other's VJP with the same taps and pad, as
+in the JAX package's ``_level_calls``, each launch wrapped in a
+:class:`torch.autograd.Function`.  K1's VJP is K2's circular synthesis
+folding the band rows past half the period (the wrap entries of
+``periodic``) and the clamped last sample of odd ``periodization`` axes;
+K2's VJP is K1's read, zero-bounded for the cropped ``periodic``
+synthesis.  Data gradients run on the card; a filter tensor that requires
+grad raises there, and so does a double backward.
+
 Each kernel has a plain torch version here (:func:`dwt2_level_plain`,
-:func:`idwt2_level_plain`): two per-axis passes of the plain versions in
-:mod:`._pallas2`.  The wrappers take it for CPU tensors only.
+:func:`idwt2_level_plain`, and for the VJPs :func:`dwt2_level_vjp_plain`,
+:func:`idwt2_level_vjp_plain`): two per-axis passes of the plain versions
+in :mod:`._pallas2`, and autograd through them.  The wrappers take them
+for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -28,13 +39,16 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _kernels
 from ._pallas2 import _on_cpu, _std_pad, dwt_axis_plain, idwt_axis_plain
 
 __all__ = [
     "dwt2_level_plain",
+    "dwt2_level_vjp_plain",
     "idwt2_level_plain",
+    "idwt2_level_vjp_plain",
     "fused2_analysis_applicable",
     "fused2_synthesis_applicable",
     "fused2_dwt_level",
@@ -125,16 +139,52 @@ def idwt2_level_plain(
     return idwt_axis_plain(lo, hi, -2, rec_lo, rec_hi, *pads[0], mode)
 
 
+def dwt2_level_vjp_plain(
+    x: torch.Tensor, dec_lo, dec_hi, mode: str, cts: Sequence[torch.Tensor]
+) -> torch.Tensor:
+    """VJP of :func:`dwt2_level_plain` at ``x`` for the four subband
+    cotangents: the plain version of K1's VJP."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        bands = dwt2_level_plain(x, dec_lo, dec_hi, mode)
+        (grad,) = torch.autograd.grad(bands, x, tuple(cts))
+    return grad
+
+
+def idwt2_level_vjp_plain(
+    subbands: Sequence[torch.Tensor],
+    rec_lo,
+    rec_hi,
+    mode: str,
+    pads: Sequence[tuple[int, int]],
+    ct: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """VJP of :func:`idwt2_level_plain` for the output cotangent ``ct``:
+    the four subband cotangents, the plain version of K2's VJP."""
+    with torch.enable_grad():
+        bands = [b.detach().requires_grad_() for b in subbands]
+        out = idwt2_level_plain(bands, rec_lo, rec_hi, mode, pads)
+        return torch.autograd.grad(out, bands, ct)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 
 def _dwt2_kernel(
-    x: torch.Tensor, lo, hi, period_h: int, period_w: int, m_h: int, m_w: int, pad: int
+    x: torch.Tensor,
+    lo,
+    hi,
+    period_h: int,
+    period_w: int,
+    m_h: int,
+    m_w: int,
+    pad: int,
+    circular: bool = True,
 ) -> torch.Tensor:
-    """Launch K1 on ``[B, h, w]`` -> ``[4, B, m_h, m_w]``."""
-    _kernels.refuse_grad(x)
+    """Launch K1 on ``[B, h, w]`` -> ``[4, B, m_h, m_w]``; ``circular=False``
+    reads zero outside the image."""
     _kernels.check_tensor("x", x, x.dtype, x.device)
     b, h, w = x.shape
     out = torch.empty((4, b, m_h, m_w), dtype=x.dtype, device=x.device)
@@ -142,7 +192,7 @@ def _dwt2_kernel(
         _kernels.launch(
             "K1", "ptwt_dwt2", x.device, x.dtype,
             x, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
-            b, h, w, period_h, period_w, m_h, m_w, pad,
+            b, h, w, period_h, period_w, m_h, m_w, pad, int(circular),
         )
     return out
 
@@ -155,23 +205,66 @@ def _idwt2_kernel(
     out_w: int,
     off: int,
     circular: bool,
+    fold: tuple[int, int, int, int] | None = None,
 ) -> torch.Tensor:
-    """Launch K2 on four ``[B, m_h, m_w]`` bands -> ``[B, out_h, out_w]``."""
-    _kernels.refuse_grad(*bands)
+    """Launch K2 on four ``[B, m_h, m_w]`` bands -> ``[B, out_h, out_w]``.
+
+    ``fold = (half_h, half_w, per_h, per_w)``: circular reads modulo
+    ``half`` that also collect the band rows ``+ half, + 2 half, ...``, and
+    output positions ``[out, per)`` added to the last row and column (the
+    adjoint of K1's reads); None is the plain synthesis.
+    """
     ref = bands[0]
     for name, t in zip(("ll", "lh", "hl", "hh"), bands):
         _kernels.check_tensor(name, t, ref.dtype, ref.device)
         if t.shape != ref.shape:
             raise ValueError(f"all subbands must share one shape, got {t.shape} and {ref.shape}")
     b, m_h, m_w = ref.shape
+    if fold is None:
+        fold = (m_h, m_w, out_h, out_w)
     out = torch.empty((b, out_h, out_w), dtype=ref.dtype, device=ref.device)
     if out.numel():
         _kernels.launch(
             "K2", "ptwt_idwt2", ref.device, ref.dtype,
             *bands, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
-            b, m_h, m_w, out_h, out_w, off, off, int(circular),
+            b, m_h, m_w, out_h, out_w, off, off, int(circular), *fold,
         )
     return out
+
+
+class _Dwt2Level(torch.autograd.Function):
+    """K1 forward; backward: K2 with the same taps, ``off = pad``, folding
+    modulo half the period.  Only the geometry is saved."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi, per_h, per_w, m_h, m_w, pad):
+        _, h, w = x.shape
+        ctx.plan = (lo, hi, h, w, pad, (per_h // 2, per_w // 2, per_h, per_w))
+        return _dwt2_kernel(x, lo, hi, per_h, per_w, m_h, m_w, pad)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        lo, hi, h, w, pad, fold = ctx.plan
+        grad = _idwt2_kernel(ct.contiguous().unbind(0), lo, hi, h, w, pad, True, fold)
+        return (grad,) + (None,) * 7
+
+
+class _Idwt2Level(torch.autograd.Function):
+    """K2 forward; backward: K1 with the same taps and ``pad = off``,
+    circular with the output as its period or zero-bounded."""
+
+    @staticmethod
+    def forward(ctx, lo, hi, out_h, out_w, off, circular, *bands):
+        ctx.plan = (lo, hi, out_h, out_w, *bands[0].shape[-2:], off, circular)
+        return _idwt2_kernel(bands, lo, hi, out_h, out_w, off, circular)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        lo, hi, out_h, out_w, m_h, m_w, off, circular = ctx.plan
+        grads = _dwt2_kernel(ct.contiguous(), lo, hi, out_h, out_w, m_h, m_w, off, circular)
+        return (None,) * 6 + tuple(grads)
 
 
 def fused2_dwt_level(
@@ -200,8 +293,8 @@ def fused2_dwt_level(
         per_h, per_w = h, w
         m_h = (h + 2 * pad - filt_len) // 2 + 1
         m_w = (w + 2 * pad - filt_len) // 2 + 1
-    bands = _dwt2_kernel(flat, lo, hi, per_h, per_w, m_h, m_w, pad)
-    return tuple(band.reshape(*lead, m_h, m_w) for band in bands)
+    bands = _Dwt2Level.apply(flat, lo, hi, per_h, per_w, m_h, m_w, pad)
+    return tuple(band.reshape(*lead, m_h, m_w) for band in bands.unbind(0))
 
 
 def fused2_idwt_level(
@@ -223,7 +316,7 @@ def fused2_idwt_level(
     m_h, m_w = subbands[0].shape[-2:]
     flat = [b.reshape(-1, m_h, m_w).contiguous() for b in subbands]
     out_h, out_w = _synthesis_geometry(m_h, m_w, filt_len, mode)
-    out = _idwt2_kernel(
-        flat, lo, hi, out_h, out_w, _plan_pad(filt_len, mode), mode == "periodization"
+    out = _Idwt2Level.apply(
+        lo, hi, out_h, out_w, _plan_pad(filt_len, mode), mode == "periodization", *flat
     )
     return out.reshape(*lead, out_h, out_w)

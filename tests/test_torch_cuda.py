@@ -114,3 +114,111 @@ def test_cuda_axes_and_batch_match_cpu(cuda_device, mode):
         assert float((g.cpu() - w).abs().max()) <= 1e-12
     rec = tptwt.waverec2(got, "sym4", mode=mode, axes=(0, 2))
     assert float((rec.cpu() - tptwt.waverec2(want, "sym4", mode=mode, axes=(0, 2))).abs().max()) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# the VJP kernels: K3T, K4T, and K1 / K2 as each other's VJP
+# ---------------------------------------------------------------------------
+
+
+def _randn_like(t, seed):
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    return torch.randn(t.shape, generator=gen, dtype=t.dtype, device=t.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wavelet", CASES)
+@pytest.mark.parametrize(
+    "mode,shape",
+    # odd periodization axes: K1's VJP folds the repeated last sample
+    [("periodic", (3, 64, 70)), ("periodization", (3, 64, 70)), ("periodization", (3, 65, 71))],
+)
+def test_cuda_k1_k2_vjps_match_plain(cuda_device, dtype, wavelet, mode, shape):
+    dl, dh, rl, rh = _banks(wavelet)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    x = torch.randn(*shape, dtype=dtype, device=cuda_device, requires_grad=True)
+    bands = t2d.fused2_dwt_level(x, dl, dh, mode)
+    cts = [_randn_like(b, i) for i, b in enumerate(bands)]
+    _kernels.reset_launch_counts()
+    (grad,) = torch.autograd.grad(bands, x, cts)
+    want = t2d.dwt2_level_vjp_plain(x, dl, dh, mode, cts)
+    assert float((grad - want).abs().max()) <= tol
+    assert _kernels.LAUNCHES["K2"] == 1
+    p = 0 if mode == "periodization" else _std_pad(len(dl))
+    if shape[-1] % 2:
+        return  # K2 reconstructs even shapes only
+    subbands = [b.detach().requires_grad_() for b in bands]
+    rec = t2d.fused2_idwt_level(subbands, rl, rh, mode)
+    ct = _randn_like(rec, 9)
+    _kernels.reset_launch_counts()
+    grads = torch.autograd.grad(rec, subbands, ct)
+    want = t2d.idwt2_level_vjp_plain(subbands, rl, rh, mode, [(p, p)] * 2, ct)
+    for g, w in zip(grads, want):
+        assert float((g - w).abs().max()) <= tol
+    assert _kernels.LAUNCHES["K1"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype,wavelet,mode",
+    [(d, w, m) for d, w in CASES for m in AXIS_MODES if (w, m) != ("coif17", "valid")],
+)
+@pytest.mark.parametrize("axis", [-2, -1])
+def test_cuda_k3t_k4t_match_plain(cuda_device, dtype, wavelet, mode, axis):
+    dl, dh, rl, rh = _banks("db3" if wavelet == "db4" else wavelet)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    x = torch.randn(2, 37, 41, dtype=dtype, device=cuda_device, requires_grad=True)
+    out = t2.pallas_dwt_axis(x, axis, dl, dh, mode)
+    ct = _randn_like(out, 1)
+    _kernels.reset_launch_counts()
+    (grad,) = torch.autograd.grad(out, x, ct)
+    want = t2.dwt_axis_vjp_plain(x, axis, dl, dh, mode, ct)
+    assert float((grad - want).abs().max()) <= tol
+    assert _kernels.LAUNCHES["K3T"] == 1
+    lo, hi = (b.detach().requires_grad_() for b in out)
+    pad = 0 if mode in ("periodization", "valid") else len(dl) - 2
+    rec = t2.pallas_idwt_axis([lo, hi], [hi, lo], axis, rl, rh, pad, pad + 1, mode)
+    ct = _randn_like(rec, 2)
+    _kernels.reset_launch_counts()
+    got = torch.autograd.grad(rec, (lo, hi), ct)
+    want = [t2.idwt_axis_vjp_plain(a, b, axis, rl, rh, pad, pad + 1, mode, c)
+            for (a, b), c in zip(((lo, hi), (hi, lo)), ct)]
+    # lo and hi each feed both groups, once as lo and once as hi
+    assert float((got[0] - (want[0][0] + want[1][1])).abs().max()) <= 2 * tol
+    assert float((got[1] - (want[0][1] + want[1][0])).abs().max()) <= 2 * tol
+    assert _kernels.LAUNCHES["K4T"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "mode,shape",
+    [("periodic", (2, 66, 70)), ("reflect", (2, 67, 66)), ("periodization", (2, 67, 65))],
+)
+def test_cuda_public_gradients_match_cpu(cuda_device, mode, shape):
+    x = torch.randn(*shape, dtype=torch.float64)
+    weight = torch.randn(*shape, dtype=torch.float64)
+
+    def grad_on(device):
+        xd = x.to(device).requires_grad_()
+        coeffs = tptwt.wavedec2(xd, "db4", mode=mode, level=3)
+        rec = tptwt.waverec2(coeffs, "db4", mode=mode)[..., : shape[-2], : shape[-1]]
+        loss = (rec * weight.to(device)).sum() + sum((b**2).sum() for t in coeffs[1:] for b in t)
+        return torch.autograd.grad(loss, xd)[0]
+
+    _kernels.reset_launch_counts()
+    got = grad_on(cuda_device)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K3T"] + _kernels.LAUNCHES["K4T"] > 0
+    assert float((got.cpu() - grad_on("cpu")).abs().max()) <= 1e-11
+
+
+@pytest.mark.cuda
+def test_cuda_filter_grad_and_double_backward_raise(cuda_device):
+    x = torch.randn(1, 32, 32, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    dl, dh, _, _ = _banks("db2")
+    with pytest.raises(NotImplementedError, match="filter gradient"):
+        t2.pallas_dwt_axis(x, -1, torch.tensor(dl, requires_grad=True), dh, "reflect")
+    out = t2.pallas_dwt_axis(x, -1, dl, dh, "reflect")
+    (grad,) = torch.autograd.grad((out**2).sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(grad.sum(), x)

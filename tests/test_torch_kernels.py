@@ -141,41 +141,59 @@ def test_axis_kernels_match_jax(mode, shape, axis, wavelet):
 
 
 def _analysis_op(taps, m, n, period, pad, circular):
-    """``[m, n]`` operator of one K1/K3 axis: ``x[wrap(2i - pad + k)]``."""
+    """``[m, n]`` operator of one K1/K3 axis: ``x[wrap(2i - pad + k)]``,
+    or zero outside ``[0, n)`` when not circular."""
     op = np.zeros((m, n))
     for i in range(m):
         for k, c in enumerate(taps):
             r = 2 * i - pad + k
             if circular:
                 r = min(r % period, n - 1)
+            elif not 0 <= r < n:
+                continue
             op[i, r] += c
     return op
 
 
-def _synthesis_op(taps, out_len, m, off, circular):
-    """``[out_len, m]`` operator of one K2/K4 axis: ``band[(t + off - k) / 2]``."""
+def _synthesis_op(taps, out_len, m, off, circular, half=None, per=None):
+    """``[out_len, m]`` operator of one K2/K4 axis: ``band[(t + off - k) / 2]``.
+
+    Circular reads go modulo ``half`` (default ``m``) and also collect the
+    band rows ``+ half, + 2 half, ... < m``; positions ``t`` in
+    ``[out_len, per)`` land on the last output (the K2 fold).
+    """
+    half = half or m
     op = np.zeros((out_len, m))
-    for t in range(out_len):
+    for t in range(per or out_len):
         f = t + off
         for k in range(f & 1, len(taps), 2):
             q = (f - k) >> 1
             if circular:
-                q %= m
-            elif not 0 <= q < m:
+                rows = range(q % half, m, half)
+            elif 0 <= q < m:
+                rows = [q]
+            else:
                 continue
-            op[t, q] += taps[k]
+            for row in rows:
+                op[min(t, out_len - 1), row] += taps[k]
     return op
 
 
+_BAND_TAPS = ((0, 0), (1, 0), (0, 1), (1, 1))  # (H, W) taps of ll, lh, hl, hh
+
+
 def _model_launch(kernel, entry, device, dtype, *a):
-    """Stand-in for ``_kernels.launch`` that runs the kernels' index rules."""
-    if entry == "ptwt_analysis_axis":
-        x, out, lo, hi, n_taps, outer, n, period, m, inner, pad, circ = a
-        xs = x.numpy().reshape(outer, n, inner)
-        res = [
-            np.einsum("mn,onj->omj", _analysis_op(t[:n_taps], m, n, period, pad, circ), xs)
-            for t in (lo, hi)
-        ]
+    """Stand-in for ``_kernels.launch`` that runs the kernels' index rules;
+    a VJP kernel runs the transpose of its forward's operator."""
+    if entry in ("ptwt_analysis_axis", "ptwt_analysis_axis_t"):
+        src, out, lo, hi, n_taps, outer, n, period, m, inner, pad, circ = a
+        ops = [_analysis_op(t[:n_taps], m, n, period, pad, circ) for t in (lo, hi)]
+        if entry == "ptwt_analysis_axis":
+            xs = src.numpy().reshape(outer, n, inner)
+            res = [np.einsum("mn,onj->omj", op, xs) for op in ops]
+        else:
+            ct = src.numpy().reshape(2, outer, m, inner)
+            res = sum(np.einsum("mn,omj->onj", op, c) for op, c in zip(ops, ct))
     elif entry == "ptwt_synthesis_axis":
         lo0, hi0, lo1, hi1, groups, out, rl, rh, n_taps, outer, m, out_len, inner, off, circ = a
         s_lo = _synthesis_op(rl[:n_taps], out_len, m, off, circ)
@@ -185,24 +203,30 @@ def _model_launch(kernel, entry, device, dtype, *a):
             + np.einsum("tm,omj->otj", s_hi, hi.numpy().reshape(outer, m, inner))
             for lo, hi in [(lo0, hi0), (lo1, hi1)][:groups]
         ]
+    elif entry == "ptwt_synthesis_axis_t":
+        ct, groups, out, rl, rh, n_taps, outer, m, out_len, inner, off, circ = a
+        ops = [_synthesis_op(t[:n_taps], out_len, m, off, circ) for t in (rl, rh)]
+        cts = ct.numpy().reshape(groups, outer, out_len, inner)
+        res = [[np.einsum("tm,otj->omj", op, c) for op in ops] for c in cts]
     elif entry == "ptwt_dwt2":
-        x, out, lo, hi, n_taps, b, h, w, per_h, per_w, m_h, m_w, pad = a
+        x, out, lo, hi, n_taps, b, h, w, per_h, per_w, m_h, m_w, pad, circ = a
         ops = {
-            ax: [_analysis_op(t[:n_taps], m_, n_, per_, pad, True) for t in (lo, hi)]
+            ax: [_analysis_op(t[:n_taps], m_, n_, per_, pad, circ) for t in (lo, hi)]
             for ax, m_, n_, per_ in (("h", m_h, h, per_h), ("w", m_w, w, per_w))
         }
         xs = x.numpy()
         res = [
             np.einsum("im,bmn,jn->bij", ops["h"][bh], xs, ops["w"][bw])
-            for bh, bw in ((0, 0), (1, 0), (0, 1), (1, 1))
+            for bh, bw in _BAND_TAPS
         ]
     else:  # ptwt_idwt2
-        ll, lh, hl, hh, out, lo, hi, n_taps, b, m_h, m_w, out_h, out_w, off_h, off_w, circ = a
-        sh = [_synthesis_op(t[:n_taps], out_h, m_h, off_h, circ) for t in (lo, hi)]
-        sw = [_synthesis_op(t[:n_taps], out_w, m_w, off_w, circ) for t in (lo, hi)]
+        (ll, lh, hl, hh, out, lo, hi, n_taps, b, m_h, m_w, out_h, out_w, off_h, off_w,
+         circ, half_h, half_w, per_h, per_w) = a
+        sh = [_synthesis_op(t[:n_taps], out_h, m_h, off_h, circ, half_h, per_h) for t in (lo, hi)]
+        sw = [_synthesis_op(t[:n_taps], out_w, m_w, off_w, circ, half_w, per_w) for t in (lo, hi)]
         res = sum(
             np.einsum("um,bmn,vn->buv", sh[bh], band.numpy(), sw[bw])
-            for band, (bh, bw) in zip((ll, lh, hl, hh), ((0, 0), (1, 0), (0, 1), (1, 1)))
+            for band, (bh, bw) in zip((ll, lh, hl, hh), _BAND_TAPS)
         )
     out.copy_(torch.from_numpy(np.asarray(res)).reshape(out.shape))
     _kernels.LAUNCHES[kernel] += 1
@@ -251,20 +275,28 @@ def test_cuda_glue_matches_jax(model_kernels, shape, wavelet, mode, used):
     assert {k for k, v in model_kernels.items() if v} == set(used.split())
 
 
-def test_kernel_wrappers_refuse_grad(monkeypatch):
-    """Until the backward kernels exist, tensors on the kernel path that
-    require grad raise instead of falling back to the plain version."""
-    monkeypatch.setattr(t2, "_on_cpu", lambda t: False)
-    monkeypatch.setattr(t2d, "_on_cpu", lambda t: False)
-    x = torch.zeros(1, 16, 16, requires_grad=True)
-    dl, dh, _, _ = _banks("db2")
-    with pytest.raises(NotImplementedError, match="backward"):
-        t2.pallas_dwt_axis(x, -1, dl, dh, "reflect")
-    with pytest.raises(NotImplementedError, match="backward"):
-        t2d.fused2_dwt_level(x, dl, dh, "periodization")
+def test_kernel_wrappers_refuse_grad(model_kernels):
+    """On the kernel path a data tensor that requires grad gets its
+    gradient from the VJP kernels; a filter that requires grad raises
+    instead of falling back to the plain version."""
+    x = torch.randn(1, 16, 16, dtype=torch.float64, requires_grad=True)
+    dl, dh, _, _ = _banks("db2", np.float64)
+    out = t2.pallas_dwt_axis(x, -1, dl, dh, "reflect")
+    (grad,) = torch.autograd.grad(out.sum(), x)
+    want = t2.dwt_axis_vjp_plain(x, -1, dl, dh, "reflect", torch.ones_like(out))
+    _close(grad, want.numpy(), 1e-12)
+    bands = t2d.fused2_dwt_level(x, dl, dh, "periodization")
+    (grad,) = torch.autograd.grad(sum(b.sum() for b in bands), x)
+    want = t2d.dwt2_level_vjp_plain(
+        x, dl, dh, "periodization", [torch.ones_like(b) for b in bands]
+    )
+    _close(grad, want.numpy(), 1e-12)
+    assert model_kernels["K3T"] == 1 and model_kernels["K2"] == 1
     learn = torch.tensor(dl, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(NotImplementedError, match="filter gradient"):
         t2.pallas_dwt_axis(x.detach(), -1, learn, dh, "reflect")
+    with pytest.raises(NotImplementedError, match="filter gradient"):
+        t2d.fused2_dwt_level(x.detach(), learn, dh, "periodization")
 
 
 def test_plain_path_carries_gradients():
