@@ -14,10 +14,6 @@ Phases, each raising (non-zero exit) on failure:
    (db4; K1/K2 on ``[16, 1024, 1024]``, K3/K4 along both axes on the odd
    level-2 size ``[16, 515, 515]``), every boundary mode, float32 within
    2e-5 and float64 within 1e-10, plus the repo's frozen 2d goldens;
-4. the main path: ``wavedec2`` -> ``waverec2`` on ``[16, 1024, 1024]``,
-   db4, 4 levels, float32, in ``periodic`` (the headline) and ``reflect``
-   (the default): coefficients against the plain path on the card within
-   2e-5, round trip within 1e-4, launch counts read around each run;
 3b. the VJP kernels against their plain versions (autograd through the
    plain versions) at the main path's shapes: K1's VJP (K2 with the fold)
    and K2's VJP (K1, zero-bounded for periodic) on ``[16, 1024, 1024]``
@@ -26,14 +22,19 @@ Phases, each raising (non-zero exit) on failure:
    coif17 on a 37-sample axis in periodization.  Unit-normal cotangents;
    float32 within 2e-5, float64 within 1e-10, and in float64 the adjoint
    identity ``<K x, y> = <x, K^T y>`` within 1e-12 of ``|K x| |y|``;
-4. the main path: ``wavedec2`` -> ``waverec2`` on ``[16, 1024, 1024]``,
+4. the 2d main path: ``wavedec2`` -> ``waverec2`` on ``[16, 1024, 1024]``,
    db4, 4 levels, float32, in ``periodic`` (the headline) and ``reflect``
    (the default): coefficients against the plain path on the card within
    2e-5, round trip within 1e-4, launch counts read around each run;
 5. times with CUDA events (3 warm-ups, median of 20): each kernel and
    each VJP, its plain version and one library call computing the same
    level (``F.conv2d`` / ``F.conv_transpose2d``, never called by the
-   package), the round trip in Mpix/s, and each kernel's bound;
+   package), the round trip in Mpix/s, and each kernel's bound; after
+   phase 8 the same for the 1d kernels at phase 8's shapes (library:
+   ``F.conv1d`` / ``F.conv_transpose1d`` with stride 2 for the one-level
+   K7 pair, none for the multi-level kernels), the K6 pyramid beside the
+   per-level K3/K4 route, the 1d round trips in Msamples/s and a profile
+   of the d1 periodic round trip;
 6. training at full width: a module holding the image ``[16, 1024,
    1024]`` and per-level, per-orientation detail gains, its loss through
    ``wavedec2`` and ``waverec2`` (db4, 4 levels, float32, periodic and
@@ -41,7 +42,20 @@ Phases, each raising (non-zero exit) on failure:
    plain path on the card (losses within 1e-5 relative, first gradients
    within 1e-4 of their largest entry, the loss falls), the launches of
    one backward and of one step, the step's and the forward's wall times,
-   and a profile of one step.
+   and a profile of one step;
+7. the 1d kernels against their plain versions: K8a/K8b (4 fused levels)
+   and K7a/K7b (one level) on ``[32, 1_000_000]``, db5, every padded mode,
+   K8b/K7b with waverec's crops; K6a/K6b on ``[32, 2**19]``, 10
+   periodization levels.  Float32 at full width, float64 at batch 4; the
+   limit is max-abs error over ``max(1, the band's largest magnitude)``,
+   2e-5 (float32) and 1e-10 (float64);
+8. the 1d main path: ``wavedec`` -> ``waverec``, db5, float32, on
+   ``[32, 1_000_000]`` with 10 levels in ``periodic`` (the reference's 1d
+   speed test) and ``reflect``, on ``[32, 2**19]`` with 10 levels in
+   ``periodization`` (K6) and on ``[32, 1_000_000]`` with one level in
+   ``reflect`` (K7): coefficients against the plain path on the card under
+   phase 7's limits, round trip within 1e-4, and the launches of each run
+   (d1: K8a, K8b, K3, K4; K6: K6a, K6b and no K3/K4; K7: K7a, K7b).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -65,8 +79,15 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import ptwt_tpu_torch as ptwt  # noqa: E402
-from ptwt_tpu_torch.ops import _kernels, _pallas2, _pallas2d  # noqa: E402
-from ptwt_tpu_torch.utils import get_filter_arrays  # noqa: E402
+from ptwt_tpu_torch.ops import (  # noqa: E402
+    _kernels,
+    _pallas,
+    _pallas1d,
+    _pallas1d_multi,
+    _pallas2,
+    _pallas2d,
+)
+from ptwt_tpu_torch.utils import fwt_pad, get_filter_arrays  # noqa: E402
 
 DEVICE = torch.device("cuda")
 SEED = 0
@@ -90,7 +111,14 @@ REPLACES = {
     "K4": ("src/ptwt_tpu_torch/csrc/axis.cu", "src/ptwt_tpu/ops/_pallas2.py:266"),
     "K3T": ("src/ptwt_tpu_torch/csrc/axis_vjp.cu", "src/ptwt_tpu/ops/_pallas2.py:238"),
     "K4T": ("src/ptwt_tpu_torch/csrc/axis_vjp.cu", "src/ptwt_tpu/ops/_pallas2.py:293"),
+    "K6a": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas.py:132"),
+    "K6b": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas.py:394"),
+    "K7a": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas1d.py:117"),
+    "K7b": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas1d.py:321"),
+    "K8a": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas1d_multi.py:141"),
+    "K8b": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas1d_multi.py:529"),
 }
+KERNELS_1D = ("K6a", "K6b", "K7a", "K7b", "K8a", "K8b")
 # K1 and K2 are each other's VJP: their VJP launches get rows of their own
 VJP_ROWS = ("K1 VJP", "K2 VJP")
 ADJOINT_TOL = 1e-12
@@ -98,6 +126,14 @@ COIF_SHAPE = (4, 37, 37)  # coif17's 102 taps wrap this axis several times
 TRAIN_STEPS = 3
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
+# the 1d slice: bench.py's d1 row (db5, 10 levels, [32, 1e6]) and the K6
+# pyramid at the JAX package's longest fused length
+D1_SHAPE = (32, 1_000_000)
+K6_SHAPE = (32, 2**19)
+WAVELET_1D = "db5"
+LEVEL_1D = 10
+BATCH_F64_1D = 4
+PADDED_MODES = ("zero", "reflect", "periodic", "symmetric", "constant")
 
 
 def log(msg: str) -> None:
@@ -132,15 +168,20 @@ def check(name: str, err: float, tol: float) -> float:
     return err
 
 
+WRAPPER_MODULES = (_pallas, _pallas1d, _pallas1d_multi, _pallas2, _pallas2d)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the kernel wrappers to their plain versions, on any device."""
-    saved = (_pallas2._on_cpu, _pallas2d._on_cpu)
-    _pallas2._on_cpu = _pallas2d._on_cpu = lambda t: True
+    saved = [module._on_cpu for module in WRAPPER_MODULES]
+    for module in WRAPPER_MODULES:
+        module._on_cpu = lambda t: True
     try:
         yield
     finally:
-        _pallas2._on_cpu, _pallas2d._on_cpu = saved
+        for module, fn in zip(WRAPPER_MODULES, saved):
+            module._on_cpu = fn
 
 
 def std_pad(filt_len: int) -> int:
@@ -657,9 +698,9 @@ def time_vjps() -> dict:
     return rows
 
 
-def profile(run, label: str) -> None:
+def profile(run, label: str, top: int = 14) -> list:
     """Device time by kernel and the device's busy share over one call of
-    ``run``, from ``torch.profiler``."""
+    ``run``, from ``torch.profiler``; returns ``(ms, count, name)`` rows."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     run()
@@ -683,8 +724,9 @@ def profile(run, label: str) -> None:
         f"  profiled {label}: wall {wall!r} ms (profiler on), "
         f"device busy {busy!r} ms ({100 * busy / wall:.1f}%)"
     )
-    for ms, count, key in rows[:14]:
+    for ms, count, key in rows[:top]:
         log(f"    {ms!r} ms x{count} {key[:100]}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -785,6 +827,248 @@ def check_training(mode: str, y: torch.Tensor) -> dict:
     return {"backward": backward, "step": per_step, "step_ms": step_ms, "forward_ms": forward_ms}
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8, and phase 5's 1d times: the 1d kernels and main path
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got, want) -> float:
+    """Max-abs error over ``max(1, the band's largest magnitude)``."""
+    if isinstance(got, (tuple, list)):
+        return max(rel_err(g, w) for g, w in zip(got, want))
+    return max_abs(got, want) / max(1.0, float(want.abs().max()))
+
+
+def check_1d(errors: dict, name: str, tag: str, got, want, dtype) -> None:
+    err = check(f"{name} {tag} {dtype} (relative)", rel_err(got, want), TOL[dtype])
+    slot = errors[name].setdefault(dtype, {"abs": 0.0, "rel": 0.0})
+    slot["rel"] = max(slot["rel"], err)
+    slot["abs"] = max(slot["abs"], max_abs(got, want))
+
+
+def banks_1d(dtype):
+    dl, dh, _, _ = get_filter_arrays(WAVELET_1D, flip=True, dtype=dtype)
+    _, _, rl, rh = get_filter_arrays(WAVELET_1D, flip=False, dtype=dtype)
+    return dl, dh, rl, rh
+
+
+def chain_crops(x, his, filt_len: int):
+    """waverec's crops for a fused run: each step as long as the finer band."""
+    pads = [std_pad(filt_len)] * len(his)
+    lens = [x.shape[-1]] + [h.shape[-1] for h in his[:-1]]
+    return pads, lens
+
+
+def check_kernels_1d(errors: dict) -> None:
+    for dtype in (torch.float32, torch.float64):
+        dl, dh, rl, rh = banks_1d(dtype)
+        batch = D1_SHAPE[0] if dtype == torch.float32 else BATCH_F64_1D
+        x = randn((batch, D1_SHAPE[1]), dtype, SEED + 50)
+        for mode in PADDED_MODES:
+            for depth, (ka, kb) in ((4, ("K8a", "K8b")), (1, ("K7a", "K7b"))):
+                lo, his = _pallas1d_multi.flat_wavedec_lane_multi(x, dl, dh, mode, depth)
+                ref_lo, ref_his = _pallas1d_multi.multi_analysis_plain(x, dl, dh, mode, depth)
+                check_1d(errors, ka, mode, [lo, *his], [ref_lo, *ref_his], dtype)
+                coeffs = [ref_lo, *ref_his[::-1]]
+                pads, lens = chain_crops(x, ref_his, len(dl))
+                rec = _pallas1d_multi.flat_waverec_lane_multi(coeffs, rl, rh, pads, lens)
+                ref = _pallas1d_multi.multi_synthesis_plain(coeffs, rl, rh, pads, lens)
+                check_1d(errors, kb, mode, rec, ref, dtype)
+                check(f"{kb}({ka}) {mode} round trip {dtype}", max_abs(rec, x), 10 * TOL[dtype])
+                del lo, his, ref_lo, ref_his, coeffs, rec, ref
+        del x
+        x = randn((batch, K6_SHAPE[1]), dtype, SEED + 51)
+        got = _pallas.fused_wavedec1d_per(x, dl, dh, LEVEL_1D)
+        want = _pallas.wavedec1d_per_plain(x, dl, dh, LEVEL_1D)
+        check_1d(errors, "K6a", "periodization", got, want, dtype)
+        rec = _pallas.fused_waverec1d_per(want, rl, rh)
+        check_1d(errors, "K6b", "periodization", rec, _pallas.waverec1d_per_plain(want, rl, rh), dtype)
+        check(f"K6b(K6a) round trip {dtype}", max_abs(rec, x), 10 * TOL[dtype])
+        del x, got, want, rec
+        torch.cuda.synchronize()
+
+
+#: phase 8's configurations: (name, shape, mode, level, kernels it must launch)
+MAIN_1D = (
+    ("d1 periodic", D1_SHAPE, "periodic", LEVEL_1D, ("K8a", "K8b", "K3", "K4")),
+    ("d1 reflect", D1_SHAPE, "reflect", LEVEL_1D, ("K8a", "K8b", "K3", "K4")),
+    ("K6 periodization", K6_SHAPE, "periodization", LEVEL_1D, ("K6a", "K6b")),
+    ("K7 reflect level 1", D1_SHAPE, "reflect", 1, ("K7a", "K7b")),
+)
+
+
+def round_trip_1d(x, mode: str, level: int):
+    coeffs = ptwt.wavedec(x, WAVELET_1D, mode=mode, level=level)
+    return coeffs, ptwt.waverec(coeffs, WAVELET_1D, mode=mode)
+
+
+def main_path_1d(name: str, shape, mode: str, level: int, must: tuple, seed: int) -> dict:
+    x = randn(shape, torch.float32, seed)
+    _kernels.reset_launch_counts()
+    coeffs, rec = round_trip_1d(x, mode, level)
+    torch.cuda.synchronize()
+    counts = dict(_kernels.LAUNCHES)
+    log(f"  {name}: launches per round trip { {k: v for k, v in counts.items() if v} }")
+    with plain_versions():
+        ref, ref_rec = round_trip_1d(x, mode, level)
+    log(f"  {name}: band lengths {[c.shape[-1] for c in coeffs]}")
+    tol = TOL[torch.float32]
+    coeff_err = check(f"{name} coefficients vs plain path (relative)", rel_err(coeffs, ref), tol)
+    check(f"{name} reconstruction vs plain path (relative)", rel_err(rec, ref_rec), tol)
+    rt_err = check(f"{name} round trip vs input", max_abs(rec[..., : shape[-1]], x), ROUND_TRIP_TOL)
+    for kernel in must:
+        if counts[kernel] < 1:
+            raise AssertionError(f"{kernel} was not launched by the {name} round trip")
+    if mode == "periodization" and (counts["K3"] or counts["K4"]):
+        raise AssertionError(f"the {name} round trip launched K3/K4: {counts}")
+    return {"counts": counts, "coeff_err": coeff_err, "round_trip_err": rt_err}
+
+
+def pyramid_cost(lengths_in, lengths_out, rows: int, taps: int, size: int, bands_out: int):
+    """Bytes (each input read once, each output written once) and
+    operations (one multiply-add = 2) of one launch."""
+    nbytes = size * rows * (sum(lengths_in) + sum(lengths_out))
+    return nbytes, 2.0 * rows * taps * bands_out
+
+
+def time_kernels_1d() -> dict:
+    """Phase 5's 1d times at phase 8's shapes, float32."""
+    f32 = torch.float32
+    dl, dh, rl, rh = banks_1d(f32)
+    L = len(dl)
+    p = std_pad(L)
+    size = 4
+    rows = {}
+    b, n = D1_SHAPE
+    x = randn(D1_SHAPE, f32, SEED + 60)
+
+    # K8a: the d1 periodic run's first 4 levels
+    lo, his = _pallas1d_multi.flat_wavedec_lane_multi(x, dl, dh, "periodic", 4)
+    ms = [h.shape[-1] for h in his]
+    # each level: lo and hi, L multiply-adds per output
+    flops = 2.0 * b * sum(2 * L * m for m in ms)
+    rows["K8a"] = {
+        "ms": time_ms(lambda: _pallas1d_multi.flat_wavedec_lane_multi(x, dl, dh, "periodic", 4)),
+        "plain_ms": time_ms(lambda: _pallas1d_multi.multi_analysis_plain(x, dl, dh, "periodic", 4)),
+        "library_ms": None,
+        "library_note": "none: multi-level (no one library call fuses 4 levels)",
+        "bytes": size * b * (n + sum(ms) + ms[-1]),
+        "flops": flops,
+    }
+
+    # K8b: the d1 run's fused suffix (the last 4 steps)
+    coeffs = [lo, *his[::-1]]
+    pads, lens = chain_crops(x, his, L)
+    # each output: L/2 taps from each of two bands
+    flops = 2.0 * b * L * sum(lens)
+    rows["K8b"] = {
+        "ms": time_ms(lambda: _pallas1d_multi.flat_waverec_lane_multi(coeffs, rl, rh, pads, lens)),
+        "plain_ms": time_ms(lambda: _pallas1d_multi.multi_synthesis_plain(coeffs, rl, rh, pads, lens)),
+        "library_ms": None,
+        "library_note": "none: multi-level (no one library call fuses 4 steps)",
+        "bytes": size * b * (ms[-1] + sum(ms) + n),
+        "flops": flops,
+    }
+    del lo, his, coeffs
+
+    # K7a: the single long level of the K7 configuration (reflect)
+    lo, hi = _pallas1d.flat_dwt_lane(x, dl, dh, "reflect")
+    m = lo.shape[-1]
+    xpad = fwt_pad(x, L, mode="reflect")[:, None]
+    wdec = torch.stack([torch.as_tensor(np.asarray(f), dtype=f32, device=DEVICE) for f in (dl, dh)])[:, None]
+    lib = F.conv1d(xpad, wdec, stride=2)
+    log(f"  K7a library yardstick vs kernel max_abs={max_abs(lib, torch.stack([lo, hi], dim=1))!r}")
+    rows["K7a"] = {
+        "ms": time_ms(lambda: _pallas1d.flat_dwt_lane(x, dl, dh, "reflect")),
+        "plain_ms": time_ms(lambda: _pallas2.dwt_axis_plain(x, -1, dl, dh, "reflect")),
+        "library_ms": time_ms(lambda: F.conv1d(xpad, wdec, stride=2)),
+        "library_note": "F.conv1d(stride=2) on the input padded beforehand",
+        "bytes": size * b * (n + 2 * m),
+        "flops": 2.0 * b * 2 * L * m,
+    }
+    del xpad, lib
+
+    # K7b: its inverse, cropped by (p, p) to n samples
+    stacked = torch.stack([lo, hi], dim=1)
+    wrec = torch.stack([torch.as_tensor(np.asarray(f), dtype=f32, device=DEVICE) for f in (rl, rh)])[:, None]
+    rec = _pallas1d.flat_idwt_lane(lo, hi, rl, rh, p, p)
+    lib = F.conv_transpose1d(stacked, wrec, stride=2)[:, 0, p : p + rec.shape[-1]]
+    log(f"  K7b library yardstick vs kernel max_abs={max_abs(lib, rec)!r}")
+    rows["K7b"] = {
+        "ms": time_ms(lambda: _pallas1d.flat_idwt_lane(lo, hi, rl, rh, p, p)),
+        "plain_ms": time_ms(lambda: _pallas2.idwt_axis_plain(lo, hi, -1, rl, rh, p, p, "reflect")),
+        "library_ms": time_ms(lambda: F.conv_transpose1d(stacked, wrec, stride=2)),
+        "library_note": "F.conv_transpose1d(stride=2), before the crop",
+        "bytes": size * b * (2 * m + rec.shape[-1]),
+        "flops": 2.0 * b * L * rec.shape[-1],
+    }
+    del x, lo, hi, stacked, lib, rec
+
+    # K6a / K6b: the whole periodization pyramid of the K6 configuration,
+    # beside the per-level K3/K4 route the port would take otherwise
+    b, n = K6_SHAPE
+    x = randn(K6_SHAPE, f32, SEED + 61)
+    coeffs = _pallas.fused_wavedec1d_per(x, dl, dh, LEVEL_1D)
+    ms = [n >> lvl for lvl in range(1, LEVEL_1D + 1)]
+
+    def per_level_k3():
+        cur = x
+        for _ in range(LEVEL_1D):
+            cur = _pallas2.pallas_dwt_axis(cur, -1, dl, dh, "periodization")[0]
+        return cur
+
+    def per_level_k4():
+        cur = coeffs[0]
+        for hi in coeffs[1:]:
+            cur = _pallas2.pallas_idwt_axis((cur,), (hi,), -1, rl, rh, 0, 0, "periodization")[0]
+        return cur
+
+    check("K6b vs the per-level K4 route", max_abs(_pallas.fused_waverec1d_per(coeffs, rl, rh), per_level_k4()), 1e-4)
+    rows["K6a"] = {
+        "ms": time_ms(lambda: _pallas.fused_wavedec1d_per(x, dl, dh, LEVEL_1D)),
+        "plain_ms": time_ms(lambda: _pallas.wavedec1d_per_plain(x, dl, dh, LEVEL_1D)),
+        "per_level_ms": time_ms(per_level_k3),
+        "library_ms": None,
+        "library_note": "none: multi-level (no one library call runs the pyramid)",
+        "bytes": size * b * 2 * n,
+        "flops": 2.0 * b * sum(2 * L * m for m in ms),
+    }
+    rows["K6b"] = {
+        "ms": time_ms(lambda: _pallas.fused_waverec1d_per(coeffs, rl, rh)),
+        "plain_ms": time_ms(lambda: _pallas.waverec1d_per_plain(coeffs, rl, rh)),
+        "per_level_ms": time_ms(per_level_k4),
+        "library_ms": None,
+        "library_note": "none: multi-level (no one library call runs the pyramid)",
+        "bytes": size * b * 2 * n,
+        "flops": 2.0 * b * L * sum(2 * m for m in ms),
+    }
+    del x, coeffs
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
+        extra = f" per_level_ms={row['per_level_ms']!r}" if "per_level_ms" in row else ""
+        log(
+            f"  {name}: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
+            f"library_ms={row['library_ms']!r} bound_ms={row['bound_ms']!r} ({row['bound_by']}){extra}"
+        )
+    return rows
+
+
+def round_trips_1d() -> None:
+    """The 1d round trips' wall times and one profile (phase 5, 1d)."""
+    x = randn(D1_SHAPE, torch.float32, SEED + 62)
+    msamples = D1_SHAPE[0] * D1_SHAPE[1] / 1e6
+    for mode in ("periodic", "reflect"):
+        ms = wall_ms(lambda: round_trip_1d(x, mode, LEVEL_1D))
+        log(f"  d1 round trip {mode}: {ms!r} ms, {msamples / (ms * 1e-3)!r} Msamples/s")
+    rows = profile(lambda: round_trip_1d(x, "periodic", LEVEL_1D), "d1 periodic round trip", top=20)
+    # the plain versions run as elementwise products and sums, gathers and
+    # concatenations; none of them may reach the card on the main path
+    plain = [key for _, _, key in rows if any(s in key for s in ("elementwise", "index", "CatArray", "reduce"))]
+    if plain:
+        raise AssertionError(f"plain-version ops in the d1 round trip's profile: {plain}")
+    log(f"  d1 periodic round trip: no plain-version ops among {len(rows)} device entries")
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -863,8 +1147,31 @@ def main() -> int:
                 raise AssertionError(f"the {mode} backward launched the forward kernel {name}")
     per_step = train["periodic"]["step"]
 
+    log("phase 7: 1d kernels against their plain versions")
+    errors_1d = {name: {} for name in KERNELS_1D}
+    check_kernels_1d(errors_1d)
+
+    log("phase 8: 1d main path")
+    main_1d = {
+        name: main_path_1d(name, shape, mode, level, must, SEED + 70 + i)
+        for i, (name, shape, mode, level, must) in enumerate(MAIN_1D)
+    }
+    launches_1d = {
+        "K8a": main_1d["d1 periodic"]["counts"]["K8a"],
+        "K8b": main_1d["d1 periodic"]["counts"]["K8b"],
+        "K6a": main_1d["K6 periodization"]["counts"]["K6a"],
+        "K6b": main_1d["K6 periodization"]["counts"]["K6b"],
+        "K7a": main_1d["K7 reflect level 1"]["counts"]["K7a"],
+        "K7b": main_1d["K7 reflect level 1"]["counts"]["K7b"],
+    }
+
+    log("phase 5, 1d: times")
+    rows_1d = time_kernels_1d()
+    round_trips_1d()
+
     kernels = []
-    for name, (source, replaces) in REPLACES.items():
+    for name in ("K1", "K2", "K3", "K4", "K3T", "K4T"):
+        source, replaces = REPLACES[name]
         row = rows[name]
         entry = {
             "name": name,
@@ -893,6 +1200,30 @@ def main() -> int:
                 vjp_bound_ms=vjp["bound_ms"],
                 vjp_library_ms=vjp["library_ms"],
             )
+        kernels.append(entry)
+    for name in KERNELS_1D:
+        source, replaces = REPLACES[name]
+        row = rows_1d[name]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            # per round trip of its configuration in phase 8
+            "launches": launches_1d[name],
+            "max_abs_err": errors_1d[name][torch.float32]["abs"],
+            "max_abs_err_f64": errors_1d[name][torch.float64]["abs"],
+            "rel_err": errors_1d[name][torch.float32]["rel"],
+            "rel_err_f64": errors_1d[name][torch.float64]["rel"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_note": row["library_note"],
+        }
+        if "per_level_ms" in row:
+            entry["per_level_k3_k4_ms"] = row["per_level_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

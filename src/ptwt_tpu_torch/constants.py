@@ -18,6 +18,7 @@ __all__ = [
     "BoundaryMode",
     "Wavelet",
     "WaveletTensorTuple",
+    "WaveletCoeff1d",
     "WaveletDetailTuple2d",
     "WaveletCoeff2d",
 ]
@@ -108,6 +109,10 @@ class WaveletTensorTuple(NamedTuple):
     def __len__(self) -> int:
         """Return the decomposition filter length."""
         return self.dec_len
+
+
+#: 1d coefficients ``[cA_n, cD_n, ..., cD_1]``.
+WaveletCoeff1d = Sequence[torch.Tensor]
 
 
 class WaveletDetailTuple2d(NamedTuple):

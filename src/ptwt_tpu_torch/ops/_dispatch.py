@@ -1,16 +1,21 @@
-"""Routing of one 2d FWT level (analysis + synthesis) to the kernels.
+"""Routing of one 1d or 2d FWT level (analysis + synthesis) to the kernels.
 
-Counterpart of :mod:`ptwt_tpu.ops._dispatch` for ``ndim=2``.  The JAX
-package picks among XLA and Pallas routes by TPU measurements and Mosaic
-limits; the port keeps only the routing contract of the two Pallas kernel
-pairs, with no TPU size gates:
+Counterpart of :mod:`ptwt_tpu.ops._dispatch` for ``ndim`` 1 and 2.  The
+JAX package picks among XLA and Pallas routes by TPU measurements and
+Mosaic limits; the port keeps only the routing contract of the Pallas
+kernel pairs, with no TPU size gates beyond the long-axis floor of K7:
 
-* analysis: ``periodization``, or ``periodic`` on an even shape, whose
+* per axis: a last axis longer than ``2**16`` samples in a padded mode
+  (or ``valid``) runs K7 (:mod:`._pallas1d`), as the JAX package's
+  ``dwt_axis``/``idwt_axis`` route it; every other axis runs K3/K4.
+* 1d: one level is one per-axis call on the last axis.
+* 2d analysis: ``periodization``, or ``periodic`` on an even shape, whose
   half-size axes cover the tap reach, runs K1 once; every other level runs
-  K3 along axis -2, then K3 along axis -1 on the packed (lo, hi) pair.
-* synthesis: one subband shape and the standard crop runs K2 once; every
-  other level runs K4 along axis -1 on both (lo, hi) pairs in one launch,
-  then along axis -2.
+  K3 along axis -2, then the per-axis route along axis -1 on the packed
+  (lo, hi) pair.
+* 2d synthesis: one subband shape and the standard crop runs K2 once;
+  every other level runs the per-axis route along axis -1 on both (lo, hi)
+  pairs (K4: one launch), then along axis -2.
 
 On a CPU tensor the same decisions call the kernels' plain versions.
 """
@@ -21,6 +26,7 @@ from typing import Sequence
 
 import torch
 
+from ._pallas1d import dwt_lane_packed, flat_idwt_lane, flat_lane_applicable
 from ._pallas2 import pallas_dwt_axis, pallas_idwt_axis
 from ._pallas2d import (
     fused2_analysis_applicable,
@@ -32,19 +38,40 @@ from ._pallas2d import (
 __all__ = ["analysis_nd", "synthesis_nd", "dwt_axis", "idwt_axis"]
 
 
-#: One analysis level along an axis, packed ``[2, ...]`` as (lo, hi); the
-#: port has one per-axis route, the K3 wrapper.
-dwt_axis = pallas_dwt_axis
+def dwt_axis(x: torch.Tensor, axis: int, dec_lo, dec_hi, mode: str) -> torch.Tensor:
+    """One analysis level along ``axis``, packed ``[2, ...]`` as (lo, hi):
+    K7 on a long last axis in a padded mode, K3 otherwise."""
+    if axis % x.ndim == x.ndim - 1 and flat_lane_applicable(x.shape[-1], len(dec_lo), mode):
+        return dwt_lane_packed(x, dec_lo, dec_hi, mode)
+    return pallas_dwt_axis(x, axis, dec_lo, dec_hi, mode)
 
-#: One synthesis level along an axis for each (lo, hi) pair, stacked
-#: ``[G, ...]``; the port has one per-axis route, the K4 wrapper.
-idwt_axis = pallas_idwt_axis
+
+def idwt_axis(
+    los: Sequence[torch.Tensor],
+    his: Sequence[torch.Tensor],
+    axis: int,
+    rec_lo,
+    rec_hi,
+    padl: int,
+    padr: int,
+    mode: str,
+) -> torch.Tensor:
+    """One synthesis level along ``axis`` for each (lo, hi) pair, stacked
+    ``[G, ...]``: K7 per pair on a long last axis (gated on the output
+    length, any mode but periodization), K4 for all pairs otherwise."""
+    ndim = los[0].ndim
+    if axis % ndim == ndim - 1 and mode != "periodization":
+        out_len = 2 * (los[0].shape[-1] - 1) + len(rec_lo) - padl - padr
+        if flat_lane_applicable(out_len, len(rec_lo), mode):
+            outs = [flat_idwt_lane(a, b, rec_lo, rec_hi, padl, padr) for a, b in zip(los, his)]
+            return outs[0].unsqueeze(0) if len(outs) == 1 else torch.stack(outs)
+    return pallas_idwt_axis(los, his, axis, rec_lo, rec_hi, padl, padr, mode)
 
 
 def _check_ndim(ndim: int) -> None:
-    if ndim != 2:
+    if ndim not in (1, 2):
         raise NotImplementedError(
-            f"{ndim}d levels are not ported yet; ptwt_tpu_torch runs 2d transforms"
+            f"{ndim}d levels are not ported yet; ptwt_tpu_torch runs 1d and 2d transforms"
         )
 
 
@@ -53,9 +80,13 @@ def analysis_nd(
 ) -> tuple[torch.Tensor, ...]:
     """One analysis level over the trailing ``ndim`` axes of ``[B, *sp]``.
 
-    Returns the subbands in ``SUBBAND_ORDERS`` order ``(ll, lh, hl, hh)``.
+    Returns the subbands in ``SUBBAND_ORDERS`` order: ``(lo, hi)`` in 1d,
+    ``(ll, lh, hl, hh)`` in 2d.
     """
     _check_ndim(ndim)
+    if ndim == 1:
+        lo, hi = dwt_axis(data, -1, dec_lo, dec_hi, mode).unbind(0)
+        return lo, hi
     h, w = data.shape[-2:]
     if fused2_analysis_applicable(h, w, len(dec_lo), mode):
         return fused2_dwt_level(data, dec_lo, dec_hi, mode)
@@ -75,13 +106,17 @@ def synthesis_nd(
     mode: str,
     ndim: int,
 ) -> torch.Tensor:
-    """One synthesis level: ``(ll, lh, hl, hh)`` -> ``[B, *spatial_out]``.
+    """One synthesis level: ``(lo, hi)`` or ``(ll, lh, hl, hh)`` ->
+    ``[B, *spatial_out]``.
 
-    ``pads`` are the per-axis ``(padl, padr)`` crops for axes ``(-2, -1)``;
-    the caller resolves the odd-length crop ambiguity.  Unflipped
-    reconstruction filters; ``periodization`` folds circularly.
+    ``pads`` are the per-axis ``(padl, padr)`` crops for the trailing
+    ``ndim`` axes; the caller resolves the odd-length crop ambiguity.
+    Unflipped reconstruction filters; ``periodization`` folds circularly.
     """
     _check_ndim(ndim)
+    if ndim == 1:
+        lo, hi = subbands
+        return idwt_axis((lo,), (hi,), -1, rec_lo, rec_hi, *pads[0], mode).squeeze(0)
     ll, lh, hl, hh = subbands
     if len({b.shape for b in subbands}) == 1 and fused2_synthesis_applicable(
         ll.shape[-2], ll.shape[-1], len(rec_lo), mode, pads

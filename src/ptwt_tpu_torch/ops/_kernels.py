@@ -53,6 +53,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _D = ctypes.POINTER(ctypes.c_double)
+_IA = ctypes.POINTER(ctypes.c_int)
 
 #: C entry point -> (source file, argument types).
 _ENTRY_POINTS = {
@@ -76,12 +77,24 @@ _ENTRY_POINTS = {
         "dwt2",
         [_I, _P, _P, _P, _P, _P, _D, _D, _I, _LL, *[_I] * 11, _P],
     ),
+    "ptwt_fwt1d_analysis": (
+        "fwt1d", [_I, _P, _P, _P, _P, _P, _P, _D, _D, _I, _LL, _IA, _I, _I, _P]
+    ),
+    "ptwt_fwt1d_synthesis": (
+        "fwt1d", [_I, _P, _P, _P, _P, _P, _P, _D, _D, _I, _LL, _IA, _I, _I, _P]
+    ),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.  A VJP
 #: counts under the kernel that runs it: K1 and K2 are each other's VJP,
-#: K3T and K4T those of K3 and K4.
-LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K3T": 0, "K4T": 0}
+#: K3T and K4T those of K3 and K4.  The 1d pyramid kernels of
+#: ``csrc/fwt1d.cu`` count under the TPU kernel whose contract a launch
+#: carries: a depth-1 launch of the K8 pair is K7a/K7b, and every launch of
+#: a K6 pyramid (one per run of at most four levels) is K6a/K6b.
+LAUNCHES: dict[str, int] = {
+    name: 0
+    for name in ("K1", "K2", "K3", "K4", "K3T", "K4T", "K6a", "K6b", "K7a", "K7b", "K8a", "K8b")
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -115,7 +128,11 @@ def _library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{source}_{digest.hexdigest()[:16]}.so"
 
 
-def build(sources: Sequence[str] = ("axis", "axis_vjp", "dwt2")) -> dict[str, float]:
+#: Every ``csrc`` source with kernels.
+SOURCES = ("axis", "axis_vjp", "dwt2", "fwt1d")
+
+
+def build(sources: Sequence[str] = SOURCES) -> dict[str, float]:
     """Compile the given ``csrc`` sources that are not built yet.
 
     All ``nvcc`` processes start together.  Returns the seconds each build
@@ -170,6 +187,11 @@ def _library(source: str) -> ctypes.CDLL:
             lib.ptwt_error_string.restype = ctypes.c_char_p
             _LIBS[source] = lib
         return lib
+
+
+def int_array(values: Sequence[int]):
+    """Host copy of a launch plan as the C entry points take it."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 _NO_FILTER_GRAD = (

@@ -1,0 +1,442 @@
+"""Fused runs of 1d levels along a long last axis: kernels K8a/K8b.
+
+Counterpart of :mod:`ptwt_tpu.ops._pallas1d_multi`.  There, the first
+``D <= 4`` analysis levels of a long signal run in one Pallas call over
+stacked ``2**15``-sample windows, and XLA recomputes each level's edges
+from head and tail strips and stitches them in; the last ``D`` synthesis
+steps are fused the same way.  Here two hand-written CUDA kernels
+(``csrc/fwt1d.cu``) do both, edges included:
+
+* **K8a** (``analysis_pyramid_kernel``) -- a block owns a tile of level-D
+  outputs, stages the tile's input cone in shared memory, computes the
+  levels in turn and writes every band position it owns once.  One extra
+  block per row computes the first ``wl_l`` and last ``wr_l`` positions of
+  every level, whose values depend on that level's mode extension, from
+  head and tail strips of the signal.
+* **K8b** (``synthesis_pyramid_kernel``) -- a block owns a tile of final
+  outputs and runs the ``D`` transposed convolutions, with each step's
+  crop folded into its index range, on the bands' cones in shared memory.
+
+At depth 1 the pair carries K7's contract (:mod:`._pallas1d`), and with
+circular reads K6's (:mod:`._pallas`); all of them launch through
+:func:`analysis_pyramid` and :func:`synthesis_pyramid` below, which count
+each launch under the name of the contract it carries.
+
+The static bookkeeping that is math is ported: the band lengths ``m_l``,
+the interior/edge ranges (:func:`_interior_ranges`), and the read biases
+as index arithmetic (:func:`_multi_plan`, :func:`_syn_plan`).  The flat
+shifts, window margins, ``[8, 4096]`` tiles and lane packing are Mosaic
+artifacts and have no counterpart.
+
+Routing thresholds: :data:`FLAT_MIN_LANES` (a last axis longer than
+``2**16`` samples) and :data:`MAX_FUSED_DEPTH` (runs of at most 4 levels)
+are the TPU's thresholds, kept as they are; the port's bench (ROADMAP
+Queue 1 item 5) will set them from the card.  Dropped, as Mosaic-only:
+the float32-only gate (float32 and float64 both run), the window plan's
+feasibility, and the environment knobs.  The kernels decline only what
+they cannot hold: filters of more than 128 taps (the kernel-parameter
+tap bank), and bands shorter than their edge strips (a signal of fewer
+than about ``16 L`` samples at depth 4), which the routing gate never
+sends.
+
+Each kernel's plain version (:func:`multi_analysis_plain`,
+:func:`multi_synthesis_plain`: ``depth`` levels of
+:func:`~._pallas2.dwt_axis_plain` / :func:`~._pallas2.idwt_axis_plain`)
+sits here; the wrappers take it for CPU tensors only.  A CUDA tensor
+launches the kernel or raises, also for a tensor that requires grad:
+gradients through the 1d pyramid kernels come with the 1d training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from . import _kernels
+from ._pallas2 import _on_cpu, dwt_axis_plain, idwt_axis_plain
+
+__all__ = [
+    "FLAT_MIN_LANES",
+    "MAX_FUSED_DEPTH",
+    "PADDED_MODES",
+    "analysis_pyramid",
+    "flat_multi_depth",
+    "flat_multi_syn_depth",
+    "flat_wavedec_lane_multi",
+    "flat_waverec_lane_multi",
+    "multi_analysis_plain",
+    "multi_synthesis_plain",
+    "synthesis_pyramid",
+]
+
+#: A last axis longer than this takes the K7/K8 kernels (the TPU's floor).
+FLAT_MIN_LANES = 1 << 16
+#: Deepest fused run of levels (the TPU's depth).
+MAX_FUSED_DEPTH = 4
+#: The pywt padding modes, each level extended by its own band.
+PADDED_MODES = ("zero", "reflect", "periodic", "symmetric", "constant")
+_MODE_CODE = {mode: code for code, mode in enumerate(PADDED_MODES)}
+
+#: Longest filter the kernels take (``PTWT_MAX_TAPS`` in ``csrc/common.cuh``).
+MAX_TAPS = 128
+#: Level-0 samples of one tile: an analysis tile owns ``4096 >> D`` level-D
+#: outputs, a synthesis tile 4096 final outputs.
+_TILE_SAMPLES = 4096
+#: Shared memory one block may use on the H100 (bytes).
+_SMEM_LIMIT = 232448
+
+_NO_1D_GRAD = (
+    "gradients through the 1d pyramid kernels (K6, K7, K8) are not on the "
+    "card yet: they come with the 1d training slice (ROADMAP Queue 1 item "
+    "6b, 1d training). Detach the input, or use a CPU tensor, whose plain "
+    "path carries gradients."
+)
+
+
+def _long_lane(n: int, filt_len: int) -> bool:
+    """The K7/K8 length gate: a long axis and a filter the kernels hold."""
+    return n > FLAT_MIN_LANES and 2 <= filt_len <= MAX_TAPS
+
+
+# ---------------------------------------------------------------------------
+# static bookkeeping
+# ---------------------------------------------------------------------------
+
+
+def _std_pad(filt_len: int) -> int:
+    return (2 * filt_len - 3) // 2
+
+
+def _interior_ranges(n: int, filt_len: int, depth: int):
+    """Per level: ``(m_l, W_l, W_r)`` of the padded-mode pyramid.
+
+    ``m_l`` is the band length (each level pads ``padl = (2L-3)//2`` left
+    and ``padl + m % 2`` right); ``W_l``/``W_r`` count the positions at
+    each end whose values differ from the plain correlation of the raw
+    signal, because some tap of their cone reads a mode extension.
+    Returns ``(ms, spans)`` with ``ms[0] = n``.
+    """
+    padl = _std_pad(filt_len)
+    ms = [n]
+    lv, rv = 0, n - 1
+    spans = []
+    for _ in range(depth):
+        m_prev = ms[-1]
+        m = (m_prev + 2 * padl + m_prev % 2 - filt_len) // 2 + 1
+        ms.append(m)
+        lv = -(-(lv + padl) // 2)
+        rv = (rv - (filt_len - 1) + padl) // 2
+        spans.append((m, lv, max(0, m - 1 - rv)))
+    return tuple(ms), tuple(spans)
+
+
+def _band_lengths(n: int, filt_len: int, depth: int, mode: str) -> tuple[int, ...]:
+    if mode == "periodization":  # an exactly halving chain (K6)
+        return tuple(n >> lvl for lvl in range(depth + 1))
+    if mode == "valid":
+        ms = [n]
+        for _ in range(depth):
+            ms.append((ms[-1] - filt_len) // 2 + 1)
+        return tuple(ms)
+    return _interior_ranges(n, filt_len, depth)[0]
+
+
+def _multi_plan(n: int, filt_len: int, depth: int, mode: str, itemsize: int):
+    """Launch plan of the analysis pyramid kernel: ``(ints, smem_bytes)``.
+
+    ``ints`` is ``AnalysisPlan`` of ``csrc/fwt1d.cu`` in field order:
+    ``depth, n, padl, tile, tiles, mode, strip, edge, m[5], wl[5], wr[5]``.
+
+    Index arithmetic: tile ``t`` owns level-D outputs ``[t T, (t+1) T)``;
+    its cone at level ``l - 1`` starts at ``s_{l-1} = 2 s_l - padl`` and
+    holds ``c_{l-1} = 2 c_l + L - 2`` samples, so
+    ``band_l[s_l + j] = sum_k f[k] cone_{l-1}[2 j + k]``.  With tiles
+    aligned at level D every read bias (the JAX plan's ``b_l``) is 0, and
+    the tile owns ``[t T 2^(D-l), (t+1) T 2^(D-l))`` at level l: every
+    band position once.  ``padl`` is ``(2L-3)//2`` for the padded modes,
+    ``L//2 - 1`` for periodization (read modulo ``n``, no edges) and 0 for
+    ``valid`` (no edges).
+
+    The edge block keeps ``E_l = strip << (D - l)`` head and tail samples
+    per level; ``strip`` covers every level's edge count and the reach of
+    each level's extension (``padl + 2``), so every index a level reads
+    lands in one strip of the level below.  Raises ``ValueError`` for what
+    the kernel cannot hold.
+    """
+    if not 1 <= depth <= MAX_FUSED_DEPTH:
+        raise ValueError(f"fused depth {depth} is outside 1..{MAX_FUSED_DEPTH}")
+    if not 2 <= filt_len <= MAX_TAPS:
+        raise ValueError(f"the 1d pyramid kernels take 2..{MAX_TAPS} taps, got {filt_len}")
+    edge = mode in PADDED_MODES
+    if mode == "periodization":
+        padl = filt_len // 2 - 1
+    elif edge:
+        padl = _std_pad(filt_len)
+    elif mode == "valid":
+        padl = 0
+    else:
+        raise ValueError(f"mode {mode!r} is not a mode of the 1d pyramid kernels")
+    ms = _band_lengths(n, filt_len, depth, mode)
+    if ms[depth] < 1:
+        raise ValueError(f"a {n}-sample signal has no level {depth}")
+    tile = max(1, min(_TILE_SAMPLES >> depth, ms[depth]))
+    tiles = -(-ms[depth] // tile)
+    wl = [0] * (MAX_FUSED_DEPTH + 1)
+    wr = [0] * (MAX_FUSED_DEPTH + 1)
+    strip = 0
+    if edge:
+        strip = padl + 2
+        for lvl, (_, w_l, w_r) in enumerate(_interior_ranges(n, filt_len, depth)[1], 1):
+            wl[lvl], wr[lvl] = w_l, w_r
+            strip = max(strip, -(-max(w_l, w_r) >> (depth - lvl)))
+        if any(strip << (depth - lvl) > ms[lvl] for lvl in range(depth + 1)):
+            raise ValueError(
+                f"a {n}-sample signal is shorter than the edge strips of a "
+                f"depth-{depth} run of {filt_len} taps"
+            )
+    cone0 = (tile << depth) + (filt_len - 2) * ((1 << depth) - 1)
+    cone1 = (tile << (depth - 1)) + (filt_len - 2) * ((1 << (depth - 1)) - 1) if depth > 1 else 0
+    smem = max(cone0 + cone1, 3 * (strip << depth)) * itemsize
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the analysis tile needs {smem} bytes of shared memory")
+    m_pad = list(ms) + [0] * (MAX_FUSED_DEPTH - depth)
+    ints = [depth, n, padl, tile, tiles, _MODE_CODE.get(mode, 0), strip, int(edge)]
+    return ints + m_pad + wl + wr, smem
+
+
+def _syn_plan(filt_len: int, out_len: int, lens: Sequence[int], offs: Sequence[int], itemsize: int):
+    """Launch plan of the synthesis pyramid kernel: ``(ints, smem_bytes)``.
+
+    ``ints`` is ``SynthesisPlan`` of ``csrc/fwt1d.cu``: ``depth, tile,
+    tiles, buf, len[5], off[5]``; ``lens[l-1]``/``offs[l-1]`` are band l's
+    length and step l's left crop, fine to coarse.  A tile owns final
+    outputs ``[c_0, c_0 + T)``; step l reads its bands over
+    ``c_l = floor((c_{l-1} + off_l - (L-1)) / 2)`` to
+    ``e_l = floor((e_{l-1} + off_l) / 2)``, so the read bias of the JAX
+    plan, ``(c_{l-1} + off_l - (L-1)) - 2 c_l`` in {0, 1}, is the floor's
+    remainder.  ``buf`` bounds every level's ``e_l - c_l + 1``.
+    """
+    depth = len(lens)
+    if not 1 <= depth <= MAX_FUSED_DEPTH:
+        raise ValueError(f"fused depth {depth} is outside 1..{MAX_FUSED_DEPTH}")
+    if not 2 <= filt_len <= MAX_TAPS:
+        raise ValueError(f"the 1d pyramid kernels take 2..{MAX_TAPS} taps, got {filt_len}")
+    tile = max(1, min(_TILE_SAMPLES, out_len))
+    tiles = -(-out_len // tile)
+    span, buf = tile, 1
+    for _ in range(depth):
+        span = (span + filt_len - 1) // 2 + 1
+        buf = max(buf, span)
+    smem = 3 * buf * itemsize
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the synthesis tile needs {smem} bytes of shared memory")
+    pad = [0] * (MAX_FUSED_DEPTH - depth)
+    ints = [depth, tile, tiles, buf, out_len, *lens, *pad, 0, *offs, *pad]
+    return ints, smem
+
+
+# ---------------------------------------------------------------------------
+# launch glue shared by K6, K7 and K8
+# ---------------------------------------------------------------------------
+
+
+def check_no_grad(*tensors: torch.Tensor) -> None:
+    """Raise for a CUDA tensor that autograd would have to differentiate."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(_NO_1D_GRAD)
+
+
+def analysis_pyramid(
+    kernel: str,
+    x2: torch.Tensor,
+    lo,
+    hi,
+    depth: int,
+    mode: str,
+    out: Optional[Sequence[torch.Tensor]] = None,
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """Launch the analysis pyramid kernel on ``x2 = [rows, n]``.
+
+    ``lo``/``hi`` are the flipped taps as floats.  Returns ``(lo_D,
+    [hi_1, ..., hi_D])``, each ``[rows, m_l]``; ``out`` may give them as
+    ``(lo_D, hi_1, ..., hi_D)`` contiguous tensors to write into.  The
+    launch counts as ``kernel``.
+    """
+    _kernels.check_tensor("x", x2, x2.dtype, x2.device)
+    rows, n = x2.shape
+    ints, smem = _multi_plan(n, len(lo), depth, mode, x2.element_size())
+    ms = ints[8 : 9 + depth]
+    if out is None:
+        out = [x2.new_empty(rows, ms[depth])] + [x2.new_empty(rows, m) for m in ms[1:]]
+    for t, m in zip(out, [ms[depth], *ms[1:]]):
+        _kernels.check_tensor("band", t, x2.dtype, x2.device)
+        if t.numel() != rows * m:
+            raise ValueError(f"an output band holds {t.numel()} values, expected {rows * m}")
+    if rows:
+        his = list(out[1:]) + [None] * (MAX_FUSED_DEPTH - depth)
+        _kernels.launch(
+            kernel, "ptwt_fwt1d_analysis", x2.device, x2.dtype,
+            x2, out[0], *his, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
+            rows, _kernels.int_array(ints), int(mode == "periodization"), smem,
+        )
+    return out[0], list(out[1:])
+
+
+def synthesis_pyramid(
+    kernel: str,
+    bands: Sequence[torch.Tensor],
+    lo,
+    hi,
+    offs: Sequence[int],
+    out_len: int,
+    circular: bool,
+) -> torch.Tensor:
+    """Launch the synthesis pyramid kernel.
+
+    ``bands = [lo_D, hi_D, ..., hi_1]``, each ``[rows, m_l]``, with
+    ``lo_D`` as long as ``hi_D``; ``offs`` are the left crops of steps
+    ``1..D`` (fine to coarse); step 1 writes ``out_len`` samples.
+    Padded-mode runs need every ``hi_l`` (``l < D``) as long as step
+    ``l + 1``'s output, which is what the crops make of it.  Returns
+    ``[rows, out_len]``; the launch counts as ``kernel``.
+    """
+    ref = bands[0]
+    rows = ref.shape[0]
+    depth = len(bands) - 1
+    for t in bands:
+        _kernels.check_tensor("band", t, ref.dtype, ref.device)
+    if bands[0].shape != bands[1].shape:
+        raise ValueError(
+            f"lo and hi of the coarsest step differ: {tuple(bands[0].shape)} and {tuple(bands[1].shape)}"
+        )
+    lens = [bands[depth + 1 - lvl].shape[-1] for lvl in range(1, depth + 1)]
+    ints, smem = _syn_plan(len(lo), out_len, lens, offs, ref.element_size())
+    out = ref.new_empty(rows, out_len)
+    if out.numel():
+        his = [bands[depth + 1 - lvl] for lvl in range(1, depth + 1)]
+        his += [None] * (MAX_FUSED_DEPTH - depth)
+        _kernels.launch(
+            kernel, "ptwt_fwt1d_synthesis", ref.device, ref.dtype,
+            bands[0], *his, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
+            rows, _kernels.int_array(ints), int(circular), smem,
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def multi_analysis_plain(
+    x: torch.Tensor, dec_lo, dec_hi, mode: str, depth: int
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """``depth`` levels of :func:`dwt_axis_plain` on the last axis:
+    ``(lo_depth, [hi_1, ..., hi_depth])``."""
+    his = []
+    cur = x
+    for _ in range(depth):
+        cur, h = dwt_axis_plain(cur, -1, dec_lo, dec_hi, mode)
+        his.append(h)
+    return cur, his
+
+
+def multi_synthesis_plain(coeffs, rec_lo, rec_hi, pads, lens) -> torch.Tensor:
+    """``depth`` steps of :func:`idwt_axis_plain` on the last axis, each
+    cropped to ``lens`` by ``pads`` (fine to coarse), as the JAX
+    package's ``_syn_vjp_for._reference`` computes them."""
+    filt_len = len(rec_lo)
+    depth = len(coeffs) - 1
+    cur = coeffs[0]
+    for step in range(depth):
+        lvl = depth - step
+        hi_band = coeffs[1 + step]
+        padl = pads[lvl - 1]
+        padr = 2 * (hi_band.shape[-1] - 1) + filt_len - padl - lens[lvl - 1]
+        cur = idwt_axis_plain(cur, hi_band, -1, rec_lo, rec_hi, padl, padr, "zero")
+    return cur
+
+
+# ---------------------------------------------------------------------------
+# routing and public wrappers
+# ---------------------------------------------------------------------------
+
+
+def flat_multi_depth(n: int, filt_len: int, mode: str, level: int) -> int:
+    """Largest fused depth for the first levels of a wavedec (0: none).
+
+    A padded mode on a last axis longer than :data:`FLAT_MIN_LANES`, runs
+    of at least 2 and at most :data:`MAX_FUSED_DEPTH` levels.
+    """
+    if mode not in PADDED_MODES or not _long_lane(n, filt_len):
+        return 0
+    depth = min(level, MAX_FUSED_DEPTH)
+    return depth if depth >= 2 else 0
+
+
+def flat_multi_syn_depth(out_lens: Sequence[int], filt_len: int, mode: str) -> int:
+    """Largest fused suffix depth for a waverec chain (0: none).
+
+    ``out_lens`` are the per-step output lengths, coarse to fine; the
+    fused run covers the last (long) steps.  Mirrors
+    :func:`flat_multi_depth`: any crops fit the kernel's plan.
+    """
+    if mode not in PADDED_MODES or not out_lens or not _long_lane(out_lens[-1], filt_len):
+        return 0
+    depth = min(len(out_lens), MAX_FUSED_DEPTH)
+    return depth if depth >= 2 else 0
+
+
+def flat_wavedec_lane_multi(
+    x: torch.Tensor, dec_lo, dec_hi, mode: str, depth: int
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """First ``depth`` analysis levels along the last axis, fused.
+
+    Returns ``(lo_depth, [hi_1, ..., hi_depth])`` with ``x``'s leading
+    axes; the values are those of the per-level padded transform.
+    ``dec_lo``/``dec_hi`` are flipped (correlation order).  A CPU tensor
+    runs :func:`multi_analysis_plain`; a CUDA tensor runs K8a (counted as
+    K7a at depth 1).
+    """
+    if _on_cpu(x):
+        return multi_analysis_plain(x, dec_lo, dec_hi, mode, depth)
+    lo = _kernels.static_taps(dec_lo)
+    hi = _kernels.static_taps(dec_hi)
+    check_no_grad(x)
+    lead = x.shape[:-1]
+    x2 = x.reshape(math.prod(lead), x.shape[-1]).contiguous()
+    lo_band, his = analysis_pyramid("K8a" if depth > 1 else "K7a", x2, lo, hi, depth, mode)
+    return lo_band.reshape(*lead, -1), [h.reshape(*lead, -1) for h in his]
+
+
+def flat_waverec_lane_multi(coeffs, rec_lo, rec_hi, pads, lens) -> torch.Tensor:
+    """Fused suffix of a waverec chain along the last axis.
+
+    ``coeffs = [lo_D, hi_D, ..., hi_1]`` with any leading axes;
+    ``pads``/``lens`` are the per-step left crops and output lengths, fine
+    to coarse (``pads[0]``/``lens[0]`` belong to the finest step).  The
+    values are those of the per-step padded synthesis.  A CPU tensor runs
+    :func:`multi_synthesis_plain`; a CUDA tensor runs K8b (counted as K7b
+    at depth 1).
+    """
+    if _on_cpu(coeffs[0]):
+        return multi_synthesis_plain(coeffs, rec_lo, rec_hi, pads, lens)
+    lo = _kernels.static_taps(rec_lo)
+    hi = _kernels.static_taps(rec_hi)
+    check_no_grad(*coeffs)
+    depth = len(coeffs) - 1
+    for lvl in range(1, depth):
+        if coeffs[depth + 1 - lvl].shape[-1] != lens[lvl]:
+            raise ValueError(
+                f"band {lvl} has {coeffs[depth + 1 - lvl].shape[-1]} samples, "
+                f"step {lvl + 1} makes {lens[lvl]}"
+            )
+    lead = coeffs[0].shape[:-1]
+    rows = math.prod(lead)
+    bands = [c.reshape(rows, c.shape[-1]).contiguous() for c in coeffs]
+    out = synthesis_pyramid(
+        "K8b" if depth > 1 else "K7b", bands, lo, hi, list(pads)[:depth], lens[0], False
+    )
+    return out.reshape(*lead, lens[0])

@@ -1,0 +1,202 @@
+"""ptwt_tpu_torch.wavedec/waverec against ptwt_tpu on the CPU.
+
+The same numpy inputs go through both packages; on CPU tensors the port
+runs the plain versions of its kernels, routed level by level as the card
+routes them (K6 for halving periodization chains, K8 runs and K7 levels
+past ``2**16`` samples, K3/K4 otherwise).  Tolerances: float32 1e-5,
+float64 1e-10.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ptwt_tpu as jptwt
+import ptwt_tpu_torch as tptwt
+from ptwt_tpu_torch.utils import coeffs_from_numpy, coeffs_to_numpy
+
+MODES = ["zero", "constant", "reflect", "periodic", "symmetric", "periodization"]
+TOL = {np.float32: 1e-5, np.float64: 1e-10}
+DATA = Path(__file__).parent / "data"
+_GOLDENS = np.load(DATA / "transform_goldens.npz")
+
+
+def _assert_coeffs(got, want, tol):
+    assert isinstance(got, list)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_allclose(g.numpy(), w, atol=tol, rtol=0)
+
+
+def _rec_mode(mode):
+    return mode if mode == "periodization" else None
+
+
+def _round_trip(x, wavelet, mode, level, tol, axis=-1):
+    want = jptwt.wavedec(jnp.asarray(x), wavelet, mode=mode, level=level, axis=axis)
+    got = tptwt.wavedec(torch.from_numpy(x), wavelet, mode=mode, level=level, axis=axis)
+    _assert_coeffs(got, want, tol)
+    rec_want = jptwt.waverec(want, wavelet, mode=_rec_mode(mode), axis=axis)
+    rec = tptwt.waverec(got, wavelet, mode=_rec_mode(mode), axis=axis)
+    np.testing.assert_allclose(rec.numpy(), np.asarray(rec_want), atol=tol, rtol=0)
+    n = x.shape[axis]
+    np.testing.assert_allclose(rec.numpy().take(range(n), axis=axis), x, atol=10 * tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize(
+    "shape,wavelet,level",
+    [((2, 33), "db3", 2), ((1, 3, 64), "sym4", None), ((4, 100), "haar", 3), ((2, 31), "coif2", 1)],
+)
+def test_wavedec_waverec_match_jax(shape, wavelet, level, mode, dtype):
+    x = np.random.RandomState(5).randn(*shape).astype(dtype)
+    _round_trip(x, wavelet, mode, level, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("mode", MODES)
+def test_long_signals_match_jax(mode, dtype):
+    """70001 samples: the first four levels take the fused K8 route, the
+    rest K3/K4 (periodization: K3/K4, the chain does not halve)."""
+    x = np.random.RandomState(6).randn(2, 70001).astype(dtype)
+    _round_trip(x, "db5", mode, 6, TOL[dtype])
+
+
+@pytest.mark.parametrize(
+    "mode,n,level",
+    [
+        ("reflect", 70001, 1),  # one long level: K7
+        ("symmetric", 65536, 3),  # at the gate: K3/K4
+        ("zero", 65537, 2),  # one past it: a depth-2 K8 run
+        ("periodization", 2**17, 10),  # halving chain: K6
+        ("periodic", 70000, 5),  # even length, a K8 run and a K3 level
+    ],
+)
+def test_routes_across_the_gate_match_jax(mode, n, level):
+    x = np.random.RandomState(7).randn(2, n).astype(np.float32)
+    _round_trip(x, "db4", mode, level, TOL[np.float32])
+
+
+@pytest.mark.parametrize("mode", ["reflect", "periodization"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_axis_argument_matches_jax(mode, axis):
+    x = np.random.RandomState(8).randn(36, 40, 3)
+    _round_trip(x, "db2", mode, 2, 1e-10, axis=axis)
+
+
+@pytest.mark.parametrize("n", [64, 96])
+def test_periodization_inferred(n):
+    x = torch.from_numpy(np.random.RandomState(9).randn(2, n))
+    coeffs = tptwt.wavedec(x, "db2", mode="periodization", level=3)
+    assert [c.shape[-1] for c in coeffs[1:]] == [n // 8, n // 4, n // 2]
+    np.testing.assert_allclose(tptwt.waverec(coeffs, "db2").numpy(), x.numpy(), atol=1e-10)
+    # a padded chain is not mistaken for one
+    padded = tptwt.wavedec(x, "db2", mode="reflect", level=3)
+    np.testing.assert_allclose(tptwt.waverec(padded, "db2").numpy()[..., :n], x.numpy(), atol=1e-10)
+
+
+def _signal(n: int) -> np.ndarray:
+    t = np.arange(n, dtype=np.float64)
+    return np.sin(0.37 * t) + 0.05 * t + np.cos(1.7 * t + 0.5)
+
+
+def _cases(prefix: str) -> list[str]:
+    return sorted({k.rsplit("/", 1)[0] for k in _GOLDENS.files if k.startswith(prefix)})
+
+
+@pytest.mark.parametrize("key", _cases("wavedec/"))
+def test_wavedec_goldens(key):
+    _, name, mode, n = key.split("/")
+    got = tptwt.wavedec(torch.from_numpy(_signal(int(n))), name, mode=mode, level=2)
+    i = 0
+    while f"{key}/{i}" in _GOLDENS:
+        np.testing.assert_allclose(got[i].numpy(), _GOLDENS[f"{key}/{i}"], atol=1e-9)
+        i += 1
+    assert i == len(got)
+
+
+@pytest.mark.parametrize("key", _cases("waverec/"))
+def test_waverec_goldens(key):
+    _, name, mode, n = key.split("/")
+    coeffs = [torch.from_numpy(np.asarray(c)) for c in _golden_coeffs(f"wavedec/{name}/{mode}/{n}")]
+    rec = tptwt.waverec(coeffs, name)
+    np.testing.assert_allclose(rec.numpy()[..., : int(n)], _GOLDENS[f"{key}/0"], atol=1e-9)
+    assert json.loads((DATA / "transform_goldens.json").read_text())["keys"]
+
+
+def _golden_coeffs(key: str) -> list:
+    out, i = [], 0
+    while f"{key}/{i}" in _GOLDENS:
+        out.append(_GOLDENS[f"{key}/{i}"])
+        i += 1
+    return out
+
+
+@pytest.mark.parametrize("mode", ["periodic", "periodization", "symmetric"])
+def test_cross_package_round_trips(mode):
+    x = np.random.RandomState(10).randn(3, 130)
+    jcoeffs = jptwt.wavedec(jnp.asarray(x), "db3", mode=mode, level=3)
+    rec = tptwt.waverec(coeffs_from_numpy([np.asarray(c) for c in jcoeffs], "cpu"), "db3", mode=_rec_mode(mode))
+    np.testing.assert_allclose(rec.numpy(), x, atol=1e-10, rtol=0)
+    back = coeffs_to_numpy(tptwt.wavedec(torch.from_numpy(x), "db3", mode=mode, level=3))
+    jrec = jptwt.waverec([jnp.asarray(c) for c in back], "db3", mode=_rec_mode(mode))
+    np.testing.assert_allclose(np.asarray(jrec), x, atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["periodization", "reflect"])
+def test_waverec_rejects_mismatched_band(mode):
+    x = torch.from_numpy(np.random.RandomState(11).randn(2, 64))
+    coeffs = tptwt.wavedec(x, "db2", mode=mode, level=2)
+    coeffs[1] = coeffs[1][..., :-1]
+    with pytest.raises(ValueError):
+        tptwt.waverec(coeffs, "db2", mode=mode)
+
+
+def test_wavedec_rejects_bad_input():
+    with pytest.raises(ValueError, match="dtype"):
+        tptwt.wavedec(torch.zeros(16, dtype=torch.float16), "haar")
+    with pytest.raises(ValueError):
+        tptwt.wavedec(torch.zeros(()), "haar")
+
+
+def test_non_tensor_input_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("with a CUDA device, numpy input is moved there")
+    x = np.zeros(16, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tptwt.wavedec(x, "haar")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tptwt.waverec([x, x], "haar")
+
+
+def test_plain_path_carries_gradients():
+    """On the CPU every route is autograd-transparent, filters included."""
+    w = tptwt.RegistryWavelet("db2")
+    bank = [torch.tensor(f, dtype=torch.float64, requires_grad=True) for f in w.filter_bank]
+    x = torch.randn(1, 40, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
+    x.requires_grad_()
+
+    def loss(inp, *filters):
+        coeffs = tptwt.wavedec(inp, tuple(filters), mode="reflect", level=2)
+        return (tptwt.waverec(coeffs, tuple(filters)) ** 2).sum() + sum((c**2).sum() for c in coeffs)
+
+    assert torch.autograd.gradcheck(loss, (x, *bank))
+
+
+def test_docstring_examples():
+    import doctest
+    import importlib
+
+    mod = importlib.import_module("ptwt_tpu_torch.conv_transform")
+    result = doctest.testmod(mod, verbose=False)
+    assert result.attempted > 0 and result.failed == 0

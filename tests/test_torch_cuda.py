@@ -1,4 +1,4 @@
-"""K1-K4 of ptwt_tpu_torch against their plain versions, on the card.
+"""The CUDA kernels of ptwt_tpu_torch against their plain versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor ``ptwt_tpu``, so it also runs where only the
@@ -19,6 +19,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 import ptwt_tpu_torch as tptwt  # noqa: E402
 from ptwt_tpu_torch.ops import _kernels  # noqa: E402
+from ptwt_tpu_torch.ops import _pallas as t6  # noqa: E402
+from ptwt_tpu_torch.ops import _pallas1d as t7  # noqa: E402
+from ptwt_tpu_torch.ops import _pallas1d_multi as t8  # noqa: E402
 from ptwt_tpu_torch.ops import _pallas2 as t2  # noqa: E402
 from ptwt_tpu_torch.ops import _pallas2d as t2d  # noqa: E402
 from ptwt_tpu_torch.utils import get_filter_arrays  # noqa: E402
@@ -222,3 +225,129 @@ def test_cuda_filter_grad_and_double_backward_raise(cuda_device):
     (grad,) = torch.autograd.grad((out**2).sum(), x, create_graph=True)
     with pytest.raises(RuntimeError):
         torch.autograd.grad(grad.sum(), x)
+
+
+# ---------------------------------------------------------------------------
+# the 1d pyramid kernels: K6a/K6b, K7a/K7b, K8a/K8b
+# ---------------------------------------------------------------------------
+
+
+PADDED = ["zero", "reflect", "periodic", "symmetric", "constant"]
+
+
+def _rel_err(got, want) -> float:
+    """Max-abs difference over ``max(1, the band's largest magnitude)``."""
+    if isinstance(got, (list, tuple)):
+        return max(_rel_err(g, w) for g, w in zip(got, want))
+    assert got.shape == want.shape
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _tol1d(dtype) -> float:
+    return 2e-5 if dtype == torch.float32 else 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wavelet", ["db5", "haar", "coif17"])
+@pytest.mark.parametrize("mode", PADDED)
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_cuda_k7_k8_match_plain(cuda_device, dtype, wavelet, mode, depth):
+    dl, dh, rl, rh = _banks(wavelet)
+    x = torch.randn(3, 70001, dtype=dtype, device=cuda_device)
+    _kernels.reset_launch_counts()
+    lo, his = t8.flat_wavedec_lane_multi(x, dl, dh, mode, depth)
+    ref_lo, ref_his = t8.multi_analysis_plain(x, dl, dh, mode, depth)
+    assert _rel_err([lo, *his], [ref_lo, *ref_his]) <= _tol1d(dtype)
+    # waverec's crops for this chain: each step ends as long as the finer band
+    pads = [_std_pad(len(dl))] * depth
+    lens = [x.shape[-1]] + [h.shape[-1] for h in ref_his[:-1]]
+    coeffs = [ref_lo, *ref_his[::-1]]
+    rec = t8.flat_waverec_lane_multi(coeffs, rl, rh, pads, lens)
+    ref = t8.multi_synthesis_plain(coeffs, rl, rh, pads, lens)
+    assert _rel_err(rec, ref) <= _tol1d(dtype)
+    torch.cuda.synchronize()
+    names = ("K7a", "K7b") if depth == 1 else ("K8a", "K8b")
+    assert all(_kernels.LAUNCHES[k] == 1 for k in names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_k7_valid_and_odd_crop(cuda_device, dtype):
+    dl, dh, rl, rh = _banks("db3")
+    x = torch.randn(2, 3, 70010, dtype=dtype, device=cuda_device)
+    got = t7.flat_dwt_lane(x, dl, dh, "valid")
+    assert _rel_err(got, t2.dwt_axis_plain(x, -1, dl, dh, "valid")) <= _tol1d(dtype)
+    lo, hi = got
+    rec = t7.flat_idwt_lane(lo, hi, rl, rh, 4, 5)
+    assert _rel_err(rec, t2.idwt_axis_plain(lo, hi, -1, rl, rh, 4, 5, "zero")) <= _tol1d(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wavelet", ["db5", "haar", "coif17"])
+@pytest.mark.parametrize("n,level", [(2**14, 10), (3 * 2**10, 5), (2**12, 3), (64, 6)])
+def test_cuda_k6_matches_plain(cuda_device, dtype, wavelet, n, level):
+    dl, dh, rl, rh = _banks(wavelet)
+    x = torch.randn(3, n, dtype=dtype, device=cuda_device)
+    _kernels.reset_launch_counts()
+    got = t6.fused_wavedec1d_per(x, dl, dh, level)
+    want = t6.wavedec1d_per_plain(x, dl, dh, level)
+    assert _rel_err(got, want) <= _tol1d(dtype)
+    rec = t6.fused_waverec1d_per(want, rl, rh)
+    assert _rel_err(rec, t6.waverec1d_per_plain(want, rl, rh)) <= _tol1d(dtype)
+    assert _rel_err(rec, x) <= 10 * _tol1d(dtype)
+    torch.cuda.synchronize()
+    runs = -(-level // 4)
+    assert _kernels.LAUNCHES["K6a"] == runs and _kernels.LAUNCHES["K6b"] == runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "mode,n,level,used",
+    [
+        ("reflect", 70001, 6, {"K8a", "K8b", "K3", "K4"}),
+        ("periodic", 1_000_000, 10, {"K8a", "K8b", "K3", "K4"}),
+        ("symmetric", 70001, 1, {"K7a", "K7b"}),
+        ("periodization", 2**17, 10, {"K6a", "K6b"}),
+        ("periodization", 70001, 3, {"K3", "K4"}),
+        ("zero", 65536, 3, {"K3", "K4"}),
+    ],
+)
+def test_cuda_wavedec_matches_cpu(cuda_device, mode, n, level, used):
+    x = torch.randn(2, n, dtype=torch.float64)
+    want = tptwt.wavedec(x, "db5", mode=mode, level=level)
+    _kernels.reset_launch_counts()
+    got = tptwt.wavedec(x.to(cuda_device), "db5", mode=mode, level=level)
+    rec = tptwt.waverec(got, "db5", mode=mode if mode == "periodization" else None)
+    torch.cuda.synchronize()
+    assert {k for k, v in _kernels.LAUNCHES.items() if v} == used
+    assert _rel_err([g.cpu() for g in got], want) <= 1e-10
+    assert float((rec.cpu()[..., :n] - x).abs().max()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_cuda_1d_kernels_refuse_grad(cuda_device):
+    x = torch.randn(1, 70001, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    for mode, level in (("reflect", 4), ("reflect", 1)):
+        with pytest.raises(NotImplementedError, match="1d training"):
+            tptwt.wavedec(x, "db2", mode=mode, level=level)
+    with pytest.raises(NotImplementedError, match="1d training"):
+        tptwt.wavedec(x[:, :4096], "db2", mode="periodization", level=3)
+    # short 1d levels keep K3's VJP
+    (grad,) = torch.autograd.grad(tptwt.wavedec(x[:, :500], "db2", level=2)[0].sum(), x)
+    assert grad.shape == x.shape
+
+
+@pytest.mark.cuda
+def test_cuda_2d_long_last_axis_runs_k7(cuda_device):
+    """A 2d level whose last axis passes the gate runs K7 along it."""
+    x = torch.randn(1, 6, 70001, dtype=torch.float64)
+    want = tptwt.wavedec2(x, "db2", mode="reflect", level=1)
+    _kernels.reset_launch_counts()
+    got = tptwt.wavedec2(x.to(cuda_device), "db2", mode="reflect", level=1)
+    rec = tptwt.waverec2(got, "db2")
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K7a"] == 1 and _kernels.LAUNCHES["K7b"] == 2
+    assert _rel_err([got[0].cpu(), *(b.cpu() for b in got[1])], [want[0], *want[1]]) <= 1e-10
+    assert float((rec.cpu()[..., :70001] - x).abs().max()) <= 1e-10

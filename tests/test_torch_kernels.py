@@ -7,8 +7,10 @@ are held against the JAX package's kernels run in Pallas interpret mode
 
 The CUDA glue around the kernels (the arguments each launch gets) is
 checked on the CPU too, by running it against a numpy model of the
-kernels' index arithmetic.  The kernels themselves are held against their
-plain versions on the card in ``tests/test_torch_cuda.py``.
+kernels' index arithmetic; the model also runs the 1d pyramid kernels of
+``csrc/fwt1d.cu`` block by block (``tests/test_torch_kernels1d.py``).
+The kernels themselves are held against their plain versions on the card
+in ``tests/test_torch_cuda.py``.
 """
 
 from __future__ import annotations
@@ -26,8 +28,12 @@ from ptwt_tpu.ops._dispatch import analysis_nd as j_analysis_nd
 from ptwt_tpu.ops._dispatch import synthesis_nd as j_synthesis_nd
 from ptwt_tpu.utils import get_filter_arrays as j_filters
 from ptwt_tpu_torch.ops import _kernels
+from ptwt_tpu_torch.ops import _pallas as t6
+from ptwt_tpu_torch.ops import _pallas1d as t7
+from ptwt_tpu_torch.ops import _pallas1d_multi as t8
 from ptwt_tpu_torch.ops import _pallas2 as t2
 from ptwt_tpu_torch.ops import _pallas2d as t2d
+from ptwt_tpu_torch.utils._padding import source_index
 
 AXIS_MODES = ["zero", "reflect", "periodic", "symmetric", "constant", "periodization", "valid"]
 
@@ -182,9 +188,140 @@ def _synthesis_op(taps, out_len, m, off, circular, half=None, per=None):
 _BAND_TAPS = ((0, 0), (1, 0), (0, 1), (1, 1))  # (H, W) taps of ll, lh, hl, hh
 
 
+_PADDED = ("zero", "reflect", "periodic", "symmetric", "constant")
+
+
+def _model_analysis_1d(x, lo_out, his, lo, hi, n_taps, rows, plan, circular, smem, itemsize):
+    """``ptwt_fwt1d_analysis`` block by block: each tile's cone, the
+    positions it owns, and the edge block's strips, with the kernel's index
+    arithmetic.  Every band position must be written exactly once."""
+    p = list(plan)
+    depth, n, padl, tile, tiles, mode, strip, edge = p[:8]
+    m, wl, wr = p[8:13], p[13:18], p[18:23]
+    f = np.array([lo[:n_taps], hi[:n_taps]])  # [2, L]
+    xs = x.numpy().reshape(rows, n).astype(np.float64)
+    bands = [np.full((rows, m[depth]), np.nan)] + [np.full((rows, m[lvl]), np.nan) for lvl in range(1, depth + 1)]
+
+    def put(band, pos, vals):
+        assert np.isnan(band[:, pos]).all(), "a band position was written twice"
+        band[:, pos] = vals
+
+    cones = []
+    for t in range(tiles):
+        s, c = [0] * (depth + 1), [0] * (depth + 1)
+        s[depth], c[depth] = t * tile, tile
+        for lvl in range(depth, 0, -1):
+            s[lvl - 1], c[lvl - 1] = 2 * s[lvl] - padl, 2 * c[lvl] + n_taps - 2
+        cones.append(c[0] + (c[1] if depth > 1 else 0))
+        pos = s[0] + np.arange(c[0])
+        if circular:
+            cur = xs[:, pos % n]
+        else:
+            cur = np.where((pos >= 0) & (pos < n), xs[:, np.clip(pos, 0, n - 1)], 0.0)
+        for lvl in range(1, depth + 1):
+            win = cur[:, 2 * np.arange(c[lvl])[:, None] + np.arange(n_taps)[None, :]]
+            lo_v, hi_v = win @ f[0], win @ f[1]
+            i = s[lvl] + np.arange(c[lvl])
+            own = tile << (depth - lvl)
+            first, last = t * own, t * own + own
+            if circular:
+                last = min(last, m[lvl])
+            else:
+                first, last = max(first, wl[lvl]), min(last, m[lvl] - wr[lvl])
+            sel = (i >= first) & (i < last)
+            put(bands[lvl], i[sel], hi_v[:, sel])
+            if lvl == depth:
+                put(bands[0], i[sel], lo_v[:, sel])
+            cur = lo_v
+    need = max(cones) if cones else 0
+    if edge:
+        e_prev = strip << depth
+        need = max(need, 3 * e_prev)
+        cur = np.concatenate([xs[:, :e_prev], xs[:, n - e_prev :]], axis=1)
+        for lvl in range(1, depth + 1):
+            mp, ml, e = m[lvl - 1], m[lvl], e_prev >> 1
+            i = np.concatenate([np.arange(e), ml - e + np.arange(e)])
+            src = source_index(2 * i[:, None] + np.arange(n_taps)[None, :] - padl, mp, _PADDED[mode])
+            inside = (src < e_prev) | (src >= mp - e_prev)
+            assert inside.all(), "an edge read fell outside both strips"
+            at = np.where(src < e_prev, src, e_prev + src - (mp - e_prev))
+            vals = np.where(src >= 0, cur[:, np.clip(at, 0, 2 * e_prev - 1)], 0.0)
+            lo_v, hi_v = vals @ f[0], vals @ f[1]
+            write = np.concatenate([np.arange(e) < wl[lvl], ml - e + np.arange(e) >= ml - wr[lvl]])
+            put(bands[lvl], i[write], hi_v[:, write])
+            if lvl == depth:
+                put(bands[0], i[write], lo_v[:, write])
+            cur, e_prev = lo_v, e
+    assert need * itemsize <= smem, "the launch's shared memory is too small"
+    for band in bands:
+        assert not np.isnan(band).any(), "a band position was never written"
+    for t, band in zip([lo_out, *his[:depth]], bands):
+        t.copy_(torch.from_numpy(band).reshape(t.shape))
+
+
+def _model_synthesis_1d(lo_in, his, out, rlo, rhi, n_taps, rows, plan, circular, smem, itemsize):
+    """``ptwt_fwt1d_synthesis`` tile by tile, with the kernel's cone ranges
+    (checked against the plan's buffer) and zero / modulo band reads."""
+    p = list(plan)
+    depth, tile, tiles, buf = p[:4]
+    lens, offs = p[4:9], p[9:14]
+    assert 3 * buf * itemsize <= smem
+    f = np.array([rlo[:n_taps], rhi[:n_taps]])
+    lo_d = lo_in.numpy().reshape(rows, lens[depth]).astype(np.float64)
+    hi_bands = {lvl: his[lvl - 1].numpy().reshape(rows, lens[lvl]).astype(np.float64)
+                for lvl in range(1, depth + 1)}
+    result = np.full((rows, lens[0]), np.nan)
+
+    def load(band, start, count, size):
+        q = start + np.arange(count)
+        if circular:
+            return band[:, q % size]
+        return np.where((q >= 0) & (q < size), band[:, np.clip(q, 0, size - 1)], 0.0)
+
+    for t in range(tiles):
+        c, e = [t * tile] + [0] * depth, [t * tile + tile - 1] + [0] * depth
+        for lvl in range(1, depth + 1):
+            c[lvl] = (c[lvl - 1] + offs[lvl] - (n_taps - 1)) // 2
+            e[lvl] = (e[lvl - 1] + offs[lvl]) // 2
+            assert e[lvl] - c[lvl] + 1 <= buf, "a cone outgrew the plan's buffer"
+        cur = load(lo_d, c[depth], e[depth] - c[depth] + 1, lens[depth])
+        for lvl in range(depth, 0, -1):
+            hb = load(hi_bands[lvl], c[lvl], e[lvl] - c[lvl] + 1, lens[lvl])
+            pos = c[lvl - 1] + np.arange(e[lvl - 1] - c[lvl - 1] + 1)
+            fo = pos + offs[lvl]
+            acc = np.zeros((rows, pos.size))
+            for k in range(n_taps):
+                even = (fo - k) % 2 == 0
+                q = (fo - k) // 2 - c[lvl]
+                assert ((q[even] >= 0) & (q[even] < cur.shape[1])).all()
+                qc = np.clip(q, 0, cur.shape[1] - 1)
+                acc += np.where(even, f[0, k] * cur[:, qc] + f[1, k] * hb[:, qc], 0.0)
+            if lvl > 1:
+                if not circular:
+                    acc[:, (pos < 0) | (pos >= lens[lvl - 1])] = 0.0
+                cur = acc
+            else:
+                sel = pos < lens[0]
+                assert np.isnan(result[:, pos[sel]]).all()
+                result[:, pos[sel]] = acc[:, sel]
+    assert not np.isnan(result).any(), "an output was never written"
+    out.copy_(torch.from_numpy(result).reshape(out.shape))
+
+
 def _model_launch(kernel, entry, device, dtype, *a):
     """Stand-in for ``_kernels.launch`` that runs the kernels' index rules;
     a VJP kernel runs the transpose of its forward's operator."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if entry == "ptwt_fwt1d_analysis":
+        x, lo_out, *his = a[:6]
+        _model_analysis_1d(x, lo_out, his, *a[6:], itemsize)
+        _kernels.LAUNCHES[kernel] += 1
+        return
+    if entry == "ptwt_fwt1d_synthesis":
+        lo_in, *his = a[:5]
+        _model_synthesis_1d(lo_in, his, *a[5:], itemsize)
+        _kernels.LAUNCHES[kernel] += 1
+        return
     if entry in ("ptwt_analysis_axis", "ptwt_analysis_axis_t"):
         src, out, lo, hi, n_taps, outer, n, period, m, inner, pad, circ = a
         ops = [_analysis_op(t[:n_taps], m, n, period, pad, circ) for t in (lo, hi)]
@@ -237,8 +374,8 @@ def model_kernels(monkeypatch):
     """Send CPU tensors down the CUDA glue, launching the numpy model."""
     monkeypatch.setattr(_kernels, "launch", _model_launch)
     monkeypatch.setattr(_kernels, "check_tensor", lambda *args: None)
-    monkeypatch.setattr(t2, "_on_cpu", lambda t: False)
-    monkeypatch.setattr(t2d, "_on_cpu", lambda t: False)
+    for module in (t2, t2d, t6, t7, t8):
+        monkeypatch.setattr(module, "_on_cpu", lambda t: False)
     _kernels.reset_launch_counts()
     yield _kernels.LAUNCHES
     _kernels.reset_launch_counts()
