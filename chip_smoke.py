@@ -55,10 +55,35 @@ Phases, each raising (non-zero exit) on failure:
    ``periodization`` (K6) and on ``[32, 1_000_000]`` with one level in
    ``reflect`` (K7): coefficients against the plain path on the card under
    phase 7's limits, round trip within 1e-4, and the launches of each run
-   (d1: K8a, K8b, K3, K4; K6: K6a, K6b and no K3/K4; K7: K7a, K7b).
+   (d1: K8a, K8b, K3, K4; K6: K6a, K6b and no K3/K4; K7: K7a, K7b);
+9. K5a/K5b (the 2d periodization pyramid) and their VJPs against their
+   plain versions, at the two 2d periodization configurations
+   (``[16, 1024, 1024]`` db4 4 levels, ``[256, 128, 128]`` db4 3 levels):
+   float32 at full width, float64 at batch 2, db4 and coif17 (102 taps;
+   where the plan declines a shape it says so, and the per-level route
+   runs it); the limit is phase 7's, and in float64 the adjoint identity;
+10. the 2d periodization main path: ``wavedec2`` -> ``waverec2`` in
+   ``periodization`` at both configurations, float32: coefficients
+   against the plain path within 2e-5, round trip within 1e-4, and the
+   launches (K5a/K5b at least once, no K1/K2 where the plan holds the
+   chain);
+11. training through every configuration of the 2d periodization and 1d
+   slices: phase 6's model in ``periodization`` at both 2d
+   configurations, and a 1d counterpart (a signal and per-level detail
+   gains) at d1 periodic and reflect, K6 and K7: 3 SGD steps on the
+   kernel path against the plain path (phase 6's limits), the launches of
+   one backward (which must be VJP launches only: K5a/K5b, K6a/K6b,
+   K3T/K4T, never the forward kernel of a launch's own direction), and
+   the step's wall time.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
+configurations, the VJP of every pyramid kernel (K5a-K8b) as the autograd
+backward runs it beside autograd through the plain version, and the 2d
+periodization round trips in Mpix/s.
+
+The last lines are a ``{"kernels": [...]}`` JSON line (fourteen kernels;
+K1, K2 and K5a-K8b carry ``vjp_*`` keys), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -111,6 +136,8 @@ REPLACES = {
     "K4": ("src/ptwt_tpu_torch/csrc/axis.cu", "src/ptwt_tpu/ops/_pallas2.py:266"),
     "K3T": ("src/ptwt_tpu_torch/csrc/axis_vjp.cu", "src/ptwt_tpu/ops/_pallas2.py:238"),
     "K4T": ("src/ptwt_tpu_torch/csrc/axis_vjp.cu", "src/ptwt_tpu/ops/_pallas2.py:293"),
+    "K5a": ("src/ptwt_tpu_torch/csrc/pyramid2d.cu", "src/ptwt_tpu/ops/_pallas.py:249"),
+    "K5b": ("src/ptwt_tpu_torch/csrc/pyramid2d.cu", "src/ptwt_tpu/ops/_pallas.py:321"),
     "K6a": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas.py:132"),
     "K6b": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas.py:394"),
     "K7a": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas1d.py:117"),
@@ -134,6 +161,14 @@ WAVELET_1D = "db5"
 LEVEL_1D = 10
 BATCH_F64_1D = 4
 PADDED_MODES = ("zero", "reflect", "periodic", "symmetric", "constant")
+# the 2d periodization slice: the headline's width, and small images
+# inside the JAX package's own K5 domain (tests/test_pallas.py:59)
+SMALL_SHAPE = (256, 128, 128)
+SMALL_LEVEL = 3
+PER_2D = (("headline", SHAPE, LEVEL), ("small", SMALL_SHAPE, SMALL_LEVEL))
+LONG_WAVELET = "coif17"
+BATCH_F64_2D = 2
+KERNELS_K5 = ("K5a", "K5b")
 
 
 def log(msg: str) -> None:
@@ -738,19 +773,38 @@ class GainModel(torch.nn.Module):
     """An image and per-level, per-orientation gains on its details:
     ``waverec2((cA, g[l] * details_l))`` of ``wavedec2(u)``."""
 
-    def __init__(self, mode: str):
+    def __init__(self, mode: str, shape=None, level=None):
         super().__init__()
-        self.mode = mode
-        self.u = torch.nn.Parameter(randn(SHAPE, torch.float32, SEED + 40))
-        self.g = torch.nn.Parameter(torch.ones(LEVEL, 3, device=DEVICE))
+        self.mode, self.level = mode, level or LEVEL
+        self.u = torch.nn.Parameter(randn(shape or SHAPE, torch.float32, SEED + 40))
+        self.g = torch.nn.Parameter(torch.ones(self.level, 3, device=DEVICE))
 
     def forward(self):
-        coeffs = ptwt.wavedec2(self.u, WAVELET, mode=self.mode, level=LEVEL)
+        coeffs = ptwt.wavedec2(self.u, WAVELET, mode=self.mode, level=self.level)
         details = coeffs[1:]
         scaled = [
             tuple(self.g[lev, o] * d for o, d in enumerate(t)) for lev, t in enumerate(details)
         ]
         return ptwt.waverec2((coeffs[0], *scaled), WAVELET, mode=self.mode), details
+
+
+class GainModel1d(torch.nn.Module):
+    """The 1d counterpart: a batch of signals and per-level gains on their
+    details, ``waverec((cA, g[l] * cD_l))`` of ``wavedec(u)``."""
+
+    def __init__(self, mode: str, shape, level: int):
+        super().__init__()
+        self.mode, self.level, self.n = mode, level, shape[-1]
+        self.u = torch.nn.Parameter(randn(shape, torch.float32, SEED + 42))
+        self.g = torch.nn.Parameter(torch.ones(level, 1, device=DEVICE))
+
+    def forward(self):
+        coeffs = ptwt.wavedec(self.u, WAVELET_1D, mode=self.mode, level=self.level)
+        details = coeffs[1:]
+        scaled = [self.g[lev, 0] * d for lev, d in enumerate(details)]
+        rec_mode = self.mode if self.mode == "periodization" else None
+        rec = ptwt.waverec([coeffs[0], *scaled], WAVELET_1D, mode=rec_mode)
+        return rec[..., : self.n], [(d,) for d in details]
 
 
 def train_loss(model: GainModel, y: torch.Tensor) -> torch.Tensor:
@@ -767,8 +821,8 @@ def optimizer(model: GainModel) -> torch.optim.SGD:
     )
 
 
-def train_steps(mode: str, y: torch.Tensor) -> tuple[list, list]:
-    model = GainModel(mode)
+def train_steps(make, y: torch.Tensor) -> tuple[list, list]:
+    model = make()
     opt = optimizer(model)
     losses, first = [], None
     for _ in range(TRAIN_STEPS):
@@ -782,12 +836,15 @@ def train_steps(mode: str, y: torch.Tensor) -> tuple[list, list]:
     return losses, first
 
 
-def check_training(mode: str, y: torch.Tensor) -> dict:
+def check_training(mode: str, y: torch.Tensor, make=None, with_profile: bool = True) -> dict:
     """3 steps on the kernel path against the plain path; launches of one
-    backward and of one step; wall times and a profile of a step."""
-    losses, grads = train_steps(mode, y)
+    backward and of one step; wall times and a profile of a step.
+    ``make`` builds the model (phase 6's at the headline width by
+    default); ``mode`` labels the run."""
+    make = make or (lambda: GainModel(mode))
+    losses, grads = train_steps(make, y)
     with plain_versions():
-        ref_losses, ref_grads = train_steps(mode, y)
+        ref_losses, ref_grads = train_steps(make, y)
     log(f"  {mode}: losses {losses} (plain {ref_losses})")
     for got, want in zip(losses, ref_losses):
         check(f"{mode} step loss vs plain (relative)", abs(got - want) / abs(want), TRAIN_LOSS_RTOL)
@@ -797,7 +854,7 @@ def check_training(mode: str, y: torch.Tensor) -> dict:
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{mode}: the loss did not fall: {losses}")
 
-    model = GainModel(mode)
+    model = make()
     opt = optimizer(model)
     loss = train_loss(model, y)
     torch.cuda.synchronize()
@@ -805,7 +862,7 @@ def check_training(mode: str, y: torch.Tensor) -> dict:
     loss.backward()
     torch.cuda.synchronize()
     backward = dict(_kernels.LAUNCHES)
-    log(f"  {mode}: launches of one backward {backward}")
+    log(f"  {mode}: launches of one backward { {k: v for k, v in backward.items() if v} }")
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -816,14 +873,15 @@ def check_training(mode: str, y: torch.Tensor) -> dict:
     step()
     torch.cuda.synchronize()
     per_step = dict(_kernels.LAUNCHES)
-    log(f"  {mode}: launches of one training step {per_step}")
+    log(f"  {mode}: launches of one training step { {k: v for k, v in per_step.items() if v} }")
     step_ms = wall_ms(step)
     forward_ms = wall_ms(lambda: train_loss(model, y))
     log(
         f"  {mode}: training step {step_ms!r} ms wall, forward {forward_ms!r} ms, "
         f"(step - forward) / forward {(step_ms - forward_ms) / forward_ms!r}"
     )
-    profile(step, f"{mode} training step")
+    if with_profile:
+        profile(step, f"{mode} training step")
     return {"backward": backward, "step": per_step, "step_ms": step_ms, "forward_ms": forward_ms}
 
 
@@ -1069,6 +1127,275 @@ def round_trips_1d() -> None:
     log(f"  d1 periodic round trip: no plain-version ops among {len(rows)} device entries")
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10, and phase 5's K5 times: the 2d periodization pyramid
+# ---------------------------------------------------------------------------
+
+
+def nest(flat: list, level: int) -> list:
+    """``[cA, lh, hl, hh, ...]`` -> ``[cA, (lh, hl, hh), ...]``."""
+    return [flat[0]] + [tuple(flat[1 + 3 * i : 4 + 3 * i]) for i in range(level)]
+
+
+def k5_runs(shape, level: int, filt_len: int, dtype):
+    """The K5 plan's runs for ``[b, h, w]``, or None where it declines."""
+    if not _pallas.fused_wavedec2d_applicable(shape[-2], shape[-1], filt_len, level, dtype):
+        return None
+    return _pallas._pyramid2d_runs(shape[-2], shape[-1], filt_len, level, torch.empty((), dtype=dtype).element_size())
+
+
+def check_k5_case(errors: dict, shape, level: int, wavelet: str, dtype, seed: int) -> None:
+    """K5a/K5b and their VJPs against their plain versions on one shape."""
+    tag = f"{wavelet} {list(shape)} level {level}"
+    dl, dh, _, _ = get_filter_arrays(wavelet, flip=True, dtype=dtype)
+    _, _, rl, rh = get_filter_arrays(wavelet, flip=False, dtype=dtype)
+    runs = k5_runs(shape, level, len(dl), dtype)
+    if runs is None:
+        log(f"  K5 {tag} {dtype}: the plan declines it; the per-level route (K1/K2, K3/K4) runs it")
+        return
+    x = leaf(randn(shape, dtype, seed))
+    _kernels.reset_launch_counts()
+    got = flat_coeffs(_pallas.fused_wavedec2d_per(x, dl, dh, level))
+    want = flat_coeffs(_pallas.wavedec2d_per_plain(x.detach(), dl, dh, level))
+    check_1d(errors, "K5a", tag, [g.detach() for g in got], want, dtype)
+    rec = _pallas.fused_waverec2d_per(nest(want, level), rl, rh)
+    check_1d(errors, "K5b", tag, rec, _pallas.waverec2d_per_plain(nest(want, level), rl, rh), dtype)
+    check(f"K5b(K5a) {tag} round trip {dtype}", max_abs(rec, x.detach()), 10 * TOL[dtype])
+    torch.cuda.synchronize()
+    if (_kernels.LAUNCHES["K5a"], _kernels.LAUNCHES["K5b"]) != (len(runs), len(runs)):
+        raise AssertionError(f"K5 {tag}: launches {dict(_kernels.LAUNCHES)}, runs {runs}")
+    log(f"  K5 {tag} {dtype}: runs {runs}")
+    # K5a's VJP (K5b with the dec taps) against autograd through the plain version
+    cts = [randn(t.shape, dtype, seed + 10 + i) for i, t in enumerate(got)]
+    (grad,) = torch.autograd.grad(got, x, cts)
+    z = leaf(x)
+    (ref,) = torch.autograd.grad(flat_coeffs(_pallas.wavedec2d_per_plain(z, dl, dh, level)), z, cts)
+    check_1d(errors, "K5a VJP", tag, grad, ref, dtype)
+    if dtype == torch.float64:
+        adjoint(f"K5a {tag}", [g.detach() for g in got], cts, [x.detach()], [grad])
+    # K5b's VJP (K5a with the rec taps)
+    leaves = [leaf(t) for t in want]
+    rec = _pallas.fused_waverec2d_per(nest(leaves, level), rl, rh)
+    ct = randn(rec.shape, dtype, seed + 30)
+    grads = torch.autograd.grad(rec, leaves, ct)
+    plain = [leaf(t) for t in want]
+    refs = torch.autograd.grad(_pallas.waverec2d_per_plain(nest(plain, level), rl, rh), plain, ct)
+    check_1d(errors, "K5b VJP", tag, list(grads), list(refs), dtype)
+    if dtype == torch.float64:
+        adjoint(f"K5b {tag}", [rec.detach()], [ct], leaves, grads)
+    torch.cuda.synchronize()
+
+
+def check_k5(errors: dict) -> None:
+    for i, (_, shape, level) in enumerate(PER_2D):
+        for dtype in (torch.float32, torch.float64):
+            sized = shape if dtype == torch.float32 else (BATCH_F64_2D, *shape[1:])
+            for wavelet in (WAVELET, LONG_WAVELET):
+                check_k5_case(errors, sized, level, wavelet, dtype, SEED + 80 + 10 * i)
+
+
+def main_path_per(name: str, shape, level: int, seed: int) -> dict:
+    """Phase 10: the 2d periodization round trip at one configuration."""
+    x = randn(shape, torch.float32, seed)
+    _kernels.reset_launch_counts()
+    coeffs = ptwt.wavedec2(x, WAVELET, mode="periodization", level=level)
+    rec = ptwt.waverec2(coeffs, WAVELET, mode="periodization")
+    torch.cuda.synchronize()
+    counts = dict(_kernels.LAUNCHES)
+    log(f"  {name} periodization: launches per round trip { {k: v for k, v in counts.items() if v} }")
+    with plain_versions():
+        ref = ptwt.wavedec2(x, WAVELET, mode="periodization", level=level)
+        ref_rec = ptwt.waverec2(ref, WAVELET, mode="periodization")
+    coeff_err = check(f"{name} periodization coefficients vs plain path", max_abs(flat_coeffs(coeffs), flat_coeffs(ref)), 2e-5)
+    check(f"{name} periodization reconstruction vs plain path", max_abs(rec, ref_rec), 2e-5)
+    rt_err = check(f"{name} periodization round trip vs input", max_abs(rec, x), ROUND_TRIP_TOL)
+    runs = k5_runs(shape, level, 8, torch.float32)
+    if runs is None:
+        log(f"  {name}: the K5 plan declines this chain; K1/K2 carry it")
+        if counts["K1"] < 1:
+            raise AssertionError(f"{name}: neither K5 nor K1 ran: {counts}")
+    else:
+        if counts["K5a"] < 1 or counts["K5b"] < 1:
+            raise AssertionError(f"K5a/K5b were not launched by the {name} periodization round trip")
+        if counts["K1"] or counts["K2"]:
+            raise AssertionError(f"the {name} periodization round trip launched K1/K2: {counts}")
+    return {"counts": counts, "coeff_err": coeff_err, "round_trip_err": rt_err, "runs": runs}
+
+
+def pyramid2d_cost(b: int, h: int, w: int, level: int, L: int, size: int):
+    """Bytes (the image read once, every band written once) and operations
+    of a ``level``-level 2d periodization pyramid; the synthesis moves the
+    same bytes."""
+    bands = (h >> level) * (w >> level) + 3 * sum((h >> lv) * (w >> lv) for lv in range(1, level + 1))
+    flops = sum(
+        analysis_flops(b, h >> (lv - 1), w >> (lv - 1), h >> lv, w >> lv, L) for lv in range(1, level + 1)
+    )
+    syn_flops = sum(
+        synthesis_flops(b, h >> lv, w >> lv, h >> (lv - 1), w >> (lv - 1), L) for lv in range(1, level + 1)
+    )
+    return size * b * (h * w + bands), flops, syn_flops
+
+
+def vjp_timing(outs, ins, cts, plain_outs, plain_ins, label: str, tol: float) -> dict:
+    """The backward of ``outs`` (device time of its VJP launches) beside
+    autograd through the plain version, and their agreement."""
+    got = torch.autograd.grad(outs, ins, cts, retain_graph=True)
+    ref = torch.autograd.grad(plain_outs, plain_ins, cts, retain_graph=True)
+    err = check(f"{label} VJP vs autograd through the plain version (relative)", rel_err(list(got), list(ref)), tol)
+    return {
+        "vjp_ms": time_ms(lambda: torch.autograd.grad(outs, ins, cts, retain_graph=True)),
+        "vjp_plain_ms": time_ms(lambda: torch.autograd.grad(plain_outs, plain_ins, cts, retain_graph=True)),
+        "vjp_max_abs_err": max_abs(list(got), list(ref)),
+        "vjp_rel_err": err,
+    }
+
+
+def time_k5() -> dict:
+    """Phase 5's K5 rows at both 2d periodization configurations (float32):
+    the kernels, the per-level K1/K2 route they replace, their VJPs."""
+    f32 = torch.float32
+    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
+    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
+    L = len(dl)
+    rows = {"K5a": {}, "K5b": {}}
+    for i, (name, shape, level) in enumerate(PER_2D):
+        b, h, w = shape
+        x = leaf(randn(shape, f32, SEED + 90 + i))
+        coeffs = _pallas.fused_wavedec2d_per(x.detach(), dl, dh, level)
+
+        def per_level_k1():
+            cur = x.detach()
+            for _ in range(level):
+                cur = _pallas2d.fused2_dwt_level(cur, dl, dh, "periodization")[0]
+            return cur
+
+        def per_level_k2():
+            cur = coeffs[0]
+            for trip in coeffs[1:]:
+                cur = _pallas2d.fused2_idwt_level((cur, *trip), rl, rh, "periodization")
+            return cur
+
+        check(f"K5b vs the per-level K2 route ({name})", max_abs(_pallas.fused_waverec2d_per(coeffs, rl, rh), per_level_k2()), 1e-4)
+        nbytes, flops, syn_flops = pyramid2d_cost(b, h, w, level, L, 4)
+        ana = {
+            "ms": time_ms(lambda: _pallas.fused_wavedec2d_per(x.detach(), dl, dh, level)),
+            "plain_ms": time_ms(lambda: _pallas.wavedec2d_per_plain(x.detach(), dl, dh, level)),
+            "per_level_ms": time_ms(per_level_k1),
+            "bytes": nbytes,
+            "flops": flops,
+        }
+        syn = {
+            "ms": time_ms(lambda: _pallas.fused_waverec2d_per(coeffs, rl, rh)),
+            "plain_ms": time_ms(lambda: _pallas.waverec2d_per_plain(coeffs, rl, rh)),
+            "per_level_ms": time_ms(per_level_k2),
+            "bytes": nbytes,
+            "flops": syn_flops,
+        }
+        # the VJPs as the autograd backward runs them
+        outs = flat_coeffs(_pallas.fused_wavedec2d_per(x, dl, dh, level))
+        cts = [randn(t.shape, f32, SEED + 100 + j) for j, t in enumerate(outs)]
+        z = leaf(x)
+        ana.update(vjp_timing(outs, [x], cts, flat_coeffs(_pallas.wavedec2d_per_plain(z, dl, dh, level)), [z], f"K5a {name}", TOL[f32]))
+        leaves = [leaf(t) for t in flat_coeffs(coeffs)]
+        plain = [leaf(t) for t in leaves]
+        ct = [randn(x.shape, f32, SEED + 120)]
+        rec = _pallas.fused_waverec2d_per(nest(leaves, level), rl, rh)
+        syn.update(vjp_timing([rec], leaves, ct, [_pallas.waverec2d_per_plain(nest(plain, level), rl, rh)], plain, f"K5b {name}", TOL[f32]))
+        for row in (ana, syn):
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
+            row["library_ms"] = None
+            row["library_note"] = "none: multi-level (no one library call runs the pyramid)"
+            row["runs"] = list(k5_runs(shape, level, L, f32))
+        rows["K5a"][name], rows["K5b"][name] = ana, syn
+        for kernel in KERNELS_K5:
+            row = rows[kernel][name]
+            log(
+                f"  {kernel} {name}: ms={row['ms']!r} per_level_ms={row['per_level_ms']!r} "
+                f"plain_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} ({row['bound_by']}) "
+                f"vjp_ms={row['vjp_ms']!r} vjp_plain_ms={row['vjp_plain_ms']!r} runs={row['runs']}"
+            )
+        del x, coeffs, outs, cts, leaves, plain, rec
+    return rows
+
+
+def round_trips_per() -> None:
+    """The 2d periodization round trips in Mpix/s (phase 5)."""
+    for i, (name, shape, level) in enumerate(PER_2D):
+        x = randn(shape, torch.float32, SEED + 130 + i)
+        mpix = shape[0] * shape[1] * shape[2] / 1e6
+        ms = wall_ms(
+            lambda: ptwt.waverec2(ptwt.wavedec2(x, WAVELET, mode="periodization", level=level), WAVELET, mode="periodization")
+        )
+        log(f"  round trip periodization {name}: {ms!r} ms, {mpix / (ms * 1e-3)!r} Mpix/s")
+
+
+def time_vjps_1d() -> dict:
+    """Phase 5's VJP rows of the 1d pyramid kernels, as the autograd
+    backward runs them, at phase 8's shapes (float32)."""
+    f32 = torch.float32
+    dl, dh, rl, rh = banks_1d(f32)
+    L = len(dl)
+    tol = TOL[f32]
+    rows = {}
+    x = leaf(randn(D1_SHAPE, f32, SEED + 140))
+
+    def run_rows(kernel_a, kernel_b, mode, depth, label):
+        """The VJP rows of one analysis run and its synthesis run."""
+        lo, his = _pallas1d_multi.flat_wavedec_lane_multi(x, dl, dh, mode, depth)
+        cts = [randn(t.shape, f32, SEED + 150 + j) for j, t in enumerate((lo, *his))]
+        z = leaf(x)
+        ref_lo, ref_his = _pallas1d_multi.multi_analysis_plain(z, dl, dh, mode, depth)
+        row_a = vjp_timing([lo, *his], [x], cts, [ref_lo, *ref_his], [z], f"{kernel_a} {label}", tol)
+        coeffs = [leaf(t) for t in (ref_lo, *ref_his[::-1])]
+        plain = [leaf(t) for t in coeffs]
+        pads, lens = chain_crops(x, ref_his, L)
+        rec = _pallas1d_multi.flat_waverec_lane_multi(coeffs, rl, rh, pads, lens)
+        ref = _pallas1d_multi.multi_synthesis_plain(plain, rl, rh, pads, lens)
+        ct = [randn(rec.shape, f32, SEED + 160)]
+        return row_a, vjp_timing([rec], coeffs, ct, [ref], plain, f"{kernel_b} {label}", tol)
+
+    rows["K8a"], rows["K8b"] = run_rows("K8a", "K8b", "periodic", 4, "d1 periodic run")
+    # reflect: the same K3T launches plus four padding folds (index_add)
+    rows["K8a reflect"], _ = run_rows("K8a", "K8b", "reflect", 4, "d1 reflect run")
+    log(
+        f"  K8a VJP: periodic {rows['K8a']['vjp_ms']!r} ms, reflect (K3T and its four folds) "
+        f"{rows['K8a reflect']['vjp_ms']!r} ms"
+    )
+    rows["K7a"], rows["K7b"] = run_rows("K7a", "K7b", "reflect", 1, "K7 reflect level")
+    del x
+    x = leaf(randn(K6_SHAPE, f32, SEED + 170))
+    bands = _pallas.fused_wavedec1d_per(x, dl, dh, LEVEL_1D)
+    cts = [randn(t.shape, f32, SEED + 180 + j) for j, t in enumerate(bands)]
+    z = leaf(x)
+    rows["K6a"] = vjp_timing(bands, [x], cts, _pallas.wavedec1d_per_plain(z, dl, dh, LEVEL_1D), [z], "K6a", tol)
+    leaves = [leaf(t) for t in bands]
+    plain = [leaf(t) for t in leaves]
+    ct = [randn(x.shape, f32, SEED + 190)]
+    rec = _pallas.fused_waverec1d_per(leaves, rl, rh)
+    rows["K6b"] = vjp_timing([rec], leaves, ct, [_pallas.waverec1d_per_plain(plain, rl, rh)], plain, "K6b", tol)
+    for name, row in rows.items():
+        log(f"  {name} VJP: vjp_ms={row['vjp_ms']!r} vjp_plain_ms={row['vjp_plain_ms']!r} vjp_max_abs_err={row['vjp_max_abs_err']!r}")
+    return rows
+
+
+#: phase 11's 1d configurations: (name, shape, mode, level, its backward's launches)
+TRAIN_1D = (
+    ("d1 periodic", D1_SHAPE, "periodic", LEVEL_1D, ("K3T", "K4T")),
+    ("d1 reflect", D1_SHAPE, "reflect", LEVEL_1D, ("K3T", "K4T")),
+    ("K6 periodization", K6_SHAPE, "periodization", LEVEL_1D, ("K6a", "K6b")),
+    ("K7 reflect level 1", D1_SHAPE, "reflect", 1, ("K3T", "K4T")),
+)
+
+
+def check_backward(name: str, backward: dict, allowed: tuple) -> None:
+    """One backward launched every kernel of ``allowed`` and nothing else:
+    no forward kernel of a launch's own direction."""
+    used = {k for k, v in backward.items() if v}
+    if used != set(allowed):
+        raise AssertionError(f"the {name} backward launched {sorted(used)}, expected {sorted(allowed)}")
+
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -1169,6 +1496,46 @@ def main() -> int:
     rows_1d = time_kernels_1d()
     round_trips_1d()
 
+    log("phase 9: K5a/K5b and their VJPs against their plain versions")
+    errors_k5 = {name: {} for name in (*KERNELS_K5, "K5a VJP", "K5b VJP")}
+    check_k5(errors_k5)
+
+    log("phase 10: 2d periodization main path")
+    main_per = {
+        name: main_path_per(name, shape, level, SEED + 200 + i)
+        for i, (name, shape, level) in enumerate(PER_2D)
+    }
+
+    log("phase 11: training through the 2d periodization and 1d configurations")
+    train_per = {}
+    for i, (name, shape, level) in enumerate(PER_2D):
+        target = y if shape == SHAPE else randn(shape, torch.float32, SEED + 43 + i)
+        res = check_training(
+            f"periodization {name}", target,
+            make=lambda shape=shape, level=level: GainModel("periodization", shape, level),
+            with_profile=name == "headline",
+        )
+        allowed = KERNELS_K5 if main_per[name]["runs"] else ("K1", "K2")
+        check_backward(f"periodization {name}", res["backward"], allowed)
+        train_per[name] = res
+    del y
+    train_1d = {}
+    for i, (name, shape, mode, level, allowed) in enumerate(TRAIN_1D):
+        target = randn(shape, torch.float32, SEED + 210 + i)
+        res = check_training(
+            name, target,
+            make=lambda shape=shape, mode=mode, level=level: GainModel1d(mode, shape, level),
+            with_profile=False,
+        )
+        check_backward(name, res["backward"], allowed)
+        train_1d[name] = res
+        del target
+
+    log("phase 5, 2d periodization and the pyramid VJPs: times")
+    rows_k5 = time_k5()
+    round_trips_per()
+    vjp_1d = time_vjps_1d()
+
     kernels = []
     for name in ("K1", "K2", "K3", "K4", "K3T", "K4T"):
         source, replaces = REPLACES[name]
@@ -1201,6 +1568,53 @@ def main() -> int:
                 vjp_library_ms=vjp["library_ms"],
             )
         kernels.append(entry)
+    vjp_kernel = {"K5a": "K5b", "K5b": "K5a", "K6a": "K6b", "K6b": "K6a",
+                  "K7a": "K3T", "K8a": "K3T", "K7b": "K4T", "K8b": "K4T"}
+    per_back = train_per["headline"]["backward"]
+    for name in KERNELS_K5:
+        source, replaces = REPLACES[name]
+        row, small = rows_k5[name]["headline"], rows_k5[name]["small"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            # per round trip of the headline periodization configuration
+            "launches": main_per["headline"]["counts"][name],
+            "max_abs_err": errors_k5[name][torch.float32]["abs"],
+            "max_abs_err_f64": errors_k5[name][torch.float64]["abs"],
+            "rel_err": errors_k5[name][torch.float32]["rel"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "library_note": row["library_note"],
+            "per_level_k1_k2_ms": row["per_level_ms"],
+            "runs": row["runs"],
+            "small": {
+                "shape": list(SMALL_SHAPE),
+                "launches": main_per["small"]["counts"][name],
+                "ms": small["ms"],
+                "plain_ms": small["plain_ms"],
+                "per_level_k1_k2_ms": small["per_level_ms"],
+                "bound_ms": small["bound_ms"],
+                "vjp_ms": small["vjp_ms"],
+                "runs": small["runs"],
+            },
+            "vjp_kernel": vjp_kernel[name],
+            "vjp_launches": per_back[vjp_kernel[name]],
+            "vjp_max_abs_err": errors_k5[f"{name} VJP"][torch.float32]["abs"],
+            "vjp_max_abs_err_f64": errors_k5[f"{name} VJP"][torch.float64]["abs"],
+            "vjp_ms": row["vjp_ms"],
+            "vjp_plain_ms": row["vjp_plain_ms"],
+            "vjp_bound_ms": row["bound_ms"],
+            "vjp_library_ms": None,
+        })
+    # VJP launches per backward of each 1d kernel's configuration: what its
+    # VJP kernel ran, less the VJPs of the per-level K3/K4 levels
+    cfg_1d = {"K8a": "d1 periodic", "K8b": "d1 periodic", "K6a": "K6 periodization",
+              "K6b": "K6 periodization", "K7a": "K7 reflect level 1", "K7b": "K7 reflect level 1"}
     for name in KERNELS_1D:
         source, replaces = REPLACES[name]
         row = rows_1d[name]
@@ -1224,6 +1638,25 @@ def main() -> int:
         }
         if "per_level_ms" in row:
             entry["per_level_k3_k4_ms"] = row["per_level_ms"]
+        cfg = cfg_1d[name]
+        back = train_1d[cfg]["backward"][vjp_kernel[name]]
+        per_level = {"K3T": "K3", "K4T": "K4"}.get(vjp_kernel[name])
+        if per_level:
+            back -= main_1d[cfg]["counts"][per_level]
+        vjp = vjp_1d[name]
+        entry.update(
+            vjp_kernel=vjp_kernel[name],
+            vjp_launches=back,
+            vjp_max_abs_err=vjp["vjp_max_abs_err"],
+            vjp_rel_err=vjp["vjp_rel_err"],
+            vjp_ms=vjp["vjp_ms"],
+            vjp_plain_ms=vjp["vjp_plain_ms"],
+            vjp_bound_ms=row["bound_ms"],
+            vjp_library_ms=None,
+            training_step_ms=train_1d[cfg]["step_ms"],
+        )
+        if name == "K8a":
+            entry["vjp_ms_reflect"] = vjp_1d["K8a reflect"]["vjp_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,11 +1,13 @@
 """2d fast wavelet transform.
 
-Counterpart of :mod:`ptwt_tpu.conv_transform_2`.  Each level runs through
-:func:`~ptwt_tpu_torch.ops.analysis_nd` / :func:`~ptwt_tpu_torch.ops.synthesis_nd`,
-which launch the hand-written CUDA kernels for tensors on the card and
-their plain torch versions for CPU tensors.  Coefficient layout
-``(cA_n, (H_n, V_n, D_n), ..., (H_1, V_1, D_1))`` and odd-shape
-bookkeeping follow pywt.
+Counterpart of :mod:`ptwt_tpu.conv_transform_2`.  A ``periodization``
+pyramid on an exactly halving chain runs as runs of fused levels (K5,
+:mod:`~ptwt_tpu_torch.ops._pallas`) where the K5 plan holds it; every
+other level runs through :func:`~ptwt_tpu_torch.ops.analysis_nd` /
+:func:`~ptwt_tpu_torch.ops.synthesis_nd`.  Both launch the hand-written
+CUDA kernels for tensors on the card and their plain torch versions for
+CPU tensors.  Coefficient layout ``(cA_n, (H_n, V_n, D_n), ..., (H_1,
+V_1, D_1))`` and odd-shape bookkeeping follow pywt.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from .constants import (
 )
 from .conv_transform import _adjust_padding_at_reconstruction
 from .ops import analysis_nd, synthesis_nd
+from .ops._pallas import fused_wavedec2d_applicable, fused_wavedec2d_per, fused_waverec2d_per
 from .utils import (
     as_device_tensor,
     coeff_tree_map,
@@ -41,6 +44,18 @@ __all__ = ["wavedec2", "waverec2"]
 def _check_dtype(dtype: torch.dtype) -> None:
     if dtype not in SUPPORTED_DTYPES:
         raise ValueError(f"Unsupported dtype {dtype}: use float32 or float64.")
+
+
+def _halving_chain(coeffs) -> bool:
+    """Does every band of level ``i`` (coarse to fine) have ``cA``'s shape
+    with the spatial axes doubled ``i - 1`` times?  A mismatch takes the
+    per-level path, which raises for it."""
+    ref = coeffs[0].shape
+    return all(
+        tuple(band.shape) == (*ref[:-2], ref[-2] << i, ref[-1] << i)
+        for i, trip in enumerate(coeffs[1:])
+        for band in trip
+    )
 
 
 def wavedec2(
@@ -84,6 +99,14 @@ def wavedec2(
 
     if level is None:
         level = min(dwt_max_level(s, filt_len) for s in data.shape[-2:])
+
+    if mode == "periodization" and fused_wavedec2d_applicable(
+        data.shape[-2], data.shape[-1], filt_len, level, data.dtype
+    ):
+        # the whole 2d pyramid in runs of fused levels (ops._pallas, K5)
+        raw = fused_wavedec2d_per(data, dec_lo, dec_hi, level)
+        coeffs = (raw[0], *(WaveletDetailTuple2d(*t) for t in raw[1:]))
+        return postprocess_coeffs(coeffs, ndim=2, ds=ds, axes=axes)
 
     result_lst: list[WaveletDetailTuple2d] = []
     res_ll = data
@@ -153,6 +176,17 @@ def waverec2(
         )
         mode = "periodization" if inferred else "reflect"
     periodization = mode == "periodization"
+
+    if (
+        periodization
+        and len(coeffs) >= 2
+        and _halving_chain(coeffs)
+        and fused_wavedec2d_applicable(
+            2 * coeffs[-1][0].shape[-2], 2 * coeffs[-1][0].shape[-1], filt_len, len(coeffs) - 1, dtype
+        )
+    ):
+        out = fused_waverec2d_per([coeffs[0]] + [tuple(t) for t in coeffs[1:]], rec_lo, rec_hi)
+        return postprocess_tensor(out, ndim=2, ds=ds, axes=axes)
 
     res_ll = coeffs[0]
     for c_pos, coeff_tuple in enumerate(coeffs[1:]):

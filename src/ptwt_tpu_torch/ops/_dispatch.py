@@ -17,6 +17,12 @@ kernel pairs, with no TPU size gates beyond the long-axis floor of K7:
   every other level runs the per-axis route along axis -1 on both (lo, hi)
   pairs (K4: one launch), then along axis -2.
 
+A ``periodization`` level reaches this module only where the whole
+pyramid does not run fused: ``wavedec``/``waverec`` send an exactly
+halving 1d chain to K6 and ``wavedec2``/``waverec2`` a 2d chain that the
+K5 plan holds to K5 (:mod:`._pallas`), before any level is routed here.
+Here a 2d periodization level runs K1/K2, a 1d one K3/K4.
+
 On a CPU tensor the same decisions call the kernels' plain versions.
 """
 

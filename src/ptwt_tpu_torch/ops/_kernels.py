@@ -9,7 +9,9 @@ rebuilt and a stale library is never loaded.  Nothing here runs when the
 module is imported.
 
 Every launch goes through :func:`launch`, which counts it in
-:data:`LAUNCHES` and raises if the C entry point reports an error.
+:data:`LAUNCHES` and raises if the C entry point reports an error.  A
+list of tensors among a launch's arguments reaches the C entry point as
+an array of device pointers (``None`` as a null pointer).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _D = ctypes.POINTER(ctypes.c_double)
 _IA = ctypes.POINTER(ctypes.c_int)
+_PA = ctypes.POINTER(ctypes.c_void_p)
 
 #: C entry point -> (source file, argument types).
 _ENTRY_POINTS = {
@@ -83,6 +86,12 @@ _ENTRY_POINTS = {
     "ptwt_fwt1d_synthesis": (
         "fwt1d", [_I, _P, _P, _P, _P, _P, _P, _D, _D, _I, _LL, _IA, _I, _I, _P]
     ),
+    "ptwt_pyramid2d_analysis": (
+        "pyramid2d", [_I, _P, _P, _PA, _D, _D, _I, _LL, _IA, _I, _P]
+    ),
+    "ptwt_pyramid2d_synthesis": (
+        "pyramid2d", [_I, _P, _PA, _P, _D, _D, _I, _LL, _IA, _I, _P]
+    ),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.  A VJP
@@ -90,10 +99,15 @@ _ENTRY_POINTS = {
 #: K3T and K4T those of K3 and K4.  The 1d pyramid kernels of
 #: ``csrc/fwt1d.cu`` count under the TPU kernel whose contract a launch
 #: carries: a depth-1 launch of the K8 pair is K7a/K7b, and every launch of
-#: a K6 pyramid (one per run of at most four levels) is K6a/K6b.
+#: a K6 pyramid (one per run of at most four levels) is K6a/K6b.  The
+#: pyramid pairs are each other's VJP (K5a's VJP launch counts as K5b,
+#: K6b's as K6a); the VJPs of K7/K8 are K3T/K4T launches.
 LAUNCHES: dict[str, int] = {
     name: 0
-    for name in ("K1", "K2", "K3", "K4", "K3T", "K4T", "K6a", "K6b", "K7a", "K7b", "K8a", "K8b")
+    for name in (
+        "K1", "K2", "K3", "K4", "K3T", "K4T", "K5a", "K5b",
+        "K6a", "K6b", "K7a", "K7b", "K8a", "K8b",
+    )
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -129,7 +143,7 @@ def _library_path(source: str) -> Path:
 
 
 #: Every ``csrc`` source with kernels.
-SOURCES = ("axis", "axis_vjp", "dwt2", "fwt1d")
+SOURCES = ("axis", "axis_vjp", "dwt2", "fwt1d", "pyramid2d")
 
 
 def build(sources: Sequence[str] = SOURCES) -> dict[str, float]:
@@ -231,14 +245,23 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, device) -> None
         raise ValueError(f"{name} must be contiguous")
 
 
+def _c_arg(a):
+    if isinstance(a, torch.Tensor):
+        return a.data_ptr()
+    if isinstance(a, list):
+        return (ctypes.c_void_p * len(a))(*(None if t is None else t.data_ptr() for t in a))
+    return a
+
+
 def launch(kernel: str, entry: str, device: torch.device, dtype: torch.dtype, *args) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream.
 
     ``args`` are the entry point's arguments after the dtype code and
-    before the stream; tensors are passed as their data pointers.
+    before the stream; tensors are passed as their data pointers, a list
+    of tensors as an array of them.
     """
     lib = _library(_ENTRY_POINTS[entry][0])
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    c_args = [_c_arg(a) for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, entry)(_DTYPE_CODE[dtype], *c_args, stream)

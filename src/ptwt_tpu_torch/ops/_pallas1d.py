@@ -20,9 +20,13 @@ the TPU's threshold, to be set from the card by the port's bench),
 float32 and float64 alike, filters of up to 128 taps.  The plain versions
 are one level of :func:`~._pallas2.dwt_axis_plain` /
 :func:`~._pallas2.idwt_axis_plain` on the last axis; the wrappers take them
-for CPU tensors only.  A CUDA tensor that requires grad raises
-``NotImplementedError`` here: gradients through K7 come with the 1d
-training slice, and are not rerouted to K3/K4.
+for CPU tensors only.
+
+Gradients: each launch is the depth-1 case of the K8 autograd Functions
+of :mod:`._pallas1d_multi`, so K7a's VJP is one K3T launch (plus the
+transpose of the padding gather for the padded modes but ``periodic``)
+and K7b's one K4T launch, the transposed single level of the JAX
+package's ``custom_vjp``s.
 """
 
 from __future__ import annotations
@@ -32,14 +36,7 @@ import math
 import torch
 
 from . import _kernels
-from ._pallas1d_multi import (
-    PADDED_MODES,
-    _band_lengths,
-    _long_lane,
-    analysis_pyramid,
-    check_no_grad,
-    synthesis_pyramid,
-)
+from ._pallas1d_multi import PADDED_MODES, _LaneAnalysis, _LaneSynthesis, _long_lane
 from ._pallas2 import _on_cpu, dwt_axis_plain, idwt_axis_plain
 
 __all__ = [
@@ -64,13 +61,10 @@ def dwt_lane_packed(x: torch.Tensor, dec_lo, dec_hi, mode: str) -> torch.Tensor:
         return torch.stack(dwt_axis_plain(x, -1, dec_lo, dec_hi, mode))
     lo = _kernels.static_taps(dec_lo)
     hi = _kernels.static_taps(dec_hi)
-    check_no_grad(x)
     lead = x.shape[:-1]
     x2 = x.reshape(math.prod(lead), x.shape[-1]).contiguous()
-    m = _band_lengths(x.shape[-1], len(lo), 1, mode)[1]
-    packed = x.new_empty(2, *lead, max(m, 0))
-    analysis_pyramid("K7a", x2, lo, hi, 1, mode, out=(packed[0], packed[1]))
-    return packed
+    (packed,) = _LaneAnalysis.apply(x2, "K7a", lo, hi, 1, mode)
+    return packed.reshape(2, *lead, packed.shape[-1])
 
 
 def flat_dwt_lane(
@@ -100,10 +94,9 @@ def flat_idwt_lane(
         return idwt_axis_plain(lo_band, hi_band, -1, rec_lo, rec_hi, padl, padr, "zero")
     lo = _kernels.static_taps(rec_lo)
     hi = _kernels.static_taps(rec_hi)
-    check_no_grad(lo_band, hi_band)
     lead = lo_band.shape[:-1]
     m = lo_band.shape[-1]
     out_len = max(2 * (m - 1) + len(lo) - padl - padr, 0)
     bands = [b.reshape(math.prod(lead), m).contiguous() for b in (lo_band, hi_band)]
-    out = synthesis_pyramid("K7b", bands, lo, hi, [padl], out_len, False)
+    out = _LaneSynthesis.apply("K7b", lo, hi, (padl,), out_len, *bands)
     return out.reshape(*lead, out_len)

@@ -43,8 +43,24 @@ Each kernel's plain version (:func:`multi_analysis_plain`,
 :func:`multi_synthesis_plain`: ``depth`` levels of
 :func:`~._pallas2.dwt_axis_plain` / :func:`~._pallas2.idwt_axis_plain`)
 sits here; the wrappers take it for CPU tensors only.  A CUDA tensor
-launches the kernel or raises, also for a tensor that requires grad:
-gradients through the 1d pyramid kernels come with the 1d training slice.
+launches the kernel or raises.
+
+Gradients: one :class:`torch.autograd.Function` per launch, whose
+backward launches the transposed per-level kernels, as the JAX package's
+``custom_vjp``s transpose the fused levels:
+
+* K8a (K7a) -- the ``depth`` levels transposed coarse to fine, each one
+  K3T launch (:func:`~._pallas2._analysis_transpose_kernel`) with the plan
+  the K3 route uses for that mode; ``periodic`` reads circularly, the
+  other padded modes yield the extended band's cotangent, which the
+  transpose of the padding gather folds back
+  (:func:`~ptwt_tpu_torch.utils._padding.fwt_pad_vjp`).
+* K8b (K7b) -- the ``depth`` steps transposed fine to coarse, each one
+  K4T launch (:func:`~._pallas2._synthesis_transpose_kernel`) with its
+  step's crop.
+
+Only the geometry is saved (the maps are linear).  A filter tensor that
+requires grad raises on the card, and so does a double backward.
 """
 
 from __future__ import annotations
@@ -53,9 +69,17 @@ import math
 from typing import Optional, Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from ..utils._padding import fwt_pad_vjp
 from . import _kernels
-from ._pallas2 import _on_cpu, dwt_axis_plain, idwt_axis_plain
+from ._pallas2 import (
+    _analysis_transpose_kernel,
+    _on_cpu,
+    _synthesis_transpose_kernel,
+    dwt_axis_plain,
+    idwt_axis_plain,
+)
 
 __all__ = [
     "FLAT_MIN_LANES",
@@ -86,13 +110,6 @@ MAX_TAPS = 128
 _TILE_SAMPLES = 4096
 #: Shared memory one block may use on the H100 (bytes).
 _SMEM_LIMIT = 232448
-
-_NO_1D_GRAD = (
-    "gradients through the 1d pyramid kernels (K6, K7, K8) are not on the "
-    "card yet: they come with the 1d training slice (ROADMAP Queue 1 item "
-    "6b, 1d training). Detach the input, or use a CPU tensor, whose plain "
-    "path carries gradients."
-)
 
 
 def _long_lane(n: int, filt_len: int) -> bool:
@@ -242,12 +259,6 @@ def _syn_plan(filt_len: int, out_len: int, lens: Sequence[int], offs: Sequence[i
 # ---------------------------------------------------------------------------
 
 
-def check_no_grad(*tensors: torch.Tensor) -> None:
-    """Raise for a CUDA tensor that autograd would have to differentiate."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(_NO_1D_GRAD)
-
-
 def analysis_pyramid(
     kernel: str,
     x2: torch.Tensor,
@@ -323,6 +334,77 @@ def synthesis_pyramid(
             rows, _kernels.int_array(ints), int(circular), smem,
         )
     return out
+
+
+def level_vjp(ct: torch.Tensor, n: int, lo, hi, mode: str) -> torch.Tensor:
+    """The VJP of one analysis level of K7a/K8a as one K3T launch.
+
+    ``ct`` is the packed ``[2, rows, m]`` (lo, hi) cotangent; returns the
+    cotangent of the level's ``[rows, n]`` input.  The plan is the one
+    :func:`~._pallas2.pallas_dwt_axis` gives K3 for ``mode``.
+    """
+    filt_len = len(lo)
+    if mode == "periodic":
+        return _analysis_transpose_kernel(ct, 1, n, lo, hi, n, _std_pad(filt_len), True)
+    if mode == "valid":
+        return _analysis_transpose_kernel(ct, 1, n, lo, hi, n, 0, False)
+    n_ext = n + 2 * _std_pad(filt_len) + n % 2
+    ext = _analysis_transpose_kernel(ct, 1, n_ext, lo, hi, n_ext, 0, False)
+    return fwt_pad_vjp(ext, n, filt_len, mode)
+
+
+class _LaneAnalysis(torch.autograd.Function):
+    """K8a (K7a at depth 1) forward on ``[rows, n]``; backward: ``depth``
+    K3T launches, coarse to fine.
+
+    Returns ``(packed_D, hi_1, ..., hi_{D-1})`` with ``packed_D = [2, rows,
+    m_D]`` holding (lo_D, hi_D), so the deepest level's cotangent reaches
+    K3T packed as it is.
+    """
+
+    @staticmethod
+    def forward(ctx, x2, kernel, lo, hi, depth, mode):
+        rows, n = x2.shape
+        ms = _band_lengths(n, len(lo), depth, mode)
+        ctx.plan = (ms, lo, hi, mode)
+        packed = x2.new_empty(2, rows, max(ms[depth], 0))
+        his = [x2.new_empty(rows, m) for m in ms[1:depth]]
+        analysis_pyramid(kernel, x2, lo, hi, depth, mode, out=(packed[0], *his, packed[1]))
+        return (packed, *his)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct, *ct_his):
+        ms, lo, hi, mode = ctx.plan
+        ct = ct.contiguous()
+        for lvl in range(len(ms) - 1, 0, -1):
+            grad = level_vjp(ct, ms[lvl - 1], lo, hi, mode)
+            if lvl > 1:
+                ct = torch.stack((grad, ct_his[lvl - 2]))
+        return (grad,) + (None,) * 5
+
+
+class _LaneSynthesis(torch.autograd.Function):
+    """K8b (K7b at depth 1) forward; backward: ``depth`` K4T launches,
+    fine to coarse, each with its step's crop."""
+
+    @staticmethod
+    def forward(ctx, kernel, lo, hi, offs, out_len, *bands):
+        depth = len(bands) - 1
+        ctx.plan = (lo, hi, offs, [bands[depth + 1 - lvl].shape[-1] for lvl in range(1, depth + 1)])
+        return synthesis_pyramid(kernel, bands, lo, hi, offs, out_len, False)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        lo, hi, offs, lens = ctx.plan
+        grads = []
+        cur = ct.contiguous()
+        for m, off in zip(lens, offs):  # fine to coarse
+            pair = _synthesis_transpose_kernel(cur.unsqueeze(0), 1, m, lo, hi, off, False)[0]
+            grads.append(pair[1])
+            cur = pair[0]
+        return (None,) * 5 + (cur, *grads[::-1])
 
 
 # ---------------------------------------------------------------------------
@@ -404,11 +486,12 @@ def flat_wavedec_lane_multi(
         return multi_analysis_plain(x, dec_lo, dec_hi, mode, depth)
     lo = _kernels.static_taps(dec_lo)
     hi = _kernels.static_taps(dec_hi)
-    check_no_grad(x)
     lead = x.shape[:-1]
     x2 = x.reshape(math.prod(lead), x.shape[-1]).contiguous()
-    lo_band, his = analysis_pyramid("K8a" if depth > 1 else "K7a", x2, lo, hi, depth, mode)
-    return lo_band.reshape(*lead, -1), [h.reshape(*lead, -1) for h in his]
+    kernel = "K8a" if depth > 1 else "K7a"
+    packed, *his = _LaneAnalysis.apply(x2, kernel, lo, hi, depth, mode)
+    lo_band, hi_band = packed.unbind(0)
+    return lo_band.reshape(*lead, -1), [h.reshape(*lead, -1) for h in (*his, hi_band)]
 
 
 def flat_waverec_lane_multi(coeffs, rec_lo, rec_hi, pads, lens) -> torch.Tensor:
@@ -425,7 +508,6 @@ def flat_waverec_lane_multi(coeffs, rec_lo, rec_hi, pads, lens) -> torch.Tensor:
         return multi_synthesis_plain(coeffs, rec_lo, rec_hi, pads, lens)
     lo = _kernels.static_taps(rec_lo)
     hi = _kernels.static_taps(rec_hi)
-    check_no_grad(*coeffs)
     depth = len(coeffs) - 1
     for lvl in range(1, depth):
         if coeffs[depth + 1 - lvl].shape[-1] != lens[lvl]:
@@ -436,7 +518,6 @@ def flat_waverec_lane_multi(coeffs, rec_lo, rec_hi, pads, lens) -> torch.Tensor:
     lead = coeffs[0].shape[:-1]
     rows = math.prod(lead)
     bands = [c.reshape(rows, c.shape[-1]).contiguous() for c in coeffs]
-    out = synthesis_pyramid(
-        "K8b" if depth > 1 else "K7b", bands, lo, hi, list(pads)[:depth], lens[0], False
-    )
+    kernel = "K8b" if depth > 1 else "K7b"
+    out = _LaneSynthesis.apply(kernel, lo, hi, tuple(pads)[:depth], lens[0], *bands)
     return out.reshape(*lead, lens[0])

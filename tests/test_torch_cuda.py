@@ -19,6 +19,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 import ptwt_tpu_torch as tptwt  # noqa: E402
 from ptwt_tpu_torch.ops import _kernels  # noqa: E402
+from ptwt_tpu_torch.ops import _pallas as t5  # noqa: E402
 from ptwt_tpu_torch.ops import _pallas as t6  # noqa: E402
 from ptwt_tpu_torch.ops import _pallas1d as t7  # noqa: E402
 from ptwt_tpu_torch.ops import _pallas1d_multi as t8  # noqa: E402
@@ -328,15 +329,209 @@ def test_cuda_wavedec_matches_cpu(cuda_device, mode, n, level, used):
 
 @pytest.mark.cuda
 def test_cuda_1d_kernels_refuse_grad(cuda_device):
+    """Only filter gradients and double backward are refused on the 1d
+    kernel routes; data gradients run on the VJP launches."""
+    dl, dh, _, _ = _banks("db2")
     x = torch.randn(1, 70001, dtype=torch.float64, device=cuda_device, requires_grad=True)
-    for mode, level in (("reflect", 4), ("reflect", 1)):
-        with pytest.raises(NotImplementedError, match="1d training"):
-            tptwt.wavedec(x, "db2", mode=mode, level=level)
-    with pytest.raises(NotImplementedError, match="1d training"):
-        tptwt.wavedec(x[:, :4096], "db2", mode="periodization", level=3)
-    # short 1d levels keep K3's VJP
-    (grad,) = torch.autograd.grad(tptwt.wavedec(x[:, :500], "db2", level=2)[0].sum(), x)
-    assert grad.shape == x.shape
+    with pytest.raises(NotImplementedError, match="filter gradient"):
+        t8.flat_wavedec_lane_multi(x, torch.tensor(dl, requires_grad=True), dh, "reflect", 4)
+    for n, mode, level in ((70001, "reflect", 4), (70001, "reflect", 1), (4096, "periodization", 3)):
+        out = tptwt.wavedec(x[:, :n], "db2", mode=mode, level=level)[0]
+        (grad,) = torch.autograd.grad((out**2).sum(), x, create_graph=True)
+        assert grad.shape == x.shape
+        with pytest.raises(RuntimeError):
+            torch.autograd.grad(grad.sum(), x)
+
+
+def _vjp_err(got, want) -> float:
+    return max(_rel_err(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wavelet", ["db5", "haar", "coif17"])
+@pytest.mark.parametrize("mode", [*PADDED, "valid"])
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_cuda_k7_k8_vjps_match_plain(cuda_device, dtype, wavelet, mode, depth):
+    """K7a/K8a's VJP (K3T per level, folded) and K7b/K8b's (K4T per step)
+    against autograd through the plain versions."""
+    if mode == "valid" and depth > 1:
+        pytest.skip("valid runs one level (K7a) only")
+    dl, dh, rl, rh = _banks(wavelet)
+    x = torch.randn(3, 70001, dtype=dtype, device=cuda_device, requires_grad=True)
+    lo, his = t8.flat_wavedec_lane_multi(x, dl, dh, mode, depth)
+    cts = [_randn_like(t, i) for i, t in enumerate((lo, *his))]
+    _kernels.reset_launch_counts()
+    (got,) = torch.autograd.grad((lo, *his), x, cts)
+    torch.cuda.synchronize()
+    assert {k for k, v in _kernels.LAUNCHES.items() if v} == {"K3T"}
+    z = x.detach().requires_grad_()
+    ref_lo, ref_his = t8.multi_analysis_plain(z, dl, dh, mode, depth)
+    (want,) = torch.autograd.grad((ref_lo, *ref_his), z, cts)
+    assert _rel_err(got, want) <= _tol1d(dtype)
+    if mode == "valid":
+        return
+    coeffs = [t.detach().requires_grad_() for t in (ref_lo, *ref_his[::-1])]
+    pads = [_std_pad(len(dl))] * depth
+    lens = [x.shape[-1]] + [h.shape[-1] for h in ref_his[:-1]]
+    rec = t8.flat_waverec_lane_multi(coeffs, rl, rh, pads, lens)
+    ct = _randn_like(rec, 9)
+    _kernels.reset_launch_counts()
+    got = torch.autograd.grad(rec, coeffs, ct)
+    torch.cuda.synchronize()
+    assert dict((k, v) for k, v in _kernels.LAUNCHES.items() if v) == {"K4T": depth}
+    leaves = [c.detach().requires_grad_() for c in coeffs]
+    want = torch.autograd.grad(t8.multi_synthesis_plain(leaves, rl, rh, pads, lens), leaves, ct)
+    assert _vjp_err(got, want) <= _tol1d(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wavelet", ["db5", "haar", "coif17"])
+@pytest.mark.parametrize("n,level", [(2**14, 10), (3 * 2**10, 5), (64, 6)])
+def test_cuda_k6_vjps_match_plain(cuda_device, dtype, wavelet, n, level):
+    """K6a's VJP (K6b) and K6b's (K6a), one launch per run."""
+    dl, dh, rl, rh = _banks(wavelet)
+    x = torch.randn(3, n, dtype=dtype, device=cuda_device, requires_grad=True)
+    bands = t6.fused_wavedec1d_per(x, dl, dh, level)
+    cts = [_randn_like(b, i) for i, b in enumerate(bands)]
+    _kernels.reset_launch_counts()
+    (got,) = torch.autograd.grad(bands, x, cts)
+    torch.cuda.synchronize()
+    runs = -(-level // 4)
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K6b": runs}
+    z = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(t6.wavedec1d_per_plain(z, dl, dh, level), z, cts)
+    assert _rel_err(got, want) <= _tol1d(dtype)
+    leaves = [b.detach().requires_grad_() for b in bands]
+    rec = t6.fused_waverec1d_per(leaves, rl, rh)
+    ct = _randn_like(rec, 9)
+    _kernels.reset_launch_counts()
+    got = torch.autograd.grad(rec, leaves, ct)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K6a": runs}
+    plain = [b.detach().requires_grad_() for b in bands]
+    want = torch.autograd.grad(t6.waverec1d_per_plain(plain, rl, rh), plain, ct)
+    assert _vjp_err(got, want) <= _tol1d(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,level", [("periodic", 10), ("reflect", 10), ("reflect", 1), ("periodization", 10)])
+def test_cuda_1d_public_gradients_match_cpu(cuda_device, mode, level):
+    n = 2**17 if mode == "periodization" else 70001
+    x = torch.randn(2, n, dtype=torch.float64)
+    weight = torch.randn(2, n, dtype=torch.float64)
+
+    def grad_on(device):
+        xd = x.to(device).requires_grad_()
+        coeffs = tptwt.wavedec(xd, "db5", mode=mode, level=level)
+        rec = tptwt.waverec(coeffs, "db5", mode=mode if mode == "periodization" else None)[..., :n]
+        loss = (rec * weight.to(device)).sum() + sum((c**2).sum() for c in coeffs)
+        return torch.autograd.grad(loss, xd)[0]
+
+    got = grad_on(cuda_device)
+    assert float((got.cpu() - grad_on("cpu")).abs().max()) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# the 2d periodization pyramid: K5a/K5b and their VJPs
+# ---------------------------------------------------------------------------
+
+K5_SHAPES = [
+    (3, 128, 128, 3),  # the whole image, one launch
+    (2, 512, 256, 4),  # tiled runs
+    (2, 96, 160, 5),  # not a power of two, ragged tiles
+    (1, 24, 20, 2),  # coif17's 102 taps wrap these bands several times
+]
+
+
+@pytest.mark.cuda
+# db20's 40 taps find no tile within the plan's 64 KB target on the tiled
+# shape and take the limit's depth-1 runs
+@pytest.mark.parametrize(
+    "dtype,wavelet", [*CASES, (torch.float32, "haar"), (torch.float32, "sym8"), (torch.float32, "db20")]
+)
+@pytest.mark.parametrize("b,h,w,level", K5_SHAPES)
+def test_cuda_k5_matches_plain(cuda_device, dtype, wavelet, b, h, w, level):
+    dl, dh, rl, rh = _banks(wavelet)
+    if not t5.fused_wavedec2d_applicable(h, w, len(dl), level, dtype):
+        pytest.skip("the K5 plan declines this shape (the per-level route runs it)")
+    x = torch.randn(b, h, w, dtype=dtype, device=cuda_device)
+    runs = len(t5._pyramid2d_runs(h, w, len(dl), level, x.element_size()))
+    _kernels.reset_launch_counts()
+    got = t5.fused_wavedec2d_per(x, dl, dh, level)
+    want = t5.wavedec2d_per_plain(x, dl, dh, level)
+    assert _rel_err(_flat2(got), _flat2(want)) <= _tol1d(dtype)
+    rec = t5.fused_waverec2d_per(want, rl, rh)
+    assert _rel_err(rec, t5.waverec2d_per_plain(want, rl, rh)) <= _tol1d(dtype)
+    assert _rel_err(rec, x) <= 10 * _tol1d(dtype)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K5a": runs, "K5b": runs}
+
+
+def _flat2(coeffs):
+    return [coeffs[0]] + [b for t in coeffs[1:] for b in t]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wavelet", [*CASES, (torch.float32, "haar")])
+@pytest.mark.parametrize("b,h,w,level", K5_SHAPES)
+def test_cuda_k5_vjps_match_plain(cuda_device, dtype, wavelet, b, h, w, level):
+    """K5a's VJP (K5b) and K5b's (K5a) against autograd through the plain
+    versions; float64 also holds the adjoint identity."""
+    dl, dh, rl, rh = _banks(wavelet)
+    if not t5.fused_wavedec2d_applicable(h, w, len(dl), level, dtype):
+        pytest.skip("the K5 plan declines this shape (the per-level route runs it)")
+    x = torch.randn(b, h, w, dtype=dtype, device=cuda_device, requires_grad=True)
+    runs = len(t5._pyramid2d_runs(h, w, len(dl), level, x.element_size()))
+    bands = _flat2(t5.fused_wavedec2d_per(x, dl, dh, level))
+    cts = [_randn_like(t, i) for i, t in enumerate(bands)]
+    _kernels.reset_launch_counts()
+    (got,) = torch.autograd.grad(bands, x, cts)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K5b": runs}
+    z = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(_flat2(t5.wavedec2d_per_plain(z, dl, dh, level)), z, cts)
+    assert _rel_err(got, want) <= _tol1d(dtype)
+    if dtype == torch.float64:
+        lhs = sum(float((o.detach() * c).sum()) for o, c in zip(bands, cts))
+        assert abs(lhs - float((x.detach() * got).sum())) <= 1e-12 * max(1.0, abs(lhs))
+    leaves = [t.detach().requires_grad_() for t in bands]
+    coeffs = [leaves[0]] + [tuple(leaves[1 + 3 * i : 4 + 3 * i]) for i in range(level)]
+    rec = t5.fused_waverec2d_per(coeffs, rl, rh)
+    ct = _randn_like(rec, 99)
+    _kernels.reset_launch_counts()
+    got = torch.autograd.grad(rec, leaves, ct)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K5a": runs}
+    plain = [t.detach().requires_grad_() for t in bands]
+    pcoeffs = [plain[0]] + [tuple(plain[1 + 3 * i : 4 + 3 * i]) for i in range(level)]
+    want = torch.autograd.grad(t5.waverec2d_per_plain(pcoeffs, rl, rh), plain, ct)
+    assert _vjp_err(got, want) <= _tol1d(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,level", [((2, 128, 128), 3), ((2, 256, 512), 4), ((2, 64, 64), 6)])
+def test_cuda_k5_public_path_matches_cpu(cuda_device, shape, level):
+    x = torch.randn(*shape, dtype=torch.float64)
+    weight = torch.randn(*shape, dtype=torch.float64)
+
+    def run(device):
+        xd = x.to(device).requires_grad_()
+        coeffs = tptwt.wavedec2(xd, "db4", mode="periodization", level=level)
+        rec = tptwt.waverec2(coeffs, "db4")
+        loss = (rec * weight.to(device)).sum() + sum((b**2).sum() for t in coeffs[1:] for b in t)
+        return _flat2(coeffs), rec, torch.autograd.grad(loss, xd)[0]
+
+    _kernels.reset_launch_counts()
+    coeffs, rec, grad = run(cuda_device)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K5a"] and _kernels.LAUNCHES["K5b"]
+    assert not (_kernels.LAUNCHES["K1"] or _kernels.LAUNCHES["K2"])
+    want = run("cpu")
+    assert _rel_err([c.cpu() for c in coeffs], want[0]) <= 1e-10
+    assert float((rec.cpu() - x).abs().max()) <= 1e-10
+    assert float((grad.cpu() - want[2]).abs().max()) <= 1e-10
 
 
 @pytest.mark.cuda

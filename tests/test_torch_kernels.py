@@ -8,7 +8,10 @@ are held against the JAX package's kernels run in Pallas interpret mode
 The CUDA glue around the kernels (the arguments each launch gets) is
 checked on the CPU too, by running it against a numpy model of the
 kernels' index arithmetic; the model also runs the 1d pyramid kernels of
-``csrc/fwt1d.cu`` block by block (``tests/test_torch_kernels1d.py``).
+``csrc/fwt1d.cu`` (``tests/test_torch_kernels1d.py``) and the 2d pyramid
+kernels of ``csrc/pyramid2d.cu`` (``tests/test_torch_pyramid2d.py``)
+block by block.  Its K3/K4 entries and their VJPs apply sparse operators
+(one entry per tap), so long lanes can be modelled too.
 The kernels themselves are held against their plain versions on the card
 in ``tests/test_torch_cuda.py``.
 """
@@ -18,6 +21,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 import ptwt_tpu as jptwt
@@ -185,6 +189,41 @@ def _synthesis_op(taps, out_len, m, off, circular, half=None, per=None):
     return op
 
 
+def _analysis_sparse(taps, m, n, period, pad, circular):
+    """:func:`_analysis_op` as a sparse ``[m, n]`` matrix, one entry per tap."""
+    taps = np.asarray(taps, dtype=np.float64)
+    i = np.repeat(np.arange(m), len(taps))
+    k = np.tile(np.arange(len(taps)), m)
+    r = 2 * i - pad + k
+    if circular:
+        r, keep = np.minimum(r % period, n - 1), np.ones(r.shape, bool)
+    else:
+        keep = (r >= 0) & (r < n)
+    return scipy.sparse.csr_matrix((taps[k][keep], (i[keep], r[keep])), shape=(m, n))
+
+
+def _synthesis_sparse(taps, out_len, m, off, circular):
+    """:func:`_synthesis_op` (no fold) as a sparse ``[out_len, m]`` matrix."""
+    taps = np.asarray(taps, dtype=np.float64)
+    t = np.repeat(np.arange(out_len), len(taps))
+    k = np.tile(np.arange(len(taps)), out_len)
+    f = t + off - k
+    q = f // 2
+    keep = f % 2 == 0
+    if circular:
+        q = q % m
+    else:
+        keep &= (q >= 0) & (q < m)
+    return scipy.sparse.csr_matrix((taps[k][keep], (t[keep], q[keep])), shape=(out_len, m))
+
+
+def _apply(op, arr):
+    """``op`` along the middle axis of ``[outer, a, inner]``."""
+    outer, a, inner = arr.shape
+    flat = arr.transpose(1, 0, 2).reshape(a, outer * inner)
+    return np.asarray(op @ flat).reshape(op.shape[0], outer, inner).transpose(1, 0, 2)
+
+
 _BAND_TAPS = ((0, 0), (1, 0), (0, 1), (1, 1))  # (H, W) taps of ll, lh, hl, hh
 
 
@@ -308,6 +347,138 @@ def _model_synthesis_1d(lo_in, his, out, rlo, rhi, n_taps, rows, plan, circular,
     out.copy_(torch.from_numpy(result).reshape(out.shape))
 
 
+def _model_pyramid2d_analysis(x, ll_out, det, lo, hi, n_taps, batch, plan, smem, itemsize):
+    """``ptwt_pyramid2d_analysis`` block by block: each tile's cone per
+    axis (modulo the image, or the whole image read modulo in shared
+    memory), the row and column passes, and the positions each block owns.
+    Every band position must be written exactly once."""
+    depth, h, w, th, tw, tiles_h, tiles_w, whole, pad, buf_a, buf_b = list(plan)
+    assert (buf_a + 2 * buf_b) * itemsize <= smem, "the launch's shared memory is too small"
+    f = np.array([lo[:n_taps], hi[:n_taps]])
+    taps = np.arange(n_taps)
+    xs = x.numpy().reshape(batch, h, w).astype(np.float64)
+    bands = [[np.full((batch, h >> lvl, w >> lvl), np.nan) for _ in range(3)] for lvl in range(depth + 1)]
+    ll_d = np.full((batch, h >> depth, w >> depth), np.nan)
+
+    def put(band, rows, cols, vals):
+        assert np.isnan(band[:, rows[:, None], cols[None, :]]).all(), "a band position was written twice"
+        band[:, rows[:, None], cols[None, :]] = vals
+
+    def cone(first, t, size):
+        s, c = [0] * (depth + 1), [0] * (depth + 1)
+        s[depth], c[depth] = first, t
+        for lvl in range(depth, 0, -1):
+            if whole:
+                s[lvl - 1], c[lvl - 1] = 0, size >> (lvl - 1)
+            else:
+                s[lvl - 1], c[lvl - 1] = 2 * s[lvl] - pad, 2 * c[lvl] + n_taps - 2
+        return s, c
+
+    def reads(c_out, size):  # [c_out, L] cone offsets of one pass
+        idx = 2 * np.arange(c_out)[:, None] + taps[None, :]
+        return (idx - pad) % size if whole else idx
+
+    for ty in range(tiles_h):
+        for tx in range(tiles_w):
+            sh, ch = cone(ty * th, th, h)
+            sw, cw = cone(tx * tw, tw, w)
+            assert ch[0] * cw[0] <= buf_a and ch[0] * cw[1] <= buf_b
+            rows, cols = (sh[0] + np.arange(ch[0])) % h, (sw[0] + np.arange(cw[0])) % w
+            cur = xs[:, rows[:, None], cols[None, :]]
+            for lvl in range(1, depth + 1):
+                win = cur[:, :, reads(cw[lvl], w >> (lvl - 1))]  # [b, ch, cw_l, L]
+                lo_w, hi_w = win @ f[0], win @ f[1]
+                ridx = reads(ch[lvl], h >> (lvl - 1))
+                a_, b_ = lo_w[:, ridx, :], hi_w[:, ridx, :]  # [b, ch_l, L, cw_l]
+                ll = np.einsum("bilj,l->bij", a_, f[0])
+                subs = [np.einsum("bilj,l->bij", a_, f[1]), np.einsum("bilj,l->bij", b_, f[0]),
+                        np.einsum("bilj,l->bij", b_, f[1])]
+                gi, gj = sh[lvl] + np.arange(ch[lvl]), sw[lvl] + np.arange(cw[lvl])
+                own_h, own_w = th << (depth - lvl), tw << (depth - lvl)
+                sel_h = (gi >= ty * own_h) & (gi < min(ty * own_h + own_h, h >> lvl))
+                sel_w = (gj >= tx * own_w) & (gj < min(tx * own_w + own_w, w >> lvl))
+                for band, vals in zip(bands[lvl], subs):
+                    put(band, gi[sel_h], gj[sel_w], vals[:, sel_h][:, :, sel_w])
+                if lvl == depth:
+                    put(ll_d, gi[sel_h], gj[sel_w], ll[:, sel_h][:, :, sel_w])
+                cur = ll
+    outs = [ll_d] + [band for lvl in range(1, depth + 1) for band in bands[lvl]]
+    for t, band in zip([ll_out, *det], outs):
+        assert not np.isnan(band).any(), "a band position was never written"
+        t.copy_(torch.from_numpy(band).reshape(t.shape))
+    assert all(t is None for t in det[3 * depth :])
+
+
+def _model_pyramid2d_synthesis(ll_in, det, out, lo, hi, n_taps, batch, plan, smem, itemsize):
+    """``ptwt_pyramid2d_synthesis`` tile by tile: each step's read ranges
+    (checked against the plan's buffers), band reads modulo their size,
+    the H pass then the W pass.  Every output is written exactly once."""
+    depth, h, w, th, tw, tiles_h, tiles_w, whole, pad, buf_a, buf_b = list(plan)
+    assert (4 * buf_a + 2 * buf_b) * itemsize <= smem, "the launch's shared memory is too small"
+    f = np.array([lo[:n_taps], hi[:n_taps]])
+    taps = np.arange(n_taps)
+    ll_d = ll_in.numpy().reshape(batch, h >> depth, w >> depth).astype(np.float64)
+    dets = [[det[3 * (lvl - 1) + o].numpy().reshape(batch, h >> lvl, w >> lvl) for o in range(3)]
+            for lvl in range(1, depth + 1)]
+    result = np.full((batch, h, w), np.nan)
+
+    def ranges(first, t, size):
+        c, e = [first] + [0] * depth, [first + t - 1] + [0] * depth
+        for lvl in range(1, depth + 1):
+            if whole:
+                c[lvl], e[lvl] = 0, (size >> lvl) - 1
+            else:
+                c[lvl] = (c[lvl - 1] + pad - (n_taps - 1)) // 2
+                e[lvl] = (e[lvl - 1] + pad) // 2
+        return c, e
+
+    def step(c_out, n_out, c_in, n_in, size):
+        """``[n_out, L]`` band offsets of one synthesis pass and their mask."""
+        fk = c_out + np.arange(n_out)[:, None] + pad - taps[None, :]
+        even = fk % 2 == 0
+        q = (fk // 2) % size if whole else fk // 2 - c_in
+        assert ((q[even] >= 0) & (q[even] < n_in)).all()
+        return np.clip(q, 0, n_in - 1), even
+
+    for ty in range(tiles_h):
+        for tx in range(tiles_w):
+            ch, eh = ranges(ty * th, th, h)
+            cw, ew = ranges(tx * tw, tw, w)
+            nh = [e - c + 1 for c, e in zip(ch, eh)]
+            nw = [e - c + 1 for c, e in zip(cw, ew)]
+            for lvl in range(1, depth + 1):
+                assert nh[lvl] * nw[lvl] <= buf_a and nh[lvl - 1] * nw[lvl] <= buf_b
+
+            def load(band, lvl):
+                rows = (ch[lvl] + np.arange(nh[lvl])) % (h >> lvl)
+                cols = (cw[lvl] + np.arange(nw[lvl])) % (w >> lvl)
+                return band[:, rows[:, None], cols[None, :]]
+
+            cur = load(ll_d, depth)
+            for lvl in range(depth, 0, -1):
+                lh, hl, hh = (load(b, lvl) for b in dets[lvl - 1])
+                q, even = step(ch[lvl - 1], nh[lvl - 1], ch[lvl], nh[lvl], h >> lvl)
+                lo_w = np.zeros((batch, nh[lvl - 1], nw[lvl]))
+                hi_w = np.zeros_like(lo_w)
+                for k in range(n_taps):
+                    m = even[:, k][None, :, None]
+                    lo_w += np.where(m, f[0, k] * cur[:, q[:, k]] + f[1, k] * lh[:, q[:, k]], 0.0)
+                    hi_w += np.where(m, f[0, k] * hl[:, q[:, k]] + f[1, k] * hh[:, q[:, k]], 0.0)
+                q, even = step(cw[lvl - 1], nw[lvl - 1], cw[lvl], nw[lvl], w >> lvl)
+                acc = np.zeros((batch, nh[lvl - 1], nw[lvl - 1]))
+                for k in range(n_taps):
+                    m = even[:, k][None, None, :]
+                    acc += np.where(m, f[0, k] * lo_w[:, :, q[:, k]] + f[1, k] * hi_w[:, :, q[:, k]], 0.0)
+                cur = acc
+            rows, cols = ch[0] + np.arange(nh[0]), cw[0] + np.arange(nw[0])
+            sel_h, sel_w = rows < h, cols < w
+            block = result[:, rows[sel_h][:, None], cols[sel_w][None, :]]
+            assert np.isnan(block).all(), "an output was written twice"
+            result[:, rows[sel_h][:, None], cols[sel_w][None, :]] = cur[:, sel_h][:, :, sel_w]
+    assert not np.isnan(result).any(), "an output was never written"
+    out.copy_(torch.from_numpy(result).reshape(out.shape))
+
+
 def _model_launch(kernel, entry, device, dtype, *a):
     """Stand-in for ``_kernels.launch`` that runs the kernels' index rules;
     a VJP kernel runs the transpose of its forward's operator."""
@@ -322,29 +493,34 @@ def _model_launch(kernel, entry, device, dtype, *a):
         _model_synthesis_1d(lo_in, his, *a[5:], itemsize)
         _kernels.LAUNCHES[kernel] += 1
         return
+    if entry in ("ptwt_pyramid2d_analysis", "ptwt_pyramid2d_synthesis"):
+        model = _model_pyramid2d_analysis if entry.endswith("analysis") else _model_pyramid2d_synthesis
+        model(*a, itemsize)
+        _kernels.LAUNCHES[kernel] += 1
+        return
     if entry in ("ptwt_analysis_axis", "ptwt_analysis_axis_t"):
         src, out, lo, hi, n_taps, outer, n, period, m, inner, pad, circ = a
-        ops = [_analysis_op(t[:n_taps], m, n, period, pad, circ) for t in (lo, hi)]
+        ops = [_analysis_sparse(t[:n_taps], m, n, period, pad, circ) for t in (lo, hi)]
         if entry == "ptwt_analysis_axis":
             xs = src.numpy().reshape(outer, n, inner)
-            res = [np.einsum("mn,onj->omj", op, xs) for op in ops]
+            res = [_apply(op, xs) for op in ops]
         else:
             ct = src.numpy().reshape(2, outer, m, inner)
-            res = sum(np.einsum("mn,omj->onj", op, c) for op, c in zip(ops, ct))
+            res = sum(_apply(op.T, c) for op, c in zip(ops, ct))
     elif entry == "ptwt_synthesis_axis":
         lo0, hi0, lo1, hi1, groups, out, rl, rh, n_taps, outer, m, out_len, inner, off, circ = a
-        s_lo = _synthesis_op(rl[:n_taps], out_len, m, off, circ)
-        s_hi = _synthesis_op(rh[:n_taps], out_len, m, off, circ)
+        s_lo = _synthesis_sparse(rl[:n_taps], out_len, m, off, circ)
+        s_hi = _synthesis_sparse(rh[:n_taps], out_len, m, off, circ)
         res = [
-            np.einsum("tm,omj->otj", s_lo, lo.numpy().reshape(outer, m, inner))
-            + np.einsum("tm,omj->otj", s_hi, hi.numpy().reshape(outer, m, inner))
+            _apply(s_lo, lo.numpy().reshape(outer, m, inner))
+            + _apply(s_hi, hi.numpy().reshape(outer, m, inner))
             for lo, hi in [(lo0, hi0), (lo1, hi1)][:groups]
         ]
     elif entry == "ptwt_synthesis_axis_t":
         ct, groups, out, rl, rh, n_taps, outer, m, out_len, inner, off, circ = a
-        ops = [_synthesis_op(t[:n_taps], out_len, m, off, circ) for t in (rl, rh)]
+        ops = [_synthesis_sparse(t[:n_taps], out_len, m, off, circ) for t in (rl, rh)]
         cts = ct.numpy().reshape(groups, outer, out_len, inner)
-        res = [[np.einsum("tm,otj->omj", op, c) for op in ops] for c in cts]
+        res = [[_apply(op.T, c) for op in ops] for c in cts]
     elif entry == "ptwt_dwt2":
         x, out, lo, hi, n_taps, b, h, w, per_h, per_w, m_h, m_w, pad, circ = a
         ops = {

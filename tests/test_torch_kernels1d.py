@@ -32,6 +32,7 @@ from ptwt_tpu.ops import _pallas as j6
 from ptwt_tpu.ops import _pallas1d as j7
 from ptwt_tpu.ops import _pallas1d_multi as j8
 import ptwt_tpu_torch as tptwt
+from ptwt_tpu_torch.ops import _kernels
 from ptwt_tpu_torch.ops import _pallas as t6
 from ptwt_tpu_torch.ops import _pallas1d as t7
 from ptwt_tpu_torch.ops import _pallas1d_multi as t8
@@ -215,20 +216,36 @@ def test_k7_valid_and_odd_crop_glue(model_kernels):  # noqa: F811
 
 
 def test_kernel_path_refuses_grad(model_kernels):  # noqa: F811
-    """On the kernel path a tensor that requires grad raises on the K6, K7
-    and K8 routes (1d training is a later slice); K3 levels keep their VJP."""
+    """On the K6, K7 and K8 routes a data tensor that requires grad gets
+    its gradient from the VJP launches (K6b for K6a, K3T for K7a/K8a, K4T
+    for K8b), equal to autograd through the plain versions; only a filter
+    that requires grad is refused."""
+    dl, dh, _, _ = _banks("db2", np.float64)
     x = torch.randn(1, 70001, dtype=torch.float64, requires_grad=True)
-    for mode, level in (("reflect", 4), ("reflect", 1)):
-        with pytest.raises(NotImplementedError, match="1d training"):
-            tptwt.wavedec(x, "db2", mode=mode, level=level)
-    with pytest.raises(NotImplementedError, match="1d training"):
-        tptwt.wavedec(x[:, :4096], "db2", mode="periodization", level=3)
+    cases = (
+        (70001, "reflect", 4, {"K3T": 4}, lambda z: t8.multi_analysis_plain(z, dl, dh, "reflect", 4)[0]),
+        (70001, "reflect", 1, {"K3T": 1}, lambda z: t2.dwt_axis_plain(z, -1, dl, dh, "reflect")[0]),
+        (4096, "periodization", 3, {"K6b": 1}, lambda z: t6.wavedec1d_per_plain(z, dl, dh, 3)[0]),
+    )
+    for n, mode, level, vjp, plain in cases:
+        loss = (tptwt.wavedec(x[:, :n], "db2", mode=mode, level=level)[0] ** 2).sum()
+        _kernels.reset_launch_counts()
+        (grad,) = torch.autograd.grad(loss, x)
+        assert {k: v for k, v in model_kernels.items() if v} == vjp
+        z = x.detach()[:, :n].requires_grad_()
+        (want,) = torch.autograd.grad((plain(z) ** 2).sum(), z)
+        _close(grad[:, :n], want.numpy(), 1e-12)
+        assert not grad[:, n:].any()
     coeffs = tptwt.wavedec(x.detach(), "db2", mode="reflect", level=4)
     leaf = [c.requires_grad_() for c in coeffs]
-    with pytest.raises(NotImplementedError, match="1d training"):
-        tptwt.waverec(leaf, "db2")
-    (grad,) = torch.autograd.grad(tptwt.wavedec(x[:, :500], "db2", level=2)[0].sum(), x)
-    assert grad.shape == x.shape and model_kernels["K3T"] == 2
+    rec = tptwt.waverec(leaf, "db2")
+    _kernels.reset_launch_counts()
+    grads = torch.autograd.grad(rec.sum(), leaf)
+    assert [g.shape for g in grads] == [c.shape for c in leaf]
+    assert {k: v for k, v in model_kernels.items() if v} == {"K4T": 4}
+    learn = torch.tensor(dl, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="filter gradient"):
+        t8.flat_wavedec_lane_multi(x, learn, dh, "reflect", 4)
 
 
 # ---------------------------------------------------------------------------
