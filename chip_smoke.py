@@ -74,22 +74,36 @@ Phases, each raising (non-zero exit) on failure:
    kernel path against the plain path (phase 6's limits), the launches of
    one backward (which must be VJP launches only: K5a/K5b, K6a/K6b,
    K3T/K4T, never the forward kernel of a launch's own direction), and
-   the step's wall time.
+   the step's wall time;
+12. the tensor-core level K9a/K9b, with the opt-in ``PTWT_TPU_MXU2D=1``
+   set inside this phase only (phases 3-11 run with it unset): K9a, K9b
+   and their VJPs against their plain versions (the GEMM form, autograd
+   through it for the VJPs) at ``[16, 1024, 1024]`` db4 level 1, periodic
+   and periodization, relative limit 2e-5 and the launch of each call;
+   the opt-in periodic headline round trip (phase 4's limits; K9a and K9b
+   once, one K1 and one K2 fewer than phase 4); phase 6's 3 SGD steps with
+   the opt-in (the backward launches K9a and K9b as VJPs); phase 5's times
+   for K9 and its VJPs (bound: the bytes against the band-only 3xTF32
+   products at the TF32 tensor-core peak); a one-pass TF32 debug build's
+   error; and the round trip with the opt-in beside the default.
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations, the VJP of every pyramid kernel (K5a-K8b) as the autograd
 backward runs it beside autograd through the plain version, and the 2d
 periodization round trips in Mpix/s.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (fourteen kernels;
-K1, K2 and K5a-K8b carry ``vjp_*`` keys), the card's name and power
+The last lines are a ``{"kernels": [...]}`` JSON line (sixteen kernels;
+K1, K2 and K5a-K9b carry ``vjp_*`` keys), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -110,6 +124,7 @@ from ptwt_tpu_torch.ops import (  # noqa: E402
     _pallas1d,
     _pallas1d_multi,
     _pallas2,
+    _mxu2d,
     _pallas2d,
 )
 from ptwt_tpu_torch.utils import fwt_pad, get_filter_arrays  # noqa: E402
@@ -144,6 +159,8 @@ REPLACES = {
     "K7b": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas1d.py:321"),
     "K8a": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas1d_multi.py:141"),
     "K8b": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas1d_multi.py:529"),
+    "K9a": ("src/ptwt_tpu_torch/csrc/mxu2d.cu", "src/ptwt_tpu/ops/_mxu2d.py:175"),
+    "K9b": ("src/ptwt_tpu_torch/csrc/mxu2d.cu", "src/ptwt_tpu/ops/_mxu2d.py:202"),
 }
 KERNELS_1D = ("K6a", "K6b", "K7a", "K7b", "K8a", "K8b")
 # K1 and K2 are each other's VJP: their VJP launches get rows of their own
@@ -169,6 +186,12 @@ PER_2D = (("headline", SHAPE, LEVEL), ("small", SMALL_SHAPE, SMALL_LEVEL))
 LONG_WAVELET = "coif17"
 BATCH_F64_2D = 2
 KERNELS_K5 = ("K5a", "K5b")
+# the tensor-core level (opt-in): TF32 tensor-core peak (NVIDIA data sheet,
+# dense, at 700 W), three products per multiply-add for the 3xTF32 split
+KERNELS_K9 = ("K9a", "K9b")
+MXU2D_ENV = "PTWT_TPU_MXU2D"
+PEAK_TF32_FLOP_PER_S = 495e12
+TF32_SPLIT = 3
 
 
 def log(msg: str) -> None:
@@ -1362,7 +1385,24 @@ def time_vjps_1d() -> dict:
         f"{rows['K8a reflect']['vjp_ms']!r} ms"
     )
     rows["K7a"], rows["K7b"] = run_rows("K7a", "K7b", "reflect", 1, "K7 reflect level")
-    del x
+    # one library call each: K7a's VJP is one stride-2 transposed
+    # convolution (before the reflect fold), K7b's one stride-2 correlation
+    # of the cotangent zero-padded by the crop
+    p = std_pad(L)
+    lo, hi = _pallas1d.flat_dwt_lane(x.detach(), dl, dh, "reflect")
+    m = lo.shape[-1]
+    wdec = torch.stack([torch.as_tensor(np.asarray(f), dtype=f32, device=DEVICE) for f in (dl, dh)])[:, None]
+    wrec = torch.stack([torch.as_tensor(np.asarray(f), dtype=f32, device=DEVICE) for f in (rl, rh)])[:, None]
+    ct_bands = torch.stack([randn(lo.shape, f32, SEED + 165), randn(hi.shape, f32, SEED + 166)], dim=1)
+    rows["K7a"]["vjp_library_ms"] = time_ms(lambda: F.conv_transpose1d(ct_bands, wdec, stride=2))
+    rows["K7a"]["vjp_library_note"] = "F.conv_transpose1d(stride=2), before the reflect fold"
+    n = x.shape[-1]
+    ct = F.pad(randn((D1_SHAPE[0], 1, n), f32, SEED + 167), (p, 2 * (m - 1) + L - n - p))
+    lib = F.conv1d(ct, wrec, stride=2)
+    log(f"  K7b VJP library yardstick: {tuple(lib.shape)} from the cotangent padded to {tuple(ct.shape)}")
+    rows["K7b"]["vjp_library_ms"] = time_ms(lambda: F.conv1d(ct, wrec, stride=2))
+    rows["K7b"]["vjp_library_note"] = "F.conv1d(stride=2) on the cotangent zero-padded by the crop"
+    del x, lo, hi, ct_bands, ct, lib
     x = leaf(randn(K6_SHAPE, f32, SEED + 170))
     bands = _pallas.fused_wavedec1d_per(x, dl, dh, LEVEL_1D)
     cts = [randn(t.shape, f32, SEED + 180 + j) for j, t in enumerate(bands)]
@@ -1374,7 +1414,10 @@ def time_vjps_1d() -> dict:
     rec = _pallas.fused_waverec1d_per(leaves, rl, rh)
     rows["K6b"] = vjp_timing([rec], leaves, ct, [_pallas.waverec1d_per_plain(plain, rl, rh)], plain, "K6b", tol)
     for name, row in rows.items():
-        log(f"  {name} VJP: vjp_ms={row['vjp_ms']!r} vjp_plain_ms={row['vjp_plain_ms']!r} vjp_max_abs_err={row['vjp_max_abs_err']!r}")
+        log(
+            f"  {name} VJP: vjp_ms={row['vjp_ms']!r} vjp_plain_ms={row['vjp_plain_ms']!r} "
+            f"vjp_max_abs_err={row['vjp_max_abs_err']!r} vjp_library_ms={row.get('vjp_library_ms')!r}"
+        )
     return rows
 
 
@@ -1396,6 +1439,231 @@ def check_backward(name: str, backward: dict, allowed: tuple) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the tensor-core level K9a/K9b (opt-in PTWT_TPU_MXU2D=1)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def mxu2d_opt_in():
+    """Set the K9 opt-in for the block, and restore what was there."""
+    saved = os.environ.get(MXU2D_ENV)
+    os.environ[MXU2D_ENV] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(MXU2D_ENV, None)
+        else:
+            os.environ[MXU2D_ENV] = saved
+
+
+def banks_2d(dtype=torch.float32):
+    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=dtype)
+    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=dtype)
+    return dl, dh, rl, rh
+
+
+def only(counts: dict, want: dict, label: str) -> None:
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def check_k9(errors: dict) -> None:
+    """K9a, K9b and their VJPs against their plain versions (autograd
+    through them for the VJPs) at the headline's level 1, both modes."""
+    f32 = torch.float32
+    dl, dh, rl, rh = banks_2d()
+    for mode in ("periodic", "periodization"):
+        tag = f"{mode} {list(SHAPE)}"
+        x = leaf(randn(SHAPE, f32, SEED + 300))
+        _kernels.reset_launch_counts()
+        bands = _pallas2d.fused2_dwt_level(x, dl, dh, mode)
+        torch.cuda.synchronize()
+        only(_kernels.LAUNCHES, {"K9a": 1}, f"K9a {tag}")
+        with plain_versions():
+            ref = _pallas2d.fused2_dwt_level(x, dl, dh, mode)
+        check_1d(errors, "K9a", tag, [b.detach() for b in bands], [r.detach() for r in ref], f32)
+        _kernels.reset_launch_counts()
+        rec = _pallas2d.fused2_idwt_level([r.detach() for r in ref], rl, rh, mode)
+        torch.cuda.synchronize()
+        only(_kernels.LAUNCHES, {"K9b": 1}, f"K9b {tag}")
+        with plain_versions():
+            want = _pallas2d.fused2_idwt_level([r.detach() for r in ref], rl, rh, mode)
+        check_1d(errors, "K9b", tag, rec, want, f32)
+        check(f"K9b(K9a) {tag} round trip", max_abs(rec, x.detach()), 10 * TOL[f32])
+        # K9a's VJP is a K9b launch, K9b's a K9a launch
+        cts = [randn(b.shape, f32, SEED + 310 + i) for i, b in enumerate(bands)]
+        _kernels.reset_launch_counts()
+        (grad,) = torch.autograd.grad(bands, x, cts)
+        torch.cuda.synchronize()
+        only(_kernels.LAUNCHES, {"K9b": 1}, f"K9a VJP {tag}")
+        (want,) = torch.autograd.grad(ref, x, cts)
+        check_1d(errors, "K9a VJP", tag, grad, want, f32)
+        subbands = [leaf(r) for r in ref]
+        rec = _pallas2d.fused2_idwt_level(subbands, rl, rh, mode)
+        ct = randn(rec.shape, f32, SEED + 320)
+        _kernels.reset_launch_counts()
+        grads = torch.autograd.grad(rec, subbands, ct)
+        torch.cuda.synchronize()
+        only(_kernels.LAUNCHES, {"K9a": 1}, f"K9b VJP {tag}")
+        with plain_versions():
+            plain_rec = _pallas2d.fused2_idwt_level(subbands, rl, rh, mode)
+        want = torch.autograd.grad(plain_rec, subbands, ct)
+        check_1d(errors, "K9b VJP", tag, list(grads), list(want), f32)
+        del x, bands, ref, rec, want, cts, grad, subbands, ct, grads, plain_rec
+        torch.cuda.synchronize()
+
+
+def one_pass_tf32() -> dict:
+    """What one TF32 pass gives: ``csrc/mxu2d.cu`` built once more with
+    ``-DPTWT_MXU2D_ONE_PASS`` (big x big products only; a debug build the
+    package never loads), called directly (no launch count) on the
+    periodic headline level, against K9's plain versions."""
+    lib_path = _kernels.BUILD_DIR / "libmxu2d_one_pass_debug.so"
+    cmd = [_kernels._nvcc(), *_kernels._FLAGS, "-DPTWT_MXU2D_ONE_PASS", "-o", str(lib_path),
+           str(_kernels._CSRC / "mxu2d.cu")]
+    subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("ptwt_mxu2d_analysis", "ptwt_mxu2d_synthesis"):
+        getattr(lib, name).argtypes = _kernels._ENTRY_POINTS[name][1]
+        getattr(lib, name).restype = ctypes.c_int
+    dl, dh, rl, rh = (_kernels.static_taps(f) for f in banks_2d())
+    b, h, w = SHAPE
+    L, p = len(dl), std_pad(len(dl))
+    m = (h + 2 * p - L) // 2 + 1
+    x = randn(SHAPE, torch.float32, SEED + 330)
+    stream = torch.cuda.current_stream().cuda_stream
+    bands = torch.empty((4, b, m, m), device=DEVICE)
+    code = lib.ptwt_mxu2d_analysis(0, x.data_ptr(), bands.data_ptr(), _kernels.taps_array(dl),
+                                   _kernels.taps_array(dh), L, b, h, w, h, w, m, m, p, 1, stream)
+    want = _mxu2d.mxu2_dwt_plain(x, dl, dh, h, w, m, m, p)
+    rec = torch.empty(SHAPE, device=DEVICE)
+    ptrs = [t.data_ptr() for t in want]
+    code2 = lib.ptwt_mxu2d_synthesis(0, *ptrs, rec.data_ptr(), _kernels.taps_array(rl),
+                                     _kernels.taps_array(rh), L, b, m, m, h, w, p, p, 0, m, m, h, w, stream)
+    torch.cuda.synchronize()
+    if code or code2:
+        raise AssertionError(f"the one-pass debug build failed: {code}, {code2}")
+    rec_want = _mxu2d.mxu2_idwt_plain(list(want), rl, rh, h, w, p, False)
+    res = {
+        "analysis_max_abs_err": max_abs(bands, want),
+        "analysis_rel_err": rel_err(bands, want),
+        "synthesis_max_abs_err": max_abs(rec, rec_want),
+        "synthesis_rel_err": rel_err(rec, rec_want),
+    }
+    log(f"  one-pass TF32 (debug build, not the package's): {res} (limit {TOL[torch.float32]!r})")
+    return res
+
+
+def band_flops(b: int, m_h: int, m_w: int, out_h: int, out_w: int, L: int) -> tuple[float, float]:
+    """Tensor-core operations of K9a and K9b over the k-steps inside the
+    band (one multiply-add = 2), before the 3x of the split: every K-wide
+    product a fragment runs, 16 x 8 outputs per fragment, k-steps of 8."""
+    kw_a, kh_a = math.ceil((L + 14) / 8), math.ceil((L + 30) / 8)
+    ks, kw_s = math.ceil(((L + 15) // 2 + 1) / 8), math.ceil(((L + 7) // 2 + 1) / 8)
+    # K9a: W pass over the 2 m_h + L - 2 image rows it reads (lo and hi),
+    # H pass for the four bands
+    ana = 2.0 * b * ((2 * m_h + L - 2) * 2 * m_w * 8 * kw_a + 4 * m_h * m_w * 8 * kh_a)
+    # K9b: H pass over the four bands, W pass with two products per output
+    syn = 2.0 * b * (4 * out_h * m_w * 8 * ks + 2 * out_h * out_w * 8 * kw_s)
+    return ana, syn
+
+
+def k9_bound(nbytes: float, tc_flops: float) -> tuple[float, str, float]:
+    """K9's bound: the bytes over the memory rate against the band-only
+    3xTF32 products over the TF32 tensor-core peak; and that product time."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_tc = TF32_SPLIT * tc_flops / PEAK_TF32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes", t_tc) if t_bytes >= t_tc else (t_tc, "operations", t_tc)
+
+
+def time_k9() -> dict:
+    """Phase 5's rows of K9a, K9b and their VJPs at the periodic headline's
+    level 1, beside their plain versions and the library calls of K1/K2's
+    rows (TF32 off); the opt-in must be set."""
+    f32 = torch.float32
+    dl, dh, rl, rh = banks_2d()
+    L = len(dl)
+    p = std_pad(L)
+    b, h, w = SHAPE
+    x = leaf(randn(SHAPE, f32, SEED + 3))
+    bands = _pallas2d.fused2_dwt_level(x.detach(), dl, dh, "periodic")
+    m = bands[0].shape[-1]
+    nbytes = 4 * (b * h * w + 4 * b * m * m)
+    ana_flops, syn_flops = band_flops(b, m, m, h, w, L)
+    dfilt, rfilt = outer_filters(dl, dh, f32), outer_filters(rl, rh, f32)
+    xpad = F.pad(x.detach()[:, None], (p, p, p, p), mode="circular")
+    rows = {}
+    with plain_versions():
+        plain_ms = time_ms(lambda: _pallas2d.fused2_dwt_level(x.detach(), dl, dh, "periodic"))
+    rows["K9a"] = {
+        "ms": time_ms(lambda: _pallas2d.fused2_dwt_level(x.detach(), dl, dh, "periodic")),
+        "plain_ms": plain_ms,
+        "library_ms": time_ms(lambda: F.conv2d(xpad, dfilt, stride=2)),
+        "tc_flops": ana_flops,
+    }
+    del xpad
+    stacked = torch.stack(bands, dim=1).contiguous()
+    with plain_versions():
+        plain_ms = time_ms(lambda: _pallas2d.fused2_idwt_level(bands, rl, rh, "periodic"))
+    rows["K9b"] = {
+        "ms": time_ms(lambda: _pallas2d.fused2_idwt_level(bands, rl, rh, "periodic")),
+        "plain_ms": plain_ms,
+        "library_ms": time_ms(lambda: F.conv_transpose2d(stacked, rfilt, stride=2)),
+        "tc_flops": syn_flops,
+    }
+    del stacked
+    # the VJPs as the autograd backward runs them, and their library calls
+    outs = _pallas2d.fused2_dwt_level(x, dl, dh, "periodic")
+    cts = [randn(t.shape, f32, SEED + 340 + j) for j, t in enumerate(outs)]
+    z = leaf(x)
+    with plain_versions():
+        plain_outs = _pallas2d.fused2_dwt_level(z, dl, dh, "periodic")
+    rows["K9a"].update(vjp_timing(list(outs), [x], cts, list(plain_outs), [z], "K9a", TOL[f32]))
+    cts_nchw = torch.stack(cts, dim=1)
+    rows["K9a"]["vjp_library_ms"] = time_ms(lambda: F.conv_transpose2d(cts_nchw, dfilt, stride=2))
+    del outs, plain_outs, cts_nchw
+    leaves = [leaf(t) for t in bands]
+    plain = [leaf(t) for t in bands]
+    rec = _pallas2d.fused2_idwt_level(leaves, rl, rh, "periodic")
+    with plain_versions():
+        plain_rec = _pallas2d.fused2_idwt_level(plain, rl, rh, "periodic")
+    ct = randn(rec.shape, f32, SEED + 350)
+    rows["K9b"].update(vjp_timing([rec], leaves, [ct], [plain_rec], plain, "K9b", TOL[f32]))
+    ct_pad = F.pad(ct[:, None], (p, p, p, p))
+    rows["K9b"]["vjp_library_ms"] = time_ms(lambda: F.conv2d(ct_pad, rfilt, stride=2))
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"], row["band_tc_ms"] = k9_bound(nbytes, row["tc_flops"])
+        log(
+            f"  {name}: ms={row['ms']!r} plain_ms={row['plain_ms']!r} library_ms={row['library_ms']!r} "
+            f"bound_ms={row['bound_ms']!r} ({row['bound_by']}) band_tc_ms={row['band_tc_ms']!r} "
+            f"vjp_ms={row['vjp_ms']!r} vjp_plain_ms={row['vjp_plain_ms']!r} "
+            f"vjp_library_ms={row['vjp_library_ms']!r}"
+        )
+    return rows
+
+
+def round_trips_k9() -> dict:
+    """The periodic headline round trip with the opt-in beside the default,
+    in turns (default, opt-in, opt-in, default), Mpix/s."""
+    x = randn(SHAPE, torch.float32, SEED + 360)
+    mpix = SHAPE[0] * SHAPE[1] * SHAPE[2] / 1e6
+
+    def run():
+        return ptwt.waverec2(ptwt.wavedec2(x, WAVELET, mode="periodic", level=LEVEL), WAVELET, mode="periodic")
+
+    res = {"default": [], "opt_in": []}
+    for key in ("default", "opt_in", "opt_in", "default"):
+        ctx = mxu2d_opt_in() if key == "opt_in" else contextlib.nullcontext()
+        with ctx:
+            ms = wall_ms(run)
+        res[key].append(mpix / (ms * 1e-3))
+        log(f"  round trip periodic {key}: {ms!r} ms, {mpix / (ms * 1e-3)!r} Mpix/s")
+    return res
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -1408,10 +1676,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script needs one GPU")
         return 1
-    # exact float32: no TF32 in the library yardsticks (the package itself
-    # runs no matmul or convolution)
+    # exact float32: no TF32 in the library yardsticks or in K9's plain
+    # versions (the package's kernel path runs no matmul or convolution)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phases 3-11 check the default routes; phase 12 sets the K9 opt-in
+    if os.environ.pop(MXU2D_ENV, None) is not None:
+        log(f"{MXU2D_ENV} unset for phases 3-11")
     card = smi()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -1536,6 +1807,27 @@ def main() -> int:
     round_trips_per()
     vjp_1d = time_vjps_1d()
 
+    log(f"phase 12: the tensor-core level K9a/K9b ({MXU2D_ENV}=1 inside this phase only)")
+    errors_k9 = {name: {} for name in (*KERNELS_K9, "K9a VJP", "K9b VJP")}
+    with mxu2d_opt_in():
+        check_k9(errors_k9)
+        x = randn(SHAPE, torch.float32, SEED)
+        main_k9 = main_path(x, "periodic")
+        del x
+        counts = main_k9["counts"]
+        want = {**{k: v for k, v in per.items() if v}, "K1": per["K1"] - 1, "K2": per["K2"] - 1, "K9a": 1, "K9b": 1}
+        only(counts, {k: v for k, v in want.items() if v}, "the opt-in periodic round trip")
+        y = randn(SHAPE, torch.float32, SEED + 41)
+        train_k9 = check_training("periodic opt-in", y, make=lambda: GainModel("periodic"), with_profile=False)
+        del y
+        check_backward("periodic opt-in", train_k9["backward"], ("K1", "K2", "K3T", "K4T", "K9a", "K9b"))
+        log("phase 5, K9: times")
+        rows_k9 = time_k9()
+        tf32_one_pass = one_pass_tf32()
+    round_trips_k9()
+    if os.environ.get(MXU2D_ENV) == "1":
+        raise AssertionError(f"{MXU2D_ENV} leaked out of phase 12")
+
     kernels = []
     for name in ("K1", "K2", "K3", "K4", "K3T", "K4T"):
         source, replaces = REPLACES[name]
@@ -1657,7 +1949,43 @@ def main() -> int:
         )
         if name == "K8a":
             entry["vjp_ms_reflect"] = vjp_1d["K8a reflect"]["vjp_ms"]
+        if "vjp_library_ms" in vjp:
+            entry["vjp_library_ms"] = vjp["vjp_library_ms"]
+            entry["vjp_library_note"] = vjp["vjp_library_note"]
         kernels.append(entry)
+    for name in KERNELS_K9:
+        source, replaces = REPLACES[name]
+        row = rows_k9[name]
+        twin = "K9b" if name == "K9a" else "K9a"
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            # per round trip of the periodic headline with the opt-in
+            "launches": counts[name],
+            "max_abs_err": errors_k9[name][torch.float32]["abs"],
+            "rel_err": errors_k9[name][torch.float32]["rel"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "band_tc_ms": row["band_tc_ms"],
+            "library_ms": row["library_ms"],
+            "library_note": "F.conv2d (stride 2, circular padding beforehand)" if name == "K9a"
+            else "F.conv_transpose2d (stride 2), before the crop",
+            "opt_in": f"{MXU2D_ENV}=1",
+            "launches_per_step": train_k9["step"][name],
+            "one_pass_tf32_rel_err": tf32_one_pass["analysis_rel_err" if name == "K9a" else "synthesis_rel_err"],
+            "vjp_kernel": twin,
+            "vjp_launches": train_k9["backward"][twin],
+            "vjp_max_abs_err": errors_k9[f"{name} VJP"][torch.float32]["abs"],
+            "vjp_rel_err": errors_k9[f"{name} VJP"][torch.float32]["rel"],
+            "vjp_ms": row["vjp_ms"],
+            "vjp_plain_ms": row["vjp_plain_ms"],
+            "vjp_bound_ms": row["bound_ms"],
+            "vjp_library_ms": row["vjp_library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(

@@ -16,6 +16,10 @@ kernel pairs, with no TPU size gates beyond the long-axis floor of K7:
 * 2d synthesis: one subband shape and the standard crop runs K2 once;
   every other level runs the per-axis route along axis -1 on both (lo, hi)
   pairs (K4: one launch), then along axis -2.
+* with the opt-in ``PTWT_TPU_MXU2D=1``, a float32 K1/K2 level whose
+  full-resolution image has ``h % 128 == 0`` and ``w % 256 == 0`` (at most
+  64 taps) runs the tensor-core K9a/K9b instead, forward and VJP
+  (:mod:`._mxu2d`); the choice is made inside :mod:`._pallas2d`.
 
 A ``periodization`` level reaches this module only where the whole
 pyramid does not run fused: ``wavedec``/``waverec`` send an exactly

@@ -92,6 +92,14 @@ _ENTRY_POINTS = {
     "ptwt_pyramid2d_synthesis": (
         "pyramid2d", [_I, _P, _PA, _P, _D, _D, _I, _LL, _IA, _I, _P]
     ),
+    # K9a / K9b take the arguments of ptwt_dwt2 / ptwt_idwt2
+    "ptwt_mxu2d_analysis": (
+        "mxu2d", [_I, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    ),
+    "ptwt_mxu2d_synthesis": (
+        "mxu2d",
+        [_I, _P, _P, _P, _P, _P, _D, _D, _I, _LL, *[_I] * 11, _P],
+    ),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.  A VJP
@@ -101,12 +109,15 @@ _ENTRY_POINTS = {
 #: carries: a depth-1 launch of the K8 pair is K7a/K7b, and every launch of
 #: a K6 pyramid (one per run of at most four levels) is K6a/K6b.  The
 #: pyramid pairs are each other's VJP (K5a's VJP launch counts as K5b,
-#: K6b's as K6a); the VJPs of K7/K8 are K3T/K4T launches.
+#: K6b's as K6a); the VJPs of K7/K8 are K3T/K4T launches.  K9a/K9b (the
+#: tensor-core level of ``csrc/mxu2d.cu``, opt-in) take K1/K2's place on
+#: the levels their gate admits, their VJPs included: K9a's VJP counts as
+#: K9b and K9b's as K9a.
 LAUNCHES: dict[str, int] = {
     name: 0
     for name in (
         "K1", "K2", "K3", "K4", "K3T", "K4T", "K5a", "K5b",
-        "K6a", "K6b", "K7a", "K7b", "K8a", "K8b",
+        "K6a", "K6b", "K7a", "K7b", "K8a", "K8b", "K9a", "K9b",
     )
 }
 
@@ -143,7 +154,7 @@ def _library_path(source: str) -> Path:
 
 
 #: Every ``csrc`` source with kernels.
-SOURCES = ("axis", "axis_vjp", "dwt2", "fwt1d", "pyramid2d")
+SOURCES = ("axis", "axis_vjp", "dwt2", "fwt1d", "mxu2d", "pyramid2d")
 
 
 def build(sources: Sequence[str] = SOURCES) -> dict[str, float]:

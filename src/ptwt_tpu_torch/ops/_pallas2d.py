@@ -27,11 +27,22 @@ K2's VJP is K1's read, zero-bounded for the cropped ``periodic``
 synthesis.  Data gradients run on the card; a filter tensor that requires
 grad raises there, and so does a double backward.
 
+The tensor-core variant: with the opt-in ``PTWT_TPU_MXU2D=1``, a float32
+level whose full-resolution image passes K9's gate
+(:func:`._mxu2d.mxu2_level_ok`: ``h % 128 == 0``, ``w % 256 == 0``, at
+most 64 taps) launches K9a in place of K1 and K9b in place of K2, with
+the same arguments (:mod:`._mxu2d`, ``csrc/mxu2d.cu``), as the JAX
+package's ``_dwt2_call``/``_idwt2_call`` choose its K9.  The VJPs follow
+the same decision on the same image, so K9a's VJP is a K9b launch and
+K9b's a K9a launch, as in ``_level_calls``.
+
 Each kernel has a plain torch version here (:func:`dwt2_level_plain`,
 :func:`idwt2_level_plain`, and for the VJPs :func:`dwt2_level_vjp_plain`,
 :func:`idwt2_level_vjp_plain`): two per-axis passes of the plain versions
 in :mod:`._pallas2`, and autograd through them.  The wrappers take them
-for CPU tensors only.
+for CPU tensors only; there, a level that K9 would take on the card runs
+K9's plain versions (the GEMM form, :mod:`._mxu2d`) when its filters are
+constants.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _kernels
+from ._mxu2d import mxu2_dwt_call, mxu2_dwt_plain, mxu2_idwt_call, mxu2_idwt_plain, mxu2_level_ok
 from ._pallas2 import _on_cpu, _std_pad, dwt_axis_plain, idwt_axis_plain
 
 __all__ = [
@@ -167,6 +179,15 @@ def idwt2_level_vjp_plain(
         return torch.autograd.grad(out, bands, ct)
 
 
+def _mxu2_plain(h: int, w: int, dtype, *filters) -> bool:
+    """On the CPU: run K9's plain version for this level?  Where K9 would
+    take it on the card and the filters are constants (the GEMM form's
+    band matrices carry no filter gradient)."""
+    if any(isinstance(f, torch.Tensor) and f.requires_grad for f in filters):
+        return False
+    return mxu2_level_ok(h, w, len(filters[0]), dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -183,10 +204,12 @@ def _dwt2_kernel(
     pad: int,
     circular: bool = True,
 ) -> torch.Tensor:
-    """Launch K1 on ``[B, h, w]`` -> ``[4, B, m_h, m_w]``; ``circular=False``
-    reads zero outside the image."""
-    _kernels.check_tensor("x", x, x.dtype, x.device)
+    """Launch K1 (K9a where K9's gate takes the image) on ``[B, h, w]`` ->
+    ``[4, B, m_h, m_w]``; ``circular=False`` reads zero outside the image."""
     b, h, w = x.shape
+    if mxu2_level_ok(h, w, len(lo), x.dtype):
+        return mxu2_dwt_call(x, lo, hi, period_h, period_w, m_h, m_w, pad, circular)
+    _kernels.check_tensor("x", x, x.dtype, x.device)
     out = torch.empty((4, b, m_h, m_w), dtype=x.dtype, device=x.device)
     if out.numel():
         _kernels.launch(
@@ -207,7 +230,8 @@ def _idwt2_kernel(
     circular: bool,
     fold: tuple[int, int, int, int] | None = None,
 ) -> torch.Tensor:
-    """Launch K2 on four ``[B, m_h, m_w]`` bands -> ``[B, out_h, out_w]``.
+    """Launch K2 (K9b where K9's gate takes the ``out_h x out_w`` image) on
+    four ``[B, m_h, m_w]`` bands -> ``[B, out_h, out_w]``.
 
     ``fold = (half_h, half_w, per_h, per_w)``: circular reads modulo
     ``half`` that also collect the band rows ``+ half, + 2 half, ...``, and
@@ -215,6 +239,8 @@ def _idwt2_kernel(
     adjoint of K1's reads); None is the plain synthesis.
     """
     ref = bands[0]
+    if mxu2_level_ok(out_h, out_w, len(lo), ref.dtype):
+        return mxu2_idwt_call(bands, lo, hi, out_h, out_w, off, circular, fold)
     for name, t in zip(("ll", "lh", "hl", "hh"), bands):
         _kernels.check_tensor(name, t, ref.dtype, ref.device)
         if t.shape != ref.shape:
@@ -233,8 +259,9 @@ def _idwt2_kernel(
 
 
 class _Dwt2Level(torch.autograd.Function):
-    """K1 forward; backward: K2 with the same taps, ``off = pad``, folding
-    modulo half the period.  Only the geometry is saved."""
+    """K1 (or K9a) forward; backward: K2 (or K9b) with the same taps,
+    ``off = pad``, folding modulo half the period.  Only the geometry is
+    saved."""
 
     @staticmethod
     def forward(ctx, x, lo, hi, per_h, per_w, m_h, m_w, pad):
@@ -251,8 +278,8 @@ class _Dwt2Level(torch.autograd.Function):
 
 
 class _Idwt2Level(torch.autograd.Function):
-    """K2 forward; backward: K1 with the same taps and ``pad = off``,
-    circular with the output as its period or zero-bounded."""
+    """K2 (or K9b) forward; backward: K1 (or K9a) with the same taps and
+    ``pad = off``, circular with the output as its period or zero-bounded."""
 
     @staticmethod
     def forward(ctx, lo, hi, out_h, out_w, off, circular, *bands):
@@ -275,17 +302,13 @@ def fused2_dwt_level(
     ``lh`` is hi along the first spatial axis.  ``dec_lo``/``dec_hi`` are
     flipped (correlation order).  Gate with
     :func:`fused2_analysis_applicable`.  A CPU tensor runs
-    :func:`dwt2_level_plain`; a CUDA tensor runs K1.
+    :func:`dwt2_level_plain` (K9a's plain version where K9 would take the
+    level); a CUDA tensor runs K1 or K9a.
     """
-    if _on_cpu(x):
-        return dwt2_level_plain(x, dec_lo, dec_hi, mode)
-    lo = _kernels.static_taps(dec_lo)
-    hi = _kernels.static_taps(dec_hi)
-    filt_len = len(lo)
+    filt_len = len(dec_lo)
     pad = _plan_pad(filt_len, mode)
     lead = x.shape[:-2]
     h, w = x.shape[-2:]
-    flat = x.reshape(-1, h, w).contiguous()
     if mode == "periodization":
         per_h, per_w = h + h % 2, w + w % 2
         m_h, m_w = per_h // 2, per_w // 2
@@ -293,7 +316,15 @@ def fused2_dwt_level(
         per_h, per_w = h, w
         m_h = (h + 2 * pad - filt_len) // 2 + 1
         m_w = (w + 2 * pad - filt_len) // 2 + 1
-    bands = _Dwt2Level.apply(flat, lo, hi, per_h, per_w, m_h, m_w, pad)
+    on_cpu = _on_cpu(x)
+    if on_cpu and not _mxu2_plain(h, w, x.dtype, dec_lo, dec_hi):
+        return dwt2_level_plain(x, dec_lo, dec_hi, mode)
+    lo, hi = _kernels.static_taps(dec_lo), _kernels.static_taps(dec_hi)
+    flat = x.reshape(-1, h, w)
+    if on_cpu:
+        bands = mxu2_dwt_plain(flat, lo, hi, per_h, per_w, m_h, m_w, pad)
+    else:
+        bands = _Dwt2Level.apply(flat.contiguous(), lo, hi, per_h, per_w, m_h, m_w, pad)
     return tuple(band.reshape(*lead, m_h, m_w) for band in bands.unbind(0))
 
 
@@ -304,19 +335,24 @@ def fused2_idwt_level(
 
     Gate with :func:`fused2_synthesis_applicable`: ``periodization``
     reconstructs ``[2m_h, 2m_w]``, ``periodic`` the even original.  A CPU
-    tensor runs :func:`idwt2_level_plain`; a CUDA tensor runs K2.
+    tensor runs :func:`idwt2_level_plain` (K9b's plain version where K9
+    would take the level); a CUDA tensor runs K2 or K9b.
     """
     filt_len = len(rec_lo)
-    if _on_cpu(subbands[0]):
-        p = 0 if mode == "periodization" else _std_pad(filt_len)
-        return idwt2_level_plain(subbands, rec_lo, rec_hi, mode, [(p, p), (p, p)])
-    lo = _kernels.static_taps(rec_lo)
-    hi = _kernels.static_taps(rec_hi)
+    pad = _plan_pad(filt_len, mode)
     lead = subbands[0].shape[:-2]
     m_h, m_w = subbands[0].shape[-2:]
-    flat = [b.reshape(-1, m_h, m_w).contiguous() for b in subbands]
     out_h, out_w = _synthesis_geometry(m_h, m_w, filt_len, mode)
-    out = _Idwt2Level.apply(
-        lo, hi, out_h, out_w, _plan_pad(filt_len, mode), mode == "periodization", *flat
-    )
+    circular = mode == "periodization"
+    on_cpu = _on_cpu(subbands[0])
+    if on_cpu and not _mxu2_plain(out_h, out_w, subbands[0].dtype, rec_lo, rec_hi):
+        p = 0 if circular else pad
+        return idwt2_level_plain(subbands, rec_lo, rec_hi, mode, [(p, p), (p, p)])
+    lo, hi = _kernels.static_taps(rec_lo), _kernels.static_taps(rec_hi)
+    flat = [b.reshape(-1, m_h, m_w) for b in subbands]
+    if on_cpu:
+        out = mxu2_idwt_plain(flat, lo, hi, out_h, out_w, pad, circular)
+    else:
+        flat = [b.contiguous() for b in flat]
+        out = _Idwt2Level.apply(lo, hi, out_h, out_w, pad, circular, *flat)
     return out.reshape(*lead, out_h, out_w)

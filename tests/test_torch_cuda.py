@@ -546,3 +546,98 @@ def test_cuda_2d_long_last_axis_runs_k7(cuda_device):
     assert _kernels.LAUNCHES["K7a"] == 1 and _kernels.LAUNCHES["K7b"] == 2
     assert _rel_err([got[0].cpu(), *(b.cpu() for b in got[1])], [want[0], *want[1]]) <= 1e-10
     assert float((rec.cpu()[..., :70001] - x).abs().max()) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# K9a/K9b: the tensor-core level (opt-in PTWT_TPU_MXU2D=1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def mxu2d(cuda_device, monkeypatch):
+    """The opt-in set and exact float32 products in the plain versions."""
+    monkeypatch.setenv("PTWT_TPU_MXU2D", "1")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    return cuda_device
+
+
+def _k9_plain(monkeypatch, fn, *args):
+    """``fn`` on the plain route: K9's plain versions on the card."""
+    with monkeypatch.context() as m:
+        m.setattr(t2d, "_on_cpu", lambda t: True)
+        return fn(*args)
+
+
+K9_CASES = [
+    *[(w, s) for w in ("haar", "db4", "db8", "sym6", "db20") for s in ((2, 128, 256), (1, 256, 512))],
+    ("db4", (16, 1024, 1024)),  # the headline's level 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wavelet,shape", K9_CASES)
+@pytest.mark.parametrize("mode", ["periodic", "periodization"])
+def test_cuda_k9_matches_plain(mxu2d, monkeypatch, wavelet, shape, mode):
+    dl, dh, rl, rh = _banks(wavelet)
+    x = torch.randn(*shape, dtype=torch.float32, device=mxu2d)
+    _kernels.reset_launch_counts()
+    got = t2d.fused2_dwt_level(x, dl, dh, mode)
+    want = _k9_plain(monkeypatch, t2d.fused2_dwt_level, x, dl, dh, mode)
+    assert _rel_err(list(got), list(want)) <= 2e-5
+    rec = t2d.fused2_idwt_level(want, rl, rh, mode)
+    ref = _k9_plain(monkeypatch, t2d.fused2_idwt_level, want, rl, rh, mode)
+    assert _rel_err(rec, ref) <= 2e-5
+    assert float((rec - x).abs().max()) <= 1e-4
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K9a": 1, "K9b": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wavelet,shape", K9_CASES)
+@pytest.mark.parametrize("mode", ["periodic", "periodization"])
+def test_cuda_k9_vjps_match_plain(mxu2d, monkeypatch, wavelet, shape, mode):
+    """K9a's VJP (a K9b launch, folding the periodic wrap rows) and K9b's
+    (a K9a launch, zero-bounded for periodic) against autograd through
+    the plain versions."""
+    dl, dh, rl, rh = _banks(wavelet)
+    x = torch.randn(*shape, dtype=torch.float32, device=mxu2d, requires_grad=True)
+    bands = t2d.fused2_dwt_level(x, dl, dh, mode)
+    cts = [_randn_like(b, i) for i, b in enumerate(bands)]
+    _kernels.reset_launch_counts()
+    (grad,) = torch.autograd.grad(bands, x, cts)
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K9b": 1}
+    plain = _k9_plain(monkeypatch, t2d.fused2_dwt_level, x, dl, dh, mode)
+    (want,) = torch.autograd.grad(plain, x, cts)
+    assert _rel_err(grad, want) <= 2e-5
+    subbands = [b.detach().requires_grad_() for b in bands]
+    rec = t2d.fused2_idwt_level(subbands, rl, rh, mode)
+    ct = _randn_like(rec, 9)
+    _kernels.reset_launch_counts()
+    grads = torch.autograd.grad(rec, subbands, ct)
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K9a": 1}
+    plain = _k9_plain(monkeypatch, t2d.fused2_idwt_level, subbands, rl, rh, mode)
+    want = torch.autograd.grad(plain, subbands, ct)
+    assert _rel_err(list(grads), list(want)) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_k9_routes(mxu2d, monkeypatch):
+    """The headline round trip takes K9 on level 1 only; float64, and the
+    opt-in unset, keep K1/K2."""
+    x = torch.randn(2, 1024, 1024, dtype=torch.float32, device=mxu2d)
+    _kernels.reset_launch_counts()
+    rec = tptwt.waverec2(tptwt.wavedec2(x, "db4", mode="periodic", level=4), "db4", mode="periodic")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {
+        "K9a": 1, "K9b": 1, "K1": 1, "K2": 1, "K3": 4, "K4": 4}
+    assert float((rec - x).abs().max()) <= 1e-4
+    _kernels.reset_launch_counts()
+    t2d.fused2_dwt_level(x.double(), *_banks("db4")[:2], "periodic")
+    monkeypatch.delenv("PTWT_TPU_MXU2D")
+    t2d.fused2_dwt_level(x, *_banks("db4")[:2], "periodic")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K1": 2}
+    with pytest.raises(NotImplementedError, match="filter gradient"):
+        monkeypatch.setenv("PTWT_TPU_MXU2D", "1")
+        dl, dh, _, _ = _banks("db4")
+        t2d.fused2_dwt_level(x, torch.tensor(dl, requires_grad=True), dh, "periodic")

@@ -10,7 +10,9 @@ checked on the CPU too, by running it against a numpy model of the
 kernels' index arithmetic; the model also runs the 1d pyramid kernels of
 ``csrc/fwt1d.cu`` (``tests/test_torch_kernels1d.py``) and the 2d pyramid
 kernels of ``csrc/pyramid2d.cu`` (``tests/test_torch_pyramid2d.py``)
-block by block.  Its K3/K4 entries and their VJPs apply sparse operators
+block by block, and checks the argument rules of the K9 launches
+(``csrc/mxu2d.cu``, ``tests/test_torch_mxu2d.py``), which compute what
+K1/K2 launched with the same arguments compute.  Its K3/K4 entries and their VJPs apply sparse operators
 (one entry per tap), so long lanes can be modelled too.
 The kernels themselves are held against their plain versions on the card
 in ``tests/test_torch_cuda.py``.
@@ -479,10 +481,30 @@ def _model_pyramid2d_synthesis(ll_in, det, out, lo, hi, n_taps, batch, plan, sme
     out.copy_(torch.from_numpy(result).reshape(out.shape))
 
 
+def _model_mxu2d(entry, dtype, a):
+    """The argument rules of ``ptwt_mxu2d_*`` (``csrc/mxu2d.cu``): float32,
+    at most 64 taps, and for the synthesis no clamped output rows; the
+    launch then computes what the K1/K2 launch with the same arguments
+    does.  Returns that entry's name."""
+    assert dtype == torch.float32, "K9 takes float32 only"
+    if entry == "ptwt_mxu2d_analysis":
+        n_taps, circ = a[4], a[13]
+        assert not circ or (a[8] >= a[6] and a[9] >= a[7])
+        assert 1 <= n_taps <= 64
+        return "ptwt_dwt2"
+    n_taps, m_h, m_w, out_h, out_w, circ, half_h, half_w, per_h, per_w = a[7], *a[9:13], *a[15:20]
+    assert 1 <= n_taps <= 64
+    assert (per_h, per_w) == (out_h, out_w), "K9b writes no clamped output rows"
+    assert circ or (half_h, half_w) == (m_h, m_w), "a fold needs circular reads"
+    return "ptwt_idwt2"
+
+
 def _model_launch(kernel, entry, device, dtype, *a):
     """Stand-in for ``_kernels.launch`` that runs the kernels' index rules;
     a VJP kernel runs the transpose of its forward's operator."""
     itemsize = torch.empty((), dtype=dtype).element_size()
+    if entry.startswith("ptwt_mxu2d_"):
+        entry = _model_mxu2d(entry, dtype, a)
     if entry == "ptwt_fwt1d_analysis":
         x, lo_out, *his = a[:6]
         _model_analysis_1d(x, lo_out, his, *a[6:], itemsize)
@@ -529,7 +551,7 @@ def _model_launch(kernel, entry, device, dtype, *a):
         }
         xs = x.numpy()
         res = [
-            np.einsum("im,bmn,jn->bij", ops["h"][bh], xs, ops["w"][bw])
+            np.einsum("im,bmn,jn->bij", ops["h"][bh], xs, ops["w"][bw], optimize=True)
             for bh, bw in _BAND_TAPS
         ]
     else:  # ptwt_idwt2
@@ -538,7 +560,7 @@ def _model_launch(kernel, entry, device, dtype, *a):
         sh = [_synthesis_op(t[:n_taps], out_h, m_h, off_h, circ, half_h, per_h) for t in (lo, hi)]
         sw = [_synthesis_op(t[:n_taps], out_w, m_w, off_w, circ, half_w, per_w) for t in (lo, hi)]
         res = sum(
-            np.einsum("um,bmn,vn->buv", sh[bh], band.numpy(), sw[bw])
+            np.einsum("um,bmn,vn->buv", sh[bh], band.numpy(), sw[bw], optimize=True)
             for band, (bh, bw) in zip((ll, lh, hl, hh), _BAND_TAPS)
         )
     out.copy_(torch.from_numpy(np.asarray(res)).reshape(out.shape))
