@@ -19,9 +19,13 @@ Phases, each raising (non-zero exit) on failure:
    and K2's VJP (K1, zero-bounded for periodic) on ``[16, 1024, 1024]``
    <-> ``4 x 515^2`` in periodic and periodization; K3T and K4T along both
    axes of ``[16, 515, 515]`` in every mode with phase 3's odd crop; and
-   coif17 on a 37-sample axis in periodization.  Unit-normal cotangents;
-   float32 within 2e-5, float64 within 1e-10, and in float64 the adjoint
-   identity ``<K x, y> = <x, K^T y>`` within 1e-12 of ``|K x| |y|``;
+   coif17 on a 37-sample axis in periodization; then K1, K2 and both VJPs
+   at the headline's level 4 (``[16, 134, 134]`` <-> ``4 x 70^2``) in both
+   dtypes, haar and coif17 in float64 on ``[2, 134, 134]``, and the odd
+   periodization image ``[4, 133, 135]`` (K1 and its clamped VJP).
+   Unit-normal cotangents; float32 within 2e-5, float64 within 1e-10, and
+   in float64 the adjoint identity ``<K x, y> = <x, K^T y>`` within 1e-12
+   of ``|K x| |y|``;
 4. the 2d main path: ``wavedec2`` -> ``waverec2`` on ``[16, 1024, 1024]``,
    db4, 4 levels, float32, in ``periodic`` (the headline) and ``reflect``
    (the default): coefficients against the plain path on the card within
@@ -29,7 +33,9 @@ Phases, each raising (non-zero exit) on failure:
 5. times with CUDA events (3 warm-ups, median of 20): each kernel and
    each VJP, its plain version and one library call computing the same
    level (``F.conv2d`` / ``F.conv_transpose2d``, never called by the
-   package), the round trip in Mpix/s, and each kernel's bound; after
+   package), the round trip in Mpix/s, and each kernel's bound; K1, K2
+   and their VJPs at level 1 and at level 4, and their sum per round trip
+   or step; after
    phase 8 the same for the 1d kernels at phase 8's shapes (library:
    ``F.conv1d`` / ``F.conv_transpose1d`` with stride 2 for the one-level
    K7 pair, none for the multi-level kernels), the K6 pyramid beside the
@@ -85,7 +91,13 @@ Phases, each raising (non-zero exit) on failure:
    the opt-in (the backward launches K9a and K9b as VJPs); phase 5's times
    for K9 and its VJPs (bound: the bytes against the band-only 3xTF32
    products at the TF32 tensor-core peak); a one-pass TF32 debug build's
-   error; and the round trip with the opt-in beside the default.
+   error; and the round trip with the opt-in beside the default;
+13. launches past 2^31 outputs: one level of ``[32, 8192, 8192]`` float32
+   and back in ``periodic`` (K1 writes 2,149,581,312 outputs, K2 2^31) and
+   ``reflect`` (K3 and the two-pair K4 2,149,056,512), and K1's VJP on the
+   periodic level; the first and the last image against the plain version
+   run on that image alone (2e-5); 43 GB of device memory at peak on an
+   H100, freed before the phase ends.
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations, the VJP of every pyramid kernel (K5a-K8b) as the autograd
@@ -93,8 +105,9 @@ backward runs it beside autograd through the plain version, and the 2d
 periodization round trips in Mpix/s.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (sixteen kernels;
-K1, K2 and K5a-K9b carry ``vjp_*`` keys), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+K1, K2 and K5a-K9b carry ``vjp_*`` keys; K1 and K2 carry their level-4
+times and the sums per round trip and per step), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -133,6 +146,7 @@ DEVICE = torch.device("cuda")
 SEED = 0
 SHAPE = (16, 1024, 1024)
 ODD = (16, 515, 515)  # level-2 input of the db4 periodic headline
+LEVEL4 = (16, 134, 134)  # level-4 input of the db4 periodic headline (-> 4 x 70^2)
 WAVELET = "db4"
 LEVEL = 4
 TOL = {torch.float32: 2e-5, torch.float64: 1e-10}
@@ -167,6 +181,12 @@ KERNELS_1D = ("K6a", "K6b", "K7a", "K7b", "K8a", "K8b")
 VJP_ROWS = ("K1 VJP", "K2 VJP")
 ADJOINT_TOL = 1e-12
 COIF_SHAPE = (4, 37, 37)  # coif17's 102 taps wrap this axis several times
+# K1/K2's tiles: float64 banks at both ends of the registry at a small
+# batch, and an odd periodization image (K1's VJP takes the clamp)
+TILE_F64 = (2, 134, 134)
+ODD_PER = (4, 133, 135)
+# phase 13: one level of this float32 batch writes more than 2^31 outputs
+BIG = (32, 8192, 8192)
 TRAIN_STEPS = 3
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
@@ -425,6 +445,55 @@ def check_vjps(errors: dict) -> None:
         torch.cuda.synchronize()
 
 
+def k1_k2_case(errors: dict, shape, dtype, wavelet: str, mode: str, seed: int) -> None:
+    """K1, K1's VJP, and (even images) K2 and K2's VJP against their plain
+    versions on one level of ``shape``; the adjoint identity in float64."""
+    tol = TOL[dtype]
+    tag = f"{wavelet} {mode} {list(shape)} {dtype}"
+    dl, dh, _, _ = get_filter_arrays(wavelet, flip=True, dtype=dtype)
+    _, _, rl, rh = get_filter_arrays(wavelet, flip=False, dtype=dtype)
+    x = leaf(randn(shape, dtype, seed))
+    bands = _pallas2d.fused2_dwt_level(x, dl, dh, mode)
+    ref = _pallas2d.dwt2_level_plain(x, dl, dh, mode)
+    record(errors, "K1", dtype, check(f"K1 {tag}", max_abs(bands, ref), tol))
+    cts = [randn(b.shape, dtype, seed + 1 + i) for i, b in enumerate(bands)]
+    (got,) = torch.autograd.grad(bands, x, cts)
+    want = _pallas2d.dwt2_level_vjp_plain(x, dl, dh, mode, cts)
+    record(errors, "K1 VJP", dtype, check(f"K1 VJP (K2) {tag}", max_abs(got, want), tol))
+    if dtype == torch.float64:
+        adjoint(f"K1 {tag}", bands, cts, [x], [got])
+    if shape[-1] % 2 or shape[-2] % 2:
+        return  # K2 reconstructs even images only
+    pp = 0 if mode == "periodization" else std_pad(len(dl))
+    subbands = [leaf(r) for r in ref]
+    rec = _pallas2d.fused2_idwt_level(subbands, rl, rh, mode)
+    back = _pallas2d.idwt2_level_plain(subbands, rl, rh, mode, [(pp, pp)] * 2)
+    record(errors, "K2", dtype, check(f"K2 {tag}", max_abs(rec, back), tol))
+    ct = randn(rec.shape, dtype, seed + 5)
+    grads = torch.autograd.grad(rec, subbands, ct)
+    want = _pallas2d.idwt2_level_vjp_plain(subbands, rl, rh, mode, [(pp, pp)] * 2, ct)
+    record(errors, "K2 VJP", dtype, check(f"K2 VJP (K1) {tag}", max_abs(grads, want), tol))
+    if dtype == torch.float64:
+        adjoint(f"K2 {tag}", [rec], [ct], subbands, grads)
+
+
+def check_tiles(errors: dict) -> None:
+    """K1/K2 and both VJPs beyond the headline's level 1: level 4 in both
+    dtypes, haar and coif17 in float64 at a small batch, an odd
+    periodization image."""
+    cases = [(LEVEL4, d, WAVELET) for d in (torch.float32, torch.float64)]
+    cases += [(TILE_F64, torch.float64, w) for w in ("haar", "coif17")]
+    seed = SEED + 100
+    for shape, dtype, wavelet in cases:
+        for mode in ("periodic", "periodization"):
+            k1_k2_case(errors, shape, dtype, wavelet, mode, seed)
+            seed += 10
+    for dtype in (torch.float32, torch.float64):
+        k1_k2_case(errors, ODD_PER, dtype, WAVELET, "periodization", seed)
+        seed += 10
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -521,7 +590,11 @@ def synthesis_flops(b: int, m_h: int, m_w: int, out_h: int, out_w: int, L: int) 
     return 2.0 * b * (2 * m_h * out_w * L + out_h * out_w * L)
 
 
-def time_kernels(copy_gbps: float) -> list[dict]:
+def time_k1_k2(shape) -> dict:
+    """K1, K2 and their VJPs on one periodic level of ``shape`` (float32):
+    ``shape`` -> 4 bands and back, each VJP called as the autograd
+    Functions' backward calls it; the bytes of a VJP are its forward
+    twin's."""
     f32 = torch.float32
     dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
     _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
@@ -529,16 +602,18 @@ def time_kernels(copy_gbps: float) -> list[dict]:
     p = std_pad(L)
     size = 4
     rows = {}
+    dfilt = outer_filters(dl, dh, f32)
+    rfilt = outer_filters(rl, rh, f32)
+    b, h, w = shape
+    tag = f"[{b}, {h}, {w}]"
 
-    # K1: level 1 of the periodic headline, [16, 1024, 1024] -> 4 x 515^2
-    x = randn(SHAPE, f32, SEED + 3)
-    b, h, w = SHAPE
+    # K1: shape -> 4 x m^2
+    x = randn(shape, f32, SEED + 3)
     bands = _pallas2d.fused2_dwt_level(x, dl, dh, "periodic")
     m = bands[0].shape[-1]
     xpad = F.pad(x[:, None], (p, p, p, p), mode="circular")
-    dfilt = outer_filters(dl, dh, f32)
     lib = F.conv2d(xpad, dfilt, stride=2)
-    log(f"  K1 library yardstick vs kernel max_abs={max_abs(lib.transpose(0, 1).contiguous(), torch.stack(bands))!r}")
+    log(f"  K1 {tag} library yardstick vs kernel max_abs={max_abs(lib.transpose(0, 1).contiguous(), torch.stack(bands))!r}")
     rows["K1"] = {
         "ms": time_ms(lambda: _pallas2d.fused2_dwt_level(x, dl, dh, "periodic")),
         "plain_ms": time_ms(lambda: _pallas2d.dwt2_level_plain(x, dl, dh, "periodic")),
@@ -548,12 +623,11 @@ def time_kernels(copy_gbps: float) -> list[dict]:
     }
     del xpad, lib
 
-    # K2: the inverse level, 4 x 515^2 -> [16, 1024, 1024] (standard crop)
+    # K2: the inverse level, 4 x m^2 -> shape (standard crop)
     stacked = torch.stack(bands, dim=1).contiguous()
-    rfilt = outer_filters(rl, rh, f32)
     lib = F.conv_transpose2d(stacked, rfilt, stride=2)[:, 0, p:-p, p:-p]
     rec = _pallas2d.fused2_idwt_level(bands, rl, rh, "periodic")
-    log(f"  K2 library yardstick vs kernel max_abs={max_abs(lib, rec)!r}")
+    log(f"  K2 {tag} library yardstick vs kernel max_abs={max_abs(lib, rec)!r}")
     rows["K2"] = {
         "ms": time_ms(lambda: _pallas2d.fused2_idwt_level(bands, rl, rh, "periodic")),
         "plain_ms": time_ms(
@@ -564,6 +638,72 @@ def time_kernels(copy_gbps: float) -> list[dict]:
         "flops": synthesis_flops(b, m, m, h, w, L),
     }
     del x, bands, stacked, lib, rec
+
+    # K1's VJP: K2 with the fold, 4 x m^2 -> shape (periodic)
+    x = leaf(randn(shape, f32, SEED + 8))
+    bands = _pallas2d.fused2_dwt_level(x, dl, dh, "periodic")
+    cts = torch.stack([randn(bands[0].shape, f32, SEED + 30 + i) for i in range(4)])
+    fold = (h // 2, w // 2, h, w)
+
+    def k1_vjp():
+        return _pallas2d._idwt2_kernel(cts.unbind(0), dl, dh, h, w, p, True, fold)
+
+    (auto,) = torch.autograd.grad(bands, x, tuple(cts))
+    log(f"  K1 VJP {tag} timed call vs autograd max_abs={max_abs(k1_vjp(), auto)!r}")
+    cts_nchw = cts.transpose(0, 1).contiguous()
+    rows["K1 VJP"] = {
+        "ms": time_ms(k1_vjp),
+        "plain_ms": time_ms(
+            lambda: _pallas2d.dwt2_level_vjp_plain(x, dl, dh, "periodic", cts.unbind(0))
+        ),
+        # the strided transposed convolution before its circular fold
+        "library_ms": time_ms(lambda: F.conv_transpose2d(cts_nchw, dfilt, stride=2)),
+        "bytes": size * (b * h * w + 4 * b * m * m),
+        "flops": analysis_flops(b, h, w, m, m, L),
+    }
+    del bands, auto, cts_nchw
+
+    # K2's VJP: K1 zero-bounded, shape -> 4 x m^2 (periodic)
+    subbands = [leaf(c) for c in cts.unbind(0)]
+    rec = _pallas2d.fused2_idwt_level(subbands, rl, rh, "periodic")
+    ct = randn(rec.shape, f32, SEED + 34)
+
+    def k2_vjp():
+        return _pallas2d._dwt2_kernel(ct, rl, rh, h, w, m, m, p, False)
+
+    auto = torch.autograd.grad(rec, subbands, ct)
+    log(f"  K2 VJP {tag} timed call vs autograd max_abs={max_abs(tuple(k2_vjp()), auto)!r}")
+    ct_pad = F.pad(ct[:, None], (p, p, p, p))
+    lib = F.conv2d(ct_pad, rfilt, stride=2)
+    log(f"  K2 VJP {tag} library yardstick vs kernel max_abs={max_abs(lib.transpose(0, 1).contiguous(), k2_vjp())!r}")
+    rows["K2 VJP"] = {
+        "ms": time_ms(k2_vjp),
+        "plain_ms": time_ms(
+            lambda: _pallas2d.idwt2_level_vjp_plain(subbands, rl, rh, "periodic", [(p, p)] * 2, ct)
+        ),
+        "library_ms": time_ms(lambda: F.conv2d(ct_pad, rfilt, stride=2)),
+        "bytes": size * (4 * b * m * m + b * h * w),
+        "flops": synthesis_flops(b, m, m, h, w, L),
+    }
+    del x, cts, subbands, rec, ct, auto, ct_pad
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
+    return rows
+
+
+def time_kernels(copy_gbps: float) -> tuple[dict, dict]:
+    """Phase 5's rows of K1-K4 and their VJPs at the headline's levels; K1,
+    K2 and their VJPs also at level 4 (the second rows)."""
+    f32 = torch.float32
+    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
+    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
+    L = len(dl)
+    p = std_pad(L)
+    size = 4
+    dfilt = outer_filters(dl, dh, f32)
+    rfilt = outer_filters(rl, rh, f32)
+    rows = time_k1_k2(SHAPE)
+    rows4 = time_k1_k2(LEVEL4)
 
     # K3: level 2 of the headline, one 2d level as two K3 passes,
     # [16, 515, 515] -> 4 x 261^2 (odd periodic)
@@ -612,21 +752,24 @@ def time_kernels(copy_gbps: float) -> list[dict]:
         "flops": synthesis_flops(b, m, m, h, w, L),
     }
     rows.update(time_vjps())
-    for name, row in rows.items():
-        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
-        row["copy_bound_ms"] = row["bytes"] / (copy_gbps * 1e9) * 1e3
-        log(
-            f"  {name}: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
-            f"library_ms={row['library_ms']!r} bound_ms={row['bound_ms']!r} "
-            f"({row['bound_by']}) copy_bound_ms={row['copy_bound_ms']!r}"
-        )
-    return rows
+    for level, table in ((1, rows), (4, rows4)):
+        for name, row in table.items():
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
+            row["copy_bound_ms"] = row["bytes"] / (copy_gbps * 1e9) * 1e3
+            log(
+                f"  {name}{' level 4' if level == 4 else ''}: ms={row['ms']!r} "
+                f"plain_ms={row['plain_ms']!r} library_ms={row['library_ms']!r} "
+                f"bound_ms={row['bound_ms']!r} ({row['bound_by']}) copy_bound_ms={row['copy_bound_ms']!r}"
+            )
+    for name in rows4:
+        log(f"  {name}: per round trip or step (levels 1 + 4) {rows[name]['ms'] + rows4[name]['ms']!r} ms")
+    return rows, rows4
 
 
 def time_vjps() -> dict:
-    """The VJP launches at the main path's shapes, each called as the
-    autograd Functions' backward calls it, against autograd through the
-    plain versions and one library call; the bytes are the forward twin's."""
+    """K3T and K4T at the main path's shapes, each called as the autograd
+    Functions' backward calls it, against autograd through the plain
+    versions and one library call; the bytes are the forward twin's."""
     f32 = torch.float32
     dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
     _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
@@ -636,56 +779,6 @@ def time_vjps() -> dict:
     rows = {}
     dfilt = outer_filters(dl, dh, f32)
     rfilt = outer_filters(rl, rh, f32)
-
-    # K1's VJP: K2 with the fold, 4 x 515^2 -> [16, 1024, 1024] (periodic)
-    b, h, w = SHAPE
-    x = leaf(randn(SHAPE, f32, SEED + 8))
-    bands = _pallas2d.fused2_dwt_level(x, dl, dh, "periodic")
-    m = bands[0].shape[-1]
-    cts = torch.stack([randn(bands[0].shape, f32, SEED + 30 + i) for i in range(4)])
-    fold = (h // 2, w // 2, h, w)
-
-    def k1_vjp():
-        return _pallas2d._idwt2_kernel(cts.unbind(0), dl, dh, h, w, p, True, fold)
-
-    (auto,) = torch.autograd.grad(bands, x, tuple(cts))
-    log(f"  K1 VJP timed call vs autograd max_abs={max_abs(k1_vjp(), auto)!r}")
-    cts_nchw = cts.transpose(0, 1).contiguous()
-    rows["K1 VJP"] = {
-        "ms": time_ms(k1_vjp),
-        "plain_ms": time_ms(
-            lambda: _pallas2d.dwt2_level_vjp_plain(x, dl, dh, "periodic", cts.unbind(0))
-        ),
-        # the strided transposed convolution before its circular fold
-        "library_ms": time_ms(lambda: F.conv_transpose2d(cts_nchw, dfilt, stride=2)),
-        "bytes": size * (b * h * w + 4 * b * m * m),
-        "flops": analysis_flops(b, h, w, m, m, L),
-    }
-    del bands, auto, cts_nchw
-
-    # K2's VJP: K1 zero-bounded, [16, 1024, 1024] -> 4 x 515^2 (periodic)
-    subbands = [leaf(c) for c in cts.unbind(0)]
-    rec = _pallas2d.fused2_idwt_level(subbands, rl, rh, "periodic")
-    ct = randn(rec.shape, f32, SEED + 34)
-
-    def k2_vjp():
-        return _pallas2d._dwt2_kernel(ct, rl, rh, h, w, m, m, p, False)
-
-    auto = torch.autograd.grad(rec, subbands, ct)
-    log(f"  K2 VJP timed call vs autograd max_abs={max_abs(tuple(k2_vjp()), auto)!r}")
-    ct_pad = F.pad(ct[:, None], (p, p, p, p))
-    lib = F.conv2d(ct_pad, rfilt, stride=2)
-    log(f"  K2 VJP library yardstick vs kernel max_abs={max_abs(lib.transpose(0, 1).contiguous(), k2_vjp())!r}")
-    rows["K2 VJP"] = {
-        "ms": time_ms(k2_vjp),
-        "plain_ms": time_ms(
-            lambda: _pallas2d.idwt2_level_vjp_plain(subbands, rl, rh, "periodic", [(p, p)] * 2, ct)
-        ),
-        "library_ms": time_ms(lambda: F.conv2d(ct_pad, rfilt, stride=2)),
-        "bytes": size * (4 * b * m * m + b * h * w),
-        "flops": synthesis_flops(b, m, m, h, w, L),
-    }
-    del x, cts, subbands, rec, ct, auto, ct_pad
 
     # K3T: the VJP of phase 5's K3 level (periodic, [16, 515, 515] ->
     # 4 x 261^2): K3T along the last axis, then along the first
@@ -1664,6 +1757,67 @@ def round_trips_k9() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: launches of 2^31 outputs and more
+# ---------------------------------------------------------------------------
+
+
+def ends(t: torch.Tensor):
+    """The first and the last image of a batch, as batches of one."""
+    return t[:1], t[-1:]
+
+
+def check_past_2_31() -> None:
+    """One level of ``BIG`` and back in periodic (K1 writes 4 * 32 * 4098^2
+    = 2,149,581,312 outputs, K2 32 * 8192^2 = 2^31) and reflect (K3 and
+    the two-pair K4 write 2 * 32 * 4099 * 8192 = 2,149,056,512), and K1's
+    VJP on the periodic level: the first and the last image against the
+    plain version run on that image alone.  Frees its tensors."""
+    f32 = torch.float32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
+    x = randn(BIG, f32, SEED + 400)
+    for mode, must in (("periodic", ("K1", "K2")), ("reflect", ("K3", "K4"))):
+        _kernels.reset_launch_counts()
+        coeffs = ptwt.wavedec2(x, WAVELET, mode=mode, level=1)
+        rec = ptwt.waverec2(coeffs, WAVELET, mode=mode)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        log(f"  {mode} {list(BIG)} level 1: launches {counts}")
+        for name in must:
+            if not counts.get(name):
+                raise AssertionError(f"{name} was not launched by the {mode} level of {list(BIG)}")
+        flat = flat_coeffs(coeffs)
+        for i, xi in zip((0, BIG[0] - 1), ends(x)):
+            got = [ends(c)[0 if i == 0 else 1] for c in flat]
+            with plain_versions():
+                ref = flat_coeffs(ptwt.wavedec2(xi, WAVELET, mode=mode, level=1))
+                back = ptwt.waverec2((got[0], tuple(got[1:])), WAVELET, mode=mode)
+            check(f"{mode} image {i} coefficients vs plain", max_abs(got, ref), 2e-5)
+            mine = ends(rec)[0 if i == 0 else 1]
+            check(f"{mode} image {i} reconstruction vs plain", max_abs(mine, back), 2e-5)
+            check(f"{mode} image {i} round trip", max_abs(mine, xi), ROUND_TRIP_TOL)
+        del coeffs, rec, flat, got, ref, back, mine
+    x = leaf(x)
+    bands = _pallas2d.fused2_dwt_level(x, dl, dh, "periodic")
+    cts = randn((4, *bands[0].shape), f32, SEED + 401)
+    _kernels.reset_launch_counts()
+    (grad,) = torch.autograd.grad(bands, x, tuple(cts.unbind(0)))
+    torch.cuda.synchronize()
+    if _kernels.LAUNCHES["K2"] != 1:
+        raise AssertionError("K1's VJP on the periodic level did not launch K2 once")
+    del bands
+    for j, (xi, gi) in enumerate(zip(ends(x.detach()), ends(grad))):
+        ci = [ends(c)[j] for c in cts.unbind(0)]
+        want = _pallas2d.dwt2_level_vjp_plain(xi, dl, dh, "periodic", ci)
+        check(f"K1 VJP (K2) image {(0, BIG[0] - 1)[j]} vs plain", max_abs(gi, want), 2e-5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del x, cts, grad, xi, gi, ci, want
+    torch.cuda.empty_cache()
+    log(f"  phase 13 peak device memory {peak!r} GB")
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -1701,6 +1855,8 @@ def main() -> int:
     check_goldens()
     log("phase 3b: VJP kernels against their plain versions")
     check_vjps(errors)
+    log("phase 3b: K1/K2 tiles at level 4, haar and coif17 (float64), an odd periodization image")
+    check_tiles(errors)
 
     log("phase 4: main path")
     x = randn(SHAPE, torch.float32, SEED)
@@ -1716,7 +1872,7 @@ def main() -> int:
     log("phase 5: times")
     gbps = copy_bandwidth()
     log(f"  device copy: {gbps!r} GB/s")
-    rows = time_kernels(gbps)
+    rows, rows4 = time_kernels(gbps)
     mpix = SHAPE[0] * SHAPE[1] * SHAPE[2] / 1e6
     for mode in ("periodic", "reflect"):
         ms = wall_ms(
@@ -1828,6 +1984,9 @@ def main() -> int:
     if os.environ.get(MXU2D_ENV) == "1":
         raise AssertionError(f"{MXU2D_ENV} leaked out of phase 12")
 
+    log(f"phase 13: launches past 2^31 outputs, {list(BIG)} float32")
+    check_past_2_31()
+
     kernels = []
     for name in ("K1", "K2", "K3", "K4", "K3T", "K4T"):
         source, replaces = REPLACES[name]
@@ -1850,7 +2009,16 @@ def main() -> int:
         }
         vjp = rows.get(f"{name} VJP")
         if vjp:
+            # ms is level 1's; the headline runs each of K1/K2 once at level
+            # 1 (1024^2 <-> 4 x 515^2) and once at level 4 (134^2 <-> 4 x 70^2)
+            row4, vjp4 = rows4[name], rows4[f"{name} VJP"]
             entry.update(
+                ms_level4=row4["ms"],
+                plain_ms_level4=row4["plain_ms"],
+                bound_ms_level4=row4["bound_ms"],
+                library_ms_level4=row4["library_ms"],
+                ms_per_round_trip=row["ms"] + row4["ms"],
+                bound_ms_per_round_trip=row["bound_ms"] + row4["bound_ms"],
                 vjp_launches=train["periodic"]["backward"]["K2" if name == "K1" else "K1"],
                 vjp_max_abs_err=errors[f"{name} VJP"][torch.float32],
                 vjp_max_abs_err_f64=errors[f"{name} VJP"][torch.float64],
@@ -1858,6 +2026,11 @@ def main() -> int:
                 vjp_plain_ms=vjp["plain_ms"],
                 vjp_bound_ms=vjp["bound_ms"],
                 vjp_library_ms=vjp["library_ms"],
+                vjp_ms_level4=vjp4["ms"],
+                vjp_plain_ms_level4=vjp4["plain_ms"],
+                vjp_bound_ms_level4=vjp4["bound_ms"],
+                vjp_library_ms_level4=vjp4["library_ms"],
+                vjp_ms_per_step=vjp["ms"] + vjp4["ms"],
             )
         kernels.append(entry)
     vjp_kernel = {"K5a": "K5b", "K5b": "K5a", "K6a": "K6b", "K6b": "K6a",

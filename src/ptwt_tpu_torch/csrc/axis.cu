@@ -18,23 +18,25 @@
 // once from device memory: the len taps a thread reads overlap those of
 // its neighbours, so the reuse is served by L1 and L2, and a warp's loads
 // are contiguous along the fastest axis (i for the last axis, the inner
-// index otherwise).
+// index otherwise).  Each kernel has a 32-bit index instance, which every
+// launch of fewer than 2^31 outputs runs, and a 64-bit one for larger
+// launches.
 #include "common.cuh"
 
-template <typename T>
+template <typename T, typename I>
 __global__ void analysis_axis_kernel(const T* __restrict__ x,
                                      T* __restrict__ out,
                                      const __grid_constant__ Taps<T> taps,
-                                     int len, unsigned outer, int n,
-                                     int period, int m, unsigned inner,
+                                     int len, I outer, int n,
+                                     int period, int m, I inner,
                                      int pad, int circular) {
-  const unsigned total = outer * static_cast<unsigned>(m) * inner;
-  const unsigned idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const I total = outer * static_cast<I>(m) * inner;
+  const I idx = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const unsigned j = idx % inner;
-  const unsigned row = idx / inner;
-  const int i = static_cast<int>(row % static_cast<unsigned>(m));
-  const unsigned o = row / static_cast<unsigned>(m);
+  const I j = idx % inner;
+  const I row = idx / inner;
+  const int i = static_cast<int>(row % static_cast<I>(m));
+  const I o = row / static_cast<I>(m);
   const T* src = x + (static_cast<int64_t>(o) * n) * inner + j;
   T lo = T(0), hi = T(0);
   const int base = 2 * i - pad;
@@ -55,22 +57,22 @@ struct BandPairs {
   const T* hi[2];
 };
 
-template <typename T>
+template <typename T, typename I>
 __global__ void synthesis_axis_kernel(const BandPairs<T> bands,
                                       T* __restrict__ out,
                                       const __grid_constant__ Taps<T> taps,
-                                      int len, int groups, unsigned outer,
-                                      int m, int out_len, unsigned inner,
+                                      int len, int groups, I outer,
+                                      int m, int out_len, I inner,
                                       int off, int circular) {
-  const unsigned per_group = outer * static_cast<unsigned>(out_len) * inner;
-  const unsigned idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= per_group * static_cast<unsigned>(groups)) return;
-  const unsigned g = idx / per_group;
-  const unsigned rem = idx - g * per_group;
-  const unsigned j = rem % inner;
-  const unsigned row = rem / inner;
-  const int t = static_cast<int>(row % static_cast<unsigned>(out_len));
-  const unsigned o = row / static_cast<unsigned>(out_len);
+  const I per_group = outer * static_cast<I>(out_len) * inner;
+  const I idx = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= per_group * static_cast<I>(groups)) return;
+  const I g = idx / per_group;
+  const I rem = idx - g * per_group;
+  const I j = rem % inner;
+  const I row = rem / inner;
+  const int t = static_cast<int>(row % static_cast<I>(out_len));
+  const I o = row / static_cast<I>(out_len);
   const int64_t base = (static_cast<int64_t>(o) * m) * inner + j;
   const T* lo = (g ? bands.lo[1] : bands.lo[0]) + base;
   const T* hi = (g ? bands.hi[1] : bands.hi[0]) + base;
@@ -97,10 +99,16 @@ static int launch_analysis(const void* x, void* out, const double* lo,
                            int period, int m, long long inner, int pad,
                            int circular, cudaStream_t stream) {
   const int64_t total = outer * static_cast<int64_t>(m) * inner;
-  analysis_axis_kernel<T><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      make_taps<T>(lo, hi, len), len, static_cast<unsigned>(outer), n,
-      period, m, static_cast<unsigned>(inner), pad, circular);
+  if (index32_ok(total))
+    analysis_axis_kernel<T, unsigned><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out),
+        make_taps<T>(lo, hi, len), len, static_cast<unsigned>(outer), n,
+        period, m, static_cast<unsigned>(inner), pad, circular);
+  else
+    analysis_axis_kernel<T, int64_t><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out),
+        make_taps<T>(lo, hi, len), len, outer, n, period, m, inner, pad,
+        circular);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -117,10 +125,15 @@ static int launch_synthesis(const void* lo0, const void* hi0,
   bands.lo[1] = static_cast<const T*>(groups > 1 ? lo1 : lo0);
   bands.hi[1] = static_cast<const T*>(groups > 1 ? hi1 : hi0);
   const int64_t total = groups * outer * static_cast<int64_t>(out_len) * inner;
-  synthesis_axis_kernel<T><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
-      bands, static_cast<T*>(out), make_taps<T>(rlo, rhi, len), len, groups,
-      static_cast<unsigned>(outer), m, out_len,
-      static_cast<unsigned>(inner), off, circular);
+  if (index32_ok(total))
+    synthesis_axis_kernel<T, unsigned><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
+        bands, static_cast<T*>(out), make_taps<T>(rlo, rhi, len), len, groups,
+        static_cast<unsigned>(outer), m, out_len,
+        static_cast<unsigned>(inner), off, circular);
+  else
+    synthesis_axis_kernel<T, int64_t><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
+        bands, static_cast<T*>(out), make_taps<T>(rlo, rhi, len), len, groups,
+        outer, m, out_len, inner, off, circular);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,23 +30,24 @@
 // sample and one write of each output.  The design keeps every input read
 // once from device memory: neighbouring threads read overlapping windows of
 // the cotangent, served by L1 and L2, and a warp's loads run along the
-// fastest axis.
+// fastest axis.  As in axis.cu, launches of 2^31 outputs or more run a
+// 64-bit index instance.
 #include "common.cuh"
 
-template <typename T>
+template <typename T, typename I>
 __global__ void analysis_axis_t_kernel(const T* __restrict__ ct,
                                        T* __restrict__ out,
                                        const __grid_constant__ Taps<T> taps,
-                                       int len, unsigned outer, int n,
-                                       int period, int m, unsigned inner,
+                                       int len, I outer, int n,
+                                       int period, int m, I inner,
                                        int pad, int circular) {
-  const unsigned total = outer * static_cast<unsigned>(n) * inner;
-  const unsigned idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const I total = outer * static_cast<I>(n) * inner;
+  const I idx = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const unsigned j = idx % inner;
-  const unsigned row = idx / inner;
-  const int u = static_cast<int>(row % static_cast<unsigned>(n));
-  const unsigned o = row / static_cast<unsigned>(n);
+  const I j = idx % inner;
+  const I row = idx / inner;
+  const int u = static_cast<int>(row % static_cast<I>(n));
+  const I o = row / static_cast<I>(n);
   const int64_t band = static_cast<int64_t>(outer) * m * inner;
   const T* ct_lo = ct + (static_cast<int64_t>(o) * m) * inner + j;
   const T* ct_hi = ct_lo + band;
@@ -71,22 +72,22 @@ __global__ void analysis_axis_t_kernel(const T* __restrict__ ct,
   out[idx] = acc;
 }
 
-template <typename T>
+template <typename T, typename I>
 __global__ void synthesis_axis_t_kernel(const T* __restrict__ ct,
                                         T* __restrict__ out,
                                         const __grid_constant__ Taps<T> taps,
-                                        int len, int groups, unsigned outer,
-                                        int m, int out_len, unsigned inner,
+                                        int len, int groups, I outer,
+                                        int m, int out_len, I inner,
                                         int off, int circular) {
-  const unsigned per_group = outer * static_cast<unsigned>(m) * inner;
-  const unsigned idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= per_group * static_cast<unsigned>(groups)) return;
-  const unsigned g = idx / per_group;
-  const unsigned rem = idx - g * per_group;
-  const unsigned j = rem % inner;
-  const unsigned row = rem / inner;
-  const int q = static_cast<int>(row % static_cast<unsigned>(m));
-  const unsigned o = row / static_cast<unsigned>(m);
+  const I per_group = outer * static_cast<I>(m) * inner;
+  const I idx = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= per_group * static_cast<I>(groups)) return;
+  const I g = idx / per_group;
+  const I rem = idx - g * per_group;
+  const I j = rem % inner;
+  const I row = rem / inner;
+  const int q = static_cast<int>(row % static_cast<I>(m));
+  const I o = row / static_cast<I>(m);
   const T* src = ct +
                  (static_cast<int64_t>(g) * outer + o) * out_len * inner + j;
   const int period = 2 * m;
@@ -118,10 +119,16 @@ static int launch_analysis_t(const void* ct, void* out, const double* lo,
                              int n, int period, int m, long long inner,
                              int pad, int circular, cudaStream_t stream) {
   const int64_t total = outer * static_cast<int64_t>(n) * inner;
-  analysis_axis_t_kernel<T><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
-      static_cast<const T*>(ct), static_cast<T*>(out),
-      make_taps<T>(lo, hi, len), len, static_cast<unsigned>(outer), n,
-      period, m, static_cast<unsigned>(inner), pad, circular);
+  if (index32_ok(total))
+    analysis_axis_t_kernel<T, unsigned><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
+        static_cast<const T*>(ct), static_cast<T*>(out),
+        make_taps<T>(lo, hi, len), len, static_cast<unsigned>(outer), n,
+        period, m, static_cast<unsigned>(inner), pad, circular);
+  else
+    analysis_axis_t_kernel<T, int64_t><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
+        static_cast<const T*>(ct), static_cast<T*>(out),
+        make_taps<T>(lo, hi, len), len, outer, n, period, m, inner, pad,
+        circular);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -132,10 +139,16 @@ static int launch_synthesis_t(const void* ct, int groups, void* out,
                               long long inner, int off, int circular,
                               cudaStream_t stream) {
   const int64_t total = groups * outer * static_cast<int64_t>(m) * inner;
-  synthesis_axis_t_kernel<T><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
-      static_cast<const T*>(ct), static_cast<T*>(out),
-      make_taps<T>(rlo, rhi, len), len, groups, static_cast<unsigned>(outer),
-      m, out_len, static_cast<unsigned>(inner), off, circular);
+  if (index32_ok(total))
+    synthesis_axis_t_kernel<T, unsigned><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
+        static_cast<const T*>(ct), static_cast<T*>(out),
+        make_taps<T>(rlo, rhi, len), len, groups, static_cast<unsigned>(outer),
+        m, out_len, static_cast<unsigned>(inner), off, circular);
+  else
+    synthesis_axis_t_kernel<T, int64_t><<<grid_size(total), PTWT_THREADS, 0, stream>>>(
+        static_cast<const T*>(ct), static_cast<T*>(out),
+        make_taps<T>(rlo, rhi, len), len, groups, outer, m, out_len, inner,
+        off, circular);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -641,3 +641,134 @@ def test_cuda_k9_routes(mxu2d, monkeypatch):
         monkeypatch.setenv("PTWT_TPU_MXU2D", "1")
         dl, dh, _, _ = _banks("db4")
         t2d.fused2_dwt_level(x, torch.tensor(dl, requires_grad=True), dh, "periodic")
+
+
+# ---------------------------------------------------------------------------
+# K1/K2 as shared-memory tiles (csrc/dwt2.cu): tile edges, long filters,
+# batches of small crops
+# ---------------------------------------------------------------------------
+
+
+def _tile_cases():
+    # below one tile, the headline's level 4 (134 <-> 4 x 70), ragged tiles
+    # with h != w, an odd periodization image, and a batch of small crops
+    # past the 65,535 blocks of a grid's y and z
+    shapes = [(3, 12, 16), (16, 134, 134), (2, 76, 142), (3, 45, 71)]
+    banks = [*CASES, (torch.float32, "haar"), (torch.float32, "coif17")]
+    cases = [(d, w, s, m) for d, w in banks for s in shapes for m in ("periodic", "periodization")
+             if m == "periodization" or not (s[1] % 2 or s[2] % 2)]
+    cases += [(torch.float32, "db4", (70000, 16, 16), m) for m in ("periodic", "periodization")]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wavelet,shape,mode", _tile_cases())
+def test_cuda_k1_k2_tiles_match_plain(cuda_device, dtype, wavelet, shape, mode):
+    """K1, K2, K1's VJP (K2 with the fold or the clamp) and K2's VJP (K1,
+    zero-bounded for periodic) against their plain versions."""
+    dl, dh, rl, rh = _banks(wavelet)
+    tol = 2e-5 if dtype == torch.float32 else 1e-10
+    x = torch.randn(*shape, dtype=dtype, device=cuda_device, requires_grad=True)
+    _kernels.reset_launch_counts()
+    bands = t2d.fused2_dwt_level(x, dl, dh, mode)
+    assert _rel_err(list(bands), list(t2d.dwt2_level_plain(x, dl, dh, mode))) <= tol
+    cts = [_randn_like(b, i) for i, b in enumerate(bands)]
+    (grad,) = torch.autograd.grad(bands, x, cts)
+    assert _rel_err(grad, t2d.dwt2_level_vjp_plain(x, dl, dh, mode, cts)) <= tol
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K1"] == 1 and _kernels.LAUNCHES["K2"] == 1
+    if shape[-1] % 2 or shape[-2] % 2:
+        return  # K2 reconstructs even shapes only
+    p = 0 if mode == "periodization" else _std_pad(len(dl))
+    subbands = [b.detach().requires_grad_() for b in bands]
+    rec = t2d.fused2_idwt_level(subbands, rl, rh, mode)
+    assert _rel_err(rec, t2d.idwt2_level_plain(subbands, rl, rh, mode, [(p, p)] * 2)) <= tol
+    ct = _randn_like(rec, 9)
+    grads = torch.autograd.grad(rec, subbands, ct)
+    want = t2d.idwt2_level_vjp_plain(subbands, rl, rh, mode, [(p, p)] * 2, ct)
+    assert _rel_err(list(grads), list(want)) <= tol
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K1"] == 2 and _kernels.LAUNCHES["K2"] == 2
+
+
+# ---------------------------------------------------------------------------
+# launches of 2^31 outputs and more (K1, K2, K1's VJP, the two-pair K4)
+# ---------------------------------------------------------------------------
+
+BIG = (32, 8192, 8192)  # float32: 8.6 GB
+
+
+@pytest.fixture
+def plain(monkeypatch):
+    """Run ``fn(*args, **kwargs)`` on the plain versions, on the card."""
+
+    def run(fn, *args, **kwargs):
+        with monkeypatch.context() as m:
+            for module in (t2, t2d, t5, t7, t8):
+                m.setattr(module, "_on_cpu", lambda t: True)
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def _ends(t, axis=0):
+    """The first and the last image of a batch, as batches of one."""
+    n = t.shape[axis]
+    return t.narrow(axis, 0, 1), t.narrow(axis, n - 1, 1)
+
+
+def _flat_coeffs(coeffs):
+    return [coeffs[0], *coeffs[1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["periodic", "reflect"])
+def test_cuda_wavedec2_waverec2_past_2_31_outputs(cuda_device, plain, mode):
+    """One level of ``[32, 8192, 8192]`` float32 and back.  Periodic: K1
+    writes 4 * 32 * 4098^2 = 2,149,581,312 outputs, K2 32 * 8192^2 = 2^31.
+    Reflect: K3 along H and the two-pair K4 along W write 2 * 32 * 4099 *
+    8192 = 2,149,056,512.  The first and the last image against the plain
+    version run on that image alone.  Peak device memory is about 26 GB
+    in periodic (the image, its bands, the reconstruction) and more in
+    reflect (padded copies besides); chip_smoke.py's phase 13, which runs
+    both modes and K1's VJP at this size, peaked at 43 GB on an H100."""
+    torch.manual_seed(0)
+    x = torch.randn(BIG, dtype=torch.float32, device=cuda_device)
+    _kernels.reset_launch_counts()
+    coeffs = tptwt.wavedec2(x, "db4", mode=mode, level=1)
+    rec = tptwt.waverec2(coeffs, "db4", mode=mode)
+    torch.cuda.synchronize()
+    used = ("K1", "K2") if mode == "periodic" else ("K3", "K4")
+    assert all(_kernels.LAUNCHES[k] >= 1 for k in used)
+    ends_x = _ends(x)
+    del x
+    flat = _flat_coeffs(coeffs)
+    for i, xi in enumerate(ends_x):
+        want = plain(tptwt.wavedec2, xi, "db4", mode=mode, level=1)
+        got = [_ends(c)[i] for c in flat]
+        assert _rel_err(got, _flat_coeffs(want)) <= 2e-5
+        back = plain(tptwt.waverec2, (got[0], tuple(got[1:])), "db4", mode=mode)
+        assert _rel_err(_ends(rec)[i], back) <= 2e-5
+        assert float((_ends(rec)[i] - xi).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_k1_vjp_past_2_31_outputs(cuda_device):
+    """K1's VJP (a K2 launch with the fold) on the periodic level of
+    ``[32, 8192, 8192]`` float32, whose cotangents hold 2,149,581,312
+    values.  The first and the last image against the plain VJP on that
+    image alone.  Peak device memory is about 35 GB (the image, its bands,
+    their cotangents, the gradient, 8.6 GB each)."""
+    dl, dh, _, _ = _banks("db4")
+    torch.manual_seed(1)
+    x = torch.randn(BIG, dtype=torch.float32, device=cuda_device, requires_grad=True)
+    bands = t2d.fused2_dwt_level(x, dl, dh, "periodic")
+    cts = torch.randn((4, *bands[0].shape), dtype=torch.float32, device=cuda_device)
+    _kernels.reset_launch_counts()
+    (grad,) = torch.autograd.grad(bands, x, tuple(cts.unbind(0)))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K2"] == 1
+    del bands
+    for i, (xi, gi) in enumerate(zip(_ends(x.detach()), _ends(grad))):
+        ci = [_ends(c)[i] for c in cts.unbind(0)]
+        assert _rel_err(gi, t2d.dwt2_level_vjp_plain(xi, dl, dh, "periodic", ci)) <= 2e-5
