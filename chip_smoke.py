@@ -54,7 +54,12 @@ Phases, each raising (non-zero exit) on failure:
    K8b/K7b with waverec's crops; K6a/K6b on ``[32, 2**19]``, 10
    periodization levels.  Float32 at full width, float64 at batch 4; the
    limit is max-abs error over ``max(1, the band's largest magnitude)``,
-   2e-5 (float32) and 1e-10 (float64);
+   2e-5 (float32) and 1e-10 (float64).  Then the VJP instances at the same
+   widths, every padded mode: K8a's and K7a's VJP (one synthesis pyramid
+   launch with the padding fold, counted as K8b/K7b) and K8b's and K7b's
+   (one analysis pyramid launch, counted as K8a/K7a) against autograd
+   through the plain versions, each backward's launches asserted, and in
+   float64 the adjoint identity;
 8. the 1d main path: ``wavedec`` -> ``waverec``, db5, float32, on
    ``[32, 1_000_000]`` with 10 levels in ``periodic`` (the reference's 1d
    speed test) and ``reflect``, on ``[32, 2**19]`` with 10 levels in
@@ -78,9 +83,9 @@ Phases, each raising (non-zero exit) on failure:
    configurations, and a 1d counterpart (a signal and per-level detail
    gains) at d1 periodic and reflect, K6 and K7: 3 SGD steps on the
    kernel path against the plain path (phase 6's limits), the launches of
-   one backward (which must be VJP launches only: K5a/K5b, K6a/K6b,
-   K3T/K4T, never the forward kernel of a launch's own direction), and
-   the step's wall time;
+   one backward (which must be VJP launches only: K5a/K5b, K6a/K6b, and
+   for 1d the pyramid launches of the fused runs' VJPs with K3T/K4T for
+   d1's per-level levels 5-10), and the step's wall time;
 12. the tensor-core level K9a/K9b, with the opt-in ``PTWT_TPU_MXU2D=1``
    set inside this phase only (phases 3-11 run with it unset): K9a, K9b
    and their VJPs against their plain versions (the GEMM form, autograd
@@ -101,8 +106,16 @@ Phases, each raising (non-zero exit) on failure:
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations, the VJP of every pyramid kernel (K5a-K8b) as the autograd
-backward runs it beside autograd through the plain version, and the 2d
-periodization round trips in Mpix/s.
+backward runs it beside autograd through the plain version (and the K7/K8
+VJP launches called directly), and the 2d periodization round trips in
+Mpix/s.
+
+``python3 chip_smoke.py --parent DIR`` (``DIR`` a checkout of another
+commit, e.g. a ``git archive`` of the parent) also times every
+``fwt1d.cu`` instance and the 1d VJPs of both trees in turns (``DIR``,
+this tree, this tree, ``DIR``; each run a process of its own, started as
+``chip_smoke.py --fwt1d-times --src DIR/src``), then this tree's at other
+tile sizes, and adds them to the kernels line as ``in_turns``.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (sixteen kernels;
 K1, K2 and K5a-K9b carry ``vjp_*`` keys; K1 and K2 carry their level-4
@@ -128,7 +141,16 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+
+
+def _arg(name: str):
+    """The value after ``name`` on the command line, or None."""
+    return sys.argv[sys.argv.index(name) + 1] if name in sys.argv else None
+
+
+# ``--src DIR`` imports the package from another checkout (phase 5 times
+# the parent tree that way, in turns with this one)
+sys.path.insert(0, _arg("--src") or str(ROOT / "src"))
 
 import ptwt_tpu_torch as ptwt  # noqa: E402
 from ptwt_tpu_torch.ops import (  # noqa: E402
@@ -1062,6 +1084,52 @@ def check_kernels_1d(errors: dict) -> None:
         torch.cuda.synchronize()
 
 
+def check_vjps_1d(errors: dict) -> None:
+    """Phase 7's VJP instances: K8a's and K7a's VJP (one synthesis pyramid
+    launch with the fold, counted as K8b/K7b) and K8b's and K7b's (one
+    analysis pyramid launch, counted as K8a/K7a) against autograd through
+    the plain versions, every padded mode, with waverec's crops; in
+    float64 also the adjoint identity."""
+    for dtype in (torch.float32, torch.float64):
+        dl, dh, rl, rh = banks_1d(dtype)
+        batch = D1_SHAPE[0] if dtype == torch.float32 else BATCH_F64_1D
+        x = leaf(randn((batch, D1_SHAPE[1]), dtype, SEED + 52))
+        for mode in PADDED_MODES:
+            for depth, (ka, kb) in ((4, ("K8a", "K8b")), (1, ("K7a", "K7b"))):
+                lo, his = _pallas1d_multi.flat_wavedec_lane_multi(x, dl, dh, mode, depth)
+                outs = [lo, *his]
+                cts = [randn(t.shape, dtype, SEED + 53 + j) for j, t in enumerate(outs)]
+                _kernels.reset_launch_counts()
+                (got,) = torch.autograd.grad(outs, x, cts)
+                torch.cuda.synchronize()
+                only(_kernels.LAUNCHES, {kb: 1}, f"{ka} VJP {mode}")
+                z = leaf(x)
+                ref_lo, ref_his = _pallas1d_multi.multi_analysis_plain(z, dl, dh, mode, depth)
+                (want,) = torch.autograd.grad((ref_lo, *ref_his), z, cts)
+                check_1d(errors, f"{ka} VJP", mode, got, want, dtype)
+                if dtype == torch.float64:
+                    adjoint(f"{ka} VJP {mode}", [t.detach() for t in outs], cts, [x.detach()], [got])
+                del lo, his, outs, want
+                coeffs = [leaf(t) for t in (ref_lo, *ref_his[::-1])]
+                pads, lens = chain_crops(x, ref_his, len(dl))
+                rec = _pallas1d_multi.flat_waverec_lane_multi(coeffs, rl, rh, pads, lens)
+                ct = randn(rec.shape, dtype, SEED + 58)
+                _kernels.reset_launch_counts()
+                got = torch.autograd.grad(rec, coeffs, ct)
+                torch.cuda.synchronize()
+                only(_kernels.LAUNCHES, {ka: 1}, f"{kb} VJP {mode}")
+                plain = [leaf(t) for t in coeffs]
+                want = torch.autograd.grad(
+                    _pallas1d_multi.multi_synthesis_plain(plain, rl, rh, pads, lens), plain, ct
+                )
+                check_1d(errors, f"{kb} VJP", mode, list(got), list(want), dtype)
+                if dtype == torch.float64:
+                    adjoint(f"{kb} VJP {mode}", [rec.detach()], [ct], [c.detach() for c in coeffs], got)
+                del ref_lo, ref_his, coeffs, rec, ct, got, want, plain, z
+        del x
+        torch.cuda.synchronize()
+
+
 #: phase 8's configurations: (name, shape, mode, level, kernels it must launch)
 MAIN_1D = (
     ("d1 periodic", D1_SHAPE, "periodic", LEVEL_1D, ("K8a", "K8b", "K3", "K4")),
@@ -1223,6 +1291,81 @@ def time_kernels_1d() -> dict:
         log(
             f"  {name}: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
             f"library_ms={row['library_ms']!r} bound_ms={row['bound_ms']!r} ({row['bound_by']}){extra}"
+        )
+    return rows
+
+
+def fwt1d_times(tile_samples=None) -> dict:
+    """Device ms of every ``fwt1d.cu`` instance and of the K6-K8 VJPs as
+    the autograd backward runs them, at phase 8's shapes, float32: the
+    rows phase 5 compares with the parent tree in turns (only public
+    entry points, so either tree's package runs it).  ``tile_samples``
+    sets the 1d tile plans' ``_TILE_SAMPLES``."""
+    if tile_samples:
+        _pallas1d_multi._TILE_SAMPLES = tile_samples
+    f32 = torch.float32
+    dl, dh, rl, rh = banks_1d(f32)
+    out = {}
+    x = leaf(randn(D1_SHAPE, f32, SEED + 60))
+    for mode, depth, (ka, kb), tag in (
+        ("periodic", 4, ("K8a", "K8b"), ""),
+        ("reflect", 4, ("K8a", "K8b"), " reflect"),
+        ("reflect", 1, ("K7a", "K7b"), ""),
+    ):
+        lo, his = _pallas1d_multi.flat_wavedec_lane_multi(x, dl, dh, mode, depth)
+        outs = [lo, *his]
+        cts = [randn(t.shape, f32, SEED + 61 + j) for j, t in enumerate(outs)]
+        coeffs = [leaf(t) for t in (lo, *his[::-1])]
+        pads, lens = chain_crops(x, his, len(dl))
+        rec = _pallas1d_multi.flat_waverec_lane_multi(coeffs, rl, rh, pads, lens)
+        ct = randn(rec.shape, f32, SEED + 66)
+        xd, cd = x.detach(), [c.detach() for c in coeffs]
+        out[ka + tag] = time_ms(lambda: _pallas1d_multi.flat_wavedec_lane_multi(xd, dl, dh, mode, depth))
+        out[kb + tag] = time_ms(lambda: _pallas1d_multi.flat_waverec_lane_multi(cd, rl, rh, pads, lens))
+        out[f"{ka} VJP{tag}"] = time_ms(lambda: torch.autograd.grad(outs, x, cts, retain_graph=True))
+        out[f"{kb} VJP{tag}"] = time_ms(lambda: torch.autograd.grad(rec, coeffs, ct, retain_graph=True))
+        del lo, his, outs, cts, coeffs, rec, ct, cd
+    del x
+    x = leaf(randn(K6_SHAPE, f32, SEED + 67))
+    bands = _pallas.fused_wavedec1d_per(x, dl, dh, LEVEL_1D)
+    cts = [randn(t.shape, f32, SEED + 68 + j) for j, t in enumerate(bands)]
+    leaves = [leaf(t) for t in bands]
+    rec = _pallas.fused_waverec1d_per(leaves, rl, rh)
+    ct = randn(rec.shape, f32, SEED + 80)
+    xd, bd = x.detach(), [b.detach() for b in bands]
+    out["K6a"] = time_ms(lambda: _pallas.fused_wavedec1d_per(xd, dl, dh, LEVEL_1D))
+    out["K6b"] = time_ms(lambda: _pallas.fused_waverec1d_per(bd, rl, rh))
+    out["K6a VJP"] = time_ms(lambda: torch.autograd.grad(bands, x, cts, retain_graph=True))
+    out["K6b VJP"] = time_ms(lambda: torch.autograd.grad(rec, leaves, ct, retain_graph=True))
+    return out
+
+
+def fwt1d_turns(parent: Path) -> dict:
+    """:func:`fwt1d_times` of the parent tree and of this one in turns
+    (parent, this, this, parent), each a process of its own; then this
+    tree's rows at other tile sizes.  Returns ``{row: {"parent": [..],
+    "change": [..], "tiles": {..}}}``."""
+    runs = []
+    for tree in (parent, ROOT, ROOT, parent):
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--fwt1d-times", "--src", str(tree / "src")]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"fwt1d times of {tree} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        runs.append((tree, json.loads(proc.stdout.strip().splitlines()[-1])))
+    rows = {}
+    default_tile = _pallas1d_multi._TILE_SAMPLES
+    for tree, times in runs:
+        for name, ms in times.items():
+            rows.setdefault(name, {"parent": [], "change": [], "tiles": {}})
+            rows[name]["parent" if tree == parent else "change"].append(ms)
+    for tile in (2048, 8192):
+        for name, ms in fwt1d_times(tile).items():
+            rows[name]["tiles"][tile] = ms
+    _pallas1d_multi._TILE_SAMPLES = default_tile
+    for name, row in rows.items():
+        log(
+            f"  {name}: parent {row['parent']!r} ms, change {row['change']!r} ms "
+            f"(change / parent {min(row['change']) / min(row['parent'])!r}); tiles {row['tiles']!r}"
         )
     return rows
 
@@ -1468,13 +1611,23 @@ def time_vjps_1d() -> dict:
         rec = _pallas1d_multi.flat_waverec_lane_multi(coeffs, rl, rh, pads, lens)
         ref = _pallas1d_multi.multi_synthesis_plain(plain, rl, rh, pads, lens)
         ct = [randn(rec.shape, f32, SEED + 160)]
-        return row_a, vjp_timing([rec], coeffs, ct, [ref], plain, f"{kernel_b} {label}", tol)
+        row_b = vjp_timing([rec], coeffs, ct, [ref], plain, f"{kernel_b} {label}", tol)
+        # the same VJP launches called directly, without the autograd engine
+        taps = [_kernels.static_taps(f) for f in (dl, dh, rl, rh)]
+        bands = [cts[0], *cts[1:][::-1]]
+        fold = mode if mode in PADDED_MODES else None
+        row_a["vjp_direct_ms"] = time_ms(lambda: _pallas1d_multi.synthesis_pyramid(
+            kernel_b, bands, taps[0], taps[1], [std_pad(L)] * depth, x.shape[-1], False, fold))
+        ints, smem = _pallas1d_multi._adjoint_plan(L, x.shape[-1], [h.shape[-1] for h in ref_his], pads, 4)
+        row_b["vjp_direct_ms"] = time_ms(lambda: _pallas1d_multi._launch_analysis(
+            kernel_a, ct[0], taps[2], taps[3], ints, smem, False, None))
+        return row_a, row_b
 
     rows["K8a"], rows["K8b"] = run_rows("K8a", "K8b", "periodic", 4, "d1 periodic run")
-    # reflect: the same K3T launches plus four padding folds (index_add)
+    # reflect: the same launch with the fold in its edge blocks
     rows["K8a reflect"], _ = run_rows("K8a", "K8b", "reflect", 4, "d1 reflect run")
     log(
-        f"  K8a VJP: periodic {rows['K8a']['vjp_ms']!r} ms, reflect (K3T and its four folds) "
+        f"  K8a VJP: periodic {rows['K8a']['vjp_ms']!r} ms, reflect (the fold in the edge blocks) "
         f"{rows['K8a reflect']['vjp_ms']!r} ms"
     )
     rows["K7a"], rows["K7b"] = run_rows("K7a", "K7b", "reflect", 1, "K7 reflect level")
@@ -1509,17 +1662,20 @@ def time_vjps_1d() -> dict:
     for name, row in rows.items():
         log(
             f"  {name} VJP: vjp_ms={row['vjp_ms']!r} vjp_plain_ms={row['vjp_plain_ms']!r} "
-            f"vjp_max_abs_err={row['vjp_max_abs_err']!r} vjp_library_ms={row.get('vjp_library_ms')!r}"
+            f"vjp_max_abs_err={row['vjp_max_abs_err']!r} vjp_library_ms={row.get('vjp_library_ms')!r} "
+            f"vjp_direct_ms={row.get('vjp_direct_ms')!r}"
         )
     return rows
 
 
 #: phase 11's 1d configurations: (name, shape, mode, level, its backward's launches)
+#: (levels 5-10 of d1 transpose on K3T/K4T; each fused run's VJP is one
+#: launch of the other pyramid kernel)
 TRAIN_1D = (
-    ("d1 periodic", D1_SHAPE, "periodic", LEVEL_1D, ("K3T", "K4T")),
-    ("d1 reflect", D1_SHAPE, "reflect", LEVEL_1D, ("K3T", "K4T")),
+    ("d1 periodic", D1_SHAPE, "periodic", LEVEL_1D, ("K3T", "K4T", "K8a", "K8b")),
+    ("d1 reflect", D1_SHAPE, "reflect", LEVEL_1D, ("K3T", "K4T", "K8a", "K8b")),
     ("K6 periodization", K6_SHAPE, "periodization", LEVEL_1D, ("K6a", "K6b")),
-    ("K7 reflect level 1", D1_SHAPE, "reflect", 1, ("K3T", "K4T")),
+    ("K7 reflect level 1", D1_SHAPE, "reflect", 1, ("K7a", "K7b")),
 )
 
 
@@ -1902,8 +2058,10 @@ def main() -> int:
     per_step = train["periodic"]["step"]
 
     log("phase 7: 1d kernels against their plain versions")
-    errors_1d = {name: {} for name in KERNELS_1D}
+    errors_1d = {name: {} for name in (*KERNELS_1D, *(f"{k} VJP" for k in KERNELS_1D))}
     check_kernels_1d(errors_1d)
+    log("phase 7: the K7/K8 VJP instances against their plain versions")
+    check_vjps_1d(errors_1d)
 
     log("phase 8: 1d main path")
     main_1d = {
@@ -1922,6 +2080,11 @@ def main() -> int:
     log("phase 5, 1d: times")
     rows_1d = time_kernels_1d()
     round_trips_1d()
+    turns = {}
+    if _arg("--parent"):
+        log(f"phase 5, 1d: every fwt1d.cu instance and the 1d VJPs in turns with {_arg('--parent')}")
+        torch.cuda.empty_cache()
+        turns = fwt1d_turns(Path(_arg("--parent")).resolve())
 
     log("phase 9: K5a/K5b and their VJPs against their plain versions")
     errors_k5 = {name: {} for name in (*KERNELS_K5, "K5a VJP", "K5b VJP")}
@@ -2034,7 +2197,7 @@ def main() -> int:
             )
         kernels.append(entry)
     vjp_kernel = {"K5a": "K5b", "K5b": "K5a", "K6a": "K6b", "K6b": "K6a",
-                  "K7a": "K3T", "K8a": "K3T", "K7b": "K4T", "K8b": "K4T"}
+                  "K7a": "K7b", "K8a": "K8b", "K7b": "K7a", "K8b": "K8a"}
     per_back = train_per["headline"]["backward"]
     for name in KERNELS_K5:
         source, replaces = REPLACES[name]
@@ -2076,8 +2239,8 @@ def main() -> int:
             "vjp_bound_ms": row["bound_ms"],
             "vjp_library_ms": None,
         })
-    # VJP launches per backward of each 1d kernel's configuration: what its
-    # VJP kernel ran, less the VJPs of the per-level K3/K4 levels
+    # VJP launches per backward of each 1d kernel's configuration: one
+    # launch of the other pyramid kernel per fused run
     cfg_1d = {"K8a": "d1 periodic", "K8b": "d1 periodic", "K6a": "K6 periodization",
               "K6b": "K6 periodization", "K7a": "K7 reflect level 1", "K7b": "K7 reflect level 1"}
     for name in KERNELS_1D:
@@ -2105,9 +2268,6 @@ def main() -> int:
             entry["per_level_k3_k4_ms"] = row["per_level_ms"]
         cfg = cfg_1d[name]
         back = train_1d[cfg]["backward"][vjp_kernel[name]]
-        per_level = {"K3T": "K3", "K4T": "K4"}.get(vjp_kernel[name])
-        if per_level:
-            back -= main_1d[cfg]["counts"][per_level]
         vjp = vjp_1d[name]
         entry.update(
             vjp_kernel=vjp_kernel[name],
@@ -2122,6 +2282,17 @@ def main() -> int:
         )
         if name == "K8a":
             entry["vjp_ms_reflect"] = vjp_1d["K8a reflect"]["vjp_ms"]
+            entry["vjp_direct_ms_reflect"] = vjp_1d["K8a reflect"]["vjp_direct_ms"]
+        if turns:
+            entry["in_turns"] = {
+                k: turns[k] for k in (name, f"{name} VJP", f"{name} reflect", f"{name} VJP reflect") if k in turns
+            }
+        if "vjp_direct_ms" in vjp:
+            entry["vjp_direct_ms"] = vjp["vjp_direct_ms"]
+        if errors_1d[f"{name} VJP"]:
+            # phase 7's VJP check at full width, every padded mode
+            entry["vjp_rel_err_full_width"] = errors_1d[f"{name} VJP"][torch.float32]["rel"]
+            entry["vjp_max_abs_err_f64"] = errors_1d[f"{name} VJP"][torch.float64]["abs"]
         if "vjp_library_ms" in vjp:
             entry["vjp_library_ms"] = vjp["vjp_library_ms"]
             entry["vjp_library_note"] = vjp["vjp_library_note"]
@@ -2177,4 +2348,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--fwt1d-times" in sys.argv:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: CUDA is not available")
+        print(json.dumps(fwt1d_times()))
+        sys.exit(0)
     sys.exit(main())

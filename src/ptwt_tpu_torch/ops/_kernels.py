@@ -109,7 +109,9 @@ _ENTRY_POINTS = {
 #: carries: a depth-1 launch of the K8 pair is K7a/K7b, and every launch of
 #: a K6 pyramid (one per run of at most four levels) is K6a/K6b.  The
 #: pyramid pairs are each other's VJP (K5a's VJP launch counts as K5b,
-#: K6b's as K6a); the VJPs of K7/K8 are K3T/K4T launches.  K9a/K9b (the
+#: K6b's as K6a), and so are the K7/K8 pairs: K8a's VJP is one launch of
+#: the synthesis pyramid kernel, counted as K8b (K7a's as K7b), K8b's one
+#: launch of the analysis pyramid kernel, counted as K8a.  K9a/K9b (the
 #: tensor-core level of ``csrc/mxu2d.cu``, opt-in) take K1/K2's place on
 #: the levels their gate admits, their VJPs included: K9a's VJP counts as
 #: K9b and K9b's as K9a.

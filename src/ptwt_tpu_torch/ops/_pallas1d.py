@@ -23,9 +23,10 @@ are one level of :func:`~._pallas2.dwt_axis_plain` /
 for CPU tensors only.
 
 Gradients: each launch is the depth-1 case of the K8 autograd Functions
-of :mod:`._pallas1d_multi`, so K7a's VJP is one K3T launch (plus the
-transpose of the padding gather for the padded modes but ``periodic``)
-and K7b's one K4T launch, the transposed single level of the JAX
+of :mod:`._pallas1d_multi`, so K7a's VJP is one launch of the synthesis
+pyramid kernel with the transpose of the padding gather folded into its
+edge block (counted as K7b), and K7b's one launch of the analysis pyramid
+kernel (counted as K7a): the transposed single level of the JAX
 package's ``custom_vjp``s.
 """
 

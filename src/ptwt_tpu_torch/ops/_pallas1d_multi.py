@@ -8,14 +8,17 @@ steps are fused the same way.  Here two hand-written CUDA kernels
 (``csrc/fwt1d.cu``) do both, edges included:
 
 * **K8a** (``analysis_pyramid_kernel``) -- a block owns a tile of level-D
-  outputs, stages the tile's input cone in shared memory, computes the
-  levels in turn and writes every band position it owns once.  One extra
-  block per row computes the first ``wl_l`` and last ``wr_l`` positions of
-  every level, whose values depend on that level's mode extension, from
-  head and tail strips of the signal.
+  outputs, stages the tile's input cone in shared memory split by parity
+  (every element its own ``cp.async``, all in flight at once), computes
+  the levels in turn, four outputs per thread, and writes every band
+  position it owns once, coalesced.  One extra block per row computes the
+  first ``wl_l`` and last ``wr_l`` positions of every level, whose values
+  depend on that level's mode extension, from head and tail strips of the
+  signal.
 * **K8b** (``synthesis_pyramid_kernel``) -- a block owns a tile of final
-  outputs and runs the ``D`` transposed convolutions, with each step's
-  crop folded into its index range, on the bands' cones in shared memory.
+  outputs, stages every band range it reads at once, and runs the ``D``
+  transposed convolutions, with each step's crop folded into its index
+  range, one output pair per thread.
 
 At depth 1 the pair carries K7's contract (:mod:`._pallas1d`), and with
 circular reads K6's (:mod:`._pallas`); all of them launch through
@@ -46,18 +49,16 @@ sits here; the wrappers take it for CPU tensors only.  A CUDA tensor
 launches the kernel or raises.
 
 Gradients: one :class:`torch.autograd.Function` per launch, whose
-backward launches the transposed per-level kernels, as the JAX package's
-``custom_vjp``s transpose the fused levels:
+backward is one launch of the other pyramid kernel, as K6a and K6b are
+each other's VJP:
 
-* K8a (K7a) -- the ``depth`` levels transposed coarse to fine, each one
-  K3T launch (:func:`~._pallas2._analysis_transpose_kernel`) with the plan
-  the K3 route uses for that mode; ``periodic`` reads circularly, the
-  other padded modes yield the extended band's cotangent, which the
-  transpose of the padding gather folds back
-  (:func:`~ptwt_tpu_torch.utils._padding.fwt_pad_vjp`).
-* K8b (K7b) -- the ``depth`` steps transposed fine to coarse, each one
-  K4T launch (:func:`~._pallas2._synthesis_transpose_kernel`) with its
-  step's crop.
+* K8a (K7a) -- the synthesis pyramid kernel with the same (dec) taps and
+  crops ``padl``, run as a gather; for the padded modes an edge block per
+  row also folds the transpose of pywt's extension back onto the bands'
+  ends (``periodic`` couples the two ends).  It counts as K8b (K7b).
+* K8b (K7b) -- the analysis pyramid kernel with the same (rec) taps, each
+  level offset by its step's crop and read zero outside its band.  It
+  counts as K8a (K7a).
 
 Only the geometry is saved (the maps are linear).  A filter tensor that
 requires grad raises on the card, and so does a double backward.
@@ -71,15 +72,8 @@ from typing import Optional, Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..utils._padding import fwt_pad_vjp
 from . import _kernels
-from ._pallas2 import (
-    _analysis_transpose_kernel,
-    _on_cpu,
-    _synthesis_transpose_kernel,
-    dwt_axis_plain,
-    idwt_axis_plain,
-)
+from ._pallas2 import _on_cpu, dwt_axis_plain, idwt_axis_plain
 
 __all__ = [
     "FLAT_MIN_LANES",
@@ -106,7 +100,10 @@ _MODE_CODE = {mode: code for code, mode in enumerate(PADDED_MODES)}
 #: Longest filter the kernels take (``PTWT_MAX_TAPS`` in ``csrc/common.cuh``).
 MAX_TAPS = 128
 #: Level-0 samples of one tile: an analysis tile owns ``4096 >> D`` level-D
-#: outputs, a synthesis tile 4096 final outputs.
+#: outputs, a synthesis tile 4096 final outputs (each halved while the
+#: tile's buffers outgrow a block's shared memory).  A card sweep of 2048,
+#: 4096 and 8192 (``PERF.md`` §6, PR 7) found 4096 within 5% of the best
+#: for every instance.
 _TILE_SAMPLES = 4096
 #: Shared memory one block may use on the H100 (bytes).
 _SMEM_LIMIT = 232448
@@ -160,19 +157,70 @@ def _band_lengths(n: int, filt_len: int, depth: int, mode: str) -> tuple[int, ..
     return _interior_ranges(n, filt_len, depth)[0]
 
 
+def _round4(count: int) -> int:
+    return (count + 3) & ~3
+
+
+def _split_half(count: int) -> int:
+    """Elements of one parity half of a staged analysis cone
+    (``split_half`` of ``csrc/fwt1d.cu``)."""
+    return _round4((count + 1) // 2 + 16)
+
+
+def _check_taps(depth: int, filt_len: int) -> None:
+    if not 1 <= depth <= MAX_FUSED_DEPTH:
+        raise ValueError(f"fused depth {depth} is outside 1..{MAX_FUSED_DEPTH}")
+    if not 2 <= filt_len <= MAX_TAPS:
+        raise ValueError(f"the 1d pyramid kernels take 2..{MAX_TAPS} taps, got {filt_len}")
+
+
+def _analysis_ints(ms, pads, filt_len: int, itemsize: int, head: Sequence[int], edge_elems: int = 0, wl=None, wr=None):
+    """``AnalysisPlan`` ints and shared-memory bytes for band lengths ``ms``
+    (``ms[0]`` the input) and per-level offsets ``pads`` (levels 1..D).
+
+    A tile owns ``T`` level-D outputs and ``T 2^(D-l)`` at level l; the
+    tiles cover every level.  ``T`` starts at ``_TILE_SAMPLES >> D`` and
+    halves until the split cones and the output buffer (or ``edge_elems``,
+    the edge block's strips) fit a block's shared memory.  ``head`` is ``[padl, mode,
+    strip, edge]`` of the plan.
+    """
+    depth = len(ms) - 1
+    tile = max(1, min(_TILE_SAMPLES >> depth, ms[depth]))
+    while True:
+        cone0 = (tile << depth) + (filt_len - 2) * ((1 << depth) - 1)
+        cone1 = (tile << (depth - 1)) + (filt_len - 2) * ((1 << (depth - 1)) - 1)
+        outs = _round4(max(cone1, 2 * _round4(tile)))
+        split = 2 * _split_half(cone0) + (2 * _split_half(cone1) if depth > 1 else 0) + outs
+        smem = max(split, edge_elems) * itemsize
+        if smem <= _SMEM_LIMIT or tile == 1:
+            break
+        tile //= 2
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the analysis tile needs {smem} bytes of shared memory")
+    tiles = max(-(-ms[lvl] // (tile << (depth - lvl))) for lvl in range(1, depth + 1))
+    fill = [0] * (MAX_FUSED_DEPTH - depth)
+    wl = wl or [0] * (MAX_FUSED_DEPTH + 1)
+    wr = wr or [0] * (MAX_FUSED_DEPTH + 1)
+    padl, mode, strip, edge = head
+    ints = [depth, ms[0], padl, tile, tiles, mode, strip, edge]
+    ints += [*ms, *fill] + list(wl) + list(wr) + [0, *pads, *fill]
+    return ints, smem
+
+
 def _multi_plan(n: int, filt_len: int, depth: int, mode: str, itemsize: int):
     """Launch plan of the analysis pyramid kernel: ``(ints, smem_bytes)``.
 
     ``ints`` is ``AnalysisPlan`` of ``csrc/fwt1d.cu`` in field order:
-    ``depth, n, padl, tile, tiles, mode, strip, edge, m[5], wl[5], wr[5]``.
+    ``depth, n, padl, tile, tiles, mode, strip, edge, m[5], wl[5], wr[5],
+    pad[5]``.
 
     Index arithmetic: tile ``t`` owns level-D outputs ``[t T, (t+1) T)``;
-    its cone at level ``l - 1`` starts at ``s_{l-1} = 2 s_l - padl`` and
+    its cone at level ``l - 1`` starts at ``s_{l-1} = 2 s_l - pad_l`` and
     holds ``c_{l-1} = 2 c_l + L - 2`` samples, so
     ``band_l[s_l + j] = sum_k f[k] cone_{l-1}[2 j + k]``.  With tiles
     aligned at level D every read bias (the JAX plan's ``b_l``) is 0, and
     the tile owns ``[t T 2^(D-l), (t+1) T 2^(D-l))`` at level l: every
-    band position once.  ``padl`` is ``(2L-3)//2`` for the padded modes,
+    band position once.  ``pad_l`` is ``(2L-3)//2`` for the padded modes,
     ``L//2 - 1`` for periodization (read modulo ``n``, no edges) and 0 for
     ``valid`` (no edges).
 
@@ -182,10 +230,7 @@ def _multi_plan(n: int, filt_len: int, depth: int, mode: str, itemsize: int):
     lands in one strip of the level below.  Raises ``ValueError`` for what
     the kernel cannot hold.
     """
-    if not 1 <= depth <= MAX_FUSED_DEPTH:
-        raise ValueError(f"fused depth {depth} is outside 1..{MAX_FUSED_DEPTH}")
-    if not 2 <= filt_len <= MAX_TAPS:
-        raise ValueError(f"the 1d pyramid kernels take 2..{MAX_TAPS} taps, got {filt_len}")
+    _check_taps(depth, filt_len)
     edge = mode in PADDED_MODES
     if mode == "periodization":
         padl = filt_len // 2 - 1
@@ -198,8 +243,6 @@ def _multi_plan(n: int, filt_len: int, depth: int, mode: str, itemsize: int):
     ms = _band_lengths(n, filt_len, depth, mode)
     if ms[depth] < 1:
         raise ValueError(f"a {n}-sample signal has no level {depth}")
-    tile = max(1, min(_TILE_SAMPLES >> depth, ms[depth]))
-    tiles = -(-ms[depth] // tile)
     wl = [0] * (MAX_FUSED_DEPTH + 1)
     wr = [0] * (MAX_FUSED_DEPTH + 1)
     strip = 0
@@ -213,50 +256,132 @@ def _multi_plan(n: int, filt_len: int, depth: int, mode: str, itemsize: int):
                 f"a {n}-sample signal is shorter than the edge strips of a "
                 f"depth-{depth} run of {filt_len} taps"
             )
-    cone0 = (tile << depth) + (filt_len - 2) * ((1 << depth) - 1)
-    cone1 = (tile << (depth - 1)) + (filt_len - 2) * ((1 << (depth - 1)) - 1) if depth > 1 else 0
-    smem = max(cone0 + cone1, 3 * (strip << depth)) * itemsize
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"the analysis tile needs {smem} bytes of shared memory")
-    m_pad = list(ms) + [0] * (MAX_FUSED_DEPTH - depth)
-    ints = [depth, n, padl, tile, tiles, _MODE_CODE.get(mode, 0), strip, int(edge)]
-    return ints + m_pad + wl + wr, smem
+    head = [padl, _MODE_CODE.get(mode, 0), strip, int(edge)]
+    return _analysis_ints(ms, [padl] * depth, filt_len, itemsize, head, 3 * (strip << depth), wl, wr)
 
 
-def _syn_plan(filt_len: int, out_len: int, lens: Sequence[int], offs: Sequence[int], itemsize: int):
+def _adjoint_plan(filt_len: int, out_len: int, lens: Sequence[int], offs: Sequence[int], itemsize: int):
+    """Plan of the analysis pyramid kernel as the VJP of a fused synthesis
+    run (K8b's, K7b's): ``(ints, smem_bytes)``.
+
+    The transpose of synthesis step l (band l of ``lens[l-1]`` samples,
+    crop ``offs[l-1]``) is one analysis level with the rec taps and
+    ``pad_l = offs[l-1]``, reading the cotangent of the ``out_len``-sample
+    output zero outside it; no edge block, and every cone value outside
+    its band is zeroed before the next level reads it.
+    """
+    depth = len(lens)
+    _check_taps(depth, filt_len)
+    return _analysis_ints([out_len, *lens], list(offs), filt_len, itemsize, [0, 0, 0, 0])
+
+
+def _fold_strips(filt_len: int, lens: Sequence[int], pad: int) -> tuple[int, list[int]]:
+    """The edge block of K8a's VJP: ``(wz, strips)``.
+
+    Positions within ``Z_{l-1} = 2 Z_l + L + 1`` (``Z_D = 0``) of either
+    end of level ``l - 1`` differ from the plain synthesis chain: the fold
+    of pywt's extension reaches ``pad + 2`` positions, and the reads of
+    ``Z_l`` wrong band positions reach ``2 Z_l + L - 1 - pad`` more.  The
+    edge block writes the first and last ``wz = Z_0`` outputs and keeps
+    ``E_l`` head and tail positions of each level, ``E_0 = wz`` and
+    ``E_l = (E_{l-1} + pad + 1) // 2 + 2``, each at most its band: so every
+    band position a step reads lies in a strip, and every fold target too.
+    """
+    z = 0
+    for _ in lens[1:]:
+        z = 2 * z + filt_len + 1
+    strips = [min(z, lens[0])]
+    for m in lens[1:]:
+        strips.append(min(m, (strips[-1] + pad + 1) // 2 + 2))
+    return strips[0], strips
+
+
+def _syn_tile_elems(tile: int, filt_len: int, depth: int) -> int:
+    """Elements of a synthesis tile's band buffers (``synthesis_tile_elems``
+    of ``csrc/fwt1d.cu``): every hi band and lo_D over their range bounds
+    ``span_l = (span_{l-1} + L - 1) // 2 + 1`` (``span_0 = T``), and two
+    buffers for the intermediate lo bands."""
+    spans = [tile]
+    for _ in range(depth):
+        spans.append((spans[-1] + filt_len - 1) // 2 + 1)
+    return sum(spans[1:]) + spans[depth] + sum(spans[1 : min(depth, 3)])
+
+
+def _syn_plan(
+    filt_len: int,
+    out_len: int,
+    lens: Sequence[int],
+    offs: Sequence[int],
+    itemsize: int,
+    fold: Optional[str] = None,
+):
     """Launch plan of the synthesis pyramid kernel: ``(ints, smem_bytes)``.
 
     ``ints`` is ``SynthesisPlan`` of ``csrc/fwt1d.cu``: ``depth, tile,
-    tiles, buf, len[5], off[5]``; ``lens[l-1]``/``offs[l-1]`` are band l's
-    length and step l's left crop, fine to coarse.  A tile owns final
-    outputs ``[c_0, c_0 + T)``; step l reads its bands over
-    ``c_l = floor((c_{l-1} + off_l - (L-1)) / 2)`` to
+    tiles, buf, len[5], off[5], mode, edge, wz, ebuf, strip[5]``;
+    ``lens[l-1]``/``offs[l-1]`` are band l's length and step l's left crop,
+    fine to coarse.  A tile owns final outputs ``[c_0, c_0 + T)``; step l
+    reads its bands over ``c_l = floor((c_{l-1} + off_l - (L-1)) / 2)`` to
     ``e_l = floor((e_{l-1} + off_l) / 2)``, so the read bias of the JAX
     plan, ``(c_{l-1} + off_l - (L-1)) - 2 c_l`` in {0, 1}, is the floor's
-    remainder.  ``buf`` bounds every level's ``e_l - c_l + 1``.
+    remainder.  Every band is staged at once, so ``buf`` holds all of a
+    tile's band ranges (:func:`_syn_tile_elems`); ``T`` starts at
+    ``_TILE_SAMPLES`` and halves until they fit.
+
+    ``fold`` (a padded mode) makes the launch K8a's VJP: every ``offs`` is
+    the analysis ``padl``, and one edge block per row folds pywt's
+    extension back (:func:`_fold_strips`).
     """
     depth = len(lens)
-    if not 1 <= depth <= MAX_FUSED_DEPTH:
-        raise ValueError(f"fused depth {depth} is outside 1..{MAX_FUSED_DEPTH}")
-    if not 2 <= filt_len <= MAX_TAPS:
-        raise ValueError(f"the 1d pyramid kernels take 2..{MAX_TAPS} taps, got {filt_len}")
+    _check_taps(depth, filt_len)
     tile = max(1, min(_TILE_SAMPLES, out_len))
+    while True:
+        buf = _syn_tile_elems(tile, filt_len, depth)
+        if buf * itemsize <= _SMEM_LIMIT or tile == 1:
+            break
+        tile //= 2
     tiles = -(-out_len // tile)
-    span, buf = tile, 1
-    for _ in range(depth):
-        span = (span + filt_len - 1) // 2 + 1
-        buf = max(buf, span)
-    smem = 3 * buf * itemsize
+    smem = buf * itemsize
+    fill = [0] * (MAX_FUSED_DEPTH - depth)
+    tail = [0, 0, 0, 0] + [0] * (MAX_FUSED_DEPTH + 1)
+    if fold is not None:
+        wz, strips = _fold_strips(filt_len, [out_len, *lens], offs[0])
+        ebuf = 2 * max(strips)
+        ext = 2 * offs[0] + 2
+        smem = max(smem, (3 * ebuf + ext) * itemsize + 4 * ext)
+        tail = [_MODE_CODE[fold], 1, wz, ebuf, *strips, *fill]
     if smem > _SMEM_LIMIT:
         raise ValueError(f"the synthesis tile needs {smem} bytes of shared memory")
-    pad = [0] * (MAX_FUSED_DEPTH - depth)
-    ints = [depth, tile, tiles, buf, out_len, *lens, *pad, 0, *offs, *pad]
+    ints = [depth, tile, tiles, buf, out_len, *lens, *fill, 0, *offs, *fill] + tail
     return ints, smem
 
 
 # ---------------------------------------------------------------------------
 # launch glue shared by K6, K7 and K8
 # ---------------------------------------------------------------------------
+
+
+def _launch_analysis(kernel, x2, lo, hi, ints, smem, circular, out):
+    """Launch the analysis pyramid kernel on ``x2 = [rows, n]`` with a plan;
+    returns ``(lo_D, [hi_1, ..., hi_D])``, written into ``out`` if given."""
+    _kernels.check_tensor("x", x2, x2.dtype, x2.device)
+    rows = x2.shape[0]
+    depth = ints[0]
+    ms = ints[8 : 9 + depth]
+    if out is None:
+        out = [x2.new_empty(rows, ms[depth])] + [x2.new_empty(rows, m) for m in ms[1:]]
+    for t, m in zip(out, [ms[depth], *ms[1:]]):
+        _kernels.check_tensor("band", t, x2.dtype, x2.device)
+        if t.numel() != rows * m:
+            raise ValueError(f"an output band holds {t.numel()} values, expected {rows * m}")
+    if rows:
+        his = list(out[1:]) + [None] * (MAX_FUSED_DEPTH - depth)
+        _kernels.launch(
+            kernel, "ptwt_fwt1d_analysis", x2.device, x2.dtype,
+            x2, out[0], *his, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
+            rows, _kernels.int_array(ints), int(circular), smem,
+        )
+    return out[0], list(out[1:])
 
 
 def analysis_pyramid(
@@ -275,24 +400,8 @@ def analysis_pyramid(
     ``(lo_D, hi_1, ..., hi_D)`` contiguous tensors to write into.  The
     launch counts as ``kernel``.
     """
-    _kernels.check_tensor("x", x2, x2.dtype, x2.device)
-    rows, n = x2.shape
-    ints, smem = _multi_plan(n, len(lo), depth, mode, x2.element_size())
-    ms = ints[8 : 9 + depth]
-    if out is None:
-        out = [x2.new_empty(rows, ms[depth])] + [x2.new_empty(rows, m) for m in ms[1:]]
-    for t, m in zip(out, [ms[depth], *ms[1:]]):
-        _kernels.check_tensor("band", t, x2.dtype, x2.device)
-        if t.numel() != rows * m:
-            raise ValueError(f"an output band holds {t.numel()} values, expected {rows * m}")
-    if rows:
-        his = list(out[1:]) + [None] * (MAX_FUSED_DEPTH - depth)
-        _kernels.launch(
-            kernel, "ptwt_fwt1d_analysis", x2.device, x2.dtype,
-            x2, out[0], *his, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
-            rows, _kernels.int_array(ints), int(mode == "periodization"), smem,
-        )
-    return out[0], list(out[1:])
+    ints, smem = _multi_plan(x2.shape[-1], len(lo), depth, mode, x2.element_size())
+    return _launch_analysis(kernel, x2, lo, hi, ints, smem, mode == "periodization", out)
 
 
 def synthesis_pyramid(
@@ -303,6 +412,7 @@ def synthesis_pyramid(
     offs: Sequence[int],
     out_len: int,
     circular: bool,
+    fold: Optional[str] = None,
 ) -> torch.Tensor:
     """Launch the synthesis pyramid kernel.
 
@@ -310,8 +420,10 @@ def synthesis_pyramid(
     ``lo_D`` as long as ``hi_D``; ``offs`` are the left crops of steps
     ``1..D`` (fine to coarse); step 1 writes ``out_len`` samples.
     Padded-mode runs need every ``hi_l`` (``l < D``) as long as step
-    ``l + 1``'s output, which is what the crops make of it.  Returns
-    ``[rows, out_len]``; the launch counts as ``kernel``.
+    ``l + 1``'s output, which is what the crops make of it.  ``fold`` (a
+    padded mode) runs K8a's VJP: the edge block folds that mode's
+    extension back.  Returns ``[rows, out_len]``; the launch counts as
+    ``kernel``.
     """
     ref = bands[0]
     rows = ref.shape[0]
@@ -323,7 +435,7 @@ def synthesis_pyramid(
             f"lo and hi of the coarsest step differ: {tuple(bands[0].shape)} and {tuple(bands[1].shape)}"
         )
     lens = [bands[depth + 1 - lvl].shape[-1] for lvl in range(1, depth + 1)]
-    ints, smem = _syn_plan(len(lo), out_len, lens, offs, ref.element_size())
+    ints, smem = _syn_plan(len(lo), out_len, lens, offs, ref.element_size(), fold)
     out = ref.new_empty(rows, out_len)
     if out.numel():
         his = [bands[depth + 1 - lvl] for lvl in range(1, depth + 1)]
@@ -336,37 +448,26 @@ def synthesis_pyramid(
     return out
 
 
-def level_vjp(ct: torch.Tensor, n: int, lo, hi, mode: str) -> torch.Tensor:
-    """The VJP of one analysis level of K7a/K8a as one K3T launch.
-
-    ``ct`` is the packed ``[2, rows, m]`` (lo, hi) cotangent; returns the
-    cotangent of the level's ``[rows, n]`` input.  The plan is the one
-    :func:`~._pallas2.pallas_dwt_axis` gives K3 for ``mode``.
-    """
-    filt_len = len(lo)
-    if mode == "periodic":
-        return _analysis_transpose_kernel(ct, 1, n, lo, hi, n, _std_pad(filt_len), True)
-    if mode == "valid":
-        return _analysis_transpose_kernel(ct, 1, n, lo, hi, n, 0, False)
-    n_ext = n + 2 * _std_pad(filt_len) + n % 2
-    ext = _analysis_transpose_kernel(ct, 1, n_ext, lo, hi, n_ext, 0, False)
-    return fwt_pad_vjp(ext, n, filt_len, mode)
+#: The kernel a VJP launch counts as: each pyramid kernel carries the VJP
+#: of the other's fused runs.
+_VJP_KERNEL = {"K8a": "K8b", "K7a": "K7b", "K8b": "K8a", "K7b": "K7a"}
 
 
 class _LaneAnalysis(torch.autograd.Function):
-    """K8a (K7a at depth 1) forward on ``[rows, n]``; backward: ``depth``
-    K3T launches, coarse to fine.
+    """K8a (K7a at depth 1) forward on ``[rows, n]``; backward: one launch
+    of the synthesis pyramid kernel with the same (flipped dec) taps,
+    crops ``padl`` and the mode's extension folded back (counted as K8b,
+    K7b at depth 1).
 
     Returns ``(packed_D, hi_1, ..., hi_{D-1})`` with ``packed_D = [2, rows,
-    m_D]`` holding (lo_D, hi_D), so the deepest level's cotangent reaches
-    K3T packed as it is.
+    m_D]`` holding (lo_D, hi_D).
     """
 
     @staticmethod
     def forward(ctx, x2, kernel, lo, hi, depth, mode):
         rows, n = x2.shape
         ms = _band_lengths(n, len(lo), depth, mode)
-        ctx.plan = (ms, lo, hi, mode)
+        ctx.plan = (kernel, n, lo, hi, mode)
         packed = x2.new_empty(2, rows, max(ms[depth], 0))
         his = [x2.new_empty(rows, m) for m in ms[1:depth]]
         analysis_pyramid(kernel, x2, lo, hi, depth, mode, out=(packed[0], *his, packed[1]))
@@ -375,36 +476,35 @@ class _LaneAnalysis(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, ct, *ct_his):
-        ms, lo, hi, mode = ctx.plan
+        kernel, n, lo, hi, mode = ctx.plan
         ct = ct.contiguous()
-        for lvl in range(len(ms) - 1, 0, -1):
-            grad = level_vjp(ct, ms[lvl - 1], lo, hi, mode)
-            if lvl > 1:
-                ct = torch.stack((grad, ct_his[lvl - 2]))
+        bands = [ct[0], ct[1], *(c.contiguous() for c in ct_his[::-1])]
+        pad = 0 if mode == "valid" else _std_pad(len(lo))
+        fold = mode if mode in PADDED_MODES else None
+        grad = synthesis_pyramid(_VJP_KERNEL[kernel], bands, lo, hi, [pad] * (len(ct_his) + 1), n, False, fold)
         return (grad,) + (None,) * 5
 
 
 class _LaneSynthesis(torch.autograd.Function):
-    """K8b (K7b at depth 1) forward; backward: ``depth`` K4T launches,
-    fine to coarse, each with its step's crop."""
+    """K8b (K7b at depth 1) forward; backward: one launch of the analysis
+    pyramid kernel with the same (rec) taps, each level offset by its
+    step's crop and zero outside its band (counted as K8a, K7a at depth
+    1)."""
 
     @staticmethod
     def forward(ctx, kernel, lo, hi, offs, out_len, *bands):
         depth = len(bands) - 1
-        ctx.plan = (lo, hi, offs, [bands[depth + 1 - lvl].shape[-1] for lvl in range(1, depth + 1)])
+        ctx.plan = (kernel, lo, hi, offs, [bands[depth + 1 - lvl].shape[-1] for lvl in range(1, depth + 1)])
         return synthesis_pyramid(kernel, bands, lo, hi, offs, out_len, False)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
-        lo, hi, offs, lens = ctx.plan
-        grads = []
-        cur = ct.contiguous()
-        for m, off in zip(lens, offs):  # fine to coarse
-            pair = _synthesis_transpose_kernel(cur.unsqueeze(0), 1, m, lo, hi, off, False)[0]
-            grads.append(pair[1])
-            cur = pair[0]
-        return (None,) * 5 + (cur, *grads[::-1])
+        kernel, lo, hi, offs, lens = ctx.plan
+        ct = ct.contiguous()
+        ints, smem = _adjoint_plan(len(lo), ct.shape[-1], lens, offs, ct.element_size())
+        lo_band, his = _launch_analysis(_VJP_KERNEL[kernel], ct, lo, hi, ints, smem, False, None)
+        return (None,) * 5 + (lo_band, *his[::-1])
 
 
 # ---------------------------------------------------------------------------

@@ -94,25 +94,6 @@ def _pad_axis(
     return torch.index_select(data, axis, index)
 
 
-def fwt_pad_vjp(ext_bar: torch.Tensor, n: int, filt_len: int, mode: str) -> torch.Tensor:
-    """VJP of :func:`fwt_pad` along the last axis with the pywt pads.
-
-    ``ext_bar`` is the cotangent of the padded ``n``-sample signal; the
-    transpose of the gather adds each extended position back onto its
-    source sample.  The interior maps onto itself, so the fold is a slice
-    plus one ``index_add`` of the ``padl + padr`` edge positions (none
-    for ``zero``).
-    """
-    padl, padr = get_pad(n, filt_len)
-    out = ext_bar[..., padl : padl + n].contiguous()
-    if mode == "zero":
-        return out
-    edges = np.concatenate([np.arange(-padl, 0), np.arange(n, n + padr)])
-    index = torch.as_tensor(source_index(edges, n, mode), dtype=torch.long, device=ext_bar.device)
-    edge_bar = torch.cat([ext_bar[..., :padl], ext_bar[..., padl + n :]], dim=-1)
-    return out.index_add_(out.ndim - 1, index, edge_bar)
-
-
 def fwt_pad(
     data: torch.Tensor,
     filt_len: int,

@@ -1,11 +1,12 @@
 """Gradients through the 1d pyramid kernels (K6, K7, K8) against the JAX package.
 
-The autograd Functions around K6a/K6b (each other's VJP), K7a/K8a (their
-VJP: K3T per level, plus the transpose of the padding gather) and K7b/K8b
-(K4T per step) run their CUDA glue here on the CPU, on the numpy model of
-the kernels (``model_kernels`` of ``tests/test_torch_kernels.py``, whose
-K3T/K4T entries apply sparse transposed operators, so 70,001-sample
-lanes fit).  They are held against ``jax.grad`` through ``ptwt_tpu.wavedec``
+The autograd Functions around K6a/K6b, K7a/K7b and K8a/K8b (each pair
+the other's VJP: one launch of the other pyramid kernel, the fold of the
+padding gather included) run their CUDA glue here on the CPU, on the
+numpy model of the kernels (``model_kernels`` of
+``tests/test_torch_kernels.py``, which runs the pyramid kernels block by
+block and the K3T/K4T entries as sparse transposed operators, so
+70,001-sample lanes fit).  They are held against ``jax.grad`` through ``ptwt_tpu.wavedec``
 / ``waverec`` in float64 within 1e-10, every padded mode, with the
 launches of each backward counted; and K6's VJPs against ``jax.grad``
 through the JAX package's K6 kernels in Pallas interpret mode (float32,
@@ -96,11 +97,15 @@ def _public_loss(lib, x, mode, level, weights):
 @pytest.mark.parametrize(
     "mode,n,level,forward,backward",
     [
-        # levels 1-4 in one K8a launch, 5-6 on K3; their VJPs are six K3T
-        # launches, and waverec's (two K4 steps, one K8b run) six K4T
-        *[(m, 70001, 6, {"K8a": 1, "K3": 2, "K4": 2, "K8b": 1}, {"K3T": 6, "K4T": 6}) for m in PADDED],
-        ("reflect", 70001, 1, {"K7a": 1, "K7b": 1}, {"K3T": 1, "K4T": 1}),
-        ("periodic", 70000, 3, {"K8a": 1, "K8b": 1}, {"K3T": 3, "K4T": 3}),
+        # levels 1-4 in one K8a launch, 5-6 on K3; their VJPs are one K8b
+        # launch and two K3T, and waverec's (two K4 steps, one K8b run)
+        # two K4T and one K8a
+        *[
+            (m, 70001, 6, {"K8a": 1, "K3": 2, "K4": 2, "K8b": 1}, {"K3T": 2, "K4T": 2, "K8a": 1, "K8b": 1})
+            for m in PADDED
+        ],
+        ("reflect", 70001, 1, {"K7a": 1, "K7b": 1}, {"K7a": 1, "K7b": 1}),
+        ("periodic", 70000, 3, {"K8a": 1, "K8b": 1}, {"K8a": 1, "K8b": 1}),
         # three runs (4 + 4 + 2 levels) each way; each run's VJP is one
         # launch of the other kernel
         ("periodization", 4096, 10, {"K6a": 3, "K6b": 3}, {"K6b": 3, "K6a": 3}),
@@ -120,14 +125,16 @@ def test_public_gradients_match_jax(model_kernels, mode, n, level, forward, back
     _kernels.reset_launch_counts()
     (got,) = torch.autograd.grad(loss, xt)
     _close(got, want, 1e-10)
-    # no backward launches a forward kernel of its own direction
+    # every VJP is one launch of the other direction's kernel
     assert _used(model_kernels) == backward
 
 
 @pytest.mark.parametrize("mode", [*PADDED, "valid"])
 def test_k7_vjps_match_plain(model_kernels, mode):  # noqa: F811
-    """K7a's VJP (one K3T, folded) and K7b's (one K4T) against autograd
-    through the plain versions, on a batch with two leading axes."""
+    """K7a's VJP (one synthesis pyramid launch, folded, counted as K7b)
+    and K7b's (one analysis pyramid launch, counted as K7a) against
+    autograd through the plain versions, on a batch with two leading
+    axes."""
     dl, dh, rl, rh = _banks("db3", np.float64)
     rng = np.random.RandomState(12)
     x = torch.from_numpy(rng.randn(2, 2, 65601)).requires_grad_()
@@ -143,13 +150,15 @@ def test_k7_vjps_match_plain(model_kernels, mode):  # noqa: F811
     want = t2.idwt_axis_vjp_plain(a, b, -1, rl, rh, 4, 5, "zero", ct)
     for g, w in zip(got, want):
         _close(g, w.numpy(), 1e-12)
-    assert model_kernels["K3T"] == 1 and model_kernels["K4T"] == 1
+    # two forward launches and two VJP launches, no K3T/K4T
+    assert _used(model_kernels) == {"K7a": 2, "K7b": 2}
 
 
 @pytest.mark.parametrize("depth", [2, 3, 4])
 def test_k8_vjps_match_plain(model_kernels, depth):  # noqa: F811
-    """K8a's VJP (``depth`` K3T launches) and K8b's (``depth`` K4T) against
-    autograd through the plain versions, reflect, with waverec's crops."""
+    """K8a's VJP (one synthesis pyramid launch, counted as K8b) and K8b's
+    (one analysis pyramid launch, counted as K8a) against autograd through
+    the plain versions, reflect, with waverec's crops."""
     dl, dh, rl, rh = _banks("sym4", np.float64)
     rng = np.random.RandomState(depth)
     x = torch.from_numpy(rng.randn(2, 70003)).requires_grad_()
@@ -161,7 +170,7 @@ def test_k8_vjps_match_plain(model_kernels, depth):  # noqa: F811
         ref_lo, ref_his = t8.multi_analysis_plain(z, dl, dh, "reflect", depth)
         (want,) = torch.autograd.grad((ref_lo, *ref_his), z, cts)
     _close(got, want.numpy(), 1e-11)
-    assert _used(model_kernels) == {"K8a": 1, "K3T": depth}
+    assert _used(model_kernels) == {"K8a": 1, "K8b": 1}
     coeffs = [t.detach().requires_grad_() for t in (ref_lo, *ref_his[::-1])]
     pads = [(2 * len(dl) - 3) // 2] * depth
     lens = [x.shape[-1]] + [h.shape[-1] for h in ref_his[:-1]]
@@ -174,7 +183,7 @@ def test_k8_vjps_match_plain(model_kernels, depth):  # noqa: F811
         want = torch.autograd.grad(t8.multi_synthesis_plain(leaves, rl, rh, pads, lens), leaves, ct)
     for g, w in zip(got, want):
         _close(g, w.numpy(), 1e-11)
-    assert _used(model_kernels) == {"K4T": depth}
+    assert _used(model_kernels) == {"K8a": 1}
 
 
 def test_filter_grad_and_double_backward_raise(model_kernels):  # noqa: F811

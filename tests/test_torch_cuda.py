@@ -9,6 +9,7 @@ port is installed::
 
 from __future__ import annotations
 
+import math
 import sys
 from pathlib import Path
 
@@ -353,8 +354,9 @@ def _vjp_err(got, want) -> float:
 @pytest.mark.parametrize("mode", [*PADDED, "valid"])
 @pytest.mark.parametrize("depth", [1, 2, 4])
 def test_cuda_k7_k8_vjps_match_plain(cuda_device, dtype, wavelet, mode, depth):
-    """K7a/K8a's VJP (K3T per level, folded) and K7b/K8b's (K4T per step)
-    against autograd through the plain versions."""
+    """K7a/K8a's VJP (one synthesis pyramid launch with the fold, counted
+    as K7b/K8b) and K7b/K8b's (one analysis pyramid launch, counted as
+    K7a/K8a) against autograd through the plain versions."""
     if mode == "valid" and depth > 1:
         pytest.skip("valid runs one level (K7a) only")
     dl, dh, rl, rh = _banks(wavelet)
@@ -364,7 +366,8 @@ def test_cuda_k7_k8_vjps_match_plain(cuda_device, dtype, wavelet, mode, depth):
     _kernels.reset_launch_counts()
     (got,) = torch.autograd.grad((lo, *his), x, cts)
     torch.cuda.synchronize()
-    assert {k for k, v in _kernels.LAUNCHES.items() if v} == {"K3T"}
+    fwd, syn = ("K7a", "K7b") if depth == 1 else ("K8a", "K8b")
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {syn: 1}
     z = x.detach().requires_grad_()
     ref_lo, ref_his = t8.multi_analysis_plain(z, dl, dh, mode, depth)
     (want,) = torch.autograd.grad((ref_lo, *ref_his), z, cts)
@@ -379,10 +382,60 @@ def test_cuda_k7_k8_vjps_match_plain(cuda_device, dtype, wavelet, mode, depth):
     _kernels.reset_launch_counts()
     got = torch.autograd.grad(rec, coeffs, ct)
     torch.cuda.synchronize()
-    assert dict((k, v) for k, v in _kernels.LAUNCHES.items() if v) == {"K4T": depth}
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {fwd: 1}
     leaves = [c.detach().requires_grad_() for c in coeffs]
     want = torch.autograd.grad(t8.multi_synthesis_plain(leaves, rl, rh, pads, lens), leaves, ct)
     assert _vjp_err(got, want) <= _tol1d(dtype)
+
+
+def _shortest(filt_len: int, depth: int, mode: str) -> int:
+    """The shortest signal the forward K8a plan takes."""
+    n = 2
+    while True:
+        try:
+            t8._multi_plan(n, filt_len, depth, mode, 8)
+            return n
+        except ValueError:
+            n += 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wavelet", ["haar", "coif17"])
+@pytest.mark.parametrize("mode", PADDED)
+@pytest.mark.parametrize("depth", [1, 4])
+def test_cuda_k7_k8_vjps_short_bands_and_adjoint(cuda_device, wavelet, mode, depth):
+    """The VJP instances on the shortest and an odd signal the forward
+    plan takes (a fold that wraps several times), float64: against
+    autograd through the plain versions within 1e-10, and the adjoint
+    identity <K x, y> = <x, K^T y> within 1e-12 of |K x| |y|."""
+    dl, dh, rl, rh = _banks(wavelet)
+    n0 = _shortest(len(dl), depth, mode)
+    for n in (n0, n0 + 3, 70001):
+        x = torch.randn(2, n, dtype=torch.float64, device=cuda_device, requires_grad=True)
+        outs = t8.flat_wavedec_lane_multi(x, dl, dh, mode, depth)
+        outs = [outs[0], *outs[1]]
+        flat = [o.detach() for o in outs]
+        cts = [_randn_like(t, i) for i, t in enumerate(outs)]
+        (got,) = torch.autograd.grad(outs, x, cts)
+        z = x.detach().requires_grad_()
+        ref_lo, ref_his = t8.multi_analysis_plain(z, dl, dh, mode, depth)
+        (want,) = torch.autograd.grad((ref_lo, *ref_his), z, cts)
+        assert _rel_err(got, want) <= 1e-10
+        lhs = sum(float((o * c).sum()) for o, c in zip(flat, cts))
+        scale = math.sqrt(sum(float((o * o).sum()) for o in flat)) * math.sqrt(sum(float((c * c).sum()) for c in cts))
+        assert abs(lhs - float((x.detach() * got).sum())) <= 1e-12 * scale
+        coeffs = [t.detach().requires_grad_() for t in (ref_lo, *ref_his[::-1])]
+        pads = [_std_pad(len(dl))] * depth
+        lens = [n] + [h.shape[-1] for h in ref_his[:-1]]
+        rec = t8.flat_waverec_lane_multi(coeffs, rl, rh, pads, lens)
+        ct = _randn_like(rec, 9)
+        got = torch.autograd.grad(rec, coeffs, ct)
+        leaves = [c.detach().requires_grad_() for c in coeffs]
+        want = torch.autograd.grad(t8.multi_synthesis_plain(leaves, rl, rh, pads, lens), leaves, ct)
+        assert _vjp_err(got, want) <= 1e-10
+        scale = float(rec.detach().norm()) * float(ct.norm())
+        rhs = sum(float((c.detach() * g).sum()) for c, g in zip(coeffs, got))
+        assert abs(float((rec.detach() * ct).sum()) - rhs) <= 1e-12 * scale
 
 
 @pytest.mark.cuda

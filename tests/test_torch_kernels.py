@@ -232,28 +232,50 @@ _BAND_TAPS = ((0, 0), (1, 0), (0, 1), (1, 1))  # (H, W) taps of ll, lh, hl, hh
 _PADDED = ("zero", "reflect", "periodic", "symmetric", "constant")
 
 
+def _split_half(count):
+    """``split_half`` of ``csrc/fwt1d.cu``: one parity half of a staged cone."""
+    return ((count + 1) // 2 + 16 + 3) & ~3
+
+
 def _model_analysis_1d(x, lo_out, his, lo, hi, n_taps, rows, plan, circular, smem, itemsize):
-    """``ptwt_fwt1d_analysis`` block by block: each tile's cone, the
-    positions it owns, and the edge block's strips, with the kernel's index
+    """``ptwt_fwt1d_analysis`` block by block: each tile's cone (per-level
+    offsets, zero or modulo reads, cone values outside their band zeroed),
+    the four-output windows' reads within the split halves, the positions
+    it owns, and the edge block's strips, with the kernel's index
     arithmetic.  Every band position must be written exactly once."""
     p = list(plan)
+    assert len(p) == 28
     depth, n, padl, tile, tiles, mode, strip, edge = p[:8]
-    m, wl, wr = p[8:13], p[13:18], p[18:23]
+    m, wl, wr, pads = p[8:13], p[13:18], p[18:23], p[23:28]
+    assert m[0] == n and not (circular and edge)
     f = np.array([lo[:n_taps], hi[:n_taps]])  # [2, L]
     xs = x.numpy().reshape(rows, n).astype(np.float64)
     bands = [np.full((rows, m[depth]), np.nan)] + [np.full((rows, m[lvl]), np.nan) for lvl in range(1, depth + 1)]
+    chunks = ((n_taps + 1) // 2 + 6) // 4
 
     def put(band, pos, vals):
         assert np.isnan(band[:, pos]).all(), "a band position was written twice"
         band[:, pos] = vals
 
-    cones = []
+    for lvl in range(1, depth + 1):
+        assert tiles * (tile << (depth - lvl)) >= m[lvl], "the tiles do not cover a level"
+    c = [0] * (depth + 1)
+    c[depth] = tile
+    for lvl in range(depth, 0, -1):
+        c[lvl - 1] = 2 * c[lvl] + n_taps - 2
+    halves = [_split_half(c[0]), _split_half(c[1]) if depth > 1 else 0]
+    # the output buffer: every level's hi, and lo at level D after round4(T)
+    outs = (max(c[1], 2 * ((tile + 3) & ~3)) + 3) & ~3
+    assert all((c[lvl] + 3) & ~3 <= outs for lvl in range(1, depth + 1))
+    need = 2 * sum(halves) + outs
+    for lvl in range(1, depth + 1):
+        # the last window of level lvl reads its split cone up to here
+        assert 4 * ((c[lvl] + 3) // 4 - 1) + 4 * chunks <= halves[(lvl - 1) & 1]
     for t in range(tiles):
-        s, c = [0] * (depth + 1), [0] * (depth + 1)
-        s[depth], c[depth] = t * tile, tile
+        s = [0] * (depth + 1)
+        s[depth] = t * tile
         for lvl in range(depth, 0, -1):
-            s[lvl - 1], c[lvl - 1] = 2 * s[lvl] - padl, 2 * c[lvl] + n_taps - 2
-        cones.append(c[0] + (c[1] if depth > 1 else 0))
+            s[lvl - 1] = 2 * s[lvl] - pads[lvl]
         pos = s[0] + np.arange(c[0])
         if circular:
             cur = xs[:, pos % n]
@@ -264,17 +286,12 @@ def _model_analysis_1d(x, lo_out, his, lo, hi, n_taps, rows, plan, circular, sme
             lo_v, hi_v = win @ f[0], win @ f[1]
             i = s[lvl] + np.arange(c[lvl])
             own = tile << (depth - lvl)
-            first, last = t * own, t * own + own
-            if circular:
-                last = min(last, m[lvl])
-            else:
-                first, last = max(first, wl[lvl]), min(last, m[lvl] - wr[lvl])
+            first, last = max(t * own, wl[lvl]), min(t * own + own, m[lvl] - wr[lvl])
             sel = (i >= first) & (i < last)
             put(bands[lvl], i[sel], hi_v[:, sel])
             if lvl == depth:
                 put(bands[0], i[sel], lo_v[:, sel])
-            cur = lo_v
-    need = max(cones) if cones else 0
+            cur = lo_v if circular else np.where((i >= 0) & (i < m[lvl]), lo_v, 0.0)
     if edge:
         e_prev = strip << depth
         need = max(need, 3 * e_prev)
@@ -300,18 +317,77 @@ def _model_analysis_1d(x, lo_out, his, lo, hi, n_taps, rows, plan, circular, sme
         t.copy_(torch.from_numpy(band).reshape(t.shape))
 
 
+def _model_synthesis_edges(bands_in, f, n_taps, plan, result):
+    """The edge block of K8a's VJP for every row: the chain on [head |
+    tail] strips, pywt's extension folded back at every step, the first
+    and last ``wz`` outputs written.  Every read and every fold target
+    must land in a strip."""
+    depth = plan[0]
+    lens, offs = plan[4:9], plan[9:14]
+    mode, _, wz, ebuf = plan[14:18]
+    strips = plan[18:23]
+    pad = offs[1]
+    assert 0 <= wz <= strips[0] and all(o == pad for o in offs[1 : depth + 1])
+
+    def take(band, e, size):
+        assert 1 <= e <= size and 2 * e <= ebuf
+        return band[:, np.concatenate([np.arange(e), size - e + np.arange(e)])]
+
+    def gather(lo_s, hi_s, fs, e, size):
+        acc = np.zeros((lo_s.shape[0], fs.size))
+        for k in range(n_taps):
+            q = (fs - k) // 2
+            use = ((fs - k) % 2 == 0) & (q >= 0) & (q < size)
+            assert ((q < e) | (q >= size - e))[use].all(), "a read fell outside both strips"
+            at = np.clip(np.where(q < e, q, e + q - (size - e)), 0, 2 * e - 1)
+            acc += np.where(use, f[0, k] * lo_s[:, at] + f[1, k] * hi_s[:, at], 0.0)
+        return acc
+
+    cur = take(bands_in[depth][0], strips[depth], lens[depth])
+    for lvl in range(depth, 0, -1):
+        m, mp, e, eo = lens[lvl], lens[lvl - 1], strips[lvl], strips[lvl - 1]
+        hib = take(bands_in[lvl][1], e, m)
+        ps = np.concatenate([np.arange(-pad, 0), mp + np.arange(pad + mp % 2)])
+        ext = gather(cur, hib, ps + pad, e, m)
+        tgt = source_index(ps, mp, _PADDED[mode])
+        t = np.concatenate([np.arange(eo), mp - eo + np.arange(eo)])
+        reached = tgt[tgt >= 0]
+        assert ((reached < eo) | (reached >= mp - eo)).all(), "a fold target fell outside both strips"
+        acc = gather(cur, hib, t + pad, e, m) + ext @ (tgt[:, None] == t[None, :]).astype(float)
+        if lvl > 1:
+            cur = acc
+            continue
+        write = np.concatenate([np.arange(eo) < wz, (t[eo:] >= mp - wz) & (t[eo:] >= wz)])
+        assert np.isnan(result[:, t[write]]).all(), "an output was written twice"
+        result[:, t[write]] = acc[:, write]
+
+
 def _model_synthesis_1d(lo_in, his, out, rlo, rhi, n_taps, rows, plan, circular, smem, itemsize):
     """``ptwt_fwt1d_synthesis`` tile by tile, with the kernel's cone ranges
-    (checked against the plan's buffer) and zero / modulo band reads."""
+    (checked against the plan's buffers), zero / modulo band reads, the
+    output pairs' band rows within the staged range, and for K8a's VJP the
+    edge block (:func:`_model_synthesis_edges`)."""
     p = list(plan)
+    assert len(p) == 23
     depth, tile, tiles, buf = p[:4]
     lens, offs = p[4:9], p[9:14]
-    assert 3 * buf * itemsize <= smem
+    edge, wz, ebuf = p[15:18]
+    assert not (circular and edge)
+    spans = [tile]
+    for _ in range(depth):
+        spans.append((spans[-1] + n_taps - 1) // 2 + 1)
+    # every hi band and lo_D at once, and two intermediate lo buffers
+    assert buf >= sum(spans[1:]) + spans[depth] + sum(spans[1 : min(depth, 3)])
+    need = buf * itemsize
+    if edge:
+        need = max(need, (3 * ebuf + 2 * offs[1] + 2) * itemsize + 4 * (2 * offs[1] + 2))
+    assert need <= smem, "the launch's shared memory is too small"
     f = np.array([rlo[:n_taps], rhi[:n_taps]])
     lo_d = lo_in.numpy().reshape(rows, lens[depth]).astype(np.float64)
     hi_bands = {lvl: his[lvl - 1].numpy().reshape(rows, lens[lvl]).astype(np.float64)
                 for lvl in range(1, depth + 1)}
     result = np.full((rows, lens[0]), np.nan)
+    nh = (n_taps + 1) // 2
 
     def load(band, start, count, size):
         q = start + np.arange(count)
@@ -324,7 +400,10 @@ def _model_synthesis_1d(lo_in, his, out, rlo, rhi, n_taps, rows, plan, circular,
         for lvl in range(1, depth + 1):
             c[lvl] = (c[lvl - 1] + offs[lvl] - (n_taps - 1)) // 2
             e[lvl] = (e[lvl - 1] + offs[lvl]) // 2
-            assert e[lvl] - c[lvl] + 1 <= buf, "a cone outgrew the plan's buffer"
+            assert e[lvl] - c[lvl] + 1 <= spans[lvl], "a band range outgrew its buffer"
+            # the pairs' band rows u - j, j < ceil(L/2), lie in the staged range
+            u0, u1 = (c[lvl - 1] + offs[lvl]) // 2, (e[lvl - 1] + offs[lvl]) // 2
+            assert u0 - nh + 1 >= c[lvl] and u1 <= e[lvl]
         cur = load(lo_d, c[depth], e[depth] - c[depth] + 1, lens[depth])
         for lvl in range(depth, 0, -1):
             hb = load(hi_bands[lvl], c[lvl], e[lvl] - c[lvl] + 1, lens[lvl])
@@ -334,7 +413,6 @@ def _model_synthesis_1d(lo_in, his, out, rlo, rhi, n_taps, rows, plan, circular,
             for k in range(n_taps):
                 even = (fo - k) % 2 == 0
                 q = (fo - k) // 2 - c[lvl]
-                assert ((q[even] >= 0) & (q[even] < cur.shape[1])).all()
                 qc = np.clip(q, 0, cur.shape[1] - 1)
                 acc += np.where(even, f[0, k] * cur[:, qc] + f[1, k] * hb[:, qc], 0.0)
             if lvl > 1:
@@ -342,9 +420,13 @@ def _model_synthesis_1d(lo_in, his, out, rlo, rhi, n_taps, rows, plan, circular,
                     acc[:, (pos < 0) | (pos >= lens[lvl - 1])] = 0.0
                 cur = acc
             else:
-                sel = pos < lens[0]
-                assert np.isnan(result[:, pos[sel]]).all()
+                sel = (pos >= wz) & (pos < lens[0] - wz)
+                assert np.isnan(result[:, pos[sel]]).all(), "an output was written twice"
                 result[:, pos[sel]] = acc[:, sel]
+    if edge:
+        bands_in = {depth: (lo_d, hi_bands[depth])}
+        bands_in.update({lvl: (None, hi_bands[lvl]) for lvl in range(1, depth)})
+        _model_synthesis_edges(bands_in, f, n_taps, p, result)
     assert not np.isnan(result).any(), "an output was never written"
     out.copy_(torch.from_numpy(result).reshape(out.shape))
 

@@ -217,14 +217,15 @@ def test_k7_valid_and_odd_crop_glue(model_kernels):  # noqa: F811
 
 def test_kernel_path_refuses_grad(model_kernels):  # noqa: F811
     """On the K6, K7 and K8 routes a data tensor that requires grad gets
-    its gradient from the VJP launches (K6b for K6a, K3T for K7a/K8a, K4T
-    for K8b), equal to autograd through the plain versions; only a filter
+    its gradient from the VJP launches (K6b for K6a, the synthesis pyramid
+    for K7a/K8a, counted as K7b/K8b, and the analysis pyramid for K8b,
+    counted as K8a), equal to autograd through the plain versions; only a filter
     that requires grad is refused."""
     dl, dh, _, _ = _banks("db2", np.float64)
     x = torch.randn(1, 70001, dtype=torch.float64, requires_grad=True)
     cases = (
-        (70001, "reflect", 4, {"K3T": 4}, lambda z: t8.multi_analysis_plain(z, dl, dh, "reflect", 4)[0]),
-        (70001, "reflect", 1, {"K3T": 1}, lambda z: t2.dwt_axis_plain(z, -1, dl, dh, "reflect")[0]),
+        (70001, "reflect", 4, {"K8b": 1}, lambda z: t8.multi_analysis_plain(z, dl, dh, "reflect", 4)[0]),
+        (70001, "reflect", 1, {"K7b": 1}, lambda z: t2.dwt_axis_plain(z, -1, dl, dh, "reflect")[0]),
         (4096, "periodization", 3, {"K6b": 1}, lambda z: t6.wavedec1d_per_plain(z, dl, dh, 3)[0]),
     )
     for n, mode, level, vjp, plain in cases:
@@ -242,7 +243,7 @@ def test_kernel_path_refuses_grad(model_kernels):  # noqa: F811
     _kernels.reset_launch_counts()
     grads = torch.autograd.grad(rec.sum(), leaf)
     assert [g.shape for g in grads] == [c.shape for c in leaf]
-    assert {k: v for k, v in model_kernels.items() if v} == {"K4T": 4}
+    assert {k: v for k, v in model_kernels.items() if v} == {"K8a": 1}
     learn = torch.tensor(dl, requires_grad=True)
     with pytest.raises(NotImplementedError, match="filter gradient"):
         t8.flat_wavedec_lane_multi(x, learn, dh, "reflect", 4)
@@ -276,7 +277,7 @@ def test_plan_is_held_by_the_card(mode):
         assert smem <= t8._SMEM_LIMIT
         assert ints[4] * ints[3] >= ints[8 + depth]  # the tiles cover level D
     ints, smem = t8._syn_plan(102, n, [n // 2] * 4, [100] * 4, 8)
-    assert smem <= t8._SMEM_LIMIT and len(ints) == 14
+    assert smem <= t8._SMEM_LIMIT and len(ints) == 23
     with pytest.raises(ValueError, match="taps"):
         t8._multi_plan(n, 130, 4, "reflect", 4)
     if mode in PADDED:
