@@ -13,13 +13,19 @@ Phases, each raising (non-zero exit) on failure:
 3. kernels against their plain torch versions at the main path's shapes
    (db4; K1/K2 on ``[16, 1024, 1024]``, K3/K4 along both axes on the odd
    level-2 size ``[16, 515, 515]``), every boundary mode, float32 within
-   2e-5 and float64 within 1e-10, plus the repo's frozen 2d goldens;
+   2e-5 and float64 within 1e-10; K3/K4 also at the default mode's level
+   1 (``reflect``: K3 along H on ``[16, 1024, 1024]`` and along W on the
+   packed ``[2, 16, 515, 1024]``, K4 back with two pairs along W and one
+   along H) and with coif17 on 37 samples in every mode (float64); plus
+   the repo's frozen 2d goldens;
 3b. the VJP kernels against their plain versions (autograd through the
    plain versions) at the main path's shapes: K1's VJP (K2 with the fold)
    and K2's VJP (K1, zero-bounded for periodic) on ``[16, 1024, 1024]``
-   <-> ``4 x 515^2`` in periodic and periodization; K3T and K4T along both
-   axes of ``[16, 515, 515]`` in every mode with phase 3's odd crop; and
-   coif17 on a 37-sample axis in periodization; then K1, K2 and both VJPs
+   <-> ``4 x 515^2`` in periodic and periodization; K3's VJP (one launch
+   of K4's fold instance) and K4's VJP (one launch of K3, zero-bounded)
+   along both axes of ``[16, 515, 515]`` in every mode with phase 3's odd
+   crop, at the reflect level 1, and with coif17 on 37 samples in every
+   mode (float64), each backward's launches asserted; then K1, K2 and both VJPs
    at the headline's level 4 (``[16, 134, 134]`` <-> ``4 x 70^2``) in both
    dtypes, haar and coif17 in float64 on ``[2, 134, 134]``, and the odd
    periodization image ``[4, 133, 135]`` (K1 and its clamped VJP).
@@ -29,13 +35,20 @@ Phases, each raising (non-zero exit) on failure:
 4. the 2d main path: ``wavedec2`` -> ``waverec2`` on ``[16, 1024, 1024]``,
    db4, 4 levels, float32, in ``periodic`` (the headline) and ``reflect``
    (the default): coefficients against the plain path on the card within
-   2e-5, round trip within 1e-4, launch counts read around each run;
+   2e-5, round trip within 1e-4, launch counts read around each run, and
+   no padding gather on the kernel path;
 5. times with CUDA events (3 warm-ups, median of 20): each kernel and
    each VJP, its plain version and one library call computing the same
    level (``F.conv2d`` / ``F.conv_transpose2d``, never called by the
    package), the round trip in Mpix/s, and each kernel's bound; K1, K2
    and their VJPs at level 1 and at level 4, and their sum per round trip
-   or step; after
+   or step; each K3/K4 launch and VJP, one axis pass each, at the reflect
+   level 1 (bound per launch; the plain version; ``F.conv2d`` /
+   ``F.conv_transpose2d`` on an input padded beforehand) and at the
+   periodic level 2, beside the padding gather and its backward that an
+   older tree runs before K3 (``fwt_pad``), and the device busy time of
+   one reflect round trip and step, which must hold no gather or scatter
+   kernel; after
    phase 8 the same for the 1d kernels at phase 8's shapes (library:
    ``F.conv1d`` / ``F.conv_transpose1d`` with stride 2 for the one-level
    K7 pair, none for the multi-level kernels), the K6 pyramid beside the
@@ -47,8 +60,9 @@ Phases, each raising (non-zero exit) on failure:
    reflect), 3 SGD steps on the kernel path against the same steps on the
    plain path on the card (losses within 1e-5 relative, first gradients
    within 1e-4 of their largest entry, the loss falls), the launches of
-   one backward and of one step, the step's and the forward's wall times,
-   and a profile of one step;
+   one backward (each launch of the round trip's VJP once: K1 <-> K2, K3
+   <-> K4) and of one step, the step's and the forward's wall times, and
+   a profile of one step (in reflect without gather or scatter kernels);
 7. the 1d kernels against their plain versions: K8a/K8b (4 fused levels)
    and K7a/K7b (one level) on ``[32, 1_000_000]``, db5, every padded mode,
    K8b/K7b with waverec's crops; K6a/K6b on ``[32, 2**19]``, 10
@@ -84,8 +98,8 @@ Phases, each raising (non-zero exit) on failure:
    gains) at d1 periodic and reflect, K6 and K7: 3 SGD steps on the
    kernel path against the plain path (phase 6's limits), the launches of
    one backward (which must be VJP launches only: K5a/K5b, K6a/K6b, and
-   for 1d the pyramid launches of the fused runs' VJPs with K3T/K4T for
-   d1's per-level levels 5-10), and the step's wall time;
+   for 1d one pyramid launch per fused run's VJP with six K3 and six K4
+   launches for d1's per-level levels 5-10), and the step's wall time;
 12. the tensor-core level K9a/K9b, with the opt-in ``PTWT_TPU_MXU2D=1``
    set inside this phase only (phases 3-11 run with it unset): K9a, K9b
    and their VJPs against their plain versions (the GEMM form, autograd
@@ -115,12 +129,15 @@ commit, e.g. a ``git archive`` of the parent) also times every
 ``fwt1d.cu`` instance and the 1d VJPs of both trees in turns (``DIR``,
 this tree, this tree, ``DIR``; each run a process of its own, started as
 ``chip_smoke.py --fwt1d-times --src DIR/src``), then this tree's at other
-tile sizes, and adds them to the kernels line as ``in_turns``.
+tile sizes; and in the same way (``--axis-times``) every K3/K4 launch and
+VJP at the reflect level 1 and the periodic level 2, the gathers, and the
+reflect round trip's and step's device time; and adds them to the kernels
+line as ``in_turns``.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (sixteen kernels;
-K1, K2 and K5a-K9b carry ``vjp_*`` keys; K1 and K2 carry their level-4
-times and the sums per round trip and per step), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are a ``{"kernels": [...]}`` JSON line (fourteen kernels,
+each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
+sums per round trip and per step, K3 and K4 their per-launch rows), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -185,8 +202,6 @@ REPLACES = {
     "K2": ("src/ptwt_tpu_torch/csrc/dwt2.cu", "src/ptwt_tpu/ops/_pallas2d.py:253"),
     "K3": ("src/ptwt_tpu_torch/csrc/axis.cu", "src/ptwt_tpu/ops/_pallas2.py:215"),
     "K4": ("src/ptwt_tpu_torch/csrc/axis.cu", "src/ptwt_tpu/ops/_pallas2.py:266"),
-    "K3T": ("src/ptwt_tpu_torch/csrc/axis_vjp.cu", "src/ptwt_tpu/ops/_pallas2.py:238"),
-    "K4T": ("src/ptwt_tpu_torch/csrc/axis_vjp.cu", "src/ptwt_tpu/ops/_pallas2.py:293"),
     "K5a": ("src/ptwt_tpu_torch/csrc/pyramid2d.cu", "src/ptwt_tpu/ops/_pallas.py:249"),
     "K5b": ("src/ptwt_tpu_torch/csrc/pyramid2d.cu", "src/ptwt_tpu/ops/_pallas.py:321"),
     "K6a": ("src/ptwt_tpu_torch/csrc/fwt1d.cu", "src/ptwt_tpu/ops/_pallas.py:132"),
@@ -199,10 +214,18 @@ REPLACES = {
     "K9b": ("src/ptwt_tpu_torch/csrc/mxu2d.cu", "src/ptwt_tpu/ops/_mxu2d.py:202"),
 }
 KERNELS_1D = ("K6a", "K6b", "K7a", "K7b", "K8a", "K8b")
-# K1 and K2 are each other's VJP: their VJP launches get rows of their own
-VJP_ROWS = ("K1 VJP", "K2 VJP")
+# K1 and K2 are each other's VJP, and so are K3 and K4 (K3's VJP is K4's
+# fold instance, K4's a zero-bounded K3): their VJP launches get rows of
+# their own; the TPU kernels whose contracts the VJP instances carry
+VJP_ROWS = ("K1 VJP", "K2 VJP", "K3 VJP", "K4 VJP")
+VJP_OF = {"K1": "K2", "K2": "K1", "K3": "K4", "K4": "K3"}
+VJP_REPLACES = {"K3": "src/ptwt_tpu/ops/_pallas2.py:238", "K4": "src/ptwt_tpu/ops/_pallas2.py:293"}
 ADJOINT_TOL = 1e-12
 COIF_SHAPE = (4, 37, 37)  # coif17's 102 taps wrap this axis several times
+# the default mode's level 1 at the headline (K3 along H on SHAPE, along W
+# on the packed [2, 16, 515, 1024]; K4 with two pairs along W and one
+# along H, the (6, 6) crop)
+REFLECT_1 = "reflect"
 # K1/K2's tiles: float64 banks at both ends of the registry at a small
 # batch, and an odd periodization image (K1's VJP takes the clamp)
 TILE_F64 = (2, 134, 134)
@@ -317,35 +340,58 @@ def check_kernels(errors: dict) -> None:
             errors["K2"][dtype] = max(errors["K2"].get(dtype, 0.0), err)
             check(f"K2(K1) {mode} round trip {dtype}", max_abs(got, x), 10 * tol)
         del x
+        # K3/K4 along both axes of the level-2 size, with the main path's
+        # odd crop: 261 -> 515 keeps one sample less
         xo = randn(ODD, dtype, SEED + 2)
         for mode in MODES:
             for axis in (-2, -1):
-                got = _pallas2.pallas_dwt_axis(xo, axis, dl, dh, mode)
-                lo, hi = _pallas2.dwt_axis_plain(xo, axis, dl, dh, mode)
-                err = check(
-                    f"K3 {mode} axis {axis} {dtype}", max_abs(got, torch.stack((lo, hi))), tol
-                )
-                errors["K3"][dtype] = max(errors["K3"].get(dtype, 0.0), err)
-                # the main path's odd crop: 261 -> 515 keeps one sample less
-                if mode == "periodization":
-                    padl, padr = 0, 2 * lo.shape[axis] - ODD[axis]
-                else:
-                    padl, padr = p, p + 1
-                pairs = ((lo, hi), (hi, lo)) if axis == -1 else ((lo, hi),)
-                got = _pallas2.pallas_idwt_axis(
-                    [a for a, _ in pairs], [b for _, b in pairs], axis, rl, rh, padl, padr, mode
-                )
-                ref = torch.stack(
-                    [
-                        _pallas2.idwt_axis_plain(a, b, axis, rl, rh, padl, padr, mode)
-                        for a, b in pairs
-                    ]
-                )
-                err = check(f"K4 {mode} axis {axis} {dtype}", max_abs(got, ref), tol)
-                errors["K4"][dtype] = max(errors["K4"].get(dtype, 0.0), err)
-                check(f"K4(K3) {mode} axis {axis} round trip {dtype}", max_abs(got[0], xo), 10 * tol)
+                axis_case(errors, xo, dl, dh, rl, rh, mode, axis, f"{mode} axis {axis}")
         del xo
         torch.cuda.synchronize()
+    # coif17 (102 taps) on 37 samples in every padded mode and
+    # periodization, float64: reads that wrap the axis several times
+    f64 = torch.float64
+    cl, ch, _, _ = get_filter_arrays(LONG_WAVELET, flip=True, dtype=f64)
+    _, _, crl, crh = get_filter_arrays(LONG_WAVELET, flip=False, dtype=f64)
+    xc = randn(COIF_SHAPE, f64, SEED + 3)
+    for mode in MODES:
+        for axis in (-2, -1):
+            axis_case(errors, xc, cl, ch, crl, crh, mode, axis, f"coif17/37 {mode} axis {axis}")
+    del xc
+    # the default mode's level 1 at the headline, float32
+    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=torch.float32)
+    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=torch.float32)
+    x = randn(SHAPE, torch.float32, SEED + 1)
+    rows = axis_case(errors, x, dl, dh, rl, rh, REFLECT_1, -2, f"{REFLECT_1} level 1 axis -2")
+    axis_case(errors, rows, dl, dh, rl, rh, REFLECT_1, -1, f"{REFLECT_1} level 1 axis -1")
+    del x, rows
+    torch.cuda.synchronize()
+
+
+def crop_of(mode: str, filt_len: int, n: int, m: int) -> tuple[int, int]:
+    """The synthesis crop that rebuilds ``n`` samples from a band of ``m``."""
+    if mode == "periodization":
+        return 0, 2 * m - n
+    p = std_pad(filt_len)
+    return p, 2 * (m - 1) + filt_len - p - n
+
+
+def axis_case(errors: dict, x, dl, dh, rl, rh, mode: str, axis: int, tag: str) -> torch.Tensor:
+    """K3 along ``axis`` and K4 back (two pairs along the last axis, one
+    along another) against their plain versions, and the round trip;
+    returns K3's packed output."""
+    dtype = x.dtype
+    tol = TOL[dtype]
+    got = _pallas2.pallas_dwt_axis(x, axis, dl, dh, mode)
+    lo, hi = _pallas2.dwt_axis_plain(x, axis, dl, dh, mode)
+    record(errors, "K3", dtype, check(f"K3 {tag} {dtype}", max_abs(got, torch.stack((lo, hi))), tol))
+    crop = crop_of(mode, len(dl), x.shape[axis], lo.shape[axis])
+    pairs = ((lo, hi), (hi, lo)) if axis == -1 else ((lo, hi),)
+    rec = _pallas2.pallas_idwt_axis([a for a, _ in pairs], [b for _, b in pairs], axis, rl, rh, *crop, mode)
+    ref = torch.stack([_pallas2.idwt_axis_plain(a, b, axis, rl, rh, *crop, mode) for a, b in pairs])
+    record(errors, "K4", dtype, check(f"K4 {tag} {dtype}", max_abs(rec, ref), tol))
+    check(f"K4(K3) {tag} round trip {dtype}", max_abs(rec[0], x), 10 * tol)
+    return got
 
 
 def check_goldens() -> None:
@@ -393,33 +439,41 @@ def leaf(t: torch.Tensor) -> torch.Tensor:
     return t.detach().requires_grad_()
 
 
-def axis_vjps(errors: dict, x, dl, dh, rl, rh, mode: str, axis: int, crop, tag: str) -> None:
-    """K3T and K4T through autograd against the plain VJPs, one mode and
-    axis; ``crop`` is the synthesis ``(padl, padr)``."""
+def axis_vjps(errors: dict, x, dl, dh, rl, rh, mode: str, axis: int, tag: str) -> torch.Tensor:
+    """K3's VJP (one K4 launch, the fold instance) and K4's (one K3 launch,
+    zero-bounded; two pairs along the last axis) through autograd against
+    the plain VJPs, one mode and axis, each backward's launches asserted;
+    returns K3's packed output."""
     dtype = x.dtype
     tol = TOL[dtype]
     out = _pallas2.pallas_dwt_axis(x, axis, dl, dh, mode)
     ct = randn(out.shape, dtype, SEED + 20)
+    _kernels.reset_launch_counts()
     (got,) = torch.autograd.grad(out, x, ct)
+    only(dict(_kernels.LAUNCHES), {"K4": 1}, f"K3's VJP {tag}")
     ref = _pallas2.dwt_axis_vjp_plain(x, axis, dl, dh, mode, ct)
-    record(errors, "K3T", dtype, check(f"K3T {tag} {dtype}", max_abs(got, ref), tol))
+    record(errors, "K3 VJP", dtype, check(f"K3 VJP (K4) {tag} {dtype}", max_abs(got, ref), tol))
     if dtype == torch.float64:
-        adjoint(f"K3T {tag}", [out], [ct], [x], [got])
+        adjoint(f"K3 VJP {tag}", [out], [ct], [x], [got])
     lo, hi = leaf(out[0]), leaf(out[1])
+    crop = crop_of(mode, len(dl), x.shape[axis], lo.shape[axis])
     pairs = ((lo, hi), (hi, lo)) if axis == -1 else ((lo, hi),)
     rec = _pallas2.pallas_idwt_axis(
         [a for a, _ in pairs], [b for _, b in pairs], axis, rl, rh, *crop, mode
     )
     ct = randn(rec.shape, dtype, SEED + 21)
+    _kernels.reset_launch_counts()
     got = torch.autograd.grad(rec, (lo, hi), ct)
+    only(dict(_kernels.LAUNCHES), {"K3": 1}, f"K4's VJP {tag}")
     ref = [torch.zeros_like(lo), torch.zeros_like(hi)]
     for (a, b), c in zip(pairs, ct):
         ga, gb = _pallas2.idwt_axis_vjp_plain(a, b, axis, rl, rh, *crop, mode, c)
         ref[0 if a is lo else 1] += ga
         ref[0 if b is lo else 1] += gb
-    record(errors, "K4T", dtype, check(f"K4T {tag} {dtype}", max_abs(got, ref), tol))
+    record(errors, "K4 VJP", dtype, check(f"K4 VJP (K3) {tag} {dtype}", max_abs(got, ref), tol))
     if dtype == torch.float64:
-        adjoint(f"K4T {tag}", [rec], [ct], [lo, hi], got)
+        adjoint(f"K4 VJP {tag}", [rec], [ct], [lo, hi], got)
+    return out.detach()
 
 
 def check_vjps(errors: dict) -> None:
@@ -453,18 +507,27 @@ def check_vjps(errors: dict) -> None:
         xo = leaf(randn(ODD, dtype, SEED + 6))
         for mode in MODES:
             for axis in (-2, -1):
-                m = (ODD[axis] + 1) // 2 if mode == "periodization" else None
-                crop = (0, 2 * m - ODD[axis]) if m else (p, p + 1)
-                axis_vjps(errors, xo, dl, dh, rl, rh, mode, axis, crop, f"{mode} axis {axis}")
+                axis_vjps(errors, xo, dl, dh, rl, rh, mode, axis, f"{mode} axis {axis}")
         del xo
-        # 102 taps on a 37-sample periodization axis: reads wrap several periods
-        cl, ch, _, _ = get_filter_arrays("coif17", flip=True, dtype=dtype)
-        _, _, crl, crh = get_filter_arrays("coif17", flip=False, dtype=dtype)
-        xc = leaf(randn(COIF_SHAPE, dtype, SEED + 7))
-        for axis in (-2, -1):
-            axis_vjps(errors, xc, cl, ch, crl, crh, "periodization", axis, (0, 1),
-                      f"coif17/37 periodization axis {axis}")
         torch.cuda.synchronize()
+    # coif17 (102 taps) on 37 samples in every mode, float64 (reads that
+    # wrap the axis several times; the fold collects every wrap)
+    f64 = torch.float64
+    cl, ch, _, _ = get_filter_arrays(LONG_WAVELET, flip=True, dtype=f64)
+    _, _, crl, crh = get_filter_arrays(LONG_WAVELET, flip=False, dtype=f64)
+    xc = leaf(randn(COIF_SHAPE, f64, SEED + 7))
+    for mode in MODES:
+        for axis in (-2, -1):
+            axis_vjps(errors, xc, cl, ch, crl, crh, mode, axis, f"coif17/37 {mode} axis {axis}")
+    del xc
+    # the default mode's level 1 at the headline, float32
+    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=torch.float32)
+    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=torch.float32)
+    x = leaf(randn(SHAPE, torch.float32, SEED + 5))
+    rows = axis_vjps(errors, x, dl, dh, rl, rh, REFLECT_1, -2, f"{REFLECT_1} level 1 axis -2")
+    axis_vjps(errors, leaf(rows), dl, dh, rl, rh, REFLECT_1, -1, f"{REFLECT_1} level 1 axis -1")
+    del x, rows
+    torch.cuda.synchronize()
 
 
 def k1_k2_case(errors: dict, shape, dtype, wavelet: str, mode: str, seed: int) -> None:
@@ -525,13 +588,34 @@ def flat_coeffs(coeffs):
     return [coeffs[0]] + [b for t in coeffs[1:] for b in t]
 
 
+@contextlib.contextmanager
+def counting_pads(calls: list):
+    """Count the padding gathers ``ops/_pallas2`` runs (its plain version's
+    ``fwt_pad``) while the block runs."""
+    saved = _pallas2.fwt_pad
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].device)
+        return saved(*args, **kwargs)
+
+    _pallas2.fwt_pad = counted
+    try:
+        yield
+    finally:
+        _pallas2.fwt_pad = saved
+
+
 def main_path(x: torch.Tensor, mode: str) -> dict:
     _kernels.reset_launch_counts()
-    coeffs = ptwt.wavedec2(x, WAVELET, mode=mode, level=LEVEL)
-    rec = ptwt.waverec2(coeffs, WAVELET, mode=mode)
+    pads = []
+    with counting_pads(pads):
+        coeffs = ptwt.wavedec2(x, WAVELET, mode=mode, level=LEVEL)
+        rec = ptwt.waverec2(coeffs, WAVELET, mode=mode)
     torch.cuda.synchronize()
     counts = dict(_kernels.LAUNCHES)
     log(f"  {mode}: launches per round trip {counts}")
+    if pads:
+        raise AssertionError(f"the {mode} round trip ran {len(pads)} padding gathers on the kernel path")
     with plain_versions():
         ref = ptwt.wavedec2(x, WAVELET, mode=mode, level=LEVEL)
         ref_rec = ptwt.waverec2(ref, WAVELET, mode=mode)
@@ -789,9 +873,11 @@ def time_kernels(copy_gbps: float) -> tuple[dict, dict]:
 
 
 def time_vjps() -> dict:
-    """K3T and K4T at the main path's shapes, each called as the autograd
-    Functions' backward calls it, against autograd through the plain
-    versions and one library call; the bytes are the forward twin's."""
+    """K3's and K4's VJPs at phase 5's K3/K4 level (periodic, [16, 515,
+    515] <-> 4 x 261^2, two launches each way), as the autograd backward
+    runs them (K3's VJP is K4's fold instance, K4's a zero-bounded K3),
+    against autograd through the plain versions and one library call;
+    the bytes are the forward twin's."""
     f32 = torch.float32
     dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
     _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
@@ -801,22 +887,13 @@ def time_vjps() -> dict:
     rows = {}
     dfilt = outer_filters(dl, dh, f32)
     rfilt = outer_filters(rl, rh, f32)
-
-    # K3T: the VJP of phase 5's K3 level (periodic, [16, 515, 515] ->
-    # 4 x 261^2): K3T along the last axis, then along the first
     b, h, w = ODD
+
+    # K3's VJP: the backward of the level [16, 515, 515] -> 4 x 261^2
     xo = leaf(randn(ODD, f32, SEED + 9))
-    rows_ = _pallas2.pallas_dwt_axis(xo, -2, dl, dh, "periodic")
-    both = _pallas2.pallas_dwt_axis(rows_, -1, dl, dh, "periodic")
+    both = _pallas2.pallas_dwt_axis(_pallas2.pallas_dwt_axis(xo, -2, dl, dh, "periodic"), -1, dl, dh, "periodic")
     m = both.shape[-1]
     ct = randn(both.shape, f32, SEED + 35)
-
-    def k3t_level():
-        g_rows = _pallas2._analysis_transpose_kernel(ct, 3, w, dl, dh, w, p, True)
-        return _pallas2._analysis_transpose_kernel(g_rows, 1, h, dl, dh, h, p, True)
-
-    (auto,) = torch.autograd.grad(both, xo, ct)
-    log(f"  K3T timed level vs autograd max_abs={max_abs(k3t_level(), auto)!r}")
     ct_nchw = torch.stack([ct[0, 0], ct[0, 1], ct[1, 0], ct[1, 1]], dim=1).contiguous()
 
     def k3_plain_vjp():
@@ -825,50 +902,187 @@ def time_vjps() -> dict:
             out = _pallas2d.dwt2_level_plain(z, dl, dh, "periodic")
             return torch.autograd.grad(out, z, (ct[0, 0], ct[0, 1], ct[1, 0], ct[1, 1]))
 
-    rows["K3T"] = {
-        "ms": time_ms(k3t_level),
+    rows["K3 VJP"] = {
+        "ms": time_ms(lambda: torch.autograd.grad(both, xo, ct, retain_graph=True)),
         "plain_ms": time_ms(k3_plain_vjp),
+        # the strided transposed convolution before its circular fold
         "library_ms": time_ms(lambda: F.conv_transpose2d(ct_nchw, dfilt, stride=2)),
         "bytes": size * (b * h * w + 4 * b * m * m),
         "flops": analysis_flops(b, h, w, m, m, L),
     }
-    del rows_, both, auto, ct_nchw
+    del both, ct_nchw
 
-    # K4T: the VJP of phase 5's K4 level (4 x 261^2 -> [16, 515, 515],
-    # odd crop p, p + 1): K4T along the first axis, then the last
+    # K4's VJP: the backward of the level 4 x 261^2 -> [16, 515, 515]
+    # (odd crop p, p + 1)
     subbands = [leaf(c) for c in (ct[0, 0], ct[0, 1], ct[1, 0], ct[1, 1])]
     ll, lh, hl, hh = subbands
     cols = _pallas2.pallas_idwt_axis((ll, lh), (hl, hh), -1, rl, rh, p, p + 1, "periodic")
-    lo_, hi_ = cols.unbind(0)
-    rec = _pallas2.pallas_idwt_axis((lo_,), (hi_,), -2, rl, rh, p, p + 1, "periodic")
+    rec = _pallas2.pallas_idwt_axis((cols[0],), (cols[1],), -2, rl, rh, p, p + 1, "periodic")
     g = randn(rec.shape, f32, SEED + 36)
-
-    def k4t_level():
-        g_cols = _pallas2._synthesis_transpose_kernel(g, 1, m, rl, rh, p, False)
-        return _pallas2._synthesis_transpose_kernel(g_cols[0], 2, m, rl, rh, p, False)
-
-    auto = torch.autograd.grad(rec, subbands, g)
-    mine = k4t_level()
-    log(f"  K4T timed level vs autograd max_abs={max_abs((mine[0, 0], mine[1, 0], mine[0, 1], mine[1, 1]), auto)!r}")
     # the adjoint of the transposed convolution cropped by (p, p + 1) is
     # the strided convolution of the cotangent zero-padded by (p, p + 1)
     g_pad = F.pad(g[0][:, None], (p, p + 1, p, p + 1))
     lib = F.conv2d(g_pad, rfilt, stride=2)
-    log(f"  K4T library yardstick vs kernel max_abs={max_abs(lib, torch.stack([mine[0, 0], mine[1, 0], mine[0, 1], mine[1, 1]], dim=1))!r}")
+    auto = torch.autograd.grad(rec, subbands, g, retain_graph=True)
+    log(f"  K4 VJP library yardstick vs kernel max_abs={max_abs(lib, torch.stack(auto, dim=1))!r}")
 
     def k4_plain_vjp():
         return _pallas2d.idwt2_level_vjp_plain(
             subbands, rl, rh, "periodic", [(p, p + 1)] * 2, g[0]
         )
 
-    rows["K4T"] = {
-        "ms": time_ms(k4t_level),
+    rows["K4 VJP"] = {
+        "ms": time_ms(lambda: torch.autograd.grad(rec, subbands, g, retain_graph=True)),
         "plain_ms": time_ms(k4_plain_vjp),
         "library_ms": time_ms(lambda: F.conv2d(g_pad, rfilt, stride=2)),
         "bytes": size * (4 * b * m * m + b * h * w),
         "flops": synthesis_flops(b, m, m, h, w, L),
     }
     return rows
+
+
+def axis_filters(taps_a, taps_b, along: int, dtype):
+    """``[2, 1, L, 1]`` (``along`` -2) or ``[2, 1, 1, L]`` filters of one
+    axis pass, for the library yardsticks."""
+    f = torch.stack([torch.as_tensor(np.asarray(t), dtype=dtype, device=DEVICE) for t in (taps_a, taps_b)])
+    return f[:, None, :, None] if along == -2 else f[:, None, None, :]
+
+
+def axis_times(full: bool = False) -> dict:
+    """Device ms of every K3/K4 launch and of their VJPs (as the autograd
+    backward runs them), one axis pass each, at the default mode's level
+    1 of the headline (``reflect``, ``[16, 1024, 1024]``: K3 along -2, K3
+    along -1 on the packed ``[2, 16, 515, 1024]``, the two-pair K4 along
+    -1 and the one-pair K4 along -2 with the (6, 6) crop) and at the
+    periodic level 2 (``[16, 515, 515]``, the odd crop), float32 db4;
+    for ``reflect`` also the padding gather a tree may run before K3 and
+    its backward (``fwt_pad``).  Only public entry points, so either
+    tree's package runs it: the rows phase 5 compares with the parent in
+    turns.  ``full`` adds each row's plain ms, bytes (each input read
+    once, each output written once) and, for ``reflect``, one library
+    call on an input padded beforehand (``F.conv2d`` /
+    ``F.conv_transpose2d``, before any crop or fold)."""
+    f32 = torch.float32
+    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
+    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
+    L = len(dl)
+    rows = {}
+
+    def row(name, run, ins, outs, plain=None, library=None):
+        entry = {"ms": time_ms(run)}
+        if full:
+            entry["bytes"] = 4 * (sum(t.numel() for t in ins) + sum(t.numel() for t in outs))
+            entry["bound_ms"] = entry["bytes"] / PEAK_BYTES_PER_S * 1e3
+            entry["plain_ms"] = time_ms(plain) if plain else None
+            entry["library_ms"] = time_ms(library) if library else None
+        rows[name] = entry
+
+    for mode, shape in ((REFLECT_1, SHAPE), ("periodic", ODD)):
+        yard = full and mode == REFLECT_1
+        x = leaf(randn(shape, f32, SEED + 500))
+        y = _pallas2.pallas_dwt_axis(x, -2, dl, dh, mode)  # [2, B, m_h, w]
+        yd = leaf(y)
+        z = _pallas2.pallas_dwt_axis(yd, -1, dl, dh, mode)  # [2, 2, B, m_h, m_w]
+        xd, ydd = x.detach(), yd.detach()
+        crop_h = crop_of(mode, L, shape[-2], y.shape[-2])
+        crop_w = crop_of(mode, L, shape[-1], z.shape[-1])
+        bands = [leaf(t) for t in (z[0, 0], z[0, 1], z[1, 0], z[1, 1])]  # ll, lh, hl, hh
+        c = _pallas2.pallas_idwt_axis(bands[:2], bands[2:], -1, rl, rh, *crop_w, mode)
+        cd = [leaf(t) for t in c.unbind(0)]
+        r = _pallas2.pallas_idwt_axis(cd[:1], cd[1:], -2, rl, rh, *crop_h, mode)
+        bd = [t.detach() for t in bands]
+        cdd = [t.detach() for t in cd]
+        cy, cz, cc, cr = (randn(t.shape, f32, SEED + 501 + i) for i, t in enumerate((y, z, c, r)))
+        lib = {}
+        if yard:
+            wa, wb = axis_filters(dl, dh, -2, f32), axis_filters(dl, dh, -1, f32)
+            ra, rb = axis_filters(rl, rh, -2, f32), axis_filters(rl, rh, -1, f32)
+            xpad = fwt_pad(xd, L, mode=mode, axes=(1,))[:, None]
+            ypad = fwt_pad(ydd, L, mode=mode, axes=(3,)).reshape(-1, 1, 1, shape[-1] + 2 * std_pad(L))
+            # the two pairs (ll, hl) and (lh, hh) as [2 B, 2 (lo, hi), m_h, m_w]
+            k4w_in = torch.stack([torch.stack(bd[0::2], 1), torch.stack(bd[1::2], 1)]).reshape(-1, 2, *bd[0].shape[-2:])
+            k4h_in = torch.stack(cdd, dim=1)  # [B, 2, h, w]
+            cy_in = cy.transpose(0, 1).contiguous()  # [B, 2, m_h, w]
+            cz_in = cz.permute(1, 2, 3, 0, 4).reshape(-1, 2, 1, z.shape[-1])
+            cc_in = F.pad(cc, (crop_w[0], crop_w[1])).reshape(-1, 1, 1, shape[-1] + sum(crop_w))
+            cr_in = F.pad(cr[0][:, None], (0, 0, crop_h[0], crop_h[1]))
+            lib = {
+                "K3 -2": lambda: F.conv2d(xpad, wa, stride=(2, 1)),
+                "K3 -1": lambda: F.conv2d(ypad, wb, stride=(1, 2)),
+                "K4 -1": lambda: F.conv_transpose2d(k4w_in, rb, stride=(1, 2)),
+                "K4 -2": lambda: F.conv_transpose2d(k4h_in, ra, stride=(2, 1)),
+                "K3 VJP -2": lambda: F.conv_transpose2d(cy_in, wa, stride=(2, 1)),
+                "K3 VJP -1": lambda: F.conv_transpose2d(cz_in, wb, stride=(1, 2)),
+                "K4 VJP -1": lambda: F.conv2d(cc_in, rb, stride=(1, 2)),
+                "K4 VJP -2": lambda: F.conv2d(cr_in, ra, stride=(2, 1)),
+            }
+            mine = lib["K3 -2"]().transpose(0, 1)
+            log(f"  K3 {mode} -2 library yardstick vs kernel max_abs={max_abs(mine.contiguous(), y.detach())!r}")
+        plain = {
+            "K3 -2": lambda: _pallas2.dwt_axis_plain(xd, -2, dl, dh, mode),
+            "K3 -1": lambda: _pallas2.dwt_axis_plain(ydd, -1, dl, dh, mode),
+            "K4 -1": lambda: [_pallas2.idwt_axis_plain(a, b, -1, rl, rh, *crop_w, mode) for a, b in ((bd[0], bd[2]), (bd[1], bd[3]))],
+            "K4 -2": lambda: _pallas2.idwt_axis_plain(cdd[0], cdd[1], -2, rl, rh, *crop_h, mode),
+            "K3 VJP -2": lambda: _pallas2.dwt_axis_vjp_plain(xd, -2, dl, dh, mode, cy),
+            "K3 VJP -1": lambda: _pallas2.dwt_axis_vjp_plain(ydd, -1, dl, dh, mode, cz),
+            "K4 VJP -1": lambda: [_pallas2.idwt_axis_vjp_plain(a, b, -1, rl, rh, *crop_w, mode, g)
+                                  for (a, b), g in zip(((bd[0], bd[2]), (bd[1], bd[3])), cc)],
+            "K4 VJP -2": lambda: _pallas2.idwt_axis_vjp_plain(cdd[0], cdd[1], -2, rl, rh, *crop_h, mode, cr[0]),
+        }
+        cases = {
+            "K3 -2": (lambda: _pallas2.pallas_dwt_axis(xd, -2, dl, dh, mode), [xd], [y]),
+            "K3 -1": (lambda: _pallas2.pallas_dwt_axis(ydd, -1, dl, dh, mode), [ydd], [z]),
+            "K4 -1": (lambda: _pallas2.pallas_idwt_axis(bd[:2], bd[2:], -1, rl, rh, *crop_w, mode), bd, [c]),
+            "K4 -2": (lambda: _pallas2.pallas_idwt_axis(cdd[:1], cdd[1:], -2, rl, rh, *crop_h, mode), cdd, [r]),
+            "K3 VJP -2": (lambda: torch.autograd.grad(y, x, cy, retain_graph=True), [cy], [x]),
+            "K3 VJP -1": (lambda: torch.autograd.grad(z, yd, cz, retain_graph=True), [cz], [yd]),
+            "K4 VJP -1": (lambda: torch.autograd.grad(c, bands, cc, retain_graph=True), [cc], bands),
+            "K4 VJP -2": (lambda: torch.autograd.grad(r, cd, cr, retain_graph=True), [cr], cd),
+        }
+        for name, (run, ins, outs) in cases.items():
+            row(f"{name} {mode}", run, ins, outs, plain.get(name) if full else None, lib.get(name))
+        if mode == REFLECT_1:
+            # the padding gather (and its backward) K3 no longer needs
+            for ax, src in ((-2, x), (-1, yd)):
+                pad = fwt_pad(src, L, mode=mode, axes=(src.ndim + ax,))
+                ct = randn(pad.shape, f32, SEED + 510)
+                sd = src.detach()
+                row(f"gather {mode} {ax}", lambda: fwt_pad(sd, L, mode=mode, axes=(sd.ndim + ax,)), [sd], [pad])
+                row(f"gather VJP {mode} {ax}", lambda: torch.autograd.grad(pad, src, ct, retain_graph=True), [ct], [sd])
+                del pad, ct
+        del x, y, yd, z, bands, c, cd, r, cy, cz, cc, cr, lib
+    return rows
+
+
+def reflect_device_ms() -> dict:
+    """Device busy ms (``torch.profiler``) of one ``reflect`` headline round
+    trip and one phase 6 training step in ``reflect``, and the gather and
+    scatter kernels among them (``index_select`` / ``index_add``)."""
+    x = randn(SHAPE, torch.float32, SEED)
+    y = randn(SHAPE, torch.float32, SEED + 41)
+    model = GainModel(REFLECT_1)
+    opt = optimizer(model)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        train_loss(model, y).backward()
+        opt.step()
+
+    out = {}
+    for label, run in (
+        ("round_trip", lambda: ptwt.waverec2(ptwt.wavedec2(x, WAVELET, mode=REFLECT_1, level=LEVEL), WAVELET, mode=REFLECT_1)),
+        ("step", step),
+    ):
+        prof = profile(run, f"{REFLECT_1} {label}", top=8)
+        out[f"{label}_busy_ms"] = sum(ms for ms, _, _ in prof)
+        out[f"{label}_index_kernels"] = sum(n for _, n, key in prof if index_kernel(key))
+    return out
+
+
+def index_kernel(key: str) -> bool:
+    """Is this device entry a gather or scatter kernel (``index_select``,
+    ``index_add`` and their kin, by the names torch gives them)?"""
+    return any(s in key.lower() for s in ("index", "gather", "scatter"))
 
 
 def profile(run, label: str, top: int = 14) -> list:
@@ -1018,9 +1232,9 @@ def check_training(mode: str, y: torch.Tensor, make=None, with_profile: bool = T
         f"  {mode}: training step {step_ms!r} ms wall, forward {forward_ms!r} ms, "
         f"(step - forward) / forward {(step_ms - forward_ms) / forward_ms!r}"
     )
-    if with_profile:
-        profile(step, f"{mode} training step")
-    return {"backward": backward, "step": per_step, "step_ms": step_ms, "forward_ms": forward_ms}
+    rows = profile(step, f"{mode} training step") if with_profile else []
+    return {"backward": backward, "step": per_step, "step_ms": step_ms, "forward_ms": forward_ms,
+            "profile": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1340,33 +1554,40 @@ def fwt1d_times(tile_samples=None) -> dict:
     return out
 
 
-def fwt1d_turns(parent: Path) -> dict:
-    """:func:`fwt1d_times` of the parent tree and of this one in turns
-    (parent, this, this, parent), each a process of its own; then this
-    tree's rows at other tile sizes.  Returns ``{row: {"parent": [..],
-    "change": [..], "tiles": {..}}}``."""
+def turns(parent: Path, flag: str) -> dict:
+    """``chip_smoke.py flag`` on the parent tree and on this one in turns
+    (parent, this, this, parent), each a process of its own started with
+    ``--src``; returns ``{row: {"parent": [..], "change": [..]}}`` of the
+    JSON line each printed last."""
     runs = []
     for tree in (parent, ROOT, ROOT, parent):
-        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--fwt1d-times", "--src", str(tree / "src")]
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), flag, "--src", str(tree / "src")]
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(f"fwt1d times of {tree} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            raise RuntimeError(f"{flag} of {tree} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
         runs.append((tree, json.loads(proc.stdout.strip().splitlines()[-1])))
     rows = {}
-    default_tile = _pallas1d_multi._TILE_SAMPLES
     for tree, times in runs:
-        for name, ms in times.items():
-            rows.setdefault(name, {"parent": [], "change": [], "tiles": {}})
-            rows[name]["parent" if tree == parent else "change"].append(ms)
+        for name, value in times.items():
+            rows.setdefault(name, {"parent": [], "change": []})
+            rows[name]["parent" if tree == parent else "change"].append(value)
+    for name, row in rows.items():
+        ratio = min(row["change"]) / min(row["parent"]) if min(row["parent"]) else None
+        log(f"  {name}: parent {row['parent']!r}, change {row['change']!r} (change / parent {ratio!r})")
+    return rows
+
+
+def fwt1d_turns(parent: Path) -> dict:
+    """:func:`fwt1d_times` of the parent tree and of this one in turns, then
+    this tree's rows at other tile sizes (``"tiles"``)."""
+    rows = turns(parent, "--fwt1d-times")
+    default_tile = _pallas1d_multi._TILE_SAMPLES
     for tile in (2048, 8192):
         for name, ms in fwt1d_times(tile).items():
-            rows[name]["tiles"][tile] = ms
+            rows[name].setdefault("tiles", {})[tile] = ms
     _pallas1d_multi._TILE_SAMPLES = default_tile
     for name, row in rows.items():
-        log(
-            f"  {name}: parent {row['parent']!r} ms, change {row['change']!r} ms "
-            f"(change / parent {min(row['change']) / min(row['parent'])!r}); tiles {row['tiles']!r}"
-        )
+        log(f"  {name}: tiles {row.get('tiles')!r}")
     return rows
 
 
@@ -1668,20 +1889,24 @@ def time_vjps_1d() -> dict:
     return rows
 
 
-#: phase 11's 1d configurations: (name, shape, mode, level, its backward's launches)
-#: (levels 5-10 of d1 transpose on K3T/K4T; each fused run's VJP is one
-#: launch of the other pyramid kernel)
+#: phase 11's 1d configurations: (name, shape, mode, level, the launches
+#: of its backward): levels 5-10 of d1 run on K3/K4, whose VJPs are each
+#: other (six K4 launches for the six K3 levels and six K3 for the six K4
+#: steps); each fused run's VJP is one launch of the other pyramid kernel
 TRAIN_1D = (
-    ("d1 periodic", D1_SHAPE, "periodic", LEVEL_1D, ("K3T", "K4T", "K8a", "K8b")),
-    ("d1 reflect", D1_SHAPE, "reflect", LEVEL_1D, ("K3T", "K4T", "K8a", "K8b")),
-    ("K6 periodization", K6_SHAPE, "periodization", LEVEL_1D, ("K6a", "K6b")),
-    ("K7 reflect level 1", D1_SHAPE, "reflect", 1, ("K7a", "K7b")),
+    ("d1 periodic", D1_SHAPE, "periodic", LEVEL_1D, {"K3": 6, "K4": 6, "K8a": 1, "K8b": 1}),
+    ("d1 reflect", D1_SHAPE, "reflect", LEVEL_1D, {"K3": 6, "K4": 6, "K8a": 1, "K8b": 1}),
+    ("K6 periodization", K6_SHAPE, "periodization", LEVEL_1D, {"K6a": 3, "K6b": 3}),
+    ("K7 reflect level 1", D1_SHAPE, "reflect", 1, {"K7a": 1, "K7b": 1}),
 )
 
 
-def check_backward(name: str, backward: dict, allowed: tuple) -> None:
-    """One backward launched every kernel of ``allowed`` and nothing else:
-    no forward kernel of a launch's own direction."""
+def check_backward(name: str, backward: dict, allowed) -> None:
+    """One backward launched exactly the kernels of ``allowed``: a dict of
+    launch counts, or the names of every kernel it may and must launch."""
+    if isinstance(allowed, dict):
+        only(backward, allowed, f"the {name} backward")
+        return
     used = {k for k, v in backward.items() if v}
     if used != set(allowed):
         raise AssertionError(f"the {name} backward launched {sorted(used)}, expected {sorted(allowed)}")
@@ -2044,18 +2269,31 @@ def main() -> int:
         "periodic round trip",
     )
     del x
+    log(f"phase 5: each K3/K4 launch and VJP at the {REFLECT_1} level 1 and the periodic level 2")
+    axis_rows = axis_times(full=True)
+    for name, row in axis_rows.items():
+        log(f"  {name}: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    reflect_dev = reflect_device_ms()
+    log(f"  {REFLECT_1} device time: {reflect_dev}")
+    if reflect_dev["round_trip_index_kernels"] or reflect_dev["step_index_kernels"]:
+        raise AssertionError(f"gather or scatter kernels on the {REFLECT_1} path: {reflect_dev}")
+    axis_turns = {}
+    if _arg("--parent"):
+        log(f"phase 5: the K3/K4 rows and the {REFLECT_1} device times in turns with {_arg('--parent')}")
+        torch.cuda.empty_cache()
+        axis_turns = turns(Path(_arg("--parent")).resolve(), "--axis-times")
 
     log("phase 6: training at full width")
     y = randn(SHAPE, torch.float32, SEED + 41)
     train = {mode: check_training(mode, y) for mode in ("periodic", "reflect")}
-    for mode, names in (("periodic", ("K1", "K2", "K3T", "K4T")), ("reflect", ("K3T", "K4T"))):
-        for name in names:
-            if train[mode]["backward"][name] < 1:
-                raise AssertionError(f"{name} was not launched by the {mode} backward")
-        for name in ("K3", "K4"):
-            if train[mode]["backward"][name]:
-                raise AssertionError(f"the {mode} backward launched the forward kernel {name}")
-    per_step = train["periodic"]["step"]
+    for mode in ("periodic", "reflect"):
+        # each launch of the round trip has one VJP launch of its twin
+        want = {VJP_OF[k]: v for k, v in results[mode]["counts"].items() if v}
+        check_backward(mode, train[mode]["backward"], want)
+    gathers = [key for _, _, key in train["reflect"]["profile"] if index_kernel(key)]
+    if gathers:
+        raise AssertionError(f"gather or scatter kernels in the reflect step: {gathers}")
+    log("  reflect training step: no index_select / index_add kernels")
 
     log("phase 7: 1d kernels against their plain versions")
     errors_1d = {name: {} for name in (*KERNELS_1D, *(f"{k} VJP" for k in KERNELS_1D))}
@@ -2080,11 +2318,11 @@ def main() -> int:
     log("phase 5, 1d: times")
     rows_1d = time_kernels_1d()
     round_trips_1d()
-    turns = {}
+    turns_1d = {}
     if _arg("--parent"):
         log(f"phase 5, 1d: every fwt1d.cu instance and the 1d VJPs in turns with {_arg('--parent')}")
         torch.cuda.empty_cache()
-        turns = fwt1d_turns(Path(_arg("--parent")).resolve())
+        turns_1d = fwt1d_turns(Path(_arg("--parent")).resolve())
 
     log("phase 9: K5a/K5b and their VJPs against their plain versions")
     errors_k5 = {name: {} for name in (*KERNELS_K5, "K5a VJP", "K5b VJP")}
@@ -2139,7 +2377,7 @@ def main() -> int:
         y = randn(SHAPE, torch.float32, SEED + 41)
         train_k9 = check_training("periodic opt-in", y, make=lambda: GainModel("periodic"), with_profile=False)
         del y
-        check_backward("periodic opt-in", train_k9["backward"], ("K1", "K2", "K3T", "K4T", "K9a", "K9b"))
+        check_backward("periodic opt-in", train_k9["backward"], ("K1", "K2", "K3", "K4", "K9a", "K9b"))
         log("phase 5, K9: times")
         rows_k9 = time_k9()
         tf32_one_pass = one_pass_tf32()
@@ -2151,16 +2389,16 @@ def main() -> int:
     check_past_2_31()
 
     kernels = []
-    for name in ("K1", "K2", "K3", "K4", "K3T", "K4T"):
+    for name in ("K1", "K2", "K3", "K4"):
         source, replaces = REPLACES[name]
-        row = rows[name]
+        row, vjp = rows[name], rows[f"{name} VJP"]
         entry = {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            # forward kernels: per headline round trip; VJPs: per training step
-            "launches": per_step[name] if name.endswith("T") else per[name],
+            # per headline round trip; VJPs: per periodic training step
+            "launches": per[name],
             "max_abs_err": errors[name][torch.float32],
             "max_abs_err_f64": errors[name][torch.float64],
             "ms": row["ms"],
@@ -2169,9 +2407,16 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "copy_bound_ms": row["copy_bound_ms"],
+            "vjp_kernel": VJP_OF[name],
+            "vjp_launches": train["periodic"]["backward"][VJP_OF[name]],
+            "vjp_max_abs_err": errors[f"{name} VJP"][torch.float32],
+            "vjp_max_abs_err_f64": errors[f"{name} VJP"][torch.float64],
+            "vjp_ms": vjp["ms"],
+            "vjp_plain_ms": vjp["plain_ms"],
+            "vjp_bound_ms": vjp["bound_ms"],
+            "vjp_library_ms": vjp["library_ms"],
         }
-        vjp = rows.get(f"{name} VJP")
-        if vjp:
+        if name in ("K1", "K2"):
             # ms is level 1's; the headline runs each of K1/K2 once at level
             # 1 (1024^2 <-> 4 x 515^2) and once at level 4 (134^2 <-> 4 x 70^2)
             row4, vjp4 = rows4[name], rows4[f"{name} VJP"]
@@ -2182,19 +2427,30 @@ def main() -> int:
                 library_ms_level4=row4["library_ms"],
                 ms_per_round_trip=row["ms"] + row4["ms"],
                 bound_ms_per_round_trip=row["bound_ms"] + row4["bound_ms"],
-                vjp_launches=train["periodic"]["backward"]["K2" if name == "K1" else "K1"],
-                vjp_max_abs_err=errors[f"{name} VJP"][torch.float32],
-                vjp_max_abs_err_f64=errors[f"{name} VJP"][torch.float64],
-                vjp_ms=vjp["ms"],
-                vjp_plain_ms=vjp["plain_ms"],
-                vjp_bound_ms=vjp["bound_ms"],
-                vjp_library_ms=vjp["library_ms"],
                 vjp_ms_level4=vjp4["ms"],
                 vjp_plain_ms_level4=vjp4["plain_ms"],
                 vjp_bound_ms_level4=vjp4["bound_ms"],
                 vjp_library_ms_level4=vjp4["library_ms"],
                 vjp_ms_per_step=vjp["ms"] + vjp4["ms"],
             )
+        else:
+            # ms and vjp_ms: one 2d level of two launches (the periodic
+            # level 2, [16, 515, 515]); per_launch: one axis pass each at
+            # the reflect level 1 and the periodic level 2
+            def mine(k: str, name=name) -> bool:
+                # K3 also carries the gather rows and the reflect device times
+                return k.startswith(f"{name} ") or (name == "K3" and (k.startswith("gather") or "_ms" in k))
+
+            entry.update(
+                ms_is="one 2d level of two launches, periodic level 2",
+                vjp_replaces=VJP_REPLACES[name],
+                launches_reflect=results[REFLECT_1]["counts"][name],
+                vjp_launches_reflect=train[REFLECT_1]["backward"][VJP_OF[name]],
+                per_launch={k: v for k, v in axis_rows.items() if mine(k)},
+                reflect_device_ms=reflect_dev,
+            )
+            if axis_turns:
+                entry["in_turns"] = {k: v for k, v in axis_turns.items() if mine(k) or (name == "K3" and "index" in k)}
         kernels.append(entry)
     vjp_kernel = {"K5a": "K5b", "K5b": "K5a", "K6a": "K6b", "K6b": "K6a",
                   "K7a": "K7b", "K8a": "K8b", "K7b": "K7a", "K8b": "K8a"}
@@ -2283,9 +2539,9 @@ def main() -> int:
         if name == "K8a":
             entry["vjp_ms_reflect"] = vjp_1d["K8a reflect"]["vjp_ms"]
             entry["vjp_direct_ms_reflect"] = vjp_1d["K8a reflect"]["vjp_direct_ms"]
-        if turns:
+        if turns_1d:
             entry["in_turns"] = {
-                k: turns[k] for k in (name, f"{name} VJP", f"{name} reflect", f"{name} VJP reflect") if k in turns
+                k: turns_1d[k] for k in (name, f"{name} VJP", f"{name} reflect", f"{name} VJP reflect") if k in turns_1d
             }
         if "vjp_direct_ms" in vjp:
             entry["vjp_direct_ms"] = vjp["vjp_direct_ms"]
@@ -2348,9 +2604,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if "--fwt1d-times" in sys.argv:
-        if not torch.cuda.is_available():
-            sys.exit("chip_smoke: CUDA is not available")
-        print(json.dumps(fwt1d_times()))
-        sys.exit(0)
+    for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times)):
+        if flag in sys.argv:
+            if not torch.cuda.is_available():
+                sys.exit("chip_smoke: CUDA is not available")
+            out = times()
+            if flag == "--axis-times":
+                out = {**{k: v["ms"] for k, v in out.items()}, **reflect_device_ms()}
+            print(json.dumps(out))
+            sys.exit(0)
     sys.exit(main())

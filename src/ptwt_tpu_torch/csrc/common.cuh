@@ -46,20 +46,11 @@ __device__ __forceinline__ int wrap_index(int r, int period, int n) {
 }
 
 // What a launch of `total` outputs must meet: 1 to PTWT_MAX_TAPS taps, at
-// least one output, and a grid of one thread per output within CUDA's
-// 2^31 - 1 blocks.  The kernels index past 2^31 outputs in 64 bits (the
-// one-thread-per-output kernels switch to a 64-bit instance there).
+// least one output, and no more blocks of PTWT_THREADS outputs than CUDA's
+// 2^31 - 1.  The kernels index past 2^31 outputs in 64 bits.
 static inline bool sizes_ok(int len, int64_t total) {
   return len >= 1 && len <= PTWT_MAX_TAPS && total > 0 &&
          (total + PTWT_THREADS - 1) / PTWT_THREADS < (int64_t(1) << 31);
-}
-
-// The 32-bit instance serves launches of fewer than 2^31 outputs.
-static inline bool index32_ok(int64_t total) { return total < (int64_t(1) << 31); }
-
-static inline unsigned grid_size(int64_t total) {
-  int64_t blocks = (total + PTWT_THREADS - 1) / PTWT_THREADS;
-  return static_cast<unsigned>(blocks > 0 ? blocks : 1);
 }
 
 // Readable text for a code returned by the C entry points.

@@ -65,13 +65,7 @@ _ENTRY_POINTS = {
     ),
     "ptwt_synthesis_axis": (
         "axis",
-        [_I, _P, _P, _P, _P, _I, _P, _D, _D, _I, _LL, _I, _I, _LL, _I, _I, _P],
-    ),
-    "ptwt_analysis_axis_t": (
-        "axis_vjp", [_I, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _LL, _I, _I, _P]
-    ),
-    "ptwt_synthesis_axis_t": (
-        "axis_vjp", [_I, _P, _I, _P, _D, _D, _I, _LL, _I, _I, _LL, _I, _I, _P]
+        [_I, _P, _P, _P, _P, _I, _P, _D, _D, _I, _LL, _I, _I, _LL, _I, _I, _I, _I, _P],
     ),
     "ptwt_dwt2": (
         "dwt2", [_I, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -104,7 +98,8 @@ _ENTRY_POINTS = {
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.  A VJP
 #: counts under the kernel that runs it: K1 and K2 are each other's VJP,
-#: K3T and K4T those of K3 and K4.  The 1d pyramid kernels of
+#: and so are K3 and K4 (K3's VJP is K4's fold instance, K4's a
+#: zero-bounded K3).  The 1d pyramid kernels of
 #: ``csrc/fwt1d.cu`` count under the TPU kernel whose contract a launch
 #: carries: a depth-1 launch of the K8 pair is K7a/K7b, and every launch of
 #: a K6 pyramid (one per run of at most four levels) is K6a/K6b.  The
@@ -118,7 +113,7 @@ _ENTRY_POINTS = {
 LAUNCHES: dict[str, int] = {
     name: 0
     for name in (
-        "K1", "K2", "K3", "K4", "K3T", "K4T", "K5a", "K5b",
+        "K1", "K2", "K3", "K4", "K5a", "K5b",
         "K6a", "K6b", "K7a", "K7b", "K8a", "K8b", "K9a", "K9b",
     )
 }
@@ -156,7 +151,7 @@ def _library_path(source: str) -> Path:
 
 
 #: Every ``csrc`` source with kernels.
-SOURCES = ("axis", "axis_vjp", "dwt2", "fwt1d", "mxu2d", "pyramid2d")
+SOURCES = ("axis", "dwt2", "fwt1d", "mxu2d", "pyramid2d")
 
 
 def build(sources: Sequence[str] = SOURCES) -> dict[str, float]:

@@ -4,30 +4,33 @@ Counterpart of :mod:`ptwt_tpu.ops._pallas2` (the module and its public
 functions keep their names so each has its counterpart under the same
 name).  There, XLA pads and phase-splits the signal and two Pallas tap
 stencils do the arithmetic; here two hand-written CUDA kernels
-(``csrc/axis.cu``) read the strided source directly:
+(``csrc/axis.cu``) stage shared-memory tiles straight from the unpadded
+source:
 
 * **K3** (``_analysis_kernel``) — ``lo[i] = sum_k dec~[k] ext[2i+k-pad]``
-  and the same for ``hi``.  For the circular modes (``periodization``,
-  and ``periodic`` at any length) it reads modulo the period, so neither
-  a padded copy nor the wrap copy of the periodic band is made, and odd
-  ``periodization`` axes repeat their last sample through the same index
-  map.  The other modes are padded first by an index gather
-  (:func:`~ptwt_tpu_torch.utils.fwt_pad`).
+  and the same for ``hi``.  Every boundary mode is applied while the
+  window is staged, as pywt's source-index map of the unpadded axis
+  (:func:`~ptwt_tpu_torch.utils._padding.source_index`): no padded copy
+  is made in any mode, periodic bands come out whole (wrap entries
+  included), and odd ``periodization`` axes repeat their last sample.
 * **K4** (``_synthesis_kernel``) — both output phases of the stride-2
   transposed convolution with the crop folded into its index range;
   circular for ``periodization``.  Up to two (lo, hi) pairs of one shape
   go through one launch, so a 2d level needs no stacking copy.
 
 Gradients: one :class:`torch.autograd.Function` per direction wraps each
-launch, and its backward launches the transposed kernel
-(``csrc/axis_vjp.cu``), as the JAX package's ``custom_vjp``s do:
+launch, and K3 and K4 are each other's VJP, as K1 and K2 are
+(``csrc/axis.cu``), so no atomics and one summation order:
 
-* **K3T** (``_analysis_transpose_kernel``) — the VJP of K3, in gather
-  form over the positions K3 read (several periods for a long filter on
-  a short axis).  For the padded modes it yields the padded signal's
-  cotangent; torch's own backward of the padding gather takes it home.
-* **K4T** (``_synthesis_transpose_kernel``) — the VJP of K4, every
-  (lo, hi) pair of the launch at once.
+* K3's VJP (the contract of ``_analysis_transpose_kernel``) is K4 with
+  the dec taps and ``off = pad`` in its fold instance: each output also
+  collects the extended positions K3 read from it (pywt's extension
+  transposed), so the input's cotangent comes back directly.  It counts
+  as a K4 launch.
+* K4's VJP (``_synthesis_transpose_kernel``) is K3 with the rec taps,
+  ``pad = off`` and the cotangent read zero outside its length (modulo
+  ``2m`` for ``periodization``), every (lo, hi) pair of the launch at
+  once.  It counts as a K3 launch.
 
 Data gradients run on the card; a filter tensor that requires grad
 raises there (the kernels take taps as constants).  Double backward
@@ -36,8 +39,8 @@ raises too.
 Each kernel has a plain torch version here (:func:`dwt_axis_plain`,
 :func:`idwt_axis_plain`, and for the VJPs :func:`dwt_axis_vjp_plain`,
 :func:`idwt_axis_vjp_plain`, autograd through the former), built on
-:mod:`._slices`.  The wrappers take it for CPU tensors only; a CUDA tensor
-launches the kernel or raises.
+:mod:`._slices` and the padding gather.  The wrappers take it for CPU
+tensors only; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from typing import Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..utils._padding import fwt_pad
+from ..utils._padding import fwt_pad, get_pad
 from . import _kernels
 from ._conv import periodization_wrap
 from ._slices import analysis_slices_lastaxis, synthesis_slices_lastaxis
@@ -65,6 +68,23 @@ __all__ = [
 
 def _std_pad(filt_len: int) -> int:
     return (2 * filt_len - 3) // 2
+
+
+# How K3 reads a position outside the axis (the AXIS_* codes of
+# csrc/axis.cu): zero, edge (pywt's "constant"), the two mirrors, modulo
+# the period with the odd-axis repeat (periodic, periodization), and
+# modulo the period with zeros past the axis (the VJP of K4's
+# periodization).
+_ZERO, _CONSTANT, _SYMMETRIC, _REFLECT, _WRAP, _WRAP_ZERO = range(6)
+_MODE_CODE = {
+    "zero": _ZERO,
+    "valid": _ZERO,
+    "constant": _CONSTANT,
+    "symmetric": _SYMMETRIC,
+    "reflect": _REFLECT,
+    "periodic": _WRAP,
+    "periodization": _WRAP,
+}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -120,7 +140,7 @@ def dwt_axis_vjp_plain(
     x: torch.Tensor, axis: int, dec_lo, dec_hi, mode: str, ct: torch.Tensor
 ) -> torch.Tensor:
     """VJP of :func:`dwt_axis_plain` at ``x`` for the packed cotangent
-    ``ct`` (``[2, ...]``, lo then hi): the plain version of K3T."""
+    ``ct`` (``[2, ...]``, lo then hi): the plain version of K3's VJP."""
     with torch.enable_grad():
         x = x.detach().requires_grad_()
         lo, hi = dwt_axis_plain(x, axis, dec_lo, dec_hi, mode)
@@ -140,7 +160,7 @@ def idwt_axis_vjp_plain(
     ct: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """VJP of :func:`idwt_axis_plain` for the output cotangent ``ct``:
-    ``(lo_bar, hi_bar)``, the plain version of K4T."""
+    ``(lo_bar, hi_bar)``, the plain version of K4's VJP."""
     with torch.enable_grad():
         lo = lo.detach().requires_grad_()
         hi = hi.detach().requires_grad_()
@@ -158,44 +178,41 @@ def _outer_inner(shape: Sequence[int], ax: int) -> tuple[int, int]:
     return math.prod(shape[:ax]), math.prod(shape[ax + 1 :])
 
 
+def _analysis_plan(n: int, filt_len: int, mode: str) -> tuple[int, int, int, int]:
+    """``(m, period, pad, code)`` of K3 on an unpadded axis of ``n``."""
+    if mode == "periodization":
+        # odd axes repeat their last sample (pywt's edge pad to even)
+        period = n + n % 2
+        return period // 2, period, filt_len // 2 - 1, _WRAP
+    if mode == "valid":
+        return max((n - filt_len) // 2 + 1, 0), n, 0, _ZERO
+    if mode not in _MODE_CODE:
+        raise ValueError(f"Padding mode not supported: {mode}")
+    # pywt's extension, one extra sample on the right of odd axes; the
+    # periodic band's wrap entries come out of the same modulo read
+    padl, padr = get_pad(n, filt_len)
+    return max((n + padl + padr - filt_len) // 2 + 1, 0), n, padl, _MODE_CODE[mode]
+
+
 def _analysis_kernel(
-    x: torch.Tensor, ax: int, lo, hi, m: int, period: int, pad: int, circular: bool
+    x: torch.Tensor, ax: int, lo, hi, m: int, period: int, pad: int, code: int
 ) -> torch.Tensor:
-    """Launch K3 on ``x`` viewed as ``[outer, n, inner]`` -> ``[2, ..., m, ...]``."""
+    """Launch K3 on ``x`` viewed as ``[outer, n, inner]`` -> ``[2, ..., m, ...]``:
+    band ``i`` reads positions ``2i + k - pad``, mapped by ``code``."""
     _kernels.check_tensor("x", x, x.dtype, x.device)
     n = x.shape[ax]
     outer, inner = _outer_inner(x.shape, ax)
     shape = list(x.shape)
     shape[ax] = m
     out = torch.empty([2, *shape], dtype=x.dtype, device=x.device)
-    if out.numel():
-        _kernels.launch(
-            "K3", "ptwt_analysis_axis", x.device, x.dtype,
-            x, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
-            outer, n, period, m, inner, pad, int(circular),
-        )
-    return out
-
-
-def _analysis_transpose_kernel(
-    ct: torch.Tensor, ax: int, n: int, lo, hi, period: int, pad: int, circular: bool
-) -> torch.Tensor:
-    """Launch K3T: the ``[2, ..., m, ...]`` cotangent of a K3 launch ->
-    the cotangent of its ``[..., n, ...]`` input."""
-    _kernels.check_tensor("ct", ct, ct.dtype, ct.device)
-    shape = list(ct.shape[1:])
-    m = shape[ax]
-    shape[ax] = n
-    out = torch.empty(shape, dtype=ct.dtype, device=ct.device)
     if not out.numel():
         return out
-    if not m:  # K3 read nothing (a signal shorter than the filter)
+    if not n:  # an empty axis reads zeros
         return out.zero_()
-    outer, inner = _outer_inner(shape, ax)
     _kernels.launch(
-        "K3T", "ptwt_analysis_axis_t", ct.device, ct.dtype,
-        ct, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
-        outer, n, period, m, inner, pad, int(circular),
+        "K3", "ptwt_analysis_axis", x.device, x.dtype,
+        x, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
+        outer, n, period, m, inner, pad, code,
     )
     return out
 
@@ -209,8 +226,14 @@ def _synthesis_kernel(
     out_len: int,
     off: int,
     circular: bool,
+    fold: int = _ZERO,
+    period: int = 0,
 ) -> torch.Tensor:
-    """Launch K4 on up to two (lo, hi) pairs -> ``[G, ..., out_len, ...]``."""
+    """Launch K4 on up to two (lo, hi) pairs -> ``[G, ..., out_len, ...]``.
+
+    ``fold``/``period`` make it K3's VJP (one pair): each output ``u``
+    also collects the positions outside ``[0, out_len)`` that the mode
+    ``fold`` maps onto ``u``."""
     ref = los[0]
     if not 1 <= len(los) == len(his) <= 2:
         raise ValueError("K4 takes one or two (lo, hi) pairs")
@@ -223,49 +246,52 @@ def _synthesis_kernel(
     shape = list(ref.shape)
     shape[ax] = out_len
     out = torch.empty([len(los), *shape], dtype=ref.dtype, device=ref.device)
-    if out.numel():
-        pair1 = (los[-1], his[-1])
-        _kernels.launch(
-            "K4", "ptwt_synthesis_axis", ref.device, ref.dtype,
-            los[0], his[0], pair1[0], pair1[1], len(los), out,
-            _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
-            outer, m, out_len, inner, off, int(circular),
-        )
+    if not out.numel():
+        return out
+    if not m:  # no band rows: every output reads zeros
+        return out.zero_()
+    pair1 = (los[-1], his[-1])
+    _kernels.launch(
+        "K4", "ptwt_synthesis_axis", ref.device, ref.dtype,
+        los[0], his[0], pair1[0], pair1[1], len(los), out,
+        _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
+        outer, m, out_len, inner, off, int(circular), fold, period,
+    )
     return out
+
+
+def _analysis_transpose_kernel(
+    ct: torch.Tensor, ax: int, n: int, lo, hi, period: int, pad: int, code: int
+) -> torch.Tensor:
+    """K3's VJP: the ``[2, ..., m, ...]`` cotangent of a K3 launch -> the
+    cotangent of its ``[..., n, ...]`` input, as one launch of K4's fold
+    instance (dec taps, ``off = pad``), counted as K4."""
+    return _synthesis_kernel(
+        [ct[0]], [ct[1]], ax, lo, hi, n, pad, False, fold=code, period=period
+    )[0]
 
 
 def _synthesis_transpose_kernel(
     ct: torch.Tensor, ax: int, m: int, lo, hi, off: int, circular: bool
 ) -> torch.Tensor:
-    """Launch K4T: the ``[G, ..., out_len, ...]`` cotangent of a K4 launch
-    -> ``[G, 2, ..., m, ...]``, each pair's (lo, hi) cotangents."""
-    _kernels.check_tensor("ct", ct, ct.dtype, ct.device)
-    groups = ct.shape[0]
-    shape = list(ct.shape[1:])
-    out_len = shape[ax]
-    shape[ax] = m
-    out = torch.empty([groups, 2, *shape], dtype=ct.dtype, device=ct.device)
-    if not out.numel():
-        return out
-    if not out_len:  # K4 wrote nothing
-        return out.zero_()
-    outer, inner = _outer_inner(shape, ax)
-    _kernels.launch(
-        "K4T", "ptwt_synthesis_axis_t", ct.device, ct.dtype,
-        ct, groups, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
-        outer, m, out_len, inner, off, int(circular),
-    )
-    return out
+    """K4's VJP: the ``[G, ..., out_len, ...]`` cotangent of a K4 launch
+    -> ``[2, G, ..., m, ...]``, each pair's (lo, hi) cotangents, as one
+    launch of K3 with the rec taps and ``pad = off``, counted as K3.  The
+    cotangent reads zero outside its length, for ``periodization`` modulo
+    ``2m`` and zero past it."""
+    if circular:
+        return _analysis_kernel(ct, ax + 1, lo, hi, m, 2 * m, off, _WRAP_ZERO)
+    return _analysis_kernel(ct, ax + 1, lo, hi, m, ct.shape[ax + 1], off, _ZERO)
 
 
 class _AnalysisAxis(torch.autograd.Function):
-    """K3 forward, K3T backward.  Only the geometry is saved: the map is
-    linear."""
+    """K3 forward, K4's fold instance backward.  Only the geometry is
+    saved: the map is linear."""
 
     @staticmethod
-    def forward(ctx, x, ax, lo, hi, m, period, pad, circular):
-        ctx.plan = (ax, x.shape[ax], lo, hi, period, pad, circular)
-        return _analysis_kernel(x, ax, lo, hi, m, period, pad, circular)
+    def forward(ctx, x, ax, lo, hi, m, period, pad, code):
+        ctx.plan = (ax, x.shape[ax], lo, hi, period, pad, code)
+        return _analysis_kernel(x, ax, lo, hi, m, period, pad, code)
 
     @staticmethod
     @once_differentiable
@@ -275,7 +301,7 @@ class _AnalysisAxis(torch.autograd.Function):
 
 
 class _SynthesisAxis(torch.autograd.Function):
-    """K4 forward on ``G`` (lo, hi) pairs, K4T backward."""
+    """K4 forward on ``G`` (lo, hi) pairs, K3 (zero-bounded) backward."""
 
     @staticmethod
     def forward(ctx, ax, lo, hi, out_len, off, circular, *bands):
@@ -289,7 +315,7 @@ class _SynthesisAxis(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, ct):
         grads = _synthesis_transpose_kernel(ct.contiguous(), *ctx.plan)
-        return (None,) * 6 + tuple(grads[:, 0]) + tuple(grads[:, 1])
+        return (None,) * 6 + tuple(grads[0]) + tuple(grads[1])
 
 
 def pallas_dwt_axis(
@@ -299,32 +325,16 @@ def pallas_dwt_axis(
 
     ``dec_lo``/``dec_hi`` are flipped (correlation order), as
     ``get_filter_arrays(..., flip=True)`` returns them.  A CPU tensor runs
-    :func:`dwt_axis_plain`; a CUDA tensor runs K3.
+    :func:`dwt_axis_plain`; a CUDA tensor runs K3 on the unpadded input,
+    every mode's extension applied by the kernel.
     """
     if _on_cpu(x):
         return torch.stack(dwt_axis_plain(x, axis, dec_lo, dec_hi, mode))
     lo = _kernels.static_taps(dec_lo)
     hi = _kernels.static_taps(dec_hi)
-    filt_len = len(lo)
     ax = axis % x.ndim
-    x = x.contiguous()
-    n = x.shape[ax]
-    if mode == "periodization":
-        # odd axes repeat their last sample (pywt's edge pad to even)
-        period = n + n % 2
-        return _AnalysisAxis.apply(
-            x, ax, lo, hi, period // 2, period, filt_len // 2 - 1, True
-        )
-    if mode == "periodic":
-        # pywt's periodic extension is x[p mod n] for every length: the
-        # band's wrap entries come out of the same modulo read
-        pad = _std_pad(filt_len)
-        m = (n + 2 * pad + n % 2 - filt_len) // 2 + 1
-        return _AnalysisAxis.apply(x, ax, lo, hi, m, n, pad, True)
-    ext = x if mode == "valid" else fwt_pad(x, filt_len, mode=mode, axes=(ax,))
-    n_ext = ext.shape[ax]
-    m = max((n_ext - filt_len) // 2 + 1, 0)
-    return _AnalysisAxis.apply(ext.contiguous(), ax, lo, hi, m, n_ext, 0, False)
+    m, period, pad, code = _analysis_plan(x.shape[ax], len(lo), mode)
+    return _AnalysisAxis.apply(x.contiguous(), ax, lo, hi, m, period, pad, code)
 
 
 def pallas_idwt_axis(

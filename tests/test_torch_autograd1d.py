@@ -5,7 +5,8 @@ the other's VJP: one launch of the other pyramid kernel, the fold of the
 padding gather included) run their CUDA glue here on the CPU, on the
 numpy model of the kernels (``model_kernels`` of
 ``tests/test_torch_kernels.py``, which runs the pyramid kernels block by
-block and the K3T/K4T entries as sparse transposed operators, so
+block and the K3/K4 entries, their VJP instances included, as sparse
+operators, so
 70,001-sample lanes fit).  They are held against ``jax.grad`` through ``ptwt_tpu.wavedec``
 / ``waverec`` in float64 within 1e-10, every padded mode, with the
 launches of each backward counted; and K6's VJPs against ``jax.grad``
@@ -98,10 +99,10 @@ def _public_loss(lib, x, mode, level, weights):
     "mode,n,level,forward,backward",
     [
         # levels 1-4 in one K8a launch, 5-6 on K3; their VJPs are one K8b
-        # launch and two K3T, and waverec's (two K4 steps, one K8b run)
-        # two K4T and one K8a
+        # launch and two K4 (K3's VJP), and waverec's (two K4 steps, one
+        # K8b run) two K3 (K4's VJP) and one K8a
         *[
-            (m, 70001, 6, {"K8a": 1, "K3": 2, "K4": 2, "K8b": 1}, {"K3T": 2, "K4T": 2, "K8a": 1, "K8b": 1})
+            (m, 70001, 6, {"K8a": 1, "K3": 2, "K4": 2, "K8b": 1}, {"K3": 2, "K4": 2, "K8a": 1, "K8b": 1})
             for m in PADDED
         ],
         ("reflect", 70001, 1, {"K7a": 1, "K7b": 1}, {"K7a": 1, "K7b": 1}),
@@ -150,7 +151,7 @@ def test_k7_vjps_match_plain(model_kernels, mode):  # noqa: F811
     want = t2.idwt_axis_vjp_plain(a, b, -1, rl, rh, 4, 5, "zero", ct)
     for g, w in zip(got, want):
         _close(g, w.numpy(), 1e-12)
-    # two forward launches and two VJP launches, no K3T/K4T
+    # two forward launches and two VJP launches, no per-axis K3/K4
     assert _used(model_kernels) == {"K7a": 2, "K7b": 2}
 
 

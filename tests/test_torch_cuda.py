@@ -75,23 +75,44 @@ def test_cuda_k1_k2_match_plain(cuda_device, dtype, wavelet, mode):
     assert _kernels.LAUNCHES["K1"] == 1 and _kernels.LAUNCHES["K2"] == 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "dtype,wavelet,mode",
+# K3/K4 cases: every mode on the small odd image (db4 runs db3 there),
+# coif17 (102 taps) also on a 9 x 10 image, whose reads wrap each axis
+# about ten times, and the headline's reflect level 1 (db4 on
+# [16, 1024, 1024] along H, the packed [2, 16, 515, 1024] along W, the
+# two-pair K4 along W and the one-pair K4 along H with the (6, 6) crop)
+SMALL = (2, 37, 41)
+TINY = (3, 9, 10)
+LEVEL1 = (16, 1024, 1024)
+AXIS_CASES = [
     # valid mode needs a signal at least as long as the filter
-    [(d, w, m) for d, w in CASES for m in AXIS_MODES if (w, m) != ("coif17", "valid")],
-)
+    *[(d, w, m, SMALL) for d, w in CASES for m in AXIS_MODES if (w, m) != ("coif17", "valid")],
+    *[(torch.float64, "coif17", m, TINY) for m in AXIS_MODES if m != "valid"],
+    (torch.float32, "db4", "reflect", LEVEL1),
+]
+
+
+def _axis_case(wavelet, mode, shape, axis, device, dtype):
+    """Banks, input and synthesis crop of one K3/K4 case: the level-1
+    input is ``shape`` along H and the packed rows pass along W."""
+    dl, dh, rl, rh = _banks("db3" if (wavelet, shape) == ("db4", SMALL) else wavelet)
+    if shape == LEVEL1 and axis == -1:
+        shape = (2, 16, 515, 1024)
+    x = torch.randn(*shape, dtype=dtype, device=device)
+    pad = 0 if mode in ("periodization", "valid") else len(dl) - 2
+    return dl, dh, rl, rh, x, (pad, pad + shape[axis] % 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wavelet,mode,shape", AXIS_CASES)
 @pytest.mark.parametrize("axis", [-2, -1])
-def test_cuda_k3_k4_match_plain(cuda_device, dtype, wavelet, mode, axis):
-    dl, dh, rl, rh = _banks("db3" if wavelet == "db4" else wavelet)
+def test_cuda_k3_k4_match_plain(cuda_device, dtype, wavelet, mode, shape, axis):
+    dl, dh, rl, rh, x, crop = _axis_case(wavelet, mode, shape, axis, cuda_device, dtype)
     tol = 2e-5 if dtype == torch.float32 else 1e-12
-    x = torch.randn(2, 37, 41, dtype=dtype, device=cuda_device)
     got = t2.pallas_dwt_axis(x, axis, dl, dh, mode)
     lo, hi = t2.dwt_axis_plain(x, axis, dl, dh, mode)
     assert float((got - torch.stack((lo, hi))).abs().max()) <= tol
-    pad = 0 if mode in ("periodization", "valid") else len(dl) - 2
-    rec = t2.pallas_idwt_axis([lo, hi], [hi, lo], axis, rl, rh, pad, pad + 1, mode)
-    ref = [t2.idwt_axis_plain(a, b, axis, rl, rh, pad, pad + 1, mode) for a, b in ((lo, hi), (hi, lo))]
+    rec = t2.pallas_idwt_axis([lo, hi], [hi, lo], axis, rl, rh, *crop, mode)
+    ref = [t2.idwt_axis_plain(a, b, axis, rl, rh, *crop, mode) for a, b in ((lo, hi), (hi, lo))]
     assert float((rec - torch.stack(ref)).abs().max()) <= tol
 
 
@@ -122,7 +143,7 @@ def test_cuda_axes_and_batch_match_cpu(cuda_device, mode):
 
 
 # ---------------------------------------------------------------------------
-# the VJP kernels: K3T, K4T, and K1 / K2 as each other's VJP
+# the VJP kernels: K3 / K4 and K1 / K2, each pair each other's VJP
 # ---------------------------------------------------------------------------
 
 
@@ -163,35 +184,47 @@ def test_cuda_k1_k2_vjps_match_plain(cuda_device, dtype, wavelet, mode, shape):
     assert _kernels.LAUNCHES["K1"] == 1
 
 
+def _adjoint(outs, cts, ins, grads) -> float:
+    """``|<K x, y> - <x, K^T y>|`` relative to ``|K x| |y|``."""
+    outs, cts, ins, grads = ([t.detach() for t in ts] for ts in (outs, cts, ins, grads))
+    lhs = sum(float((o * c).sum()) for o, c in zip(outs, cts))
+    rhs = sum(float((i * g).sum()) for i, g in zip(ins, grads))
+    scale = (sum(float((o**2).sum()) for o in outs) * sum(float((c**2).sum()) for c in cts)) ** 0.5
+    return abs(lhs - rhs) / scale
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "dtype,wavelet,mode",
-    [(d, w, m) for d, w in CASES for m in AXIS_MODES if (w, m) != ("coif17", "valid")],
-)
+@pytest.mark.parametrize("dtype,wavelet,mode,shape", AXIS_CASES)
 @pytest.mark.parametrize("axis", [-2, -1])
-def test_cuda_k3t_k4t_match_plain(cuda_device, dtype, wavelet, mode, axis):
-    dl, dh, rl, rh = _banks("db3" if wavelet == "db4" else wavelet)
+def test_cuda_k3t_k4t_match_plain(cuda_device, dtype, wavelet, mode, shape, axis):
+    """K3's VJP (K4's fold instance, one K4 launch) and K4's VJP (K3
+    zero-bounded, one K3 launch) against autograd through the plain
+    versions; in float64 the adjoint identity within 1e-12."""
+    dl, dh, rl, rh, x, crop = _axis_case(wavelet, mode, shape, axis, cuda_device, dtype)
     tol = 2e-5 if dtype == torch.float32 else 1e-12
-    x = torch.randn(2, 37, 41, dtype=dtype, device=cuda_device, requires_grad=True)
+    x.requires_grad_()
     out = t2.pallas_dwt_axis(x, axis, dl, dh, mode)
     ct = _randn_like(out, 1)
     _kernels.reset_launch_counts()
     (grad,) = torch.autograd.grad(out, x, ct)
     want = t2.dwt_axis_vjp_plain(x, axis, dl, dh, mode, ct)
     assert float((grad - want).abs().max()) <= tol
-    assert _kernels.LAUNCHES["K3T"] == 1
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K4": 1}
+    if dtype == torch.float64:
+        assert _adjoint([out], [ct], [x], [grad]) <= 1e-12
     lo, hi = (b.detach().requires_grad_() for b in out)
-    pad = 0 if mode in ("periodization", "valid") else len(dl) - 2
-    rec = t2.pallas_idwt_axis([lo, hi], [hi, lo], axis, rl, rh, pad, pad + 1, mode)
+    rec = t2.pallas_idwt_axis([lo, hi], [hi, lo], axis, rl, rh, *crop, mode)
     ct = _randn_like(rec, 2)
     _kernels.reset_launch_counts()
     got = torch.autograd.grad(rec, (lo, hi), ct)
-    want = [t2.idwt_axis_vjp_plain(a, b, axis, rl, rh, pad, pad + 1, mode, c)
+    want = [t2.idwt_axis_vjp_plain(a, b, axis, rl, rh, *crop, mode, c)
             for (a, b), c in zip(((lo, hi), (hi, lo)), ct)]
     # lo and hi each feed both groups, once as lo and once as hi
     assert float((got[0] - (want[0][0] + want[1][1])).abs().max()) <= 2 * tol
     assert float((got[1] - (want[0][1] + want[1][0])).abs().max()) <= 2 * tol
-    assert _kernels.LAUNCHES["K4T"] == 1
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K3": 1}
+    if dtype == torch.float64:
+        assert _adjoint([rec], [ct], [lo, hi], got) <= 1e-12
 
 
 @pytest.mark.cuda
@@ -208,12 +241,13 @@ def test_cuda_public_gradients_match_cpu(cuda_device, mode, shape):
         coeffs = tptwt.wavedec2(xd, "db4", mode=mode, level=3)
         rec = tptwt.waverec2(coeffs, "db4", mode=mode)[..., : shape[-2], : shape[-1]]
         loss = (rec * weight.to(device)).sum() + sum((b**2).sum() for t in coeffs[1:] for b in t)
+        _kernels.reset_launch_counts()
         return torch.autograd.grad(loss, xd)[0]
 
-    _kernels.reset_launch_counts()
     got = grad_on(cuda_device)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["K3T"] + _kernels.LAUNCHES["K4T"] > 0
+    # the backward of the per-axis levels: K3's VJPs are K4 launches, K4's K3
+    assert _kernels.LAUNCHES["K3"] + _kernels.LAUNCHES["K4"] > 0
     assert float((got.cpu() - grad_on("cpu")).abs().max()) <= 1e-11
 
 

@@ -22,7 +22,7 @@ included), and its gradients are held against ``jax.vjp``:
 Tolerances: float32 5e-5 relative to ``max(1, |band|)``, float64 1e-10;
 the float64 adjoint identity within 1e-12 of ``|Kx||y|``.  Every forward
 plan the kernels accept has VJP plans, and one backward launches exactly
-one pyramid kernel (no K3T/K4T).
+one pyramid kernel (no per-axis K3/K4).
 """
 
 from __future__ import annotations
@@ -273,7 +273,7 @@ def test_every_forward_plan_has_vjp_plans(mode):
 
 def test_backward_launches_one_pyramid_kernel(model_kernels):  # noqa: F811
     """One backward of each fused launch is one launch of the other pyramid
-    kernel under its counterpart's name: no K3T/K4T, no per-level loop."""
+    kernel under its counterpart's name: no per-axis K3/K4, no per-level loop."""
     dl, dh, rl, rh = _banks("db5", np.float64)
     x = torch.from_numpy(np.random.RandomState(3).randn(2, 3, N_ODD)).requires_grad_()
     for depth, (fwd, vjp) in ((1, ("K7a", "K7b")), (4, ("K8a", "K8b"))):

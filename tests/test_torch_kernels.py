@@ -191,16 +191,29 @@ def _synthesis_op(taps, out_len, m, off, circular, half=None, per=None):
     return op
 
 
-def _analysis_sparse(taps, m, n, period, pad, circular):
-    """:func:`_analysis_op` as a sparse ``[m, n]`` matrix, one entry per tap."""
+#: How the K3/K4 entries read a position outside the axis: the AXIS_*
+#: codes of ``csrc/axis.cu`` 0-3 are these pywt modes; 4 reads modulo the
+#: period with positions past ``n`` on ``n - 1`` (periodic,
+#: periodization), 5 modulo the period with zeros past ``n``.
+_AXIS_MODES = ("zero", "constant", "symmetric", "reflect")
+
+
+def _axis_source(p, n, period, code):
+    """Source index of each extended position under mode ``code``, -1 for a zero."""
+    if code < len(_AXIS_MODES):
+        return source_index(p, n, _AXIS_MODES[code])
+    q = np.mod(p, period)
+    return np.where(q < n, q, n - 1 if code == 4 else -1)
+
+
+def _analysis_sparse(taps, m, n, period, pad, code):
+    """K3 as a sparse ``[m, n]`` matrix, one entry per tap: band ``i``
+    reads ``x[src(2i - pad + k)]``."""
     taps = np.asarray(taps, dtype=np.float64)
     i = np.repeat(np.arange(m), len(taps))
     k = np.tile(np.arange(len(taps)), m)
-    r = 2 * i - pad + k
-    if circular:
-        r, keep = np.minimum(r % period, n - 1), np.ones(r.shape, bool)
-    else:
-        keep = (r >= 0) & (r < n)
+    r = _axis_source(2 * i - pad + k, n, period, code)
+    keep = r >= 0
     return scipy.sparse.csr_matrix((taps[k][keep], (i[keep], r[keep])), shape=(m, n))
 
 
@@ -583,7 +596,8 @@ def _model_mxu2d(entry, dtype, a):
 
 def _model_launch(kernel, entry, device, dtype, *a):
     """Stand-in for ``_kernels.launch`` that runs the kernels' index rules;
-    a VJP kernel runs the transpose of its forward's operator."""
+    a VJP launch runs the transpose of its forward's operator (K3's VJP,
+    K4's fold instance, as the transposed K3 operator)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     if entry.startswith("ptwt_mxu2d_"):
         entry = _model_mxu2d(entry, dtype, a)
@@ -602,29 +616,27 @@ def _model_launch(kernel, entry, device, dtype, *a):
         model(*a, itemsize)
         _kernels.LAUNCHES[kernel] += 1
         return
-    if entry in ("ptwt_analysis_axis", "ptwt_analysis_axis_t"):
-        src, out, lo, hi, n_taps, outer, n, period, m, inner, pad, circ = a
-        ops = [_analysis_sparse(t[:n_taps], m, n, period, pad, circ) for t in (lo, hi)]
-        if entry == "ptwt_analysis_axis":
-            xs = src.numpy().reshape(outer, n, inner)
-            res = [_apply(op, xs) for op in ops]
-        else:
-            ct = src.numpy().reshape(2, outer, m, inner)
-            res = sum(_apply(op.T, c) for op, c in zip(ops, ct))
+    if entry == "ptwt_analysis_axis":
+        x, out, lo, hi, n_taps, outer, n, period, m, inner, pad, code = a
+        assert 0 <= code <= 5 and pad >= 0 and (code < 4 or period >= n)
+        xs = x.numpy().reshape(outer, n, inner)
+        res = [_apply(_analysis_sparse(t[:n_taps], m, n, period, pad, code), xs) for t in (lo, hi)]
     elif entry == "ptwt_synthesis_axis":
-        lo0, hi0, lo1, hi1, groups, out, rl, rh, n_taps, outer, m, out_len, inner, off, circ = a
-        s_lo = _synthesis_sparse(rl[:n_taps], out_len, m, off, circ)
-        s_hi = _synthesis_sparse(rh[:n_taps], out_len, m, off, circ)
+        (lo0, hi0, lo1, hi1, groups, out, rl, rh, n_taps, outer, m, out_len, inner, off,
+         circ, fold, period) = a
+        assert off >= 0 and 0 <= fold <= 5
+        if fold:
+            # K3's VJP: the transpose of the K3 launch it differentiates
+            assert groups == 1 and not circ and (fold < 4 or period >= out_len)
+            s_lo, s_hi = (_analysis_sparse(t[:n_taps], m, out_len, period, off, fold).T for t in (rl, rh))
+        else:
+            s_lo = _synthesis_sparse(rl[:n_taps], out_len, m, off, circ)
+            s_hi = _synthesis_sparse(rh[:n_taps], out_len, m, off, circ)
         res = [
             _apply(s_lo, lo.numpy().reshape(outer, m, inner))
             + _apply(s_hi, hi.numpy().reshape(outer, m, inner))
             for lo, hi in [(lo0, hi0), (lo1, hi1)][:groups]
         ]
-    elif entry == "ptwt_synthesis_axis_t":
-        ct, groups, out, rl, rh, n_taps, outer, m, out_len, inner, off, circ = a
-        ops = [_synthesis_sparse(t[:n_taps], out_len, m, off, circ) for t in (rl, rh)]
-        cts = ct.numpy().reshape(groups, outer, out_len, inner)
-        res = [[_apply(op.T, c) for op in ops] for c in cts]
     elif entry == "ptwt_dwt2":
         x, out, lo, hi, n_taps, b, h, w, per_h, per_w, m_h, m_w, pad, circ = a
         ops = {
@@ -708,7 +720,8 @@ def test_kernel_wrappers_refuse_grad(model_kernels):
         x, dl, dh, "periodization", [torch.ones_like(b) for b in bands]
     )
     _close(grad, want.numpy(), 1e-12)
-    assert model_kernels["K3T"] == 1 and model_kernels["K2"] == 1
+    # K3's VJP is a K4 launch, K1's a K2 launch
+    assert model_kernels["K4"] == 1 and model_kernels["K2"] == 1
     learn = torch.tensor(dl, requires_grad=True)
     with pytest.raises(NotImplementedError, match="filter gradient"):
         t2.pallas_dwt_axis(x.detach(), -1, learn, dh, "reflect")
