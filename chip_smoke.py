@@ -86,7 +86,9 @@ Phases, each raising (non-zero exit) on failure:
    (``[16, 1024, 1024]`` db4 4 levels, ``[256, 128, 128]`` db4 3 levels):
    float32 at full width, float64 at batch 2, db4 and coif17 (102 taps;
    where the plan declines a shape it says so, and the per-level route
-   runs it); the limit is phase 7's, and in float64 the adjoint identity;
+   runs it); then K5's ragged tiles (``[2, 96, 160]``, 5 levels, db4) and
+   coif17 on ``[1, 24, 20]`` (2 levels), float32 and float64; the limit
+   is phase 7's, and in float64 the adjoint identity;
 10. the 2d periodization main path: ``wavedec2`` -> ``waverec2`` in
    ``periodization`` at both configurations, float32: coefficients
    against the plain path within 2e-5, round trip within 1e-4, and the
@@ -119,10 +121,12 @@ Phases, each raising (non-zero exit) on failure:
    H100, freed before the phase ends.
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
-configurations, the VJP of every pyramid kernel (K5a-K8b) as the autograd
-backward runs it beside autograd through the plain version (and the K7/K8
-VJP launches called directly), and the 2d periodization round trips in
-Mpix/s.
+configurations (bound: the bytes of the plan's runs, each run's input read
+once and its bands written once, beside one whole pyramid's; the cone
+re-reads on top), the VJP of every pyramid kernel (K5a-K8b) as the
+autograd backward runs it beside autograd through the plain version (and
+the K7/K8 VJP launches called directly), and the 2d periodization round
+trips in Mpix/s.
 
 ``python3 chip_smoke.py --parent DIR`` (``DIR`` a checkout of another
 commit, e.g. a ``git archive`` of the parent) also times every
@@ -131,8 +135,13 @@ this tree, this tree, ``DIR``; each run a process of its own, started as
 ``chip_smoke.py --fwt1d-times --src DIR/src``), then this tree's at other
 tile sizes; and in the same way (``--axis-times``) every K3/K4 launch and
 VJP at the reflect level 1 and the periodic level 2, the gathers, and the
-reflect round trip's and step's device time; and adds them to the kernels
-line as ``in_turns``.
+reflect round trip's and step's device time; and (``--k5-times``) K5a,
+K5b, both VJP instances and the per-level K1/K2 route at both 2d
+periodization configurations, with the periodization round trip's and
+step's device busy time; and adds them to the kernels line as
+``in_turns``.  ``python3 chip_smoke.py --k5-sweep`` times K5a/K5b at both
+configurations under each plan setting of ``K5_SWEEP`` and prints them as
+one JSON line.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (fourteen kernels,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
@@ -251,6 +260,8 @@ PER_2D = (("headline", SHAPE, LEVEL), ("small", SMALL_SHAPE, SMALL_LEVEL))
 LONG_WAVELET = "coif17"
 BATCH_F64_2D = 2
 KERNELS_K5 = ("K5a", "K5b")
+# K5's ragged tiles (not a power of two) and a long bank on a small image
+K5_EXTRA = (((2, 96, 160), 5, WAVELET), ((1, 24, 20), 2, LONG_WAVELET))
 # the tensor-core level (opt-in): TF32 tensor-core peak (NVIDIA data sheet,
 # dense, at 700 W), three products per multiply-add for the 3xTF32 split
 KERNELS_K9 = ("K9a", "K9b")
@@ -1621,7 +1632,7 @@ def k5_runs(shape, level: int, filt_len: int, dtype):
     """The K5 plan's runs for ``[b, h, w]``, or None where it declines."""
     if not _pallas.fused_wavedec2d_applicable(shape[-2], shape[-1], filt_len, level, dtype):
         return None
-    return _pallas._pyramid2d_runs(shape[-2], shape[-1], filt_len, level, torch.empty((), dtype=dtype).element_size())
+    return _pallas._plan_runs(shape[-2], shape[-1], filt_len, level, dtype, shape[0])
 
 
 def check_k5_case(errors: dict, shape, level: int, wavelet: str, dtype, seed: int) -> None:
@@ -1672,6 +1683,9 @@ def check_k5(errors: dict) -> None:
             sized = shape if dtype == torch.float32 else (BATCH_F64_2D, *shape[1:])
             for wavelet in (WAVELET, LONG_WAVELET):
                 check_k5_case(errors, sized, level, wavelet, dtype, SEED + 80 + 10 * i)
+    for i, (shape, level, wavelet) in enumerate(K5_EXTRA):
+        for dtype in (torch.float32, torch.float64):
+            check_k5_case(errors, shape, level, wavelet, dtype, SEED + 300 + 10 * i)
 
 
 def main_path_per(name: str, shape, level: int, seed: int) -> dict:
@@ -1781,7 +1795,13 @@ def time_k5() -> dict:
         ct = [randn(x.shape, f32, SEED + 120)]
         rec = _pallas.fused_waverec2d_per(nest(leaves, level), rl, rh)
         syn.update(vjp_timing([rec], leaves, ct, [_pallas.waverec2d_per_plain(nest(plain, level), rl, rh)], plain, f"K5b {name}", TOL[f32]))
+        plan = k5_plan_cost(shape, level, L, 4)
+        ana["reread_bytes"], syn["reread_bytes"] = plan["K5a_reread_bytes"], plan["K5b_reread_bytes"]
         for row in (ana, syn):
+            # the bound of the plan run (each run's input read once, its
+            # bands written once), beside that of one whole pyramid
+            row["pyramid_bound_ms"] = bound(row["bytes"], row["flops"])[0]
+            row["bytes"] = plan["bytes"]
             row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
             row["library_ms"] = None
             row["library_note"] = "none: multi-level (no one library call runs the pyramid)"
@@ -1792,9 +1812,165 @@ def time_k5() -> dict:
             log(
                 f"  {kernel} {name}: ms={row['ms']!r} per_level_ms={row['per_level_ms']!r} "
                 f"plain_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} ({row['bound_by']}) "
-                f"vjp_ms={row['vjp_ms']!r} vjp_plain_ms={row['vjp_plain_ms']!r} runs={row['runs']}"
+                f"vjp_ms={row['vjp_ms']!r} vjp_plain_ms={row['vjp_plain_ms']!r} runs={row['runs']} "
+                f"reread_bytes={row['reread_bytes']!r} pyramid_bound_ms={row['pyramid_bound_ms']!r}"
             )
         del x, coeffs, outs, cts, leaves, plain, rec
+    return rows
+
+
+def k5_plan_cost(shape, level: int, filt_len: int, size: int) -> dict:
+    """Bytes of the K5 plan this tree runs on ``shape`` (each run reads its
+    input once and writes its bands once) and the cone re-reads on top
+    (staged elements past each launch's input), for K5a and K5b."""
+    b, h, w = shape
+    many = b >= _pallas._WHOLE_MIN_IMAGES
+    out = {"bytes": 0, "K5a_reread_bytes": 0, "K5b_reread_bytes": 0}
+    for depth in _pallas._pyramid2d_runs(h, w, filt_len, level, size, many):
+        bands = (h >> depth) * (w >> depth) + 3 * sum((h >> lv) * (w >> lv) for lv in range(1, depth + 1))
+        out["bytes"] += size * b * (h * w + bands)
+        whole, th, tw = _pallas._run_mode(h, w, filt_len, depth, size, many)
+        if not whole:
+            le = filt_len + (filt_len & 1)
+            cone = _pallas._cone_at(th, h, le, False, depth, 0) * _pallas._cone_at(tw, w, le, False, depth, 0)
+            tiles = -(-(h >> depth) // th) * -(-(w >> depth) // tw)
+            out["K5a_reread_bytes"] += size * b * (tiles * cone - h * w)
+            sth, stw = _pallas._synthesis_tile(h, w, filt_len, depth, size)
+            pad = filt_len // 2 - 1
+
+            def spans(t, n, lv):
+                total = 0
+                for first in range(0, n, t):
+                    c, e = first, first + t - 1
+                    for _ in range(lv):
+                        c, e = (c + pad - (filt_len - 1)) // 2, (e + pad) // 2
+                    total += e - c + 1
+                return total
+
+            staged = sum((4 if lv == depth else 3) * spans(sth, h, lv) * spans(stw, w, lv) for lv in range(1, depth + 1))
+            out["K5b_reread_bytes"] += size * b * (staged - bands)
+        h, w = h >> depth, w >> depth
+    return out
+
+
+def k5_times() -> dict:
+    """Device ms of K5a, K5b and both VJP instances (as the autograd
+    backward runs them), the per-level K1/K2 route on the same pyramid, the
+    launches per round trip and step, and the device busy ms (profiler) of
+    the periodization round trip and training step, at both 2d
+    periodization configurations, float32: the rows phase 5 compares with
+    the parent tree in turns (entry points both trees have)."""
+    f32 = torch.float32
+    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
+    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
+    out = {}
+    for i, (name, shape, level) in enumerate(PER_2D):
+        x = leaf(randn(shape, f32, SEED + 90 + i))
+        xd = x.detach()
+        coeffs = _pallas.fused_wavedec2d_per(xd, dl, dh, level)
+        out[f"K5a {name}"] = time_ms(lambda: _pallas.fused_wavedec2d_per(xd, dl, dh, level))
+        out[f"K5b {name}"] = time_ms(lambda: _pallas.fused_waverec2d_per(coeffs, rl, rh))
+        outs = flat_coeffs(_pallas.fused_wavedec2d_per(x, dl, dh, level))
+        cts = [randn(t.shape, f32, SEED + 100 + j) for j, t in enumerate(outs)]
+        out[f"K5a VJP {name}"] = time_ms(lambda: torch.autograd.grad(outs, x, cts, retain_graph=True))
+        leaves = [leaf(t) for t in flat_coeffs(coeffs)]
+        rec = _pallas.fused_waverec2d_per(nest(leaves, level), rl, rh)
+        ct = randn(x.shape, f32, SEED + 120)
+        out[f"K5b VJP {name}"] = time_ms(lambda: torch.autograd.grad(rec, leaves, ct, retain_graph=True))
+
+        def per_level_k1():
+            cur = xd
+            for _ in range(level):
+                cur = _pallas2d.fused2_dwt_level(cur, dl, dh, "periodization")[0]
+            return cur
+
+        def per_level_k2():
+            cur = coeffs[0]
+            for trip in coeffs[1:]:
+                cur = _pallas2d.fused2_idwt_level((cur, *trip), rl, rh, "periodization")
+            return cur
+
+        out[f"K1 x{level} {name}"] = time_ms(per_level_k1)
+        out[f"K2 x{level} {name}"] = time_ms(per_level_k2)
+        runs = _pallas._pyramid2d_runs(shape[1], shape[2], len(dl), level, 4)
+        out[f"launches per round trip {name}"] = 2 * len(runs)
+        out[f"launches per step {name}"] = 4 * len(runs)
+        del outs, cts, leaves, rec, ct
+        # device busy time of the round trip and of a training step
+        model = GainModel("periodization", shape, level)
+        opt = optimizer(model)
+        y = randn(shape, f32, SEED + 43 + i)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            train_loss(model, y).backward()
+            opt.step()
+
+        for label, run in (
+            ("round trip", lambda: ptwt.waverec2(ptwt.wavedec2(xd, WAVELET, mode="periodization", level=level), WAVELET, mode="periodization")),
+            ("step", step),
+        ):
+            prof = profile(run, f"periodization {name} {label}", top=6)
+            out[f"{label} busy ms {name}"] = sum(ms for ms, _, _ in prof)
+            out[f"{label} K5 ms {name}"] = sum(ms for ms, _, key in prof if "pyramid2d" in key)
+        del x, xd, coeffs, model, opt, y
+    return out
+
+
+#: Plan settings the K5 sweep times (module constants of ops/_pallas.py).
+K5_SWEEP = (
+    ("default", {}),
+    ("no analysis prefetch (one block per tile)", {"_PREFETCH": False}),
+    ("synthesis prefetch (a persistent grid)", {"_SYN_PREFETCH": True}),
+    ("no whole images", {"_WHOLE_MIN_IMAGES": 1 << 30}),
+    ("cone read 3.0 (depth-2 runs)", {"_MAX_CONE_READ": 3.0}),
+    ("analysis tiles 8 x 512", {"_TILE_ROWS": 8}),
+    ("analysis tiles 16 x 256", {"_TILE_COLS": 256}),
+    ("analysis target 112 KB", {"_SMEM_TARGET": 112 * 1024}),
+    ("synthesis tiles 32 x 128", {"_SYN_ROWS": 32, "_SYN_COLS": 128}),
+    ("synthesis tiles 64 x 64", {"_SYN_ROWS": 64, "_SYN_COLS": 64}),
+    ("synthesis target 56 KB", {"_SYN_SMEM_TARGET": 56 * 1024}),
+    ("synthesis target 112 KB", {"_SYN_SMEM_TARGET": 112 * 1024}),
+)
+
+
+def k5_sweep() -> dict:
+    """K5a and K5b (float32, db4) at both 2d periodization configurations
+    under each plan setting of :data:`K5_SWEEP`: ms, runs and each run's
+    mode and tiles."""
+    f32 = torch.float32
+    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
+    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
+    cached = (_pallas._run_mode, _pallas._pyramid2d_runs, _pallas._analysis_plan, _pallas._synthesis_plan)
+    rows = {}
+    for label, knobs in K5_SWEEP:
+        saved = {k: getattr(_pallas, k) for k in knobs}
+        for k, v in knobs.items():
+            setattr(_pallas, k, v)
+        for fn in cached:
+            fn.cache_clear()
+        for i, (name, shape, level) in enumerate(PER_2D):
+            x = randn(shape, f32, SEED + 90 + i)
+            coeffs = _pallas.fused_wavedec2d_per(x, dl, dh, level)
+            b, h, w = shape
+            many = b >= _pallas._WHOLE_MIN_IMAGES
+            plans = []
+            for depth in _pallas._pyramid2d_runs(h, w, len(dl), level, 4, many):
+                plans.append([depth, _pallas._analysis_plan(h, w, len(dl), depth, 4, many),
+                              _pallas._synthesis_plan(h, w, len(dl), depth, 4, many)])
+                h, w = h >> depth, w >> depth
+            row = {
+                "K5a": time_ms(lambda: _pallas.fused_wavedec2d_per(x, dl, dh, level)),
+                "K5b": time_ms(lambda: _pallas.fused_waverec2d_per(coeffs, rl, rh)),
+                "plans": plans,
+            }
+            rows[f"{label} | {name}"] = row
+            log(f"  sweep {label} | {name}: K5a {row['K5a']!r} K5b {row['K5b']!r} plans {plans}")
+            del x, coeffs
+        for k, v in saved.items():
+            setattr(_pallas, k, v)
+        for fn in cached:
+            fn.cache_clear()
     return rows
 
 
@@ -2362,6 +2538,11 @@ def main() -> int:
     log("phase 5, 2d periodization and the pyramid VJPs: times")
     rows_k5 = time_k5()
     round_trips_per()
+    turns_k5 = {}
+    if _arg("--parent"):
+        log(f"phase 5: K5, its VJPs, the per-level route and the periodization device times in turns with {_arg('--parent')}")
+        torch.cuda.empty_cache()
+        turns_k5 = turns(Path(_arg("--parent")).resolve(), "--k5-times")
     vjp_1d = time_vjps_1d()
 
     log(f"phase 12: the tensor-core level K9a/K9b ({MXU2D_ENV}=1 inside this phase only)")
@@ -2475,6 +2656,9 @@ def main() -> int:
             "library_ms": None,
             "library_note": row["library_note"],
             "per_level_k1_k2_ms": row["per_level_ms"],
+            "per_level_ms": row["per_level_ms"],
+            "pyramid_bound_ms": row["pyramid_bound_ms"],
+            "reread_bytes": row["reread_bytes"],
             "runs": row["runs"],
             "small": {
                 "shape": list(SMALL_SHAPE),
@@ -2482,10 +2666,16 @@ def main() -> int:
                 "ms": small["ms"],
                 "plain_ms": small["plain_ms"],
                 "per_level_k1_k2_ms": small["per_level_ms"],
+                "per_level_ms": small["per_level_ms"],
                 "bound_ms": small["bound_ms"],
+                "pyramid_bound_ms": small["pyramid_bound_ms"],
+                "reread_bytes": small["reread_bytes"],
                 "vjp_ms": small["vjp_ms"],
+                "vjp_bound_ms": small["bound_ms"],
                 "runs": small["runs"],
             },
+            "in_turns": {k: v for k, v in turns_k5.items() if k.startswith(name) or " busy " in k or " K5 ms " in k
+                         or k.startswith("K1 x" if name == "K5a" else "K2 x") or k.startswith("launches")},
             "vjp_kernel": vjp_kernel[name],
             "vjp_launches": per_back[vjp_kernel[name]],
             "vjp_max_abs_err": errors_k5[f"{name} VJP"][torch.float32]["abs"],
@@ -2604,7 +2794,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times)):
+    for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times),
+                        ("--k5-times", k5_times), ("--k5-sweep", k5_sweep)):
         if flag in sys.argv:
             if not torch.cuda.is_available():
                 sys.exit("chip_smoke: CUDA is not available")

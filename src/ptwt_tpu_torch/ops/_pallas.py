@@ -12,15 +12,18 @@ is needed:
 
 * **K5a/K5b** (``csrc/pyramid2d.cu``) -- the 2d pyramid.  A K5a block
   owns a tile of the run's deepest band, stages its input cone and runs
-  each level as a row pass then a column pass, writing every ``lh``/
+  each level as a column pass then a row pass, writing every ``lh``/
   ``hl``/``hh`` position it owns once and ``ll`` at the run's last level;
-  a K5b block owns a tile of the run's finest output.  Where the image
-  and its buffers fit in shared memory, one block holds the whole image
-  and runs the levels with no halo (the JAX package's K5 design, for
-  small images).  :func:`_pyramid2d_runs` picks each run's depth and
-  tile from the filter length, the item size and the image size.  Each
-  band has a tensor of its own: the JAX package's quadrant layout and
-  its concat cascade are TPU artifacts with no counterpart here.
+  a K5b block owns a tile of the run's finest output.  Tiles are wide (at
+  most 16 x 512 level-0 positions; K5b 16 x 256 outputs), and a K5a grid is persistent, staging
+  the next tile during the current one.  For a batch of at least
+  :data:`_WHOLE_MIN_IMAGES` images that fit a block, one block holds a
+  whole image and runs the levels with no halo (the JAX package's K5
+  design, for small images).  :func:`_pyramid2d_runs` picks each run's
+  depth and tile from the filter length, the item size and the image
+  size.  Each band has a tensor of its own: the JAX package's quadrant
+  layout and its concat cascade are TPU artifacts with no counterpart
+  here.
 * **K6a/K6b** (``csrc/fwt1d.cu``, the circular instances of the K8
   pyramid kernels of :mod:`._pallas1d_multi`) -- the 1d pyramid in runs
   of at most four levels.
@@ -194,98 +197,244 @@ def fused_waverec1d_per(coeffs, rec_lo, rec_hi) -> torch.Tensor:
 
 #: Deepest run of one launch (``PYR2D_MAX_DEPTH`` of ``csrc/pyramid2d.cu``).
 MAX_PYRAMID2D_DEPTH = 8
-#: Deepest run of a tiled launch: a depth-4 cone of db4 does not fit.
+#: Deepest run of a tiled launch (``PYR2D_MAX_TILED_DEPTH``).
 MAX_TILED_DEPTH = 4
-#: Level-0 side of an analysis tile (``T << D``), as the 1d kernels' 4096.
-_TILE_SIDE = 128
+#: Most level-0 rows and columns of an analysis tile (``th << D``, ``tw
+#: << D``): wide tiles read long row segments.
+_TILE_ROWS, _TILE_COLS = 16, 512
 #: Most an analysis cone may read, over its tile's own input.
 _MAX_CONE_READ = 2.0
-#: Output tiles a synthesis block may own, largest first.
-_SYN_TILES = (64, 32, 16, 8, 4, 2, 1)
+#: Most output rows and columns of a synthesis tile.
+_SYN_ROWS, _SYN_COLS = 16, 256
 #: Shared memory one block may use on the H100 (bytes).
 _SMEM_LIMIT = 232448
-#: An analysis tile within this fits three or four 512-thread blocks on an
-#: SM; on the card those beat deeper runs of one 227 KB block per SM (a
-#: sweep of tiles and depths at [16, 1024, 1024] db4 float32), so the plan
+#: A tiled block within this (both staging buffers included) leaves room
+#: for three on an SM (228 KB, 1 KB of it reserved per block); the plan
 #: takes the deepest run within it first, and the limit only where no
 #: depth fits.
-_SMEM_TARGET = 64 * 1024
+_SMEM_TARGET = 75 * 1024
+#: The same for a synthesis block.
+_SYN_SMEM_TARGET = 75 * 1024
+#: Prefer one block per whole image where it fits and a launch has at
+#: least this many images (a whole image's block is alone on its SM, so
+#: fewer images leave SMs idle); else tiles first.
+_WHOLE_MIN_IMAGES = 128
+#: Stage the next tile during the current one (a persistent grid): K5a,
+#: K5b.
+_PREFETCH, _SYN_PREFETCH = True, False
+#: Rows and columns past a synthesis tile's band range (``PYR2D_SLACK``).
+_SLACK = 4
 
 _ITEMSIZE = {torch.float32: 4, torch.float64: 8}
 
 
-def _cone(t: int, depth: int, lvl: int, filt_len: int) -> int:
-    """Length along one axis of an analysis tile's cone at level ``lvl``,
-    for a tile of ``t`` level-``depth`` positions."""
-    return (t << (depth - lvl)) + (filt_len - 2) * ((1 << (depth - lvl)) - 1)
+def _round(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
-def _whole(h: int, w: int, itemsize: int) -> bool:
-    """Do the image and its working buffers fit one block?  Both kernels
-    need ``2 h w`` elements for a whole image."""
-    return 2 * h * w * itemsize <= _SMEM_LIMIT
+# The shared-memory layouts of ``csrc/pyramid2d.cu`` (``analysis_need``,
+# ``synthesis_need``), in elements; see there.
 
 
-def _analysis_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int, limit: int):
-    """``(th, tw, buf_a, buf_b)`` of a tiled K5a run, or None.
+def _cone_at(t: int, size: int, le: int, whole: bool, depth: int, lvl: int) -> int:
+    """Cone length along one axis at level ``lvl`` of an analysis run (``Le``
+    = the filter length rounded up to even); a whole image's band."""
+    if whole:
+        return size >> lvl
+    c = t
+    for _ in range(depth - lvl):
+        c = 2 * c + le - 2
+    return c
 
-    A tile of ``T`` level-``depth`` positions per axis (clamped to the
-    band) reads a cone of :func:`_cone` samples per axis at level 0; the
-    block keeps that cone (``buf_a``) and the level-1 row pass's lo and hi
-    (``buf_b`` each).  The largest ``T`` with ``T << depth <= 128`` whose
-    buffers fit ``limit`` bytes and whose cone reads at most twice the
-    tile's own input is taken.
+
+def _reach(c_out: int, c_in: int, le: int, whole: bool) -> int:
+    """Positions of a line that the four-output windows of ``c_out``
+    outputs read."""
+    return c_in if whole else 8 * ((c_out + 3) // 4) + le - 2
+
+
+def _analysis_need(depth, h, w, th, tw, whole, filt_len, itemsize) -> tuple[int, int]:
+    le = filt_len + (filt_len & 1)
+    v = 16 // itemsize
+    ch = [_cone_at(th, h, le, whole, depth, lv) for lv in range(depth + 1)]
+    cw = [_cone_at(tw, w, le, whole, depth, lv) for lv in range(depth + 1)]
+    a = _reach(ch[1], ch[0], le, whole) * _round(cw[0] + v - 1, v)
+    b = 0
+    for lv in range(1, depth + 1):
+        rows_ll = _reach(ch[lv + 1], ch[lv], le, whole) if lv < depth else ch[lv]
+        a = max(a, (rows_ll + 3 * ch[lv]) * (_round(cw[lv], 4) + 1))
+        b = max(b, 2 * ch[lv] * (_reach(cw[lv], cw[lv - 1], le, whole) | 1))
+    return _round(a, 4), b
+
+
+def _span_at(t: int, size: int, filt_len: int, whole: bool, lvl: int) -> int:
+    """Bound on a synthesis tile's band range at level ``lvl``."""
+    if whole:
+        return size >> lvl
+    n = t
+    for _ in range(lvl):
+        n = (n + filt_len - 1) // 2 + 1
+    return n
+
+
+def _alloc_at(t: int, size: int, filt_len: int, whole: bool, lvl: int) -> int:
+    return _span_at(t, size, filt_len, whole, lvl) + (0 if whole else _SLACK)
+
+
+def _synthesis_need(depth, h, w, th, tw, whole, filt_len, itemsize) -> tuple[int, int]:
+    v = 16 // itemsize
+
+    def band(lv):
+        return _alloc_at(th, h, filt_len, whole, lv) * _round(_alloc_at(tw, w, filt_len, whole, lv) + v - 1, v)
+
+    bands = band(depth) + 3 * sum(band(lv) for lv in range(1, depth + 1))
+    out = _span_at(th, h, filt_len, whole, 0) * (_span_at(tw, w, filt_len, whole, 0) | 1)
+    low = max(
+        2 * _span_at(th, h, filt_len, whole, lv - 1) * (_alloc_at(tw, w, filt_len, whole, lv) | 1)
+        for lv in range(1, depth + 1)
+    )
+    ll = _alloc_at(th, h, filt_len, whole, 1) * (_alloc_at(tw, w, filt_len, whole, 1) | 1) if depth > 1 else 0
+    return _round(max(bands, out), 4), ll + low
+
+
+def _halvings(n: int):
+    """``n``, ``n // 2``, ..., 1."""
+    while n >= 1:
+        yield n
+        n >>= 1
+
+
+def _staged(limit: int, prefetch: bool) -> int:
+    """Staging buffers a tile is sized for: two within a target (the next
+    tile in flight, where ``prefetch``), one at the limit."""
+    return 2 if prefetch and limit < _SMEM_LIMIT else 1
+
+
+def _analysis_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int, limit: int, cap):
+    """``(th, tw)`` of a tiled K5a run, or None.
+
+    A tile of ``th x tw`` level-``depth`` positions (at most
+    :data:`_TILE_ROWS` x :data:`_TILE_COLS` at level 0, clamped to the
+    band; up to :data:`_TILE_COLS` rows where no such tile suits) reads a
+    cone of :func:`_cone_at` samples per axis at level 0.  The widest, then
+    tallest tile whose buffers (:func:`_staged`) fit ``limit`` bytes and
+    whose cone reads at most ``cap`` times the tile's own input
+    (no cap where ``cap`` is None) is taken.
     """
-    t = _TILE_SIDE >> depth
-    while t >= 1:
-        th, tw = min(t, h >> depth), min(t, w >> depth)
-        ch0, cw0 = _cone(th, depth, 0, filt_len), _cone(tw, depth, 0, filt_len)
-        cw1 = _cone(tw, depth, 1, filt_len)
-        reads = ch0 * cw0 / ((th << depth) * (tw << depth))
-        buf_a, buf_b = ch0 * cw0, ch0 * cw1
-        if (buf_a + 2 * buf_b) * itemsize <= limit and reads <= _MAX_CONE_READ:
-            return th, tw, buf_a, buf_b
-        t >>= 1
+    le = filt_len + (filt_len & 1)
+    for most_rows in (_TILE_ROWS, _TILE_COLS):  # taller tiles where wide ones read too much
+        for cols in _halvings(max(_TILE_COLS >> depth, 1)):
+            for rows in _halvings(max(most_rows >> depth, 1)):
+                th, tw = min(rows, h >> depth), min(cols, w >> depth)
+                reads = _cone_at(th, h, le, False, depth, 0) * _cone_at(tw, w, le, False, depth, 0)
+                a, b = _analysis_need(depth, h, w, th, tw, False, filt_len, itemsize)
+                if (_staged(limit, _PREFETCH) * a + b) * itemsize <= limit and (
+                    cap is None or reads <= cap * (th << depth) * (tw << depth)
+                ):
+                    return th, tw
     return None
 
 
-def _tiled(h: int, w: int, filt_len: int, level: int, itemsize: int):
-    """Depth of the next tiled run: the deepest with a tile within
-    :data:`_SMEM_TARGET`, else the deepest within the limit, else None."""
-    for limit in (_SMEM_TARGET, _SMEM_LIMIT):
-        for depth in range(min(level, MAX_TILED_DEPTH), 0, -1):
-            if _analysis_tile(h, w, filt_len, depth, itemsize, limit) is not None:
-                return depth
+def _synthesis_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int):
+    """``(th, tw)`` of a tiled K5b run: the widest, then tallest of at
+    most :data:`_SYN_ROWS` x :data:`_SYN_COLS` outputs whose buffers
+    (:func:`_staged`) fit :data:`_SYN_SMEM_TARGET`, else the limit, or
+    None."""
+    for limit in (_SYN_SMEM_TARGET, _SMEM_LIMIT):
+        for cols in _halvings(_SYN_COLS):
+            for rows in _halvings(_SYN_ROWS):
+                th, tw = min(rows, h), min(cols, w)
+                a, b = _synthesis_need(depth, h, w, th, tw, False, filt_len, itemsize)
+                if (_staged(limit, _SYN_PREFETCH) * a + b) * itemsize <= limit:
+                    return th, tw
     return None
 
 
-def _tile_for(h: int, w: int, filt_len: int, depth: int, itemsize: int):
-    """The tile :func:`_tiled` found for a run of ``depth`` levels."""
+def _whole_fits(h: int, w: int, filt_len: int, depth: int, itemsize: int) -> bool:
+    """Do the image and both kernels' buffers fit one block (one staging
+    buffer)?"""
+    ana = sum(_analysis_need(depth, h, w, h >> depth, w >> depth, True, filt_len, itemsize))
+    syn = sum(_synthesis_need(depth, h, w, h, w, True, filt_len, itemsize))
+    return max(ana, syn) * itemsize <= _SMEM_LIMIT
+
+
+def _bufs(a: int, b: int, itemsize: int, prefetch: bool) -> int:
+    """Staging buffers of a launch: two (a persistent grid, the next tile
+    staged during the current one) where ``prefetch`` and they fit a
+    block, else one (one block per tile)."""
+    return 2 if prefetch and (2 * a + b) * itemsize <= _SMEM_LIMIT else 1
+
+
+def _capped_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int):
+    """The analysis tile of a capped tiled run: within the target, else the
+    limit; None where no tile of this depth reads within the cap."""
+    if depth > MAX_TILED_DEPTH or _synthesis_tile(h, w, filt_len, depth, itemsize) is None:
+        return None
     for limit in (_SMEM_TARGET, _SMEM_LIMIT):
-        tile = _analysis_tile(h, w, filt_len, depth, itemsize, limit)
+        tile = _analysis_tile(h, w, filt_len, depth, itemsize, limit, _MAX_CONE_READ)
         if tile is not None:
             return tile
     return None
 
 
 @functools.lru_cache(maxsize=256)
-def _pyramid2d_runs(h: int, w: int, filt_len: int, level: int, itemsize: int):
+def _run_mode(h: int, w: int, filt_len: int, depth: int, itemsize: int, many: bool = True):
+    """How a run of ``depth`` levels of ``[h, w]`` images runs: ``(False,
+    th, tw)`` tiled (K5a's tile), ``(True, h >> depth, w >> depth)`` for a
+    whole image, or None.
+
+    Tiles whose cone reads within :data:`_MAX_CONE_READ` come first (a
+    whole image first where the launch has ``many`` images, at least
+    :data:`_WHOLE_MIN_IMAGES`), then a whole image; and
+    where an image of ``2 h w`` elements fits a block but neither does, a
+    depth-1 tile with no cap on its cone (long filters on small images).
+    """
+    whole = depth <= MAX_PYRAMID2D_DEPTH and _whole_fits(h, w, filt_len, depth, itemsize)
+    if many and whole:
+        return True, h >> depth, w >> depth
+    tile = _capped_tile(h, w, filt_len, depth, itemsize)
+    if tile is not None:
+        return (False, *tile)
+    if whole:
+        return True, h >> depth, w >> depth
+    if depth == 1 and 2 * h * w * itemsize <= _SMEM_LIMIT and _synthesis_tile(h, w, filt_len, 1, itemsize):
+        tile = _analysis_tile(h, w, filt_len, 1, itemsize, _SMEM_LIMIT, None)
+        if tile is not None:
+            return (False, *tile)
+    return None
+
+
+def _next_depth(h: int, w: int, filt_len: int, level: int, itemsize: int, many: bool):
+    """Depth of the next run: a whole image where preferred and it fits,
+    else the deepest capped tile within the target, then within the limit,
+    then a whole image, then :func:`_run_mode`'s uncapped depth-1 tile."""
+    deepest = min(level, MAX_PYRAMID2D_DEPTH)
+    if many and _whole_fits(h, w, filt_len, deepest, itemsize):
+        return deepest
+    for limit in (_SMEM_TARGET, _SMEM_LIMIT):
+        for depth in range(min(level, MAX_TILED_DEPTH), 0, -1):
+            if _synthesis_tile(h, w, filt_len, depth, itemsize) is None:
+                continue
+            if _analysis_tile(h, w, filt_len, depth, itemsize, limit, _MAX_CONE_READ) is not None:
+                return depth
+    if _whole_fits(h, w, filt_len, deepest, itemsize):
+        return deepest
+    return 1 if _run_mode(h, w, filt_len, 1, itemsize, many) is not None else None
+
+
+@functools.lru_cache(maxsize=256)
+def _pyramid2d_runs(h: int, w: int, filt_len: int, level: int, itemsize: int, many: bool = True):
     """Depths of the K5 launches of a ``level``-level pyramid of ``[h, w]``
     images, fine to coarse, or None where the plan does not hold it.
 
-    A run holds the whole image where it fits one block (up to
-    :data:`MAX_PYRAMID2D_DEPTH` levels), else the deepest tiled run
-    (at most :data:`MAX_TILED_DEPTH` levels) that :func:`_tiled` accepts.
-    Every run must be planned, or the pyramid is declined.
+    Every run must be planned (:func:`_next_depth`), or the pyramid is
+    declined.
     """
     runs = []
     while level > 0:
-        if _whole(h, w, itemsize):
-            depth = min(level, MAX_PYRAMID2D_DEPTH)
-        else:
-            depth = _tiled(h, w, filt_len, level, itemsize)
-            if depth is None:
-                return None
+        depth = _next_depth(h, w, filt_len, level, itemsize, many)
+        if depth is None or _run_mode(h, w, filt_len, depth, itemsize, many) is None:
+            return None
         runs.append(depth)
         h, w, level = h >> depth, w >> depth, level - depth
     return tuple(runs)
@@ -302,56 +451,45 @@ def fused_wavedec2d_applicable(h: int, w: int, filt_len: int, level: int, dtype)
 
 
 @functools.lru_cache(maxsize=256)
-def _analysis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int):
+def _analysis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int, many: bool = True):
     """``(ints, smem_bytes)`` of one K5a launch on ``[h, w]`` images.
 
     ``ints`` is ``Pyramid2dPlan`` of ``csrc/pyramid2d.cu``: ``depth, h, w,
-    th, tw, tiles_h, tiles_w, whole, pad, buf_a, buf_b``.  Tiles are
+    th, tw, tiles_h, tiles_w, whole, pad, buf_a, buf_b, bufs``.  Tiles are
     aligned at the deepest level: tile ``(ty, tx)`` owns level-``l``
     positions ``[ty th 2^(D-l), (ty+1) th 2^(D-l))`` (clamped to the band)
     and the same along W, so every band position has one owner.
     """
-    if _whole(h, w, itemsize):
-        th, tw = h >> depth, w >> depth
-        whole, buf_a, buf_b = 1, h * w, h * (w // 2)
-    else:
-        tile = _tile_for(h, w, filt_len, depth, itemsize)
-        if tile is None:
-            raise ValueError(f"no K5a tile holds {depth} levels of {filt_len} taps on [{h}, {w}]")
-        th, tw, buf_a, buf_b = tile
-        whole = 0
+    mode = _run_mode(h, w, filt_len, depth, itemsize, many)
+    if mode is None:
+        raise ValueError(f"no K5a tile holds {depth} levels of {filt_len} taps on [{h}, {w}]")
+    whole, th, tw = mode
+    buf_a, buf_b = _analysis_need(depth, h, w, th, tw, whole, filt_len, itemsize)
     tiles_h = -(-(h >> depth) // th)
     tiles_w = -(-(w >> depth) // tw)
-    ints = (depth, h, w, th, tw, tiles_h, tiles_w, whole, filt_len // 2 - 1, buf_a, buf_b)
-    return ints, (buf_a + 2 * buf_b) * itemsize
+    bufs = _bufs(buf_a, buf_b, itemsize, _PREFETCH)
+    ints = (depth, h, w, th, tw, tiles_h, tiles_w, int(whole), filt_len // 2 - 1, buf_a, buf_b, bufs)
+    return ints, (bufs * buf_a + buf_b) * itemsize
 
 
 @functools.lru_cache(maxsize=256)
-def _synthesis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int):
+def _synthesis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int, many: bool = True):
     """``(ints, smem_bytes)`` of one K5b launch writing ``[h, w]`` images.
 
     A tile owns ``th x tw`` outputs; step ``l`` reads its bands over
     ``c_l = floor((c_{l-1} + pad - (L-1)) / 2)`` to ``e_l = floor((e_{l-1}
     + pad) / 2)`` per axis, at most ``n_l = (n_{l-1} + L - 1) // 2 + 1``
-    positions.  The block keeps four band slots (``buf_a`` each: the
-    largest ``n_l`` block) and the H pass's lo and hi (``buf_b`` each).
+    positions.  The run is whole or tiled as its analysis run is.
     """
-    if _whole(h, w, itemsize):
-        ints = (depth, h, w, h, w, 1, 1, 1, filt_len // 2 - 1, (h // 2) * (w // 2), h * (w // 2))
-        return ints, 2 * h * w * itemsize
-    for t in _SYN_TILES:
-        nh, nw = [min(t, h)], [min(t, w)]
-        for _ in range(depth):
-            nh.append((nh[-1] + filt_len - 1) // 2 + 1)
-            nw.append((nw[-1] + filt_len - 1) // 2 + 1)
-        buf_a = max(a * b for a, b in zip(nh[1:], nw[1:]))
-        buf_b = max(a * b for a, b in zip(nh[:-1], nw[1:]))
-        smem = (4 * buf_a + 2 * buf_b) * itemsize
-        if smem <= _SMEM_LIMIT:
-            th, tw = nh[0], nw[0]
-            ints = (depth, h, w, th, tw, -(-h // th), -(-w // tw), 0, filt_len // 2 - 1, buf_a, buf_b)
-            return ints, smem
-    raise ValueError(f"no K5b tile holds {depth} steps of {filt_len} taps on [{h}, {w}]")
+    mode = _run_mode(h, w, filt_len, depth, itemsize, many)
+    if mode is None:
+        raise ValueError(f"no K5b tile holds {depth} steps of {filt_len} taps on [{h}, {w}]")
+    whole = mode[0]
+    th, tw = (h, w) if whole else _synthesis_tile(h, w, filt_len, depth, itemsize)
+    buf_a, buf_b = _synthesis_need(depth, h, w, th, tw, whole, filt_len, itemsize)
+    bufs = _bufs(buf_a, buf_b, itemsize, _SYN_PREFETCH)
+    ints = (depth, h, w, th, tw, -(-h // th), -(-w // tw), int(whole), filt_len // 2 - 1, buf_a, buf_b, bufs)
+    return ints, (bufs * buf_a + buf_b) * itemsize
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +529,7 @@ def _analysis_run(kernel: str, x3: torch.Tensor, lo, hi, depth: int):
     ..., hh_D])``.  The launch counts as ``kernel``."""
     _kernels.check_tensor("x", x3, x3.dtype, x3.device)
     b, h, w = x3.shape
-    ints, smem = _analysis_plan(h, w, len(lo), depth, x3.element_size())
+    ints, smem = _analysis_plan(h, w, len(lo), depth, x3.element_size(), b >= _WHOLE_MIN_IMAGES)
     ll = x3.new_empty(b, h >> depth, w >> depth)
     details = [x3.new_empty(b, h >> lvl, w >> lvl) for lvl in range(1, depth + 1) for _ in range(3)]
     if b:
@@ -415,7 +553,7 @@ def _synthesis_run(kernel: str, ll: torch.Tensor, details: Sequence[torch.Tensor
         want = (b, h >> (i // 3 + 1), w >> (i // 3 + 1))
         if tuple(t.shape) != want:
             raise ValueError(f"a level-{i // 3 + 1} band has shape {tuple(t.shape)}, expected {want}")
-    ints, smem = _synthesis_plan(h, w, len(lo), depth, ll.element_size())
+    ints, smem = _synthesis_plan(h, w, len(lo), depth, ll.element_size(), b >= _WHOLE_MIN_IMAGES)
     out = ll.new_empty(b, h, w)
     if b:
         _kernels.launch(
@@ -461,13 +599,13 @@ class _Waverec2dRun(torch.autograd.Function):
         return (None, None, ll, *details)
 
 
-def _plan_runs(h: int, w: int, filt_len: int, level: int, dtype) -> tuple:
+def _plan_runs(h: int, w: int, filt_len: int, level: int, dtype, images: int) -> tuple:
     if not fused_wavedec2d_applicable(h, w, filt_len, level, dtype):
         raise ValueError(
             f"the K5 plan does not hold {level} levels of {filt_len} taps on [{h}, {w}] "
             f"{dtype}: gate with fused_wavedec2d_applicable"
         )
-    return _pyramid2d_runs(h, w, filt_len, level, _ITEMSIZE[dtype])
+    return _pyramid2d_runs(h, w, filt_len, level, _ITEMSIZE[dtype], images >= _WHOLE_MIN_IMAGES)
 
 
 def fused_wavedec2d_per(data: torch.Tensor, dec_lo, dec_hi, level: int) -> list:
@@ -478,7 +616,8 @@ def fused_wavedec2d_per(data: torch.Tensor, dec_lo, dec_hi, level: int) -> list:
     hi along H).  ``dec_lo``/``dec_hi`` are flipped.  Gate with
     :func:`fused_wavedec2d_applicable`.  A CPU tensor runs
     :func:`wavedec2d_per_plain`; a CUDA tensor runs K5a, one launch per
-    run of :func:`_pyramid2d_runs`.
+    run of :func:`_pyramid2d_runs` (whole images first only for a batch of
+    at least :data:`_WHOLE_MIN_IMAGES`).
     """
     if _on_cpu(data):
         return wavedec2d_per_plain(data, dec_lo, dec_hi, level)
@@ -488,7 +627,7 @@ def fused_wavedec2d_per(data: torch.Tensor, dec_lo, dec_hi, level: int) -> list:
     h, w = data.shape[-2:]
     cur = data.reshape(-1, h, w).contiguous()
     levels: list = []
-    for depth in _plan_runs(h, w, len(lo), level, data.dtype):
+    for depth in _plan_runs(h, w, len(lo), level, data.dtype, cur.shape[0]):
         cur, *details = _Wavedec2dRun.apply(cur, lo, hi, depth)
         levels.extend(tuple(details[3 * i : 3 * i + 3]) for i in range(depth))
 
@@ -518,7 +657,7 @@ def fused_waverec2d_per(coeffs, rec_lo, rec_hi) -> torch.Tensor:
 
     cur = flat(coeffs[0])
     fine = [coeffs[level - i] for i in range(level)]  # level 1 first
-    runs = _plan_runs(h, w, len(lo), level, coeffs[0].dtype)
+    runs = _plan_runs(h, w, len(lo), level, coeffs[0].dtype, cur.shape[0])
     start = level
     for depth in runs[::-1]:  # coarse to fine
         start -= depth

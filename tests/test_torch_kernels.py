@@ -449,8 +449,12 @@ def _model_pyramid2d_analysis(x, ll_out, det, lo, hi, n_taps, batch, plan, smem,
     axis (modulo the image, or the whole image read modulo in shared
     memory), the row and column passes, and the positions each block owns.
     Every band position must be written exactly once."""
-    depth, h, w, th, tw, tiles_h, tiles_w, whole, pad, buf_a, buf_b = list(plan)
-    assert (buf_a + 2 * buf_b) * itemsize <= smem, "the launch's shared memory is too small"
+    depth, h, w, th, tw, tiles_h, tiles_w, whole, pad, buf_a, buf_b, bufs = list(plan)
+    need = t6._analysis_need(depth, h, w, th, tw, whole, n_taps, itemsize)
+    assert buf_a >= need[0] and buf_b >= need[1], "the launch's buffers are too small"
+    assert bufs in (1, 2) and (bufs * buf_a + buf_b) * itemsize <= smem <= t6._SMEM_LIMIT, "the launch's shared memory is too small"
+    assert whole or depth <= t6.MAX_TILED_DEPTH
+    le = n_taps + (n_taps & 1)  # an odd bank's cone reads one zero tap more
     f = np.array([lo[:n_taps], hi[:n_taps]])
     taps = np.arange(n_taps)
     xs = x.numpy().reshape(batch, h, w).astype(np.float64)
@@ -468,7 +472,7 @@ def _model_pyramid2d_analysis(x, ll_out, det, lo, hi, n_taps, batch, plan, smem,
             if whole:
                 s[lvl - 1], c[lvl - 1] = 0, size >> (lvl - 1)
             else:
-                s[lvl - 1], c[lvl - 1] = 2 * s[lvl] - pad, 2 * c[lvl] + n_taps - 2
+                s[lvl - 1], c[lvl - 1] = 2 * s[lvl] - pad, 2 * c[lvl] + le - 2
         return s, c
 
     def reads(c_out, size):  # [c_out, L] cone offsets of one pass
@@ -479,7 +483,6 @@ def _model_pyramid2d_analysis(x, ll_out, det, lo, hi, n_taps, batch, plan, smem,
         for tx in range(tiles_w):
             sh, ch = cone(ty * th, th, h)
             sw, cw = cone(tx * tw, tw, w)
-            assert ch[0] * cw[0] <= buf_a and ch[0] * cw[1] <= buf_b
             rows, cols = (sh[0] + np.arange(ch[0])) % h, (sw[0] + np.arange(cw[0])) % w
             cur = xs[:, rows[:, None], cols[None, :]]
             for lvl in range(1, depth + 1):
@@ -510,8 +513,11 @@ def _model_pyramid2d_synthesis(ll_in, det, out, lo, hi, n_taps, batch, plan, sme
     """``ptwt_pyramid2d_synthesis`` tile by tile: each step's read ranges
     (checked against the plan's buffers), band reads modulo their size,
     the H pass then the W pass.  Every output is written exactly once."""
-    depth, h, w, th, tw, tiles_h, tiles_w, whole, pad, buf_a, buf_b = list(plan)
-    assert (4 * buf_a + 2 * buf_b) * itemsize <= smem, "the launch's shared memory is too small"
+    depth, h, w, th, tw, tiles_h, tiles_w, whole, pad, buf_a, buf_b, bufs = list(plan)
+    need = t6._synthesis_need(depth, h, w, th, tw, whole, n_taps, itemsize)
+    assert buf_a >= need[0] and buf_b >= need[1], "the launch's buffers are too small"
+    assert bufs in (1, 2) and (bufs * buf_a + buf_b) * itemsize <= smem <= t6._SMEM_LIMIT, "the launch's shared memory is too small"
+    assert whole or depth <= t6.MAX_TILED_DEPTH
     f = np.array([lo[:n_taps], hi[:n_taps]])
     taps = np.arange(n_taps)
     ll_d = ll_in.numpy().reshape(batch, h >> depth, w >> depth).astype(np.float64)
@@ -543,8 +549,9 @@ def _model_pyramid2d_synthesis(ll_in, det, out, lo, hi, n_taps, batch, plan, sme
             cw, ew = ranges(tx * tw, tw, w)
             nh = [e - c + 1 for c, e in zip(ch, eh)]
             nw = [e - c + 1 for c, e in zip(cw, ew)]
-            for lvl in range(1, depth + 1):
-                assert nh[lvl] * nw[lvl] <= buf_a and nh[lvl - 1] * nw[lvl] <= buf_b
+            for lvl in range(1, depth + 1):  # within the buffers' bounds
+                assert nh[lvl] <= t6._span_at(th, h, n_taps, whole, lvl)
+                assert nw[lvl] <= t6._span_at(tw, w, n_taps, whole, lvl)
 
             def load(band, lvl):
                 rows = (ch[lvl] + np.arange(nh[lvl])) % (h >> lvl)

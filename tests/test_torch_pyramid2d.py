@@ -77,7 +77,8 @@ def test_k5_matches_jax_kernel(route, wavelet, h, w, level):
     _close(rec, j5.fused_waverec2d_per(want, rl, rh), TOL32)
     _close(rec, x, 2e-5)
     if route is not None:
-        assert route["K5a"] == route["K5b"] == 1 and _used(route) == {"K5a", "K5b"}
+        runs = len(t5._plan_runs(h, w, len(dl), level, torch.float32, 2))
+        assert route["K5a"] == route["K5b"] == runs and _used(route) == {"K5a", "K5b"}
 
 
 def test_k5_band_order_is_subband_orders():
@@ -132,11 +133,12 @@ def test_k5_vjps_match_jax_kernel(model_kernels):  # noqa: F811
 # the public path: wavedec2 / waverec2 in periodization, float64
 # ---------------------------------------------------------------------------
 
-# (shape, wavelet, level, runs of the plan or None where it declines)
+# (shape, wavelet, level, runs of the plan or None where it declines); a
+# batch this small takes tiles before whole images
 PUBLIC = [
-    ((2, 64, 64), "db4", 3, (3,)),  # the whole image in one launch
-    ((1, 24, 20), "db2", 2, (2,)),  # not a power of two
-    ((1, 128, 128), "db2", 4, (2, 2)),  # tiled (4 x 4 tiles of 8), then whole
+    ((2, 64, 64), "db4", 3, (1, 1, 1)),  # depth-1 tiles
+    ((1, 24, 20), "db2", 2, (2,)),  # not a power of two: the whole image
+    ((1, 128, 128), "db2", 4, (2, 2)),  # depth-2 tiles, then the whole image
     ((1, 256, 160), "haar", 5, (4, 1)),  # haar's deepest tiled run, ragged tiles along W
     ((1, 128, 128), "coif17", 2, None),  # 102 taps: declined, level by level
 ]
@@ -144,7 +146,11 @@ PUBLIC = [
 
 @pytest.mark.parametrize("shape,wavelet,level,runs", PUBLIC)
 def test_public_path_matches_jax(model_kernels, shape, wavelet, level, runs):  # noqa: F811
-    assert t5._pyramid2d_runs(*shape[1:], len(_banks(wavelet)[0]), level, 8) == runs
+    filt_len = len(_banks(wavelet)[0])
+    if runs is None:
+        assert not t5.fused_wavedec2d_applicable(*shape[1:], filt_len, level, torch.float64)
+    else:
+        assert t5._plan_runs(*shape[1:], filt_len, level, torch.float64, shape[0]) == runs
     x = np.random.RandomState(6).randn(*shape)
     want = jptwt.wavedec2(jnp.asarray(x), wavelet, mode="periodization", level=level)
     got = tptwt.wavedec2(torch.from_numpy(x), wavelet, mode="periodization", level=level)
@@ -164,7 +170,8 @@ def test_periodization_is_inferred_on_the_k5_route(model_kernels):  # noqa: F811
     x = torch.from_numpy(np.random.RandomState(7).randn(1, 64, 64))
     coeffs = tptwt.wavedec2(x, "db3", mode="periodization", level=3)
     _close(tptwt.waverec2(coeffs, "db3"), x.numpy(), 1e-10)
-    assert model_kernels["K5a"] == model_kernels["K5b"] == 1
+    runs = t5._plan_runs(64, 64, 6, 3, torch.float64, 1)
+    assert model_kernels["K5a"] == model_kernels["K5b"] == len(runs)
 
 
 def _public_loss(lib, x, wavelet, level, weights):
@@ -252,35 +259,42 @@ def test_waverec2_mismatched_band_takes_the_per_level_path(model_kernels):  # no
 @pytest.mark.parametrize("h,w,level", [(1024, 1024, 4), (128, 128, 3), (512, 256, 6), (96, 160, 5)])
 def test_plan_is_held_by_the_card(itemsize, filt_len, h, w, level):
     """Every planned launch fits a block's shared memory; a tiled cone
-    reads at most twice its tile's own input; the runs cover the levels."""
+    reads at most twice its tile's own input (except the depth-1 tiles of
+    long filters on images that fit a block twice over); the runs cover
+    the levels."""
     runs = t5._pyramid2d_runs(h, w, filt_len, level, itemsize)
     if runs is None:
         assert filt_len > 8 and 2 * h * w * itemsize > t5._SMEM_LIMIT
         return
     assert sum(runs) == level
+    le = filt_len + (filt_len & 1)
     for depth in runs:
         for plan in (t5._analysis_plan, t5._synthesis_plan):
             ints, smem = plan(h, w, filt_len, depth, itemsize)
-            assert len(ints) == 11 and smem <= t5._SMEM_LIMIT
+            assert len(ints) == 12 and smem <= t5._SMEM_LIMIT
         ints, _ = t5._analysis_plan(h, w, filt_len, depth, itemsize)
         th, tw, tiles_h, tiles_w, whole = ints[3:8]
         assert tiles_h * th >= h >> depth and tiles_w * tw >= w >> depth
         if not whole:
-            cone = t5._cone(th, depth, 0, filt_len) * t5._cone(tw, depth, 0, filt_len)
-            assert cone <= t5._MAX_CONE_READ * (th << depth) * (tw << depth)
+            cone = t5._cone_at(th, h, le, False, depth, 0) * t5._cone_at(tw, w, le, False, depth, 0)
+            capped = cone <= t5._MAX_CONE_READ * (th << depth) * (tw << depth)
+            assert capped or (depth == 1 and 2 * h * w * itemsize <= t5._SMEM_LIMIT)
         h, w = h >> depth, w >> depth
 
 
 def test_gate():
     f32, f64 = torch.float32, torch.float64
     assert t5.fused_wavedec2d_applicable(1024, 1024, 8, 4, f32)
-    # tiles within the 64 KB target first: depth 2 (T = 16) in float32,
-    # depth 1 (T = 16) in float64
-    assert t5._pyramid2d_runs(1024, 1024, 8, 4, 4) == (2, 2)
+    # wide depth-1 tiles within the target: a depth-2 cone of db4 reads
+    # more than twice its tile's input
+    assert t5._pyramid2d_runs(1024, 1024, 8, 4, 4) == (1, 1, 1, 1)
     assert t5._pyramid2d_runs(1024, 1024, 8, 4, 8) == (1, 1, 1, 1)
+    assert t5._analysis_plan(1024, 1024, 8, 1, 4)[0][3:5] == (4, 256)
     # db20: no tile within the target, the limit holds depth-1 runs
     assert t5._pyramid2d_runs(1024, 1024, 40, 4, 4) == (1, 1, 1, 1)
-    assert t5._pyramid2d_runs(128, 128, 8, 3, 4) == (3,)  # the whole image
+    # small images: the whole image for a large batch, tiles for a small one
+    assert t5._plan_runs(128, 128, 8, 3, f32, 256) == (3,)
+    assert t5._plan_runs(128, 128, 8, 3, f32, 16) == (1, 1, 1)
     assert t5.fused_wavedec2d_applicable(24, 20, 4, 2, f64)
     assert not t5.fused_wavedec2d_applicable(24, 20, 4, 3, f64)  # 20 does not halve 3 times
     assert not t5.fused_wavedec2d_applicable(64, 64, 8, 0, f32)
