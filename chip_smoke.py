@@ -1927,7 +1927,8 @@ K5_SWEEP = (
     ("analysis tiles 8 x 512", {"_TILE_ROWS": 8}),
     ("analysis tiles 16 x 256", {"_TILE_COLS": 256}),
     ("analysis target 112 KB", {"_SMEM_TARGET": 112 * 1024}),
-    ("synthesis tiles 32 x 128", {"_SYN_ROWS": 32, "_SYN_COLS": 128}),
+    ("synthesis tiles 16 x 256", {"_SYN_ROWS": 16}),
+    ("synthesis tiles 24 x 256", {"_SYN_ROWS": 24}),
     ("synthesis tiles 64 x 64", {"_SYN_ROWS": 64, "_SYN_COLS": 64}),
     ("synthesis target 56 KB", {"_SYN_SMEM_TARGET": 56 * 1024}),
     ("synthesis target 112 KB", {"_SYN_SMEM_TARGET": 112 * 1024}),

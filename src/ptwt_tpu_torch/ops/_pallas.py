@@ -15,7 +15,7 @@ is needed:
   each level as a column pass then a row pass, writing every ``lh``/
   ``hl``/``hh`` position it owns once and ``ll`` at the run's last level;
   a K5b block owns a tile of the run's finest output.  Tiles are wide (at
-  most 16 x 512 level-0 positions; K5b 16 x 256 outputs), and a K5a grid is persistent, staging
+  most 16 x 512 level-0 positions; K5b 22 x 256 outputs), and a K5a grid is persistent, staging
   the next tile during the current one.  For a batch of at least
   :data:`_WHOLE_MIN_IMAGES` images that fit a block, one block holds a
   whole image and runs the levels with no halo (the JAX package's K5
@@ -204,8 +204,10 @@ MAX_TILED_DEPTH = 4
 _TILE_ROWS, _TILE_COLS = 16, 512
 #: Most an analysis cone may read, over its tile's own input.
 _MAX_CONE_READ = 2.0
-#: Most output rows and columns of a synthesis tile.
-_SYN_ROWS, _SYN_COLS = 16, 256
+#: Most output rows and columns of a synthesis tile: its column pass
+#: computes four output-row pairs an item, and 22 rows (8 k - 2) fill
+#: three items per column whatever the parity of the tile's first row.
+_SYN_ROWS, _SYN_COLS = 22, 256
 #: Shared memory one block may use on the H100 (bytes).
 _SMEM_LIMIT = 232448
 #: A tiled block within this (both staging buffers included) leaves room
