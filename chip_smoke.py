@@ -1920,13 +1920,15 @@ def k5_times() -> dict:
 #: Plan settings the K5 sweep times (module constants of ops/_pallas.py).
 K5_SWEEP = (
     ("default", {}),
-    ("no analysis prefetch (one block per tile)", {"_PREFETCH": False}),
-    ("synthesis prefetch (a persistent grid)", {"_SYN_PREFETCH": True}),
+    ("tiles staged ahead (a persistent grid)", {"_PREFETCH_TILES": True}),
+    ("tiled runs up to depth 4", {"_TILED_DEPTH": 4}),
+    ("tiled runs up to depth 4, staged ahead", {"_TILED_DEPTH": 4, "_PREFETCH_TILES": True}),
     ("no whole images", {"_WHOLE_MIN_IMAGES": 1 << 30}),
-    ("cone read 3.0 (depth-2 runs)", {"_MAX_CONE_READ": 3.0}),
+    ("tiled runs up to depth 4, cone read 3.0", {"_TILED_DEPTH": 4, "_MAX_CONE_READ": 3.0}),
     ("analysis tiles 8 x 512", {"_TILE_ROWS": 8}),
     ("analysis tiles 16 x 256", {"_TILE_COLS": 256}),
     ("analysis target 112 KB", {"_SMEM_TARGET": 112 * 1024}),
+    ("tiled runs up to depth 4, analysis target 112 KB", {"_TILED_DEPTH": 4, "_SMEM_TARGET": 112 * 1024}),
     ("synthesis tiles 16 x 256", {"_SYN_ROWS": 16}),
     ("synthesis tiles 24 x 256", {"_SYN_ROWS": 24}),
     ("synthesis tiles 64 x 64", {"_SYN_ROWS": 64, "_SYN_COLS": 64}),

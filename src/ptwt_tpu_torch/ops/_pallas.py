@@ -15,11 +15,12 @@ is needed:
   each level as a column pass then a row pass, writing every ``lh``/
   ``hl``/``hh`` position it owns once and ``ll`` at the run's last level;
   a K5b block owns a tile of the run's finest output.  Tiles are wide (at
-  most 16 x 512 level-0 positions; K5b 22 x 256 outputs), and a K5a grid is persistent, staging
-  the next tile during the current one.  For a batch of at least
+  most 16 x 512 level-0 positions; K5b 22 x 256 outputs) and one level
+  deep, one block each.  For a batch of at least
   :data:`_WHOLE_MIN_IMAGES` images that fit a block, one block holds a
   whole image and runs the levels with no halo (the JAX package's K5
-  design, for small images).  :func:`_pyramid2d_runs` picks each run's
+  design, for small images), on a persistent grid that stages the next
+  image during the current one.  :func:`_pyramid2d_runs` picks each run's
   depth and tile from the filter length, the item size and the image
   size.  Each band has a tensor of its own: the JAX package's quadrant
   layout and its concat cascade are TPU artifacts with no counterpart
@@ -199,6 +200,10 @@ def fused_waverec1d_per(coeffs, rec_lo, rec_hi) -> torch.Tensor:
 MAX_PYRAMID2D_DEPTH = 8
 #: Deepest run of a tiled launch (``PYR2D_MAX_TILED_DEPTH``).
 MAX_TILED_DEPTH = 4
+#: Deepest tiled run the plan takes: on the card, depth-2 to depth-4 runs
+#: were slower than depth-1 runs at every configuration swept
+#: (``chip_smoke.py --k5-sweep``).
+_TILED_DEPTH = 1
 #: Most level-0 rows and columns of an analysis tile (``th << D``, ``tw
 #: << D``): wide tiles read long row segments.
 _TILE_ROWS, _TILE_COLS = 16, 512
@@ -210,10 +215,9 @@ _MAX_CONE_READ = 2.0
 _SYN_ROWS, _SYN_COLS = 22, 256
 #: Shared memory one block may use on the H100 (bytes).
 _SMEM_LIMIT = 232448
-#: A tiled block within this (both staging buffers included) leaves room
-#: for three on an SM (228 KB, 1 KB of it reserved per block); the plan
-#: takes the deepest run within it first, and the limit only where no
-#: depth fits.
+#: A tiled block within this leaves room for three on an SM (228 KB, 1 KB
+#: of it reserved per block); the plan takes the deepest run within it
+#: first, and the limit only where no depth fits.
 _SMEM_TARGET = 75 * 1024
 #: The same for a synthesis block.
 _SYN_SMEM_TARGET = 75 * 1024
@@ -221,9 +225,10 @@ _SYN_SMEM_TARGET = 75 * 1024
 #: least this many images (a whole image's block is alone on its SM, so
 #: fewer images leave SMs idle); else tiles first.
 _WHOLE_MIN_IMAGES = 128
-#: Stage the next tile during the current one (a persistent grid): K5a,
-#: K5b.
-_PREFETCH, _SYN_PREFETCH = True, False
+#: Stage the next tile during the current one on a persistent grid: for
+#: whole images (one block an SM) where two buffers fit; tiles run one
+#: block each, more blocks in flight being faster on the card.
+_PREFETCH_TILES = False
 #: Rows and columns past a synthesis tile's band range (``PYR2D_SLACK``).
 _SLACK = 4
 
@@ -306,10 +311,10 @@ def _halvings(n: int):
         n >>= 1
 
 
-def _staged(limit: int, prefetch: bool) -> int:
-    """Staging buffers a tile is sized for: two within a target (the next
-    tile in flight, where ``prefetch``), one at the limit."""
-    return 2 if prefetch and limit < _SMEM_LIMIT else 1
+def _staged(limit: int) -> int:
+    """Staging buffers a tile is sized for: two within a target where
+    tiles stage ahead (:data:`_PREFETCH_TILES`), else one."""
+    return 2 if _PREFETCH_TILES and limit < _SMEM_LIMIT else 1
 
 
 def _analysis_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int, limit: int, cap):
@@ -330,7 +335,7 @@ def _analysis_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int, lim
                 th, tw = min(rows, h >> depth), min(cols, w >> depth)
                 reads = _cone_at(th, h, le, False, depth, 0) * _cone_at(tw, w, le, False, depth, 0)
                 a, b = _analysis_need(depth, h, w, th, tw, False, filt_len, itemsize)
-                if (_staged(limit, _PREFETCH) * a + b) * itemsize <= limit and (
+                if (_staged(limit) * a + b) * itemsize <= limit and (
                     cap is None or reads <= cap * (th << depth) * (tw << depth)
                 ):
                     return th, tw
@@ -347,7 +352,7 @@ def _synthesis_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int):
             for rows in _halvings(_SYN_ROWS):
                 th, tw = min(rows, h), min(cols, w)
                 a, b = _synthesis_need(depth, h, w, th, tw, False, filt_len, itemsize)
-                if (_staged(limit, _SYN_PREFETCH) * a + b) * itemsize <= limit:
+                if (_staged(limit) * a + b) * itemsize <= limit:
                     return th, tw
     return None
 
@@ -370,7 +375,7 @@ def _bufs(a: int, b: int, itemsize: int, prefetch: bool) -> int:
 def _capped_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int):
     """The analysis tile of a capped tiled run: within the target, else the
     limit; None where no tile of this depth reads within the cap."""
-    if depth > MAX_TILED_DEPTH or _synthesis_tile(h, w, filt_len, depth, itemsize) is None:
+    if depth > _TILED_DEPTH or _synthesis_tile(h, w, filt_len, depth, itemsize) is None:
         return None
     for limit in (_SMEM_TARGET, _SMEM_LIMIT):
         tile = _analysis_tile(h, w, filt_len, depth, itemsize, limit, _MAX_CONE_READ)
@@ -414,7 +419,7 @@ def _next_depth(h: int, w: int, filt_len: int, level: int, itemsize: int, many: 
     if many and _whole_fits(h, w, filt_len, deepest, itemsize):
         return deepest
     for limit in (_SMEM_TARGET, _SMEM_LIMIT):
-        for depth in range(min(level, MAX_TILED_DEPTH), 0, -1):
+        for depth in range(min(level, _TILED_DEPTH), 0, -1):
             if _synthesis_tile(h, w, filt_len, depth, itemsize) is None:
                 continue
             if _analysis_tile(h, w, filt_len, depth, itemsize, limit, _MAX_CONE_READ) is not None:
@@ -469,7 +474,7 @@ def _analysis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int, man
     buf_a, buf_b = _analysis_need(depth, h, w, th, tw, whole, filt_len, itemsize)
     tiles_h = -(-(h >> depth) // th)
     tiles_w = -(-(w >> depth) // tw)
-    bufs = _bufs(buf_a, buf_b, itemsize, _PREFETCH)
+    bufs = _bufs(buf_a, buf_b, itemsize, whole or _PREFETCH_TILES)
     ints = (depth, h, w, th, tw, tiles_h, tiles_w, int(whole), filt_len // 2 - 1, buf_a, buf_b, bufs)
     return ints, (bufs * buf_a + buf_b) * itemsize
 
@@ -489,7 +494,7 @@ def _synthesis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int, ma
     whole = mode[0]
     th, tw = (h, w) if whole else _synthesis_tile(h, w, filt_len, depth, itemsize)
     buf_a, buf_b = _synthesis_need(depth, h, w, th, tw, whole, filt_len, itemsize)
-    bufs = _bufs(buf_a, buf_b, itemsize, _SYN_PREFETCH)
+    bufs = _bufs(buf_a, buf_b, itemsize, whole or _PREFETCH_TILES)
     ints = (depth, h, w, th, tw, -(-h // th), -(-w // tw), int(whole), filt_len // 2 - 1, buf_a, buf_b, bufs)
     return ints, (bufs * buf_a + buf_b) * itemsize
 
