@@ -647,7 +647,9 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     """Median device time of one call, by CUDA events.
 
     A sleep kernel ahead of each timed call keeps the device busy while
-    the host prepares the call, so the events bracket device work only.
+    the host prepares the call, so the events bracket device work only;
+    it lasts some 10 ms, longer than a loaded host takes to enqueue a
+    backward of several launches through the autograd engine.
     """
     for _ in range(warmup):
         fn()
@@ -656,7 +658,7 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(20_000_000)
         start.record()
         fn()
         end.record()
