@@ -122,8 +122,8 @@ Phases, each raising (non-zero exit) on failure:
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
-once and its bands written once, beside one whole pyramid's; the cone
-re-reads on top), the VJP of every pyramid kernel (K5a-K8b) as the
+once and its bands written once; one whole pyramid's bound and the cone
+re-reads go to the log), the VJP of every pyramid kernel (K5a-K8b) as the
 autograd backward runs it beside autograd through the plain version (and
 the K7/K8 VJP launches called directly), and the 2d periodization round
 trips in Mpix/s.
@@ -137,11 +137,10 @@ tile sizes; and in the same way (``--axis-times``) every K3/K4 launch and
 VJP at the reflect level 1 and the periodic level 2, the gathers, and the
 reflect round trip's and step's device time; and (``--k5-times``) K5a,
 K5b, both VJP instances and the per-level K1/K2 route at both 2d
-periodization configurations, with the periodization round trip's and
-step's device busy time; and adds them to the kernels line as
-``in_turns``.  ``python3 chip_smoke.py --k5-sweep`` times K5a/K5b at both
-configurations under each plan setting of ``K5_SWEEP`` and prints them as
-one JSON line.
+periodization configurations and at ``K5_SMALL_BATCHES``, with the
+periodization round trip's and step's launches (counted by the wrappers),
+device busy time and wall time; and adds them to the kernels line as
+``in_turns``.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (fourteen kernels,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
@@ -262,6 +261,10 @@ BATCH_F64_2D = 2
 KERNELS_K5 = ("K5a", "K5b")
 # K5's ragged tiles (not a power of two) and a long bank on a small image
 K5_EXTRA = (((2, 96, 160), 5, WAVELET), ((1, 24, 20), 2, LONG_WAVELET))
+#: Small batches of images that fit one K5 block, timed in turns beside
+#: ``PER_2D``: the model of ``examples/network_compression.py`` (one
+#: ``[64, 128]`` image, db3, 3 levels) and 16 crops.
+K5_SMALL_BATCHES = (("example", (1, 64, 128), 3, "db3"), ("batch 16", (16, 128, 128), 3, WAVELET))
 # the tensor-core level (opt-in): TF32 tensor-core peak (NVIDIA data sheet,
 # dense, at 700 W), three products per multiply-add for the 3xTF32 split
 KERNELS_K9 = ("K9a", "K9b")
@@ -1138,19 +1141,19 @@ class GainModel(torch.nn.Module):
     """An image and per-level, per-orientation gains on its details:
     ``waverec2((cA, g[l] * details_l))`` of ``wavedec2(u)``."""
 
-    def __init__(self, mode: str, shape=None, level=None):
+    def __init__(self, mode: str, shape=None, level=None, wavelet: str = WAVELET):
         super().__init__()
-        self.mode, self.level = mode, level or LEVEL
+        self.mode, self.level, self.wavelet = mode, level or LEVEL, wavelet
         self.u = torch.nn.Parameter(randn(shape or SHAPE, torch.float32, SEED + 40))
         self.g = torch.nn.Parameter(torch.ones(self.level, 3, device=DEVICE))
 
     def forward(self):
-        coeffs = ptwt.wavedec2(self.u, WAVELET, mode=self.mode, level=self.level)
+        coeffs = ptwt.wavedec2(self.u, self.wavelet, mode=self.mode, level=self.level)
         details = coeffs[1:]
         scaled = [
             tuple(self.g[lev, o] * d for o, d in enumerate(t)) for lev, t in enumerate(details)
         ]
-        return ptwt.waverec2((coeffs[0], *scaled), WAVELET, mode=self.mode), details
+        return ptwt.waverec2((coeffs[0], *scaled), self.wavelet, mode=self.mode), details
 
 
 class GainModel1d(torch.nn.Module):
@@ -1634,7 +1637,7 @@ def k5_runs(shape, level: int, filt_len: int, dtype):
     """The K5 plan's runs for ``[b, h, w]``, or None where it declines."""
     if not _pallas.fused_wavedec2d_applicable(shape[-2], shape[-1], filt_len, level, dtype):
         return None
-    return _pallas._plan_runs(shape[-2], shape[-1], filt_len, level, dtype, shape[0])
+    return _pallas._plan_runs(shape[-2], shape[-1], filt_len, level, dtype)
 
 
 def check_k5_case(errors: dict, shape, level: int, wavelet: str, dtype, seed: int) -> None:
@@ -1801,7 +1804,8 @@ def time_k5() -> dict:
         ana["reread_bytes"], syn["reread_bytes"] = plan["K5a_reread_bytes"], plan["K5b_reread_bytes"]
         for row in (ana, syn):
             # the bound of the plan run (each run's input read once, its
-            # bands written once), beside that of one whole pyramid
+            # bands written once); that of one whole pyramid and the cone
+            # re-reads go to the log only
             row["pyramid_bound_ms"] = bound(row["bytes"], row["flops"])[0]
             row["bytes"] = plan["bytes"]
             row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
@@ -1826,18 +1830,17 @@ def k5_plan_cost(shape, level: int, filt_len: int, size: int) -> dict:
     input once and writes its bands once) and the cone re-reads on top
     (staged elements past each launch's input), for K5a and K5b."""
     b, h, w = shape
-    many = b >= _pallas._WHOLE_MIN_IMAGES
     out = {"bytes": 0, "K5a_reread_bytes": 0, "K5b_reread_bytes": 0}
-    for depth in _pallas._pyramid2d_runs(h, w, filt_len, level, size, many):
+    for depth in _pallas._pyramid2d_runs(h, w, filt_len, level, size):
         bands = (h >> depth) * (w >> depth) + 3 * sum((h >> lv) * (w >> lv) for lv in range(1, depth + 1))
         out["bytes"] += size * b * (h * w + bands)
-        whole, th, tw = _pallas._run_mode(h, w, filt_len, depth, size, many)
+        whole, th, tw = _pallas._run_mode(h, w, filt_len, depth, size)
         if not whole:
             le = filt_len + (filt_len & 1)
             cone = _pallas._cone_at(th, h, le, False, depth, 0) * _pallas._cone_at(tw, w, le, False, depth, 0)
             tiles = -(-(h >> depth) // th) * -(-(w >> depth) // tw)
             out["K5a_reread_bytes"] += size * b * (tiles * cone - h * w)
-            sth, stw = _pallas._synthesis_tile(h, w, filt_len, depth, size)
+            sth, stw = _pallas._synthesis_tile(h, w, filt_len, size)
             pad = filt_len // 2 - 1
 
             def spans(t, n, lv):
@@ -1857,16 +1860,18 @@ def k5_plan_cost(shape, level: int, filt_len: int, size: int) -> dict:
 
 def k5_times() -> dict:
     """Device ms of K5a, K5b and both VJP instances (as the autograd
-    backward runs them), the per-level K1/K2 route on the same pyramid, the
-    launches per round trip and step, and the device busy ms (profiler) of
-    the periodization round trip and training step, at both 2d
-    periodization configurations, float32: the rows phase 5 compares with
-    the parent tree in turns (entry points both trees have)."""
+    backward runs them), the per-level K1/K2 route on the same pyramid, and
+    the launches (counted by the wrappers), device busy ms (profiler) and
+    wall ms of one periodization round trip and one training step, at both
+    2d periodization configurations and at :data:`K5_SMALL_BATCHES`,
+    float32: the rows phase 5 compares with the parent tree in turns
+    (entry points both trees have)."""
     f32 = torch.float32
-    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
-    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
     out = {}
-    for i, (name, shape, level) in enumerate(PER_2D):
+    configs = [(name, shape, level, WAVELET) for name, shape, level in PER_2D] + list(K5_SMALL_BATCHES)
+    for i, (name, shape, level, wavelet) in enumerate(configs):
+        dl, dh, _, _ = get_filter_arrays(wavelet, flip=True, dtype=f32)
+        _, _, rl, rh = get_filter_arrays(wavelet, flip=False, dtype=f32)
         x = leaf(randn(shape, f32, SEED + 90 + i))
         xd = x.detach()
         coeffs = _pallas.fused_wavedec2d_per(xd, dl, dh, level)
@@ -1894,89 +1899,32 @@ def k5_times() -> dict:
 
         out[f"K1 x{level} {name}"] = time_ms(per_level_k1)
         out[f"K2 x{level} {name}"] = time_ms(per_level_k2)
-        runs = _pallas._pyramid2d_runs(shape[1], shape[2], len(dl), level, 4)
-        out[f"launches per round trip {name}"] = 2 * len(runs)
-        out[f"launches per step {name}"] = 4 * len(runs)
         del outs, cts, leaves, rec, ct
-        # device busy time of the round trip and of a training step
-        model = GainModel("periodization", shape, level)
+        model = GainModel("periodization", shape, level, wavelet)
         opt = optimizer(model)
         y = randn(shape, f32, SEED + 43 + i)
+
+        def round_trip():
+            return ptwt.waverec2(ptwt.wavedec2(xd, wavelet, mode="periodization", level=level), wavelet, mode="periodization")
 
         def step():
             opt.zero_grad(set_to_none=True)
             train_loss(model, y).backward()
             opt.step()
 
-        for label, run in (
-            ("round trip", lambda: ptwt.waverec2(ptwt.wavedec2(xd, WAVELET, mode="periodization", level=level), WAVELET, mode="periodization")),
-            ("step", step),
-        ):
+        for label, run in (("round trip", round_trip), ("step", step)):
+            run()
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            run()
+            torch.cuda.synchronize()
+            out[f"launches per {label} {name}"] = sum(_kernels.LAUNCHES.values())
+            out[f"{label} wall ms {name}"] = wall_ms(run)
             prof = profile(run, f"periodization {name} {label}", top=6)
             out[f"{label} busy ms {name}"] = sum(ms for ms, _, _ in prof)
             out[f"{label} K5 ms {name}"] = sum(ms for ms, _, key in prof if "pyramid2d" in key)
         del x, xd, coeffs, model, opt, y
     return out
-
-
-#: Plan settings the K5 sweep times (module constants of ops/_pallas.py).
-K5_SWEEP = (
-    ("default", {}),
-    ("tiles staged ahead (a persistent grid)", {"_PREFETCH_TILES": True}),
-    ("tiled runs up to depth 4", {"_TILED_DEPTH": 4}),
-    ("tiled runs up to depth 4, staged ahead", {"_TILED_DEPTH": 4, "_PREFETCH_TILES": True}),
-    ("no whole images", {"_WHOLE_MIN_IMAGES": 1 << 30}),
-    ("tiled runs up to depth 4, cone read 3.0", {"_TILED_DEPTH": 4, "_MAX_CONE_READ": 3.0}),
-    ("analysis tiles 8 x 512", {"_TILE_ROWS": 8}),
-    ("analysis tiles 16 x 256", {"_TILE_COLS": 256}),
-    ("analysis target 112 KB", {"_SMEM_TARGET": 112 * 1024}),
-    ("tiled runs up to depth 4, analysis target 112 KB", {"_TILED_DEPTH": 4, "_SMEM_TARGET": 112 * 1024}),
-    ("synthesis tiles 16 x 256", {"_SYN_ROWS": 16}),
-    ("synthesis tiles 24 x 256", {"_SYN_ROWS": 24}),
-    ("synthesis tiles 64 x 64", {"_SYN_ROWS": 64, "_SYN_COLS": 64}),
-    ("synthesis target 56 KB", {"_SYN_SMEM_TARGET": 56 * 1024}),
-    ("synthesis target 112 KB", {"_SYN_SMEM_TARGET": 112 * 1024}),
-)
-
-
-def k5_sweep() -> dict:
-    """K5a and K5b (float32, db4) at both 2d periodization configurations
-    under each plan setting of :data:`K5_SWEEP`: ms, runs and each run's
-    mode and tiles."""
-    f32 = torch.float32
-    dl, dh, _, _ = get_filter_arrays(WAVELET, flip=True, dtype=f32)
-    _, _, rl, rh = get_filter_arrays(WAVELET, flip=False, dtype=f32)
-    cached = (_pallas._run_mode, _pallas._pyramid2d_runs, _pallas._analysis_plan, _pallas._synthesis_plan)
-    rows = {}
-    for label, knobs in K5_SWEEP:
-        saved = {k: getattr(_pallas, k) for k in knobs}
-        for k, v in knobs.items():
-            setattr(_pallas, k, v)
-        for fn in cached:
-            fn.cache_clear()
-        for i, (name, shape, level) in enumerate(PER_2D):
-            x = randn(shape, f32, SEED + 90 + i)
-            coeffs = _pallas.fused_wavedec2d_per(x, dl, dh, level)
-            b, h, w = shape
-            many = b >= _pallas._WHOLE_MIN_IMAGES
-            plans = []
-            for depth in _pallas._pyramid2d_runs(h, w, len(dl), level, 4, many):
-                plans.append([depth, _pallas._analysis_plan(h, w, len(dl), depth, 4, many),
-                              _pallas._synthesis_plan(h, w, len(dl), depth, 4, many)])
-                h, w = h >> depth, w >> depth
-            row = {
-                "K5a": time_ms(lambda: _pallas.fused_wavedec2d_per(x, dl, dh, level)),
-                "K5b": time_ms(lambda: _pallas.fused_waverec2d_per(coeffs, rl, rh)),
-                "plans": plans,
-            }
-            rows[f"{label} | {name}"] = row
-            log(f"  sweep {label} | {name}: K5a {row['K5a']!r} K5b {row['K5b']!r} plans {plans}")
-            del x, coeffs
-        for k, v in saved.items():
-            setattr(_pallas, k, v)
-        for fn in cached:
-            fn.cache_clear()
-    return rows
 
 
 def round_trips_per() -> None:
@@ -2662,8 +2610,6 @@ def main() -> int:
             "library_note": row["library_note"],
             "per_level_k1_k2_ms": row["per_level_ms"],
             "per_level_ms": row["per_level_ms"],
-            "pyramid_bound_ms": row["pyramid_bound_ms"],
-            "reread_bytes": row["reread_bytes"],
             "runs": row["runs"],
             "small": {
                 "shape": list(SMALL_SHAPE),
@@ -2673,14 +2619,13 @@ def main() -> int:
                 "per_level_k1_k2_ms": small["per_level_ms"],
                 "per_level_ms": small["per_level_ms"],
                 "bound_ms": small["bound_ms"],
-                "pyramid_bound_ms": small["pyramid_bound_ms"],
-                "reread_bytes": small["reread_bytes"],
                 "vjp_ms": small["vjp_ms"],
                 "vjp_bound_ms": small["bound_ms"],
                 "runs": small["runs"],
             },
             "in_turns": {k: v for k, v in turns_k5.items() if k.startswith(name) or " busy " in k or " K5 ms " in k
-                         or k.startswith("K1 x" if name == "K5a" else "K2 x") or k.startswith("launches")},
+                         or " wall ms " in k or k.startswith("K1 x" if name == "K5a" else "K2 x")
+                         or k.startswith("launches")},
             "vjp_kernel": vjp_kernel[name],
             "vjp_launches": per_back[vjp_kernel[name]],
             "vjp_max_abs_err": errors_k5[f"{name} VJP"][torch.float32]["abs"],
@@ -2799,8 +2744,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times),
-                        ("--k5-times", k5_times), ("--k5-sweep", k5_sweep)):
+    for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times)):
         if flag in sys.argv:
             if not torch.cuda.is_available():
                 sys.exit("chip_smoke: CUDA is not available")

@@ -29,7 +29,7 @@
 // shared reads with one output per thread, and a branch on the wrap inside
 // every tap loop.  Here:
 //
-// * Every kernel is an instance of its run's depth D (1-4 for tiles, 1-8
+// * Every kernel is an instance of its run's depth D (1 for tiles, 1-8
 //   for a whole image), and every level loop is unrolled over it: the cone
 //   bounds, strides and band pointers of each level are registers and
 //   static indices (ptxas: 0-byte stack frames).
@@ -63,11 +63,12 @@
 //   every step is staged at once, one cp.async group (no serial loads, no
 //   barrier per band).  The last step's outputs go through shared memory
 //   and out with the lanes along each row.
-// * The grid: one block per tile, or (plan.bufs == 2) a persistent grid
-//   whose blocks stage their next tile while the current one runs.
-// * Whole image: for a batch of many small images, or where no tile suits
-//   a long filter, one block holds the whole image (no halo) and reads it
-//   modulo inside shared memory.
+// * The grid: one block per tile, or for whole images (plan.bufs == 2) a
+//   persistent grid whose blocks stage their next image while the current
+//   one runs.
+// * Whole image: where an image fits a block, one block holds it (no halo),
+//   reads it modulo inside shared memory and runs up to PYR2D_MAX_DEPTH
+//   levels, on a persistent grid; else a run is one level of tiles.
 //
 // The plan (ops/_pallas.py) picks each run's depth and tile; the
 // shared-memory layouts below are computed alike there and here, and each
@@ -77,18 +78,16 @@
 #include "common.cuh"
 
 #define PYR2D_MAX_DEPTH 8
-#define PYR2D_MAX_TILED_DEPTH 4
+#define PYR2D_MAX_TILED_DEPTH 1
 #define PYR2D_SMEM_LIMIT 232448
 // Threads of a block: 256 for tiles; a whole image's block is alone on its
 // SM and takes 1024 threads up to depth 4 in float32 (64 registers a
 // thread), 512 deeper or in float64, 256 in float64 past depth 4.  Blocks
-// an SM should hold by registers: four tiles in float32 (two for the
-// synthesis past depth 2), two in float64.  Every instance then needs no
-// stack (ptxas -v).
+// an SM should hold by registers: four tiles in float32, two in float64.
+// Every instance then needs no stack (ptxas -v).
 #define PYR2D_THREADS(T, Whole, D) \
   ((Whole) ? (sizeof(T) == 8 ? ((D) > 4 ? 256 : 512) : ((D) > 4 ? 512 : 1024)) : 256)
-#define PYR2D_MIN_BLOCKS(T, Whole, D, Syn) \
-  ((Whole) ? 1 : (sizeof(T) == 8 ? 2 : ((Syn) && (D) > 2 ? 2 : 4)))
+#define PYR2D_MIN_BLOCKS(T, Whole) ((Whole) ? 1 : (sizeof(T) == 8 ? 2 : 4))
 // rows and columns past a synthesis tile's band range that its last
 // window group reads (outputs it discards)
 #define PYR2D_SLACK 4
@@ -561,11 +560,14 @@ __device__ __forceinline__ void analysis_levels(T* A, T* B, const Pyramid2dOut<T
 #undef SW
 #undef PYR2D_TILE
 
-// A persistent grid: each block walks the tiles blockIdx.x, + gridDim.x,
-// ...; with two cone buffers (plan.bufs == 2) the next tile's cone is in
-// flight while the current one runs its levels.
+// One block per tile; whole images on a grid whose blocks walk the
+// images blockIdx.x, + gridDim.x, ...: one block per image (plan.bufs ==
+// 1), or a persistent grid with two cone buffers (plan.bufs == 2), the
+// next image's cone in flight while the current one runs its levels.  (A
+// tile's block compiles no loop: with one, ptxas scheduled the tiled K5b
+// instance slower on the card.)
 template <typename T, int D, bool Whole>
-__global__ void __launch_bounds__(PYR2D_THREADS(T, Whole, D), PYR2D_MIN_BLOCKS(T, Whole, D, false))
+__global__ void __launch_bounds__(PYR2D_THREADS(T, Whole, D), PYR2D_MIN_BLOCKS(T, Whole))
     pyramid2d_analysis_kernel(const T* __restrict__ x, const __grid_constant__ Pyramid2dOut<T> out,
                               const __grid_constant__ Taps<T> taps, int len,
                               const Pyramid2dPlan plan, int total) {
@@ -573,14 +575,21 @@ __global__ void __launch_bounds__(PYR2D_THREADS(T, Whole, D), PYR2D_MIN_BLOCKS(T
   T* const A0 = reinterpret_cast<T*>(smem_raw);
   T* const A1 = A0 + (plan.bufs - 1) * plan.buf_a;
   T* const B = A0 + plan.bufs * plan.buf_a;
+  if constexpr (!Whole) {  // one block per tile
+    analysis_stage<T, D, Whole>(A0, x, len, plan, blockIdx.x);
+    commit_async();
+    wait_async<0>();
+    __syncthreads();
+    analysis_levels<T, D, Whole>(A0, B, out, taps.lo, taps.hi, len, plan, blockIdx.x);
+    return;
+  }
   int64_t blk = blockIdx.x;  // tiles past 2^31 - 1 never start: total < 2^31
   if (blk < total) analysis_stage<T, D, Whole>(A0, x, len, plan, static_cast<int>(blk));
   commit_async();
   for (int k = 0; blk < total; ++k, blk += gridDim.x) {
     T* const cur = (k & 1) ? A1 : A0;
     const int64_t next = blk + gridDim.x;
-    const bool ahead = plan.bufs > 1 && next < total;
-    if (ahead) {
+    if (plan.bufs > 1 && next < total) {
       analysis_stage<T, D, Whole>((k & 1) ? A0 : A1, x, len, plan, static_cast<int>(next));
       commit_async();
       wait_async<1>();
@@ -590,10 +599,6 @@ __global__ void __launch_bounds__(PYR2D_THREADS(T, Whole, D), PYR2D_MIN_BLOCKS(T
     __syncthreads();
     analysis_levels<T, D, Whole>(cur, B, out, taps.lo, taps.hi, len, plan, static_cast<int>(blk));
     __syncthreads();
-    if (plan.bufs == 1 && next < total) {
-      analysis_stage<T, D, Whole>(A0, x, len, plan, static_cast<int>(next));
-      commit_async();
-    }
   }
 }
 
@@ -728,10 +733,11 @@ __device__ __forceinline__ void synthesis_steps(T* A, T* B, T* __restrict__ out,
 #undef RANGE
 #undef PYR2D_TILE
 
-// A persistent grid as K5a's: with two band buffers (plan.bufs == 2) the
-// next tile's bands are in flight while the current one runs its steps.
+// The grid as K5a's: one block per tile; whole images one block each, or
+// on a persistent grid with two band buffers (plan.bufs == 2), the next
+// image's bands in flight while the current one runs its steps.
 template <typename T, int D, bool Whole>
-__global__ void __launch_bounds__(PYR2D_THREADS(T, Whole, D), PYR2D_MIN_BLOCKS(T, Whole, D, true))
+__global__ void __launch_bounds__(PYR2D_THREADS(T, Whole, D), PYR2D_MIN_BLOCKS(T, Whole))
     pyramid2d_synthesis_kernel(const __grid_constant__ Pyramid2dIn<T> in, T* __restrict__ out,
                                const __grid_constant__ Taps<T> taps, int len,
                                const Pyramid2dPlan plan, int total) {
@@ -739,14 +745,21 @@ __global__ void __launch_bounds__(PYR2D_THREADS(T, Whole, D), PYR2D_MIN_BLOCKS(T
   T* const A0 = reinterpret_cast<T*>(smem_raw);
   T* const A1 = A0 + (plan.bufs - 1) * plan.buf_a;
   T* const B = A0 + plan.bufs * plan.buf_a;
+  if constexpr (!Whole) {  // one block per tile
+    synthesis_stage<T, D, Whole>(A0, in, len, plan, blockIdx.x);
+    commit_async();
+    wait_async<0>();
+    __syncthreads();
+    synthesis_steps<T, D, Whole>(A0, B, out, taps.lo, taps.hi, len, plan, blockIdx.x);
+    return;
+  }
   int64_t blk = blockIdx.x;  // tiles past 2^31 - 1 never start: total < 2^31
   if (blk < total) synthesis_stage<T, D, Whole>(A0, in, len, plan, static_cast<int>(blk));
   commit_async();
   for (int k = 0; blk < total; ++k, blk += gridDim.x) {
     T* const cur = (k & 1) ? A1 : A0;
     const int64_t next = blk + gridDim.x;
-    const bool ahead = plan.bufs > 1 && next < total;
-    if (ahead) {
+    if (plan.bufs > 1 && next < total) {
       synthesis_stage<T, D, Whole>((k & 1) ? A0 : A1, in, len, plan, static_cast<int>(next));
       commit_async();
       wait_async<1>();
@@ -756,10 +769,6 @@ __global__ void __launch_bounds__(PYR2D_THREADS(T, Whole, D), PYR2D_MIN_BLOCKS(T
     __syncthreads();
     synthesis_steps<T, D, Whole>(cur, B, out, taps.lo, taps.hi, len, plan, static_cast<int>(blk));
     __syncthreads();
-    if (plan.bufs == 1 && next < total) {
-      synthesis_stage<T, D, Whole>(A0, in, len, plan, static_cast<int>(next));
-      commit_async();
-    }
   }
 }
 
@@ -772,7 +781,7 @@ static bool plan_ok(const Pyramid2dPlan& p, int len, long long batch, bool synth
       p.tw < 1 || p.tiles_h < 1 || p.tiles_w < 1 || len < 2 || len > PTWT_MAX_TAPS ||
       batch < 1 || p.pad != len / 2 - 1 || p.whole < 0 || p.whole > 1 || p.bufs < 1 || p.bufs > 2)
     return false;
-  if (!p.whole && p.depth > PYR2D_MAX_TILED_DEPTH) return false;
+  if (!p.whole && (p.depth > PYR2D_MAX_TILED_DEPTH || p.bufs != 1)) return false;
   if (p.h % (1 << p.depth) || p.w % (1 << p.depth)) return false;
   // the extent the tiles cover: the deepest band (analysis), the output (synthesis)
   const int eh = synthesis ? p.h : p.h >> p.depth;
@@ -860,7 +869,7 @@ static int launch_synthesis(const void* ll, const void* const* det, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance of a run: tiles at depth 1-4, a whole image at depth 1-8.
+// The instance of a run: tiles at depth 1, a whole image at depth 1-8.
 template <typename T, bool Whole, bool Synthesis>
 static int launch_depth(const void* a, const void* const* det, void* b, const double* lo,
                         const double* hi, int len, long long batch, const Pyramid2dPlan& plan,
@@ -872,14 +881,14 @@ static int launch_depth(const void* a, const void* const* det, void* b, const do
                                                     len, batch, plan, smem, s);
   switch (plan.depth) {
     PYR2D_CASE(1)
-    PYR2D_CASE(2)
-    PYR2D_CASE(3)
-    PYR2D_CASE(4)
     default:
       break;
   }
   if constexpr (Whole) {
     switch (plan.depth) {
+      PYR2D_CASE(2)
+      PYR2D_CASE(3)
+      PYR2D_CASE(4)
       PYR2D_CASE(5)
       PYR2D_CASE(6)
       PYR2D_CASE(7)

@@ -14,13 +14,12 @@ is needed:
   owns a tile of the run's deepest band, stages its input cone and runs
   each level as a column pass then a row pass, writing every ``lh``/
   ``hl``/``hh`` position it owns once and ``ll`` at the run's last level;
-  a K5b block owns a tile of the run's finest output.  Tiles are wide (at
-  most 16 x 512 level-0 positions; K5b 22 x 256 outputs) and one level
-  deep, one block each.  For a batch of at least
-  :data:`_WHOLE_MIN_IMAGES` images that fit a block, one block holds a
-  whole image and runs the levels with no halo (the JAX package's K5
-  design, for small images), on a persistent grid that stages the next
-  image during the current one.  :func:`_pyramid2d_runs` picks each run's
+  a K5b block owns a tile of the run's finest output.  Where an image fits
+  a block, one block holds the whole image and runs the levels with no
+  halo (the JAX package's K5 design, for small images), on a persistent
+  grid that stages the next image during the current one; else a run is
+  one level of wide tiles (at most 16 x 512 level-0 positions; K5b 22 x
+  256 outputs), one block each.  :func:`_pyramid2d_runs` picks each run's
   depth and tile from the filter length, the item size and the image
   size.  Each band has a tensor of its own: the JAX package's quadrant
   layout and its concat cascade are TPU artifacts with no counterpart
@@ -196,16 +195,15 @@ def fused_waverec1d_per(coeffs, rec_lo, rec_hi) -> torch.Tensor:
 # K5: the 2d pyramid -- plan
 # ---------------------------------------------------------------------------
 
-#: Deepest run of one launch (``PYR2D_MAX_DEPTH`` of ``csrc/pyramid2d.cu``).
+#: Deepest run of one launch (``PYR2D_MAX_DEPTH`` of ``csrc/pyramid2d.cu``):
+#: a whole image.
 MAX_PYRAMID2D_DEPTH = 8
-#: Deepest run of a tiled launch (``PYR2D_MAX_TILED_DEPTH``).
-MAX_TILED_DEPTH = 4
-#: Deepest tiled run the plan takes: on the card, depth-2 to depth-4 runs
-#: were slower than depth-1 runs at every configuration swept
-#: (``chip_smoke.py --k5-sweep``).
-_TILED_DEPTH = 1
-#: Most level-0 rows and columns of an analysis tile (``th << D``, ``tw
-#: << D``): wide tiles read long row segments.
+#: Deepest run of a tiled launch (``PYR2D_MAX_TILED_DEPTH``): on the card,
+#: tiled runs of depth 2-4 were slower than depth-1 runs at every
+#: configuration swept.
+MAX_TILED_DEPTH = 1
+#: Most level-0 rows and columns of an analysis tile (``2 th``, ``2 tw``):
+#: wide tiles read long row segments.
 _TILE_ROWS, _TILE_COLS = 16, 512
 #: Most an analysis cone may read, over its tile's own input.
 _MAX_CONE_READ = 2.0
@@ -216,19 +214,11 @@ _SYN_ROWS, _SYN_COLS = 22, 256
 #: Shared memory one block may use on the H100 (bytes).
 _SMEM_LIMIT = 232448
 #: A tiled block within this leaves room for three on an SM (228 KB, 1 KB
-#: of it reserved per block); the plan takes the deepest run within it
-#: first, and the limit only where no depth fits.
+#: of it reserved per block); the plan takes a tile within it first, and
+#: the limit only where none fits.
 _SMEM_TARGET = 75 * 1024
 #: The same for a synthesis block.
 _SYN_SMEM_TARGET = 75 * 1024
-#: Prefer one block per whole image where it fits and a launch has at
-#: least this many images (a whole image's block is alone on its SM, so
-#: fewer images leave SMs idle); else tiles first.
-_WHOLE_MIN_IMAGES = 128
-#: Stage the next tile during the current one on a persistent grid: for
-#: whole images (one block an SM) where two buffers fit; tiles run one
-#: block each, more blocks in flight being faster on the card.
-_PREFETCH_TILES = False
 #: Rows and columns past a synthesis tile's band range (``PYR2D_SLACK``).
 _SLACK = 4
 
@@ -311,48 +301,39 @@ def _halvings(n: int):
         n >>= 1
 
 
-def _staged(limit: int) -> int:
-    """Staging buffers a tile is sized for: two within a target where
-    tiles stage ahead (:data:`_PREFETCH_TILES`), else one."""
-    return 2 if _PREFETCH_TILES and limit < _SMEM_LIMIT else 1
+def _analysis_tile(h: int, w: int, filt_len: int, itemsize: int, limit: int, cap):
+    """``(th, tw)`` of a tiled (depth-1) K5a run, or None.
 
-
-def _analysis_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int, limit: int, cap):
-    """``(th, tw)`` of a tiled K5a run, or None.
-
-    A tile of ``th x tw`` level-``depth`` positions (at most
-    :data:`_TILE_ROWS` x :data:`_TILE_COLS` at level 0, clamped to the
-    band; up to :data:`_TILE_COLS` rows where no such tile suits) reads a
-    cone of :func:`_cone_at` samples per axis at level 0.  The widest, then
-    tallest tile whose buffers (:func:`_staged`) fit ``limit`` bytes and
-    whose cone reads at most ``cap`` times the tile's own input
-    (no cap where ``cap`` is None) is taken.
+    A tile of ``th x tw`` level-1 positions (at most :data:`_TILE_ROWS` x
+    :data:`_TILE_COLS` at level 0, clamped to the band; up to
+    :data:`_TILE_COLS` rows where no such tile suits) reads a cone of
+    :func:`_cone_at` samples per axis at level 0.  The widest, then
+    tallest tile whose buffers fit ``limit`` bytes and whose cone reads at
+    most ``cap`` times the tile's own input (no cap where ``cap`` is None)
+    is taken.
     """
     le = filt_len + (filt_len & 1)
     for most_rows in (_TILE_ROWS, _TILE_COLS):  # taller tiles where wide ones read too much
-        for cols in _halvings(max(_TILE_COLS >> depth, 1)):
-            for rows in _halvings(max(most_rows >> depth, 1)):
-                th, tw = min(rows, h >> depth), min(cols, w >> depth)
-                reads = _cone_at(th, h, le, False, depth, 0) * _cone_at(tw, w, le, False, depth, 0)
-                a, b = _analysis_need(depth, h, w, th, tw, False, filt_len, itemsize)
-                if (_staged(limit) * a + b) * itemsize <= limit and (
-                    cap is None or reads <= cap * (th << depth) * (tw << depth)
-                ):
+        for cols in _halvings(_TILE_COLS >> 1):
+            for rows in _halvings(most_rows >> 1):
+                th, tw = min(rows, h >> 1), min(cols, w >> 1)
+                reads = _cone_at(th, h, le, False, 1, 0) * _cone_at(tw, w, le, False, 1, 0)
+                a, b = _analysis_need(1, h, w, th, tw, False, filt_len, itemsize)
+                if (a + b) * itemsize <= limit and (cap is None or reads <= cap * 4 * th * tw):
                     return th, tw
     return None
 
 
-def _synthesis_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int):
-    """``(th, tw)`` of a tiled K5b run: the widest, then tallest of at
-    most :data:`_SYN_ROWS` x :data:`_SYN_COLS` outputs whose buffers
-    (:func:`_staged`) fit :data:`_SYN_SMEM_TARGET`, else the limit, or
-    None."""
+def _synthesis_tile(h: int, w: int, filt_len: int, itemsize: int):
+    """``(th, tw)`` of a tiled (depth-1) K5b run: the widest, then tallest
+    of at most :data:`_SYN_ROWS` x :data:`_SYN_COLS` outputs whose buffers
+    fit :data:`_SYN_SMEM_TARGET`, else the limit, or None."""
     for limit in (_SYN_SMEM_TARGET, _SMEM_LIMIT):
         for cols in _halvings(_SYN_COLS):
             for rows in _halvings(_SYN_ROWS):
                 th, tw = min(rows, h), min(cols, w)
-                a, b = _synthesis_need(depth, h, w, th, tw, False, filt_len, itemsize)
-                if (_staged(limit) * a + b) * itemsize <= limit:
+                a, b = _synthesis_need(1, h, w, th, tw, False, filt_len, itemsize)
+                if (a + b) * itemsize <= limit:
                     return th, tw
     return None
 
@@ -365,83 +346,56 @@ def _whole_fits(h: int, w: int, filt_len: int, depth: int, itemsize: int) -> boo
     return max(ana, syn) * itemsize <= _SMEM_LIMIT
 
 
-def _bufs(a: int, b: int, itemsize: int, prefetch: bool) -> int:
-    """Staging buffers of a launch: two (a persistent grid, the next tile
-    staged during the current one) where ``prefetch`` and they fit a
-    block, else one (one block per tile)."""
-    return 2 if prefetch and (2 * a + b) * itemsize <= _SMEM_LIMIT else 1
-
-
-def _capped_tile(h: int, w: int, filt_len: int, depth: int, itemsize: int):
-    """The analysis tile of a capped tiled run: within the target, else the
-    limit; None where no tile of this depth reads within the cap."""
-    if depth > _TILED_DEPTH or _synthesis_tile(h, w, filt_len, depth, itemsize) is None:
-        return None
-    for limit in (_SMEM_TARGET, _SMEM_LIMIT):
-        tile = _analysis_tile(h, w, filt_len, depth, itemsize, limit, _MAX_CONE_READ)
-        if tile is not None:
-            return tile
-    return None
+def _bufs(a: int, b: int, itemsize: int, whole: bool) -> int:
+    """Staging buffers of a launch: two for whole images where they fit a
+    block (a persistent grid, the next image staged during the current
+    one), else one (one block per tile)."""
+    return 2 if whole and (2 * a + b) * itemsize <= _SMEM_LIMIT else 1
 
 
 @functools.lru_cache(maxsize=256)
-def _run_mode(h: int, w: int, filt_len: int, depth: int, itemsize: int, many: bool = True):
-    """How a run of ``depth`` levels of ``[h, w]`` images runs: ``(False,
-    th, tw)`` tiled (K5a's tile), ``(True, h >> depth, w >> depth)`` for a
-    whole image, or None.
+def _run_mode(h: int, w: int, filt_len: int, depth: int, itemsize: int):
+    """How a run of ``depth`` levels of ``[h, w]`` images runs: ``(True,
+    h >> depth, w >> depth)`` for a whole image, ``(False, th, tw)`` tiled
+    (K5a's tile), or None.
 
-    Tiles whose cone reads within :data:`_MAX_CONE_READ` come first (a
-    whole image first where the launch has ``many`` images, at least
-    :data:`_WHOLE_MIN_IMAGES`), then a whole image; and
-    where an image of ``2 h w`` elements fits a block but neither does, a
-    depth-1 tile with no cap on its cone (long filters on small images).
+    A whole image where it fits a block; else (depth 1 only) the tile
+    whose cone reads within :data:`_MAX_CONE_READ`, within the target,
+    then within the limit; and where an image of ``2 h w`` elements fits a
+    block but neither does, a tile with no cap on its cone (long filters
+    on small images).
     """
-    whole = depth <= MAX_PYRAMID2D_DEPTH and _whole_fits(h, w, filt_len, depth, itemsize)
-    if many and whole:
+    if depth <= MAX_PYRAMID2D_DEPTH and _whole_fits(h, w, filt_len, depth, itemsize):
         return True, h >> depth, w >> depth
-    tile = _capped_tile(h, w, filt_len, depth, itemsize)
-    if tile is not None:
-        return (False, *tile)
-    if whole:
-        return True, h >> depth, w >> depth
-    if depth == 1 and 2 * h * w * itemsize <= _SMEM_LIMIT and _synthesis_tile(h, w, filt_len, 1, itemsize):
-        tile = _analysis_tile(h, w, filt_len, 1, itemsize, _SMEM_LIMIT, None)
+    if depth > MAX_TILED_DEPTH or _synthesis_tile(h, w, filt_len, itemsize) is None:
+        return None
+    for limit in (_SMEM_TARGET, _SMEM_LIMIT):
+        tile = _analysis_tile(h, w, filt_len, itemsize, limit, _MAX_CONE_READ)
+        if tile is not None:
+            return (False, *tile)
+    if 2 * h * w * itemsize <= _SMEM_LIMIT:
+        tile = _analysis_tile(h, w, filt_len, itemsize, _SMEM_LIMIT, None)
         if tile is not None:
             return (False, *tile)
     return None
 
 
-def _next_depth(h: int, w: int, filt_len: int, level: int, itemsize: int, many: bool):
-    """Depth of the next run: a whole image where preferred and it fits,
-    else the deepest capped tile within the target, then within the limit,
-    then a whole image, then :func:`_run_mode`'s uncapped depth-1 tile."""
-    deepest = min(level, MAX_PYRAMID2D_DEPTH)
-    if many and _whole_fits(h, w, filt_len, deepest, itemsize):
-        return deepest
-    for limit in (_SMEM_TARGET, _SMEM_LIMIT):
-        for depth in range(min(level, _TILED_DEPTH), 0, -1):
-            if _synthesis_tile(h, w, filt_len, depth, itemsize) is None:
-                continue
-            if _analysis_tile(h, w, filt_len, depth, itemsize, limit, _MAX_CONE_READ) is not None:
-                return depth
-    if _whole_fits(h, w, filt_len, deepest, itemsize):
-        return deepest
-    return 1 if _run_mode(h, w, filt_len, 1, itemsize, many) is not None else None
-
-
 @functools.lru_cache(maxsize=256)
-def _pyramid2d_runs(h: int, w: int, filt_len: int, level: int, itemsize: int, many: bool = True):
+def _pyramid2d_runs(h: int, w: int, filt_len: int, level: int, itemsize: int):
     """Depths of the K5 launches of a ``level``-level pyramid of ``[h, w]``
     images, fine to coarse, or None where the plan does not hold it.
 
-    Every run must be planned (:func:`_next_depth`), or the pyramid is
-    declined.
+    Each run is a whole image, as deep as it goes, where it fits a block
+    (the JAX package's K5 design), else one tiled level; a level that
+    neither holds declines the pyramid.
     """
     runs = []
     while level > 0:
-        depth = _next_depth(h, w, filt_len, level, itemsize, many)
-        if depth is None or _run_mode(h, w, filt_len, depth, itemsize, many) is None:
-            return None
+        depth = min(level, MAX_PYRAMID2D_DEPTH)
+        if not _whole_fits(h, w, filt_len, depth, itemsize):
+            depth = 1
+            if _run_mode(h, w, filt_len, 1, itemsize) is None:
+                return None
         runs.append(depth)
         h, w, level = h >> depth, w >> depth, level - depth
     return tuple(runs)
@@ -458,7 +412,7 @@ def fused_wavedec2d_applicable(h: int, w: int, filt_len: int, level: int, dtype)
 
 
 @functools.lru_cache(maxsize=256)
-def _analysis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int, many: bool = True):
+def _analysis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int):
     """``(ints, smem_bytes)`` of one K5a launch on ``[h, w]`` images.
 
     ``ints`` is ``Pyramid2dPlan`` of ``csrc/pyramid2d.cu``: ``depth, h, w,
@@ -467,20 +421,20 @@ def _analysis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int, man
     positions ``[ty th 2^(D-l), (ty+1) th 2^(D-l))`` (clamped to the band)
     and the same along W, so every band position has one owner.
     """
-    mode = _run_mode(h, w, filt_len, depth, itemsize, many)
+    mode = _run_mode(h, w, filt_len, depth, itemsize)
     if mode is None:
         raise ValueError(f"no K5a tile holds {depth} levels of {filt_len} taps on [{h}, {w}]")
     whole, th, tw = mode
     buf_a, buf_b = _analysis_need(depth, h, w, th, tw, whole, filt_len, itemsize)
     tiles_h = -(-(h >> depth) // th)
     tiles_w = -(-(w >> depth) // tw)
-    bufs = _bufs(buf_a, buf_b, itemsize, whole or _PREFETCH_TILES)
+    bufs = _bufs(buf_a, buf_b, itemsize, whole)
     ints = (depth, h, w, th, tw, tiles_h, tiles_w, int(whole), filt_len // 2 - 1, buf_a, buf_b, bufs)
     return ints, (bufs * buf_a + buf_b) * itemsize
 
 
 @functools.lru_cache(maxsize=256)
-def _synthesis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int, many: bool = True):
+def _synthesis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int):
     """``(ints, smem_bytes)`` of one K5b launch writing ``[h, w]`` images.
 
     A tile owns ``th x tw`` outputs; step ``l`` reads its bands over
@@ -488,13 +442,13 @@ def _synthesis_plan(h: int, w: int, filt_len: int, depth: int, itemsize: int, ma
     + pad) / 2)`` per axis, at most ``n_l = (n_{l-1} + L - 1) // 2 + 1``
     positions.  The run is whole or tiled as its analysis run is.
     """
-    mode = _run_mode(h, w, filt_len, depth, itemsize, many)
+    mode = _run_mode(h, w, filt_len, depth, itemsize)
     if mode is None:
         raise ValueError(f"no K5b tile holds {depth} steps of {filt_len} taps on [{h}, {w}]")
     whole = mode[0]
-    th, tw = (h, w) if whole else _synthesis_tile(h, w, filt_len, depth, itemsize)
+    th, tw = (h, w) if whole else _synthesis_tile(h, w, filt_len, itemsize)
     buf_a, buf_b = _synthesis_need(depth, h, w, th, tw, whole, filt_len, itemsize)
-    bufs = _bufs(buf_a, buf_b, itemsize, whole or _PREFETCH_TILES)
+    bufs = _bufs(buf_a, buf_b, itemsize, whole)
     ints = (depth, h, w, th, tw, -(-h // th), -(-w // tw), int(whole), filt_len // 2 - 1, buf_a, buf_b, bufs)
     return ints, (bufs * buf_a + buf_b) * itemsize
 
@@ -536,7 +490,7 @@ def _analysis_run(kernel: str, x3: torch.Tensor, lo, hi, depth: int):
     ..., hh_D])``.  The launch counts as ``kernel``."""
     _kernels.check_tensor("x", x3, x3.dtype, x3.device)
     b, h, w = x3.shape
-    ints, smem = _analysis_plan(h, w, len(lo), depth, x3.element_size(), b >= _WHOLE_MIN_IMAGES)
+    ints, smem = _analysis_plan(h, w, len(lo), depth, x3.element_size())
     ll = x3.new_empty(b, h >> depth, w >> depth)
     details = [x3.new_empty(b, h >> lvl, w >> lvl) for lvl in range(1, depth + 1) for _ in range(3)]
     if b:
@@ -560,7 +514,7 @@ def _synthesis_run(kernel: str, ll: torch.Tensor, details: Sequence[torch.Tensor
         want = (b, h >> (i // 3 + 1), w >> (i // 3 + 1))
         if tuple(t.shape) != want:
             raise ValueError(f"a level-{i // 3 + 1} band has shape {tuple(t.shape)}, expected {want}")
-    ints, smem = _synthesis_plan(h, w, len(lo), depth, ll.element_size(), b >= _WHOLE_MIN_IMAGES)
+    ints, smem = _synthesis_plan(h, w, len(lo), depth, ll.element_size())
     out = ll.new_empty(b, h, w)
     if b:
         _kernels.launch(
@@ -606,13 +560,13 @@ class _Waverec2dRun(torch.autograd.Function):
         return (None, None, ll, *details)
 
 
-def _plan_runs(h: int, w: int, filt_len: int, level: int, dtype, images: int) -> tuple:
+def _plan_runs(h: int, w: int, filt_len: int, level: int, dtype) -> tuple:
     if not fused_wavedec2d_applicable(h, w, filt_len, level, dtype):
         raise ValueError(
             f"the K5 plan does not hold {level} levels of {filt_len} taps on [{h}, {w}] "
             f"{dtype}: gate with fused_wavedec2d_applicable"
         )
-    return _pyramid2d_runs(h, w, filt_len, level, _ITEMSIZE[dtype], images >= _WHOLE_MIN_IMAGES)
+    return _pyramid2d_runs(h, w, filt_len, level, _ITEMSIZE[dtype])
 
 
 def fused_wavedec2d_per(data: torch.Tensor, dec_lo, dec_hi, level: int) -> list:
@@ -623,8 +577,7 @@ def fused_wavedec2d_per(data: torch.Tensor, dec_lo, dec_hi, level: int) -> list:
     hi along H).  ``dec_lo``/``dec_hi`` are flipped.  Gate with
     :func:`fused_wavedec2d_applicable`.  A CPU tensor runs
     :func:`wavedec2d_per_plain`; a CUDA tensor runs K5a, one launch per
-    run of :func:`_pyramid2d_runs` (whole images first only for a batch of
-    at least :data:`_WHOLE_MIN_IMAGES`).
+    run of :func:`_pyramid2d_runs`.
     """
     if _on_cpu(data):
         return wavedec2d_per_plain(data, dec_lo, dec_hi, level)
@@ -634,7 +587,7 @@ def fused_wavedec2d_per(data: torch.Tensor, dec_lo, dec_hi, level: int) -> list:
     h, w = data.shape[-2:]
     cur = data.reshape(-1, h, w).contiguous()
     levels: list = []
-    for depth in _plan_runs(h, w, len(lo), level, data.dtype, cur.shape[0]):
+    for depth in _plan_runs(h, w, len(lo), level, data.dtype):
         cur, *details = _Wavedec2dRun.apply(cur, lo, hi, depth)
         levels.extend(tuple(details[3 * i : 3 * i + 3]) for i in range(depth))
 
@@ -664,7 +617,7 @@ def fused_waverec2d_per(coeffs, rec_lo, rec_hi) -> torch.Tensor:
 
     cur = flat(coeffs[0])
     fine = [coeffs[level - i] for i in range(level)]  # level 1 first
-    runs = _plan_runs(h, w, len(lo), level, coeffs[0].dtype, cur.shape[0])
+    runs = _plan_runs(h, w, len(lo), level, coeffs[0].dtype)
     start = level
     for depth in runs[::-1]:  # coarse to fine
         start -= depth

@@ -525,8 +525,8 @@ def test_cuda_1d_public_gradients_match_cpu(cuda_device, mode, level):
 # ---------------------------------------------------------------------------
 
 K5_SHAPES = [
-    (16, 1024, 1024, 4),  # the headline: two depth-2 runs of tiles
-    (3, 128, 128, 3),  # small images
+    (16, 1024, 1024, 4),  # the headline: three depth-1 runs of tiles, then a whole image
+    (3, 128, 128, 3),  # the whole image, one launch
     (2, 512, 256, 4),  # tiled runs
     (2, 96, 160, 5),  # not a power of two, ragged tiles
     (1, 24, 20, 2),  # coif17's 102 taps wrap these bands several times
@@ -545,7 +545,7 @@ def test_cuda_k5_matches_plain(cuda_device, dtype, wavelet, b, h, w, level):
     if not t5.fused_wavedec2d_applicable(h, w, len(dl), level, dtype):
         pytest.skip("the K5 plan declines this shape (the per-level route runs it)")
     x = torch.randn(b, h, w, dtype=dtype, device=cuda_device)
-    runs = len(t5._plan_runs(h, w, len(dl), level, dtype, b))
+    runs = len(t5._plan_runs(h, w, len(dl), level, dtype))
     _kernels.reset_launch_counts()
     got = t5.fused_wavedec2d_per(x, dl, dh, level)
     want = t5.wavedec2d_per_plain(x, dl, dh, level)
@@ -571,7 +571,7 @@ def test_cuda_k5_vjps_match_plain(cuda_device, dtype, wavelet, b, h, w, level):
     if not t5.fused_wavedec2d_applicable(h, w, len(dl), level, dtype):
         pytest.skip("the K5 plan declines this shape (the per-level route runs it)")
     x = torch.randn(b, h, w, dtype=dtype, device=cuda_device, requires_grad=True)
-    runs = len(t5._plan_runs(h, w, len(dl), level, dtype, b))
+    runs = len(t5._plan_runs(h, w, len(dl), level, dtype))
     bands = _flat2(t5.fused_wavedec2d_per(x, dl, dh, level))
     cts = [_randn_like(t, i) for i, t in enumerate(bands)]
     _kernels.reset_launch_counts()

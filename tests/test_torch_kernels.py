@@ -453,7 +453,7 @@ def _model_pyramid2d_analysis(x, ll_out, det, lo, hi, n_taps, batch, plan, smem,
     need = t6._analysis_need(depth, h, w, th, tw, whole, n_taps, itemsize)
     assert buf_a >= need[0] and buf_b >= need[1], "the launch's buffers are too small"
     assert bufs in (1, 2) and (bufs * buf_a + buf_b) * itemsize <= smem <= t6._SMEM_LIMIT, "the launch's shared memory is too small"
-    assert whole or depth <= t6.MAX_TILED_DEPTH
+    assert whole or (depth <= t6.MAX_TILED_DEPTH and bufs == 1)
     le = n_taps + (n_taps & 1)  # an odd bank's cone reads one zero tap more
     f = np.array([lo[:n_taps], hi[:n_taps]])
     taps = np.arange(n_taps)
@@ -483,6 +483,12 @@ def _model_pyramid2d_analysis(x, ll_out, det, lo, hi, n_taps, batch, plan, smem,
         for tx in range(tiles_w):
             sh, ch = cone(ty * th, th, h)
             sw, cw = cone(tx * tw, tw, w)
+            # the buffers hold this cone: A the staged input, then each
+            # level's four bands; B the H pass's two outputs of each level
+            assert ch[0] * cw[0] <= buf_a, "the staged cone overflows buffer A"
+            for lvl in range(1, depth + 1):
+                assert 4 * ch[lvl] * cw[lvl] <= buf_a, "a level's bands overflow buffer A"
+                assert 2 * ch[lvl] * cw[lvl - 1] <= buf_b, "a level's H pass overflows buffer B"
             rows, cols = (sh[0] + np.arange(ch[0])) % h, (sw[0] + np.arange(cw[0])) % w
             cur = xs[:, rows[:, None], cols[None, :]]
             for lvl in range(1, depth + 1):
@@ -517,7 +523,7 @@ def _model_pyramid2d_synthesis(ll_in, det, out, lo, hi, n_taps, batch, plan, sme
     need = t6._synthesis_need(depth, h, w, th, tw, whole, n_taps, itemsize)
     assert buf_a >= need[0] and buf_b >= need[1], "the launch's buffers are too small"
     assert bufs in (1, 2) and (bufs * buf_a + buf_b) * itemsize <= smem <= t6._SMEM_LIMIT, "the launch's shared memory is too small"
-    assert whole or depth <= t6.MAX_TILED_DEPTH
+    assert whole or (depth <= t6.MAX_TILED_DEPTH and bufs == 1)
     f = np.array([lo[:n_taps], hi[:n_taps]])
     taps = np.arange(n_taps)
     ll_d = ll_in.numpy().reshape(batch, h >> depth, w >> depth).astype(np.float64)
@@ -552,6 +558,15 @@ def _model_pyramid2d_synthesis(ll_in, det, out, lo, hi, n_taps, batch, plan, sme
             for lvl in range(1, depth + 1):  # within the buffers' bounds
                 assert nh[lvl] <= t6._span_at(th, h, n_taps, whole, lvl)
                 assert nw[lvl] <= t6._span_at(tw, w, n_taps, whole, lvl)
+            # the buffers hold these ranges: A every staged band, then the
+            # outputs; B a step's ll (below the top) beside its H pass's two
+            # outputs, and the ll it writes beside them
+            staged = nh[depth] * nw[depth] + 3 * sum(nh[lvl] * nw[lvl] for lvl in range(1, depth + 1))
+            assert staged <= buf_a and nh[0] * nw[0] <= buf_a, "the staged bands overflow buffer A"
+            for lvl in range(1, depth + 1):
+                low = 2 * nh[lvl - 1] * nw[lvl]
+                assert (nh[lvl] * nw[lvl] if lvl < depth else 0) + low <= buf_b, "a step overflows buffer B"
+                assert (nh[lvl - 1] * nw[lvl - 1] if lvl > 1 else 0) + low <= buf_b, "a step overflows buffer B"
 
             def load(band, lvl):
                 rows = (ch[lvl] + np.arange(nh[lvl])) % (h >> lvl)

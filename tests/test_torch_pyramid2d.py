@@ -77,8 +77,7 @@ def test_k5_matches_jax_kernel(route, wavelet, h, w, level):
     _close(rec, j5.fused_waverec2d_per(want, rl, rh), TOL32)
     _close(rec, x, 2e-5)
     if route is not None:
-        runs = len(t5._plan_runs(h, w, len(dl), level, torch.float32, 2))
-        assert route["K5a"] == route["K5b"] == runs and _used(route) == {"K5a", "K5b"}
+        assert route["K5a"] == route["K5b"] == 1 and _used(route) == {"K5a", "K5b"}
 
 
 def test_k5_band_order_is_subband_orders():
@@ -133,24 +132,19 @@ def test_k5_vjps_match_jax_kernel(model_kernels):  # noqa: F811
 # the public path: wavedec2 / waverec2 in periodization, float64
 # ---------------------------------------------------------------------------
 
-# (shape, wavelet, level, runs of the plan or None where it declines); a
-# batch this small takes tiles before whole images
+# (shape, wavelet, level, runs of the plan or None where it declines)
 PUBLIC = [
-    ((2, 64, 64), "db4", 3, (1, 1, 1)),  # depth-1 tiles
-    ((1, 24, 20), "db2", 2, (1, 1)),  # not a power of two
-    ((1, 128, 128), "db2", 4, (1, 1, 1, 1)),
-    ((1, 256, 160), "haar", 5, (1, 1, 1, 1, 1)),  # ragged tiles along W
+    ((2, 64, 64), "db4", 3, (3,)),  # the whole image in one launch
+    ((1, 24, 20), "db2", 2, (2,)),  # not a power of two
+    ((1, 128, 128), "db2", 4, (1, 3)),  # a tiled level, then the whole image
+    ((1, 256, 160), "haar", 5, (1, 4)),  # ragged tiles along W, then the whole image
     ((1, 128, 128), "coif17", 2, None),  # 102 taps: declined, level by level
 ]
 
 
 @pytest.mark.parametrize("shape,wavelet,level,runs", PUBLIC)
 def test_public_path_matches_jax(model_kernels, shape, wavelet, level, runs):  # noqa: F811
-    filt_len = len(_banks(wavelet)[0])
-    if runs is None:
-        assert not t5.fused_wavedec2d_applicable(*shape[1:], filt_len, level, torch.float64)
-    else:
-        assert t5._plan_runs(*shape[1:], filt_len, level, torch.float64, shape[0]) == runs
+    assert t5._pyramid2d_runs(*shape[1:], len(_banks(wavelet)[0]), level, 8) == runs
     x = np.random.RandomState(6).randn(*shape)
     want = jptwt.wavedec2(jnp.asarray(x), wavelet, mode="periodization", level=level)
     got = tptwt.wavedec2(torch.from_numpy(x), wavelet, mode="periodization", level=level)
@@ -170,8 +164,7 @@ def test_periodization_is_inferred_on_the_k5_route(model_kernels):  # noqa: F811
     x = torch.from_numpy(np.random.RandomState(7).randn(1, 64, 64))
     coeffs = tptwt.wavedec2(x, "db3", mode="periodization", level=3)
     _close(tptwt.waverec2(coeffs, "db3"), x.numpy(), 1e-10)
-    runs = t5._plan_runs(64, 64, 6, 3, torch.float64, 1)
-    assert model_kernels["K5a"] == model_kernels["K5b"] == len(runs)
+    assert model_kernels["K5a"] == model_kernels["K5b"] == 1
 
 
 def _public_loss(lib, x, wavelet, level, weights):
@@ -292,9 +285,9 @@ def test_gate():
     assert t5._analysis_plan(1024, 1024, 8, 1, 4)[0][3:5] == (4, 256)
     # db20: no tile within the target, the limit holds depth-1 runs
     assert t5._pyramid2d_runs(1024, 1024, 40, 4, 4) == (1, 1, 1, 1)
-    # small images: the whole image for a large batch, tiles for a small one
-    assert t5._plan_runs(128, 128, 8, 3, f32, 256) == (3,)
-    assert t5._plan_runs(128, 128, 8, 3, f32, 16) == (1, 1, 1)
+    # small images: the whole image, at any batch
+    assert t5._pyramid2d_runs(128, 128, 8, 3, 4) == (3,)
+    assert t5._plan_runs(128, 128, 8, 3, f32) == (3,)
     assert t5.fused_wavedec2d_applicable(24, 20, 4, 2, f64)
     assert not t5.fused_wavedec2d_applicable(24, 20, 4, 3, f64)  # 20 does not halve 3 times
     assert not t5.fused_wavedec2d_applicable(64, 64, 8, 0, f32)

@@ -119,7 +119,7 @@ def replay_analysis(x, ll_out, det, lo, hi, n_taps, batch, plan, smem_bytes, ite
     need = t5._analysis_need(depth, h, w, th, tw, whole, n_taps, itemsize)
     assert buf_a >= need[0] and buf_b >= need[1] and buf_a % 4 == 0
     assert bufs in (1, 2) and (bufs * buf_a + buf_b) * itemsize <= smem_bytes <= t5._SMEM_LIMIT
-    assert pad == n_taps // 2 - 1 and (whole or depth <= t5.MAX_TILED_DEPTH)
+    assert pad == n_taps // 2 - 1 and (whole or (depth <= t5.MAX_TILED_DEPTH and bufs == 1))
     stats = stats if stats is not None else {"vec": 0, "elem": 0}
     v = 16 // itemsize
     le = n_taps + (n_taps & 1)
@@ -215,7 +215,7 @@ def replay_synthesis(ll_in, det, out, lo, hi, n_taps, batch, plan, smem_bytes, i
     need = t5._synthesis_need(depth, h, w, th, tw, whole, n_taps, itemsize)
     assert buf_a >= need[0] and buf_b >= need[1] and buf_a % 4 == 0
     assert bufs in (1, 2) and (bufs * buf_a + buf_b) * itemsize <= smem_bytes <= t5._SMEM_LIMIT
-    assert pad == n_taps // 2 - 1 and (whole or depth <= t5.MAX_TILED_DEPTH)
+    assert pad == n_taps // 2 - 1 and (whole or (depth <= t5.MAX_TILED_DEPTH and bufs == 1))
     stats = stats if stats is not None else {"vec": 0, "elem": 0}
     v = 16 // itemsize
     half = (n_taps + 1) // 2
@@ -367,15 +367,18 @@ def _close(got, want, tol):
 # every launch against the plain versions (float64)
 # ---------------------------------------------------------------------------
 
-# (shape, wavelet, level): tiled runs (square, ragged, odd sizes), a whole
-# image, long banks, an odd bank
+# (shape, wavelet, level): whole images (square, odd sizes, long banks),
+# tiled runs (square, ragged, odd tile counts), an odd bank
 LAUNCHES = [
     ((2, 64, 64), "db4", 2),
-    ((1, 96, 160), "db4", 5),  # ragged tiles, not a power of two
+    ((1, 96, 160), "db4", 5),  # ragged tiles, not a power of two, then a whole image
     ((1, 24, 20), "coif17", 2),  # 102 taps on a small image: a whole image
     ((1, 128, 64), "db20", 2),  # 40 taps
     ((2, 48, 40), "haar", 3),
-    ((1, 40, 24), "sym5", 3),  # not a multiple of four along W: element copies
+    ((1, 40, 24), "sym5", 3),  # not a multiple of four along W
+    ((2, 128, 128), "db4", 2),  # square tiles, then a whole image
+    ((1, 144, 120), "haar", 3),  # nine tile rows of 8 x 60
+    ((1, 160, 88), "sym5", 3),  # tiles of 8 x 44, a 10-tap odd-half bank
 ]
 
 
@@ -391,7 +394,7 @@ def test_launches_match_plain(replay, shape, wavelet, level):
     rec = t5.fused_waverec2d_per(want, rl, rh)
     _close(rec, t5.waverec2d_per_plain(want, rl, rh).numpy(), 1e-12)
     _close(rec, x.numpy(), 1e-10)
-    runs = t5._plan_runs(*shape[1:], len(dl), level, torch.float64, shape[0])
+    runs = t5._plan_runs(*shape[1:], len(dl), level, torch.float64)
     assert replay["K5a"] == replay["K5b"] == len(runs)
 
 
@@ -402,17 +405,19 @@ def test_odd_bank_reads_its_zero_tap_inside_the_cone(whole):
     launches compute what the kernel model of ``tests/test_torch_kernels.py``
     computes (the plain versions give odd banks other band sizes)."""
     lo, hi = np.random.RandomState(2).randn(2, 7)
-    depth, h, w = 2, 64, 64
-    th, tw = (h >> depth, w >> depth) if whole else t5._analysis_tile(h, w, 7, depth, 8, t5._SMEM_LIMIT, None)
+    depth, h, w = (2, 64, 64) if whole else (1, 64, 64)  # tiled runs are one level deep
+    th, tw = (h >> depth, w >> depth) if whole else t5._analysis_tile(h, w, 7, 8, t5._SMEM_LIMIT, None)
     a, b = t5._analysis_need(depth, h, w, th, tw, whole, 7, 8)
     ints = (depth, h, w, th, tw, -(-(h >> depth) // th), -(-(w >> depth) // tw), int(whole), 2, a, b, 1)
     x = torch.from_numpy(np.random.RandomState(3).randn(1, h, w))
 
     def bands():
-        return torch.empty(1, h >> depth, w >> depth), [torch.empty(1, h >> lv, w >> lv) for lv in (1, 1, 1, 2, 2, 2)]
+        return torch.empty(1, h >> depth, w >> depth), [
+            torch.empty(1, h >> lv, w >> lv) for lv in range(1, depth + 1) for _ in range(3)
+        ]
 
     (ll, det), (ll_m, det_m) = bands(), bands()
-    none = [None] * 18
+    none = [None] * (24 - 3 * depth)
     replay_analysis(x, ll, det + none, lo, hi, 7, 1, ints, (a + b) * 8, 8)
     _model_pyramid2d_analysis(x, ll_m, det_m + none, lo, hi, 7, 1, ints, (a + b) * 8, 8)
     for g, w_ in zip([ll, *det], [ll_m, *det_m]):
@@ -431,17 +436,17 @@ def test_staging_takes_16_byte_segments_inside_the_image():
     image's left or right edge (or rows not a multiple of 16 bytes) go
     element by element, and rows wrap one by one."""
     lo, hi, _, _ = _banks("db4", np.float32)
-    depth, h, w, th, tw = 2, 256, 256, 16, 16
+    depth, h, w, th, tw = 1, 256, 256, 16, 16
     a, b = t5._analysis_need(depth, h, w, th, tw, False, 8, 4)
-    ints = (depth, h, w, th, tw, 4, 4, 0, 3, a, b, 2)
+    ints = (depth, h, w, th, tw, 8, 8, 0, 3, a, b, 1)
     x = torch.from_numpy(np.random.RandomState(4).randn(1, h, w).astype(np.float32))
     ll = torch.empty(1, h >> depth, w >> depth)
-    det = [torch.empty(1, h >> lv, w >> lv) for lv in (1, 1, 1, 2, 2, 2)] + [None] * 18
+    det = [torch.empty(1, h >> 1, w >> 1) for _ in range(3)] + [None] * 21
     stats = {"vec": 0, "elem": 0}
-    replay_analysis(x, ll, det, lo, hi, 8, 1, ints, (2 * a + b) * 4, 4, stats)
-    # 4 x 4 tiles: the 8 of the two inner tile columns stage by segments,
-    # the 8 whose window crosses the left or right edge element by element
-    assert stats == {"vec": 8, "elem": 8}
+    replay_analysis(x, ll, det, lo, hi, 8, 1, ints, (a + b) * 4, 4, stats)
+    # 8 x 8 tiles: the 48 of the six inner tile columns stage by segments,
+    # the 16 whose window crosses the left or right edge element by element
+    assert stats == {"vec": 48, "elem": 16}
     with torch.no_grad():
         want = t5.wavedec2d_per_plain(x.double(), lo.astype(np.float64), hi.astype(np.float64), depth)
     _close(ll, want[0].numpy(), 1e-5)
@@ -569,7 +574,9 @@ def _previous_runs(h, w, filt_len, level, itemsize):
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_plan_accepts_every_shape_the_previous_plan_did(itemsize):
     """The gate takes at least every shape, filter length and dtype it took
-    before the redesign; every planned launch fits its reservation."""
+    before the redesign; the launches run the gate's plan; every planned
+    launch fits its reservation."""
+    dtype = {4: torch.float32, 8: torch.float64}[itemsize]
     sizes = [2, 4, 8, 12, 16, 20, 24, 40, 48, 64, 96, 120, 128, 160, 176, 256, 512, 1024]
     checked = 0
     for filt_len in (2, 3, 4, 6, 8, 10, 16, 20, 30, 40, 56, 60, 80, 102, 128):
@@ -583,6 +590,7 @@ def test_plan_accepts_every_shape_the_previous_plan_did(itemsize):
                     assert before is None or runs is not None, (h, w, filt_len, level, itemsize)
                     if runs is None:
                         continue
+                    assert t5._plan_runs(h, w, filt_len, level, dtype) == runs
                     checked += 1
                     hh, ww = h, w
                     for depth in runs:
