@@ -73,7 +73,10 @@ Phases, each raising (non-zero exit) on failure:
    launch with the padding fold, counted as K8b/K7b) and K8b's and K7b's
    (one analysis pyramid launch, counted as K8a/K7a) against autograd
    through the plain versions, each backward's launches asserted, and in
-   float64 the adjoint identity;
+   float64 the adjoint identity; then a user's odd-length bank (7 taps) on
+   ``[1, 64]`` periodization and ``[2, 70000]`` reflect, periodic and zero:
+   ``wavedec``/``waverec`` on the card against the CPU plain path
+   (float64, 1e-10), launching no K6-K8 (their gates decline odd banks);
 8. the 1d main path: ``wavedec`` -> ``waverec``, db5, float32, on
    ``[32, 1_000_000]`` with 10 levels in ``periodic`` (the reference's 1d
    speed test) and ``reflect``, on ``[32, 2**19]`` with 10 levels in
@@ -88,7 +91,10 @@ Phases, each raising (non-zero exit) on failure:
    where the plan declines a shape it says so, and the per-level route
    runs it); then K5's ragged tiles (``[2, 96, 160]``, 5 levels, db4) and
    coif17 on ``[1, 24, 20]`` (2 levels), float32 and float64; the limit
-   is phase 7's, and in float64 the adjoint identity;
+   is phase 7's, and in float64 the adjoint identity; then the odd bank
+   on ``[1, 64, 64]`` (2 levels) and ``[2, 64, 48]`` (1 level)
+   periodization against the CPU plain path, launching no K5 and no
+   K1/K2;
 10. the 2d periodization main path: ``wavedec2`` -> ``waverec2`` in
    ``periodization`` at both configurations, float32: coefficients
    against the plain path within 2e-5, round trip within 1e-4, and the
@@ -107,6 +113,10 @@ Phases, each raising (non-zero exit) on failure:
    and their VJPs against their plain versions (the GEMM form, autograd
    through it for the VJPs) at ``[16, 1024, 1024]`` db4 level 1, periodic
    and periodization, relative limit 2e-5 and the launch of each call;
+   each of the four instances through its wrapper at ``[64, 256, 256]``
+   (periodic, periodization), the ragged ``[4, 384, 768]`` (db4 periodic,
+   sym6 periodization) and the odd bank (periodic), against its plain
+   version at 2e-5, one launch each;
    the opt-in periodic headline round trip (phase 4's limits; K9a and K9b
    once, one K1 and one K2 fewer than phase 4); phase 6's 3 SGD steps with
    the opt-in (the backward launches K9a and K9b as VJPs); phase 5's times
@@ -139,8 +149,11 @@ reflect round trip's and step's device time; and (``--k5-times``) K5a,
 K5b, both VJP instances and the per-level K1/K2 route at both 2d
 periodization configurations and at ``K5_SMALL_BATCHES``, with the
 periodization round trip's and step's launches (counted by the wrappers),
-device busy time and wall time; and adds them to the kernels line as
-``in_turns``.
+device busy time and wall time; and (``--k9-times``) K9a, K9b and both
+VJP instances with the opt-in beside K1, K2 and their VJPs without it at
+the periodic level 1 of ``[16, 1024, 1024]`` and ``[64, 256, 256]``, and
+the periodic headline round trip with and without the opt-in; and adds
+them to the kernels line as ``in_turns``.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (fourteen kernels,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
@@ -271,6 +284,25 @@ KERNELS_K9 = ("K9a", "K9b")
 MXU2D_ENV = "PTWT_TPU_MXU2D"
 PEAK_TF32_FLOP_PER_S = 495e12
 TF32_SPLIT = 3
+#: K9's periodic level 1 at the headline and at the smallest image its gate
+#: takes, where a block's fixed cost shows; ``--k9-times`` times both
+K9_SHAPES = (("headline", SHAPE), ("small", (64, 256, 256)))
+#: Phase 12's other launches, each K9 instance against its plain version:
+#: (shape, bank, mode); a ragged image (m = 195 x 387 in periodic) and an
+#: odd bank beside the headline
+K9_EXTRA = (
+    ((64, 256, 256), "db4", "periodic"),
+    ((64, 256, 256), "db4", "periodization"),
+    ((4, 384, 768), "db4", "periodic"),
+    ((4, 384, 768), "sym6", "periodization"),
+    ((4, 384, 768), "odd7", "periodic"),
+)
+#: An odd-length bank (a user's 7 taps; no registry wavelet has one) on the
+#: inputs whose pyramid and long-lane gates decline it: (shape, mode,
+#: level), float64 on the card against the CPU plain path
+ODD_BANK_1D = (((1, 64), "periodization", 2), ((2, 70000), "reflect", 2),
+               ((2, 70000), "periodic", 1), ((2, 70000), "zero", 3))
+ODD_BANK_2D = (((1, 64, 64), "periodization", 2), ((2, 64, 48), "periodization", 1))
 
 
 def log(msg: str) -> None:
@@ -2119,6 +2151,106 @@ def check_k9(errors: dict) -> None:
         torch.cuda.synchronize()
 
 
+def odd_bank() -> tuple:
+    """A user's 7-tap bank ``(dec_lo, dec_hi, rec_lo, rec_hi)`` (numpy,
+    unit norm on average): no registry wavelet has an odd length."""
+    rs = np.random.RandomState(SEED + 73)
+    return tuple(rs.randn(7) / math.sqrt(7) for _ in range(4))
+
+
+def check_odd_bank(cases, forbidden, label: str) -> None:
+    """Phases 7 and 9: ``wavedec``/``wavedec2`` and back with an odd bank
+    on the card against the CPU plain path (float64, 1e-10), launching none
+    of ``forbidden`` (the gates decline odd banks); where ``ptwt_tpu``'s
+    rules refuse the reconstruction (a multi-level chain of odd-bank
+    bands), the card must refuse it too."""
+    bank = odd_bank()
+    f64 = torch.float64
+    for i, (shape, mode, level) in enumerate(cases):
+        one_d = len(shape) == 2
+        fwd, inv = (ptwt.wavedec, ptwt.waverec) if one_d else (ptwt.wavedec2, ptwt.waverec2)
+        flat = list if one_d else flat_coeffs
+        rec_mode = "periodization" if mode == "periodization" else None
+        tag = f"{label} odd bank {list(shape)} {mode} level {level}"
+        x = randn(shape, f64, SEED + 380 + i)
+        _kernels.reset_launch_counts()
+        got = fwd(x, bank, mode=mode, level=level)
+        torch.cuda.synchronize()
+        want = fwd(x.cpu(), bank, mode=mode, level=level)
+        check(f"{tag} vs the CPU plain path (relative)",
+              rel_err([t.cpu() for t in flat(got)], flat(want)), TOL[f64])
+        try:
+            rec_want = inv(want, bank, mode=rec_mode)
+        except AssertionError:
+            rec_want = None
+        if rec_want is None:
+            try:
+                inv(got, bank, mode=rec_mode)
+            except AssertionError as exc:
+                if "padding error" not in str(exc):
+                    raise
+                log(f"  {tag}: the reconstruction is refused on both devices")
+            else:
+                raise AssertionError(f"{tag}: the card reconstructs a chain the reference refuses")
+        else:
+            rec = inv(got, bank, mode=rec_mode)
+            torch.cuda.synchronize()
+            check(f"{tag} round trip vs the CPU plain path (relative)", rel_err(rec.cpu(), rec_want), TOL[f64])
+        launched = {k for k, v in _kernels.LAUNCHES.items() if v}
+        log(f"  {tag}: launches {dict((k, v) for k, v in _kernels.LAUNCHES.items() if v)}")
+        if launched & set(forbidden) or not launched:
+            raise AssertionError(f"{tag}: launched {sorted(launched)}, none of {forbidden} allowed")
+
+
+def k9_bank(name: str) -> tuple:
+    """K9's taps ``(lo, hi, rec_lo, rec_hi)`` as floats, the analysis pair
+    in correlation order."""
+    if name == "odd7":
+        lo, hi, rl, rh = odd_bank()
+        return list(lo[::-1]), list(hi[::-1]), list(rl), list(rh)
+    dl, dh, _, _ = get_filter_arrays(name, flip=True, dtype=torch.float64)
+    _, _, rl, rh = get_filter_arrays(name, flip=False, dtype=torch.float64)
+    return tuple([float(v) for v in f] for f in (dl, dh, rl, rh))
+
+
+def k9_geometry(h: int, w: int, L: int, mode: str) -> tuple:
+    """``(pad, m_h, m_w)`` of a K1 launch of one level, which K9 takes."""
+    if mode == "periodization":
+        return L // 2 - 1, h // 2, w // 2
+    p = std_pad(L)
+    return p, (h + 2 * p - L) // 2 + 1, (w + 2 * p - L) // 2 + 1
+
+
+def check_k9_launches(errors: dict) -> None:
+    """Phase 12: each K9 instance launched through its wrapper at
+    :data:`K9_EXTRA`, against its plain version (float32, relative 2e-5),
+    one launch each: K9a, K9b, K9a's VJP (K9b folding the band rows past
+    half the period) and K9b's VJP (K9a, zero-bounded in periodic)."""
+    f32 = torch.float32
+    for i, (shape, name, mode) in enumerate(K9_EXTRA):
+        lo, hi, rl, rh = k9_bank(name)
+        b, h, w = shape
+        p, m_h, m_w = k9_geometry(h, w, len(lo), mode)
+        circ = mode == "periodization"
+        fold = (h // 2, w // 2, h, w)
+        x = randn(shape, f32, SEED + 400 + i)
+        bands = [randn((b, m_h, m_w), f32, SEED + 410 + 10 * i + j) for j in range(4)]
+        tag = f"{list(shape)} {name} {mode}"
+        for label, kernel, fn, args in (
+            ("K9a", "K9a", "dwt", (x, lo, hi, h, w, m_h, m_w, p)),
+            ("K9b", "K9b", "idwt", (bands, rl, rh, h, w, p, circ)),
+            ("K9a VJP", "K9b", "idwt", (bands, lo, hi, h, w, p, True, fold)),
+            ("K9b VJP", "K9a", "dwt", (x, rl, rh, h, w, m_h, m_w, p, circ)),
+        ):
+            _kernels.reset_launch_counts()
+            got = getattr(_mxu2d, f"mxu2_{fn}_call")(*args)
+            torch.cuda.synchronize()
+            only(_kernels.LAUNCHES, {kernel: 1}, f"{label} {tag}")
+            want = getattr(_mxu2d, f"mxu2_{fn}_plain")(*args)
+            check_1d(errors, label, tag, got, want, f32)
+        del x, bands, got, want
+
+
 def one_pass_tf32() -> dict:
     """What one TF32 pass gives: ``csrc/mxu2d.cu`` built once more with
     ``-DPTWT_MXU2D_ONE_PASS`` (big x big products only; a debug build the
@@ -2139,13 +2271,17 @@ def one_pass_tf32() -> dict:
     x = randn(SHAPE, torch.float32, SEED + 330)
     stream = torch.cuda.current_stream().cuda_stream
     bands = torch.empty((4, b, m, m), device=DEVICE)
+    plan_a = _mxu2d.analysis_plan(L, p, m, m)
+    plan_s = _mxu2d.synthesis_plan(L, p, p, m, m, h, w)
     code = lib.ptwt_mxu2d_analysis(0, x.data_ptr(), bands.data_ptr(), _kernels.taps_array(dl),
-                                   _kernels.taps_array(dh), L, b, h, w, h, w, m, m, p, 1, stream)
+                                   _kernels.taps_array(dh), L, b, h, w, h, w, m, m, p, 1,
+                                   _kernels.int_array(plan_a), len(plan_a), stream)
     want = _mxu2d.mxu2_dwt_plain(x, dl, dh, h, w, m, m, p)
     rec = torch.empty(SHAPE, device=DEVICE)
     ptrs = [t.data_ptr() for t in want]
     code2 = lib.ptwt_mxu2d_synthesis(0, *ptrs, rec.data_ptr(), _kernels.taps_array(rl),
-                                     _kernels.taps_array(rh), L, b, m, m, h, w, p, p, 0, m, m, h, w, stream)
+                                     _kernels.taps_array(rh), L, b, m, m, h, w, p, p, 0, m, m, h, w,
+                                     _kernels.int_array(plan_s), len(plan_s), stream)
     torch.cuda.synchronize()
     if code or code2:
         raise AssertionError(f"the one-pass debug build failed: {code}, {code2}")
@@ -2237,8 +2373,12 @@ def time_k9() -> dict:
     rows["K9b"].update(vjp_timing([rec], leaves, [ct], [plain_rec], plain, "K9b", TOL[f32]))
     ct_pad = F.pad(ct[:, None], (p, p, p, p))
     rows["K9b"]["vjp_library_ms"] = time_ms(lambda: F.conv2d(ct_pad, rfilt, stride=2))
+    sb, sh, sw = K9_SHAPES[1][1]
+    sm = (sh + 2 * p - L) // 2 + 1
+    small_flops = dict(zip(("K9a", "K9b"), band_flops(sb, sm, sm, sh, sw, L)))
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"], row["band_tc_ms"] = k9_bound(nbytes, row["tc_flops"])
+        row["bound_ms_small"] = k9_bound(4 * (sb * sh * sw + 4 * sb * sm * sm), small_flops[name])[0]
         log(
             f"  {name}: ms={row['ms']!r} plain_ms={row['plain_ms']!r} library_ms={row['library_ms']!r} "
             f"bound_ms={row['bound_ms']!r} ({row['bound_by']}) band_tc_ms={row['band_tc_ms']!r} "
@@ -2265,6 +2405,44 @@ def round_trips_k9() -> dict:
         res[key].append(mpix / (ms * 1e-3))
         log(f"  round trip periodic {key}: {ms!r} ms, {mpix / (ms * 1e-3)!r} Mpix/s")
     return res
+
+
+def k9_times() -> dict:
+    """Device ms of K9a, K9b and both VJP instances (as the autograd
+    backward runs them) with the opt-in, and of K1, K2 and their VJPs
+    without it, on the periodic level 1 of :data:`K9_SHAPES` (db4,
+    float32), each call's launches asserted; then the periodic headline
+    round trip with and without the opt-in (:func:`round_trips_k9`, median
+    Mpix/s): the rows ``--parent`` compares in turns (entry points both
+    trees have)."""
+    f32 = torch.float32
+    dl, dh, rl, rh = banks_2d()
+    out = {}
+    for i, (name, shape) in enumerate(K9_SHAPES):
+        x = leaf(randn(shape, f32, SEED + 370 + i))
+        xd = x.detach()
+        for opted, (ka, kb) in ((True, ("K9a", "K9b")), (False, ("K1", "K2"))):
+            with mxu2d_opt_in() if opted else contextlib.nullcontext():
+                _kernels.reset_launch_counts()
+                bands = _pallas2d.fused2_dwt_level(xd, dl, dh, "periodic")
+                _pallas2d.fused2_idwt_level(bands, rl, rh, "periodic")
+                torch.cuda.synchronize()
+                only(_kernels.LAUNCHES, {ka: 1, kb: 1}, f"{ka}, {kb} {name}")
+                out[f"{ka} {name}"] = time_ms(lambda: _pallas2d.fused2_dwt_level(xd, dl, dh, "periodic"))
+                out[f"{kb} {name}"] = time_ms(lambda: _pallas2d.fused2_idwt_level(bands, rl, rh, "periodic"))
+                outs = _pallas2d.fused2_dwt_level(x, dl, dh, "periodic")
+                cts = [randn(t.shape, f32, SEED + 380 + j) for j, t in enumerate(outs)]
+                out[f"{ka} VJP {name}"] = time_ms(lambda: torch.autograd.grad(outs, x, cts, retain_graph=True))
+                leaves = [leaf(t) for t in bands]
+                rec = _pallas2d.fused2_idwt_level(leaves, rl, rh, "periodic")
+                ct = randn(rec.shape, f32, SEED + 390)
+                out[f"{kb} VJP {name}"] = time_ms(lambda: torch.autograd.grad(rec, leaves, ct, retain_graph=True))
+                del bands, outs, cts, leaves, rec, ct
+        del x, xd
+    trips = round_trips_k9()
+    out["round trip default Mpix/s"] = statistics.median(trips["default"])
+    out["round trip opt-in Mpix/s"] = statistics.median(trips["opt_in"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2429,6 +2607,8 @@ def main() -> int:
     check_kernels_1d(errors_1d)
     log("phase 7: the K7/K8 VJP instances against their plain versions")
     check_vjps_1d(errors_1d)
+    log("phase 7: an odd-length bank leaves K6-K8 for the per-level route")
+    check_odd_bank(ODD_BANK_1D, (*KERNELS_1D,), "1d")
 
     log("phase 8: 1d main path")
     main_1d = {
@@ -2456,6 +2636,8 @@ def main() -> int:
     log("phase 9: K5a/K5b and their VJPs against their plain versions")
     errors_k5 = {name: {} for name in (*KERNELS_K5, "K5a VJP", "K5b VJP")}
     check_k5(errors_k5)
+    log("phase 9: an odd-length bank leaves K5 (and K1/K2) for the per-axis route")
+    check_odd_bank(ODD_BANK_2D, (*KERNELS_K5, "K1", "K2"), "2d")
 
     log("phase 10: 2d periodization main path")
     main_per = {
@@ -2502,6 +2684,8 @@ def main() -> int:
     errors_k9 = {name: {} for name in (*KERNELS_K9, "K9a VJP", "K9b VJP")}
     with mxu2d_opt_in():
         check_k9(errors_k9)
+        log(f"phase 12: each K9 instance at {[list(c[0]) + [c[1], c[2]] for c in K9_EXTRA]}")
+        check_k9_launches(errors_k9)
         x = randn(SHAPE, torch.float32, SEED)
         main_k9 = main_path(x, "periodic")
         del x
@@ -2515,7 +2699,15 @@ def main() -> int:
         log("phase 5, K9: times")
         rows_k9 = time_k9()
         tf32_one_pass = one_pass_tf32()
-    round_trips_k9()
+    log(f"phase 5, K9: K9 and the K1/K2 route at {[name for name, _ in K9_SHAPES]}, the round trips")
+    k9_rows = k9_times()
+    for name, value in k9_rows.items():
+        log(f"  {name}: {value!r}")
+    turns_k9 = {}
+    if _arg("--parent"):
+        log(f"phase 5: K9, its VJPs, the K1/K2 route and the opt-in round trip in turns with {_arg('--parent')}")
+        torch.cuda.empty_cache()
+        turns_k9 = turns(Path(_arg("--parent")).resolve(), "--k9-times")
     if os.environ.get(MXU2D_ENV) == "1":
         raise AssertionError(f"{MXU2D_ENV} leaked out of phase 12")
 
@@ -2725,6 +2917,9 @@ def main() -> int:
             "vjp_plain_ms": row["vjp_plain_ms"],
             "vjp_bound_ms": row["bound_ms"],
             "vjp_library_ms": row["vjp_library_ms"],
+            "k9_times": {k: v for k, v in k9_rows.items() if k.split()[0] in (name, twin, "K1", "K2", "round")},
+            "small": {"shape": list(K9_SHAPES[1][1]), "bound_ms": row["bound_ms_small"]},
+            "in_turns": {k: v for k, v in turns_k9.items() if k.split()[0] in (name, twin, "K1", "K2", "round")},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2744,7 +2939,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times)):
+    for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times),
+                        ("--k9-times", k9_times)):
         if flag in sys.argv:
             if not torch.cuda.is_available():
                 sys.exit("chip_smoke: CUDA is not available")

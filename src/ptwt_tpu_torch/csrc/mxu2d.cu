@@ -5,64 +5,92 @@
 // replaces ptwt_tpu/ops/_mxu2d.py:_idwt_kernel.  They take the arguments
 // of a K1 / K2 launch (dwt2.cu) and give the same outputs, every mode
 // included, so the autograd Functions of ops/_pallas2d.py drive both pairs
-// through one code path:
+// through one code path.  Each is the other's VJP: K9a's VJP is K9b's fold
+// instance, K9b's VJP is K9a's zero-bounded instance.
 //
 // * K9a: band[i, j] = sum f_a[ka] f_b[kb] X(2i + ka - pad, 2j + kb - pad)
 //   for the four subbands, X read modulo the period (circular = 1; past
 //   the image the last sample repeats) or zero outside the image (K9b's
-//   VJP).  A block owns A_TM x A_TN band positions.  It stages its input
-//   window with that extension in shared memory, runs the W pass
-//   Y[r, c] = sum_kb f[kb] X[r, 2c + kb] as products [16 rows x 8 bands]
-//   over k-steps of 8 input columns (the JAX package's x_ext @ FW), then
-//   the H pass band[i, c] = sum_ka f[ka] Y[2i + ka, c] as [16 x 8] products
-//   over k-steps of 8 rows of Y (FH @ y).
+//   VJP).  A tile of tm x tn band positions stages its input window, runs
+//   the W pass Y[r, c] = sum_kb f[kb] X[r, 2c + kb] as [16 rows x 8 band
+//   columns] products over k-steps of 8 input columns (the JAX package's
+//   x_ext @ FW), then the H pass band[i, c] = sum_ka f[ka] Y[2i + ka, c] as
+//   [16 band columns x 8 band rows] products over k-steps of 8 rows of Y
+//   (the transpose of FH @ y).
 // * K9b: out[u, v] = sum rec_a[ka] rec_b[kb] B(qa, qb) with
 //   qa = (u + off_h - ka) / 2 over the parity-matched taps, B read modulo
 //   half the period and folded (each band row also collecting the rows
 //   + half, + 2 half, ... < m: K9a's VJP), or zero outside the bands (the
-//   cropped periodic synthesis).  A block owns S_TU x S_TV outputs: it
-//   stages the band window its outputs read, folded or zero-extended, runs
-//   the H pass Z = SH_lo ll + SH_hi lh (and hl, hh) over k-steps of 8 band
-//   rows, then out = Z_lo SW_lo + Z_hi SW_hi over k-steps of 8 band
-//   columns.  The crop lives in the index range (off = pad).  An output
-//   past the image's last row (the clamp of an odd periodization axis) is
-//   not taken: K9's gate admits even images only.
+//   cropped periodic synthesis).  A tile of tu x tv outputs stages the
+//   band window its outputs read, runs the W pass T_lo = ll SW_lo + hl SW_hi
+//   and T_hi = lh SW_lo + hh SW_hi as [16 band rows x 8 output columns]
+//   products over k-steps of 8 band columns, then the H pass out = SH_lo
+//   T_lo + SH_hi T_hi as [16 output columns x 8 output rows] products over
+//   k-steps of 8 band rows.  The crop lives in the index range (off = pad).
+//   An output past the image's last row (the clamp of an odd periodization
+//   axis) is not taken: K9's gate admits even images only.
 //
-// The extension is chosen at staging, not in the products.  The band
-// matrices (FW, FH, SH, SW) are never loaded: 98% of FW's entries are zero
-// and it would not fit in shared memory.  Each operand fragment of a band
-// matrix depends only on the k-step, the filter and the lane, so a block
-// builds a table of them from the taps at its start, and the products run
-// over the k-steps inside the band only: ceil((L + 14) / 8) per 8 band
-// columns and ceil((L + 30) / 8) per 16 band rows in K9a, about 16x fewer
-// than the dense 384-deep product.
+// Every product takes 8 outputs along its N side from a k-window of 8
+// steps that slides 16 inputs (analysis) or 4 band positions (synthesis)
+// per 8 outputs, so its B operand, a window of the band matrix (FW, FH,
+// SW, SH), depends only on the k-step, the filter and the lane: a block
+// tabulates those fragments from the taps once, and the products run over
+// the k-steps inside the band only.  The band matrices are never loaded.
+// The tile plan (ops/_mxu2d.py: analysis_plan, synthesis_plan) comes in as
+// ints, which the C entry points check before a launch.
 //
 // Precision: mma.sync.m16n8k8 takes TF32 operands (10 mantissa bits).  One
 // pass keeps about 3 decimal digits: built with -DPTWT_MXU2D_ONE_PASS it
-// is 5e-4 off the plain version relative to the band's magnitude (2.7e-3
-// absolute) on the headline's level on an H100, 25 times the port's 2e-5
-// limit (PERF.md).  So each operand is split, a = a_big + a_small
-// with a_big = tf32(a) and a_small = tf32(a - a_big), and each product is
-// small*big + big*small + big*big (3xTF32) accumulated in float32, which
-// drops only the small*small term (about 2^-22 relative).
+// is 5e-4 off the plain version relative to the band's magnitude on the
+// headline's level on an H100, 25 times the port's 2e-5 limit (PERF.md).
+// So each operand is split, a = a_big + a_small with a_big = tf32(a) and
+// a_small = tf32(a - a_big), and each product is small*big + big*small +
+// big*big (3xTF32) accumulated in float32, which drops only the
+// small*small term (about 2^-22 relative).  tf32() rounds to nearest, ties
+// away from zero (cvt.rna's rounding), in integer arithmetic: cvt.rna runs
+// at the card's conversion rate, a quarter of the integer one.
 //
 // Bound on the H100: bytes.  K9a reads the image once and writes four
-// quarter-size bands, K9b the mirror image: the same bytes as K1/K2.  The
+// quarter-size bands, K9b the mirror image: the same bytes as K1/K2; the
 // band-only products at 3x take a quarter to a third of that time at 495
-// TF32 TFLOP/s.  The staging is scalar, one warp per row, lanes along the
-// contiguous axis; a TMA or cp.async pipeline and a persistent grid are
-// the next steps.
+// TF32 TFLOP/s, and mma.sync runs at a fraction of that peak.  What the
+// design does about it:
+//
+// * A persistent grid, two blocks of 256 threads on each SM, walks the
+//   tiles with a ring of staged windows, two or three deep: the windows of
+//   the next tiles are in flight (cp.async) while the current tile's
+//   products run, and one block's staging and barriers overlap the other
+//   block's products.  A window that lies inside the image (or band) stages as 16-byte
+//   copies with no index arithmetic; one that crosses an edge copies 16
+//   bytes where a 4-column chunk lies inside, else element copies with the
+//   modulo or a zero fill.
+// * A tile stages and computes only what its live positions need: the
+//   last tile row or column of an image (515 = 8 x 64 + 3 band rows at
+//   the headline's periodic level 1) costs its 3 live rows, not 64.
+// * Fragments come from shared memory by ldmatrix (a 16 x 8 float tile is
+//   four 8 x 16-byte matrices) and are split into their TF32 pair once per
+//   load.  The first pass writes its output transposed, so the second
+//   pass's A fragments are ldmatrix loads too, and its C fragments hold 8
+//   consecutive columns of 4 output rows: each store instruction writes
+//   four whole 32-byte sectors, straight from the registers.
+// * A warp runs one kind of product (small x big, big x small, big x big)
+//   over all its accumulators before the next, so dependent mma.sync are
+//   2 U apart.
+// * K9b's fold runs only in the VJP instance (half < m), as a second pass
+//   over the staged positions whose band row or column has rows past half.
+#include <cstring>
+
 #include "common.cuh"
 
 #define MXU_THREADS 256
 #define MXU_WARPS (MXU_THREADS / 32)
 #define MXU_MAX_TAPS 64
 #define MXU_MAX_SMEM 232448
-// K9a tile: band rows x band columns; K9b tile: output rows x columns
-#define A_TM 32
-#define A_TN 64
-#define S_TU 64
-#define S_TV 64
+// products a warp carries at once: K9a's W and H passes, K9b's W and H
+#define ANA_UNITS_W 3
+#define ANA_UNITS_H 2
+#define SYN_UNITS_W 2
+#define SYN_UNITS_H 4
 
 struct __align__(16) FragA {  // a 16x8 A operand, split
   uint32_t big[4], small[4];
@@ -71,10 +99,9 @@ struct __align__(16) FragB {  // an 8x8 B operand, split
   uint32_t big[2], small[2];
 };
 
+// tf32(x), rounded to nearest with ties away from zero (cvt.rna.tf32.f32)
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
@@ -95,126 +122,203 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a b in 3xTF32, the small products first.
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
+// acc[i][f] += a[i] b[f] in 3xTF32 for the live units i < live, one round
+// of each product kind over every accumulator before the next.
+template <int U, int F>
+__device__ __forceinline__ void mma3(float (&acc)[U][F][4], const FragA (&a)[U],
+                                     const FragB (&b)[F], int live) {
 #ifndef PTWT_MXU2D_ONE_PASS
-  mma_tf32(d, a.small, b.big);
-  mma_tf32(d, a.big, b.small);
+#pragma unroll
+  for (int i = 0; i < U; ++i)
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      if (i < live) mma_tf32(acc[i][f], a[i].small, b[f].big);
+#pragma unroll
+  for (int i = 0; i < U; ++i)
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      if (i < live) mma_tf32(acc[i][f], a[i].big, b[f].small);
 #endif
-  mma_tf32(d, a.big, b.big);
+#pragma unroll
+  for (int i = 0; i < U; ++i)
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      if (i < live) mma_tf32(acc[i][f], a[i].big, b[f].big);
 }
 
 // Fragment layouts of m16n8k8 (g = lane / 4, t = lane % 4):
 //   A[16x8]: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
 //   B[8x8]:  b0 (k = t, n = g), b1 (k = t+4, n = g)
 //   C[16x8]: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
-// A from a row-major tile at `base` with row stride `stride`.
-__device__ __forceinline__ void load_a(FragA& f, const float* base, int stride,
-                                       int g, int t) {
-  split(base[g * stride + t], f.big[0], f.small[0]);
-  split(base[(g + 8) * stride + t], f.big[1], f.small[1]);
-  split(base[g * stride + t + 4], f.big[2], f.small[2]);
-  split(base[(g + 8) * stride + t + 4], f.big[3], f.small[3]);
+// ldmatrix.x4 reads four 8 x 16-byte matrices and gives lane (g, t) the 32
+// bits at (row g, word t) of each: so an A operand comes from a row-major
+// float tile, lane l addressing row l % 16, words 4 (l / 16) .. + 3.
+__device__ __forceinline__ void load_a(FragA& f, const float* p) {
+  uint32_t r[4];
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(__uint_as_float(r[e]), f.big[e], f.small[e]);
 }
 
-// B from a tile stored k-major: element (k, n) at base[k * stride + n].
-__device__ __forceinline__ void load_b(FragB& f, const float* base, int stride,
-                                       int g, int t) {
-  split(base[t * stride + g], f.big[0], f.small[0]);
-  split(base[(t + 4) * stride + g], f.big[1], f.small[1]);
+// The lane's row address for load_a at a tile of row stride `stride`.
+__device__ __forceinline__ int lane_a(int lane, int stride) {
+  return (lane & 15) * stride + 4 * (lane >> 4);
 }
 
 __device__ __forceinline__ float tap_at(const float* taps, int len, int k) {
   return k >= 0 && k < len ? taps[k] : 0.f;
 }
 
-__device__ __forceinline__ void store_c(float* base, int stride, int g, int t,
-                                        const float (&c)[4]) {
-  *reinterpret_cast<float2*>(base + g * stride + 2 * t) = make_float2(c[0], c[1]);
-  *reinterpret_cast<float2*>(base + (g + 8) * stride + 2 * t) =
-      make_float2(c[2], c[3]);
+// A table of B fragments for `steps` k-steps: entry (2 s + f) * 32 + lane
+// (f the filter) holds B[k][n] = f[c + step s + k_sign k + n_sign n].
+__device__ __forceinline__ void build_table(FragB* tab, int steps, const Taps<float>& taps,
+                                            int len, int c, int step, int k_sign, int n_sign) {
+  for (int e = threadIdx.x; e < steps * 64; e += MXU_THREADS) {
+    const int s = e >> 6, ln = e & 31, gg = ln >> 2, tt = ln & 3;
+    const float* f = (e >> 5) & 1 ? taps.hi : taps.lo;
+    const int k = c + step * s + k_sign * tt + n_sign * gg;
+    FragB fr;
+    split(tap_at(f, len, k), fr.big[0], fr.small[0]);
+    split(tap_at(f, len, k + 4 * k_sign), fr.big[1], fr.small[1]);
+    tab[e] = fr;
+  }
+}
+
+// The C fragment's element e (0..3): row g + 8 (e >> 1) of M, column
+// 2 t + (e & 1) of N.
+__device__ __forceinline__ int c_m(int g, int e) { return g + 8 * (e >> 1); }
+__device__ __forceinline__ int c_n(int t, int e) { return 2 * t + (e & 1); }
+
+// ---------------------------------------------------------------------------
+// staging
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool fill) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(src),
+               "r"(fill ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit_async() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until the oldest of the ring's staged tiles has landed: at most
+// stages - 2 of this thread's groups still in flight.
+__device__ __forceinline__ void wait_oldest(int stages) {
+  if (stages == 3)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ void zero4(float* dst) {
+  *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Steps a flat item index through [outer, inner] in strides of the block,
+// with no division past the first.
+struct Walk {
+  int outer, inner, d_outer, d_inner, n;
+  __device__ __forceinline__ Walk(int start, int step, int n_) : n(n_) {
+    outer = start / n;
+    inner = start - outer * n;
+    d_outer = step / n;
+    d_inner = step - d_outer * n;
+  }
+  __device__ __forceinline__ void next() {
+    outer += d_outer;
+    inner += d_inner;
+    if (inner >= n) {
+      inner -= n;
+      ++outer;
+    }
+  }
+};
+
+// rows x cols floats from rows of `ld` floats at `src` to rows of
+// `stride` floats at `dst`: 16 bytes at a time where `vec` (src and ld
+// 16-byte aligned, cols a multiple of 4), else one float at a time.
+__device__ __forceinline__ void stage_inside(float* dst, int stride, const float* src, int64_t ld,
+                                             int rows, int cols, bool vec) {
+  if (vec) {
+    for (Walk it(threadIdx.x, MXU_THREADS, cols / 4); it.outer < rows; it.next())
+      copy16(dst + it.outer * stride + 4 * it.inner, src + it.outer * ld + 4 * it.inner);
+  } else {
+    for (Walk it(threadIdx.x, MXU_THREADS, cols); it.outer < rows; it.next())
+      copy4(dst + it.outer * stride + it.inner, src + it.outer * ld + it.inner, true);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // K9a
 // ---------------------------------------------------------------------------
 
+// ops/_mxu2d.py:analysis_plan, in its order.
 struct AnaPlan {
-  int len;
-  int kw, kh;      // k-steps per 8 band columns (W pass), 16 band rows (H)
-  int rows, cols;  // staged input window
-  int sx, sy;      // shared-memory strides of X and Y (bank-conflict free)
+  int tm, tn;        // band rows and columns of a tile
+  int off;           // the window starts off columns left of 2 j0 - pad
+  int kw, kh;        // k-steps per 8 band columns (W), 8 band rows (H)
+  int xrows, xcols;  // the largest staged window
+  int sx, sy;        // strides: window, W output (transposed)
   int tiles_h, tiles_w;
+  int xbuf;          // floats of one ring stage
+  int stages;        // depth of the ring, 2 or 3
+};
+#define ANA_PLAN_INTS 13
+
+// A tile's place and its live extent.
+struct AnaTile {
+  int64_t b;
+  int i0, j0, rows, cols;  // live band rows / columns
+  int nbs, ncs;            // 8-row and 16-column blocks of them
+  int xr, xc;              // the window they read
 };
 
-static AnaPlan ana_plan(int len, int m_h, int m_w) {
-  AnaPlan p;
-  p.len = len;
-  p.kw = (len + 14 + 7) / 8;
-  p.kh = (len + 30 + 7) / 8;
-  const int yrows = 2 * A_TM - 32 + 8 * p.kh;  // rows of Y the H pass reads
-  p.rows = (yrows + 15) / 16 * 16;
-  p.cols = 2 * A_TN - 16 + 8 * p.kw;
-  p.sx = p.cols + 4;   // = 4 mod 8: the A loads' 8 rows x 4 columns
-  p.sy = A_TN + 8;     // = 8 mod 32: the B loads' 4 rows x 8 columns
-  p.tiles_h = (m_h + A_TM - 1) / A_TM;
-  p.tiles_w = (m_w + A_TN - 1) / A_TN;
-  return p;
+__device__ __forceinline__ AnaTile ana_tile(const AnaPlan& p, int64_t tile, int m_h, int m_w) {
+  AnaTile t;
+  const int64_t per_image = int64_t(p.tiles_h) * p.tiles_w;
+  t.b = tile / per_image;
+  const int rest = static_cast<int>(tile - t.b * per_image);
+  const int ty = rest / p.tiles_w;
+  t.i0 = ty * p.tm;
+  t.j0 = (rest - ty * p.tiles_w) * p.tn;
+  t.rows = min(p.tm, m_h - t.i0);
+  t.cols = min(p.tn, m_w - t.j0);
+  t.nbs = cdiv(t.rows, 8);
+  t.ncs = cdiv(t.cols, 16);
+  t.xr = cdiv(16 * (t.nbs - 1) + 8 * p.kh, 16) * 16;
+  t.xc = 32 * (t.ncs - 1) + 16 + 8 * p.kw;
+  return t;
 }
 
-static size_t ana_smem(const AnaPlan& p) {
-  return sizeof(FragB) * p.kw * 64 + sizeof(FragA) * p.kh * 64 +
-         sizeof(float) * (static_cast<size_t>(p.rows) * p.sx +
-                          2 * static_cast<size_t>(p.rows) * p.sy);
-}
-
-__global__ void __launch_bounds__(MXU_THREADS)
-    mxu2d_analysis_kernel(const float* __restrict__ x, float* __restrict__ out,
-                          const __grid_constant__ Taps<float> taps,
-                          const AnaPlan plan, int h, int w, int per_h,
-                          int per_w, int m_h, int m_w, int pad, int circular,
-                          int64_t plane) {
-  extern __shared__ uint4 smem[];
-  FragB* tab_w = reinterpret_cast<FragB*>(smem);
-  FragA* tab_h = reinterpret_cast<FragA*>(tab_w + plan.kw * 64);
-  float* xs = reinterpret_cast<float*>(tab_h + plan.kh * 64);
-  float* ys = xs + plan.rows * plan.sx;  // [2 (W lo, hi)][rows][sy]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  unsigned blk = blockIdx.x;
-  const int tx = static_cast<int>(blk % static_cast<unsigned>(plan.tiles_w));
-  blk /= static_cast<unsigned>(plan.tiles_w);
-  const int ty = static_cast<int>(blk % static_cast<unsigned>(plan.tiles_h));
-  const unsigned b = blk / static_cast<unsigned>(plan.tiles_h);
-  const int i0 = ty * A_TM, j0 = tx * A_TN;
-
-  // FW's B fragments: B[k][n] = f[8s + k - 2n] in the window of 8 bands
-  for (int e = tid; e < plan.kw * 64; e += MXU_THREADS) {
-    const int s = e >> 6, ln = e & 31, gg = ln >> 2, tt = ln & 3;
-    const float* f = (e >> 5) & 1 ? taps.hi : taps.lo;
-    FragB fr;
-    split(tap_at(f, plan.len, 8 * s + tt - 2 * gg), fr.big[0], fr.small[0]);
-    split(tap_at(f, plan.len, 8 * s + tt + 4 - 2 * gg), fr.big[1], fr.small[1]);
-    tab_w[e] = fr;
+// X[r][c] = X(2 i0 - pad + r, 2 j0 - pad - off + c) for r < xr, c < xc.
+__device__ __forceinline__ void ana_stage(float* xs, const float* __restrict__ x, const AnaPlan& p,
+                                          const AnaTile& t, int h, int w, int per_h, int per_w,
+                                          int pad, int circular) {
+  const float* img = x + t.b * h * w;
+  const int r0 = 2 * t.i0 - pad, c0 = 2 * t.j0 - pad - p.off;
+  const bool vec_rows = w % 4 == 0 && aligned16(x);
+  if (r0 >= 0 && r0 + t.xr <= h && c0 >= 0 && c0 + t.xc <= w) {
+    stage_inside(xs, p.sx, img + static_cast<int64_t>(r0) * w + c0, w, t.xr, t.xc, vec_rows);
+    return;
   }
-  // FH's A fragments: A[r][c] = f[8s + c - 2r] in the window of 16 bands
-  for (int e = tid; e < plan.kh * 64; e += MXU_THREADS) {
-    const int s = e >> 6, ln = e & 31, gg = ln >> 2, tt = ln & 3;
-    const float* f = (e >> 5) & 1 ? taps.hi : taps.lo;
-    const int k = 8 * s + tt - 2 * gg;
-    FragA fr;
-    split(tap_at(f, plan.len, k), fr.big[0], fr.small[0]);
-    split(tap_at(f, plan.len, k - 16), fr.big[1], fr.small[1]);
-    split(tap_at(f, plan.len, k + 4), fr.big[2], fr.small[2]);
-    split(tap_at(f, plan.len, k - 12), fr.big[3], fr.small[3]);
-    tab_h[e] = fr;
-  }
-  // the input window X[r][c] = X(2 i0 - pad + r, 2 j0 - pad + c)
-  const float* img = x + static_cast<int64_t>(b) * h * w;
-  const int r0 = 2 * i0 - pad, c0 = 2 * j0 - pad;
-  for (int r = warp; r < plan.rows; r += MXU_WARPS) {
-    int gr = r0 + r;
+  for (Walk it(threadIdx.x, MXU_THREADS, t.xc / 4); it.outer < t.xr; it.next()) {
+    int gr = r0 + it.outer;
     bool row_in = true;
     if (circular) {
       gr = wrap_index(gr, per_h, h);
@@ -223,60 +327,141 @@ __global__ void __launch_bounds__(MXU_THREADS)
       gr = row_in ? gr : 0;
     }
     const float* line = img + static_cast<int64_t>(gr) * w;
-    float* dst = xs + r * plan.sx;
-    for (int c = lane; c < plan.cols; c += 32) {
-      const int gc = c0 + c;
-      float v = 0.f;
-      if (circular)
-        v = line[wrap_index(gc, per_w, w)];
-      else if (row_in && gc >= 0 && gc < w)
-        v = line[gc];
-      dst[c] = v;
+    float* d = xs + it.outer * p.sx + 4 * it.inner;
+    const int gc = c0 + 4 * it.inner;
+    if (!row_in) {
+      zero4(d);
+    } else if (vec_rows && gc >= 0 && gc + 4 <= w) {
+      copy16(d, line + gc);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int c = gc + e;
+        bool in = true;
+        if (circular) {
+          c = wrap_index(c, per_w, w);
+        } else {
+          in = c >= 0 && c < w;
+          c = in ? c : 0;
+        }
+        copy4(d + e, line + c, in);
+      }
     }
   }
-  __syncthreads();
+}
 
-  // W pass: Y_f[r][8 nt + n] over the k-steps from input column 16 nt
-  const int ntiles = A_TN / 8;
-  for (int u = warp; u < plan.rows / 16 * ntiles; u += MXU_WARPS) {
-    const int mt = u / ntiles, nt = u % ntiles;
-    float acc_lo[4] = {0.f, 0.f, 0.f, 0.f}, acc_hi[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* base = xs + 16 * mt * plan.sx + 16 * nt;
-    for (int s = 0; s < plan.kw; ++s) {
-      FragA a;
-      load_a(a, base + 8 * s, plan.sx, g, t);
-      mma3(acc_lo, a, tab_w[(2 * s) * 32 + lane]);
-      mma3(acc_hi, a, tab_w[(2 * s + 1) * 32 + lane]);
-    }
-    float* y_lo = ys + 16 * mt * plan.sy + 8 * nt;
-    store_c(y_lo, plan.sy, g, t, acc_lo);
-    store_c(y_lo + plan.rows * plan.sy, plan.sy, g, t, acc_hi);
+__global__ void __launch_bounds__(MXU_THREADS, 2)
+    mxu2d_analysis_kernel(const float* __restrict__ x, float* __restrict__ out,
+                          const __grid_constant__ Taps<float> taps, const AnaPlan p, int len,
+                          int h, int w, int per_h, int per_w, int m_h, int m_w, int pad,
+                          int circular, int64_t total, int64_t plane) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FragB* tab_w = reinterpret_cast<FragB*>(smem_raw);
+  FragB* tab_h = tab_w + p.kw * 64;
+  float* ring = reinterpret_cast<float*>(tab_h + p.kh * 64);
+  float* ys = ring + p.stages * p.xbuf;  // [2 (W lo, hi)][tn][sy]: Y transposed
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // FW: B[k][n] = f[8s + k - 2n - off] (window columns 16 j + 8 s + k of
+  // band column 8 j + n); FH: B[k][n] = f[8s + k - 2n] (rows 16 b + 8 s + k
+  // of Y for band row 8 b + n)
+  build_table(tab_w, p.kw, taps, len, -p.off, 8, 1, -2);
+  build_table(tab_h, p.kh, taps, len, 0, 8, 1, -2);
+
+  int64_t tile = blockIdx.x;
+  for (int j = 0; j < p.stages - 1; ++j) {
+    const int64_t tj = tile + int64_t(j) * gridDim.x;
+    if (tj < total)
+      ana_stage(ring + j * p.xbuf, x, p, ana_tile(p, tj, m_h, m_w), h, w, per_h, per_w, pad,
+                circular);
+    commit_async();
   }
-  __syncthreads();
+  for (int k = 0; tile < total; ++k, tile += gridDim.x) {
+    __syncthreads();  // the last tile's passes are done with its stage and Y
+    const int64_t ahead = tile + int64_t(p.stages - 1) * gridDim.x;
+    if (ahead < total)
+      ana_stage(ring + ((k + p.stages - 1) % p.stages) * p.xbuf, x, p,
+                ana_tile(p, ahead, m_h, m_w), h, w, per_h, per_w, pad, circular);
+    commit_async();
+    wait_oldest(p.stages);
+    __syncthreads();
+    const float* cur = ring + (k % p.stages) * p.xbuf;
+    const AnaTile tl = ana_tile(p, tile, m_h, m_w);
 
-  // H pass: band[16 mt + r][8 nt + n] over the k-steps from Y row 32 mt,
-  // both H filters on one B fragment; (ll, lh, hl, hh) = (H, W) filters
-  // (lo, lo), (hi, lo), (lo, hi), (hi, hi)
-  for (int u = warp; u < A_TM / 16 * ntiles * 2; u += MXU_WARPS) {
-    const int fw = u & 1, mt = (u >> 1) / ntiles, nt = (u >> 1) % ntiles;
-    const float* base = ys + (fw * plan.rows + 32 * mt) * plan.sy + 8 * nt;
-    float acc_lo[4] = {0.f, 0.f, 0.f, 0.f}, acc_hi[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s = 0; s < plan.kh; ++s) {
-      FragB bf;
-      load_b(bf, base + 8 * s * plan.sy, plan.sy, g, t);
-      mma3(acc_lo, tab_h[(2 * s) * 32 + lane], bf);
-      mma3(acc_hi, tab_h[(2 * s + 1) * 32 + lane], bf);
+    // W pass: units (16 window rows, 8 band columns), both filters, into
+    // Y^T[f][c][r]
+    const int nts = 2 * tl.ncs;
+    const int nw = (tl.xr / 16) * nts;
+    for (int u0 = warp; u0 < nw; u0 += MXU_WARPS * ANA_UNITS_W) {
+      const int live = cdiv(nw - u0, MXU_WARPS);
+      float acc[ANA_UNITS_W][2][4] = {};
+      int at[ANA_UNITS_W];
+#pragma unroll
+      for (int i = 0; i < ANA_UNITS_W; ++i) {
+        const int u = u0 + MXU_WARPS * i, mt = u / nts, j = u - mt * nts;
+        at[i] = 16 * mt * p.sx + 16 * j + lane_a(lane, p.sx);
+      }
+      for (int s = 0; s < p.kw; ++s) {
+        const FragB b[2] = {tab_w[(2 * s) * 32 + lane], tab_w[(2 * s + 1) * 32 + lane]};
+        FragA a[ANA_UNITS_W];
+#pragma unroll
+        for (int i = 0; i < ANA_UNITS_W; ++i)
+          if (i < live) load_a(a[i], cur + at[i] + 8 * s);
+        mma3(acc, a, b, live);
+      }
+#pragma unroll
+      for (int i = 0; i < ANA_UNITS_W; ++i) {
+        const int u = u0 + MXU_WARPS * i, mt = u / nts, j = u - mt * nts;
+        if (i < live) {
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              ys[(f * p.tn + 8 * j + c_n(t, e)) * p.sy + 16 * mt + c_m(g, e)] = acc[i][f][e];
+        }
+      }
     }
-    const int64_t band_lo = (fw ? 2 : 0) * plane, band_hi = (fw ? 3 : 1) * plane;
-    const int jj = j0 + 8 * nt + 2 * t;
-    for (int half = 0; half < 2; ++half) {
-      const int ii = i0 + 16 * mt + g + 8 * half;
-      if (ii >= m_h) continue;
-      const int64_t at = (static_cast<int64_t>(b) * m_h + ii) * m_w + jj;
-      for (int q = 0; q < 2; ++q) {
-        if (jj + q >= m_w) continue;
-        out[band_lo + at + q] = acc_lo[2 * half + q];
-        out[band_hi + at + q] = acc_hi[2 * half + q];
+    __syncthreads();
+
+    // H pass: units (16 band columns, 8 band rows, W filter), both H
+    // filters; (ll, lh, hl, hh) = (H, W) filters (lo, lo), (hi, lo), (lo,
+    // hi), (hi, hi): band 2 fw + fh
+    const int nh = tl.ncs * tl.nbs * 2;
+    float* const dst = out + (tl.b * m_h + tl.i0) * m_w + tl.j0;
+    for (int u0 = warp; u0 < nh; u0 += MXU_WARPS * ANA_UNITS_H) {
+      const int live = cdiv(nh - u0, MXU_WARPS);
+      float acc[ANA_UNITS_H][2][4] = {};
+      int at[ANA_UNITS_H];
+#pragma unroll
+      for (int i = 0; i < ANA_UNITS_H; ++i) {
+        const int u = u0 + MXU_WARPS * i, fw = u & 1, nb = (u >> 1) / tl.ncs;
+        const int mc = (u >> 1) - nb * tl.ncs;
+        at[i] = (fw * p.tn + 16 * mc) * p.sy + 16 * nb + lane_a(lane, p.sy);
+      }
+      for (int s = 0; s < p.kh; ++s) {
+        const FragB b[2] = {tab_h[(2 * s) * 32 + lane], tab_h[(2 * s + 1) * 32 + lane]};
+        FragA a[ANA_UNITS_H];
+#pragma unroll
+        for (int i = 0; i < ANA_UNITS_H; ++i)
+          if (i < live) load_a(a[i], ys + at[i] + 8 * s);
+        mma3(acc, a, b, live);
+      }
+#pragma unroll
+      for (int i = 0; i < ANA_UNITS_H; ++i) {
+        const int u = u0 + MXU_WARPS * i, fw = u & 1, nb = (u >> 1) / tl.ncs;
+        const int mc = (u >> 1) - nb * tl.ncs;
+        if (i < live) {
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            float* band = dst + (2 * fw + f) * plane;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = 8 * nb + c_n(t, e), c = 16 * mc + c_m(g, e);
+              if (r < tl.rows && c < tl.cols) band[static_cast<int64_t>(r) * m_w + c] = acc[i][f][e];
+            }
+          }
+        }
       }
     }
   }
@@ -286,165 +471,274 @@ __global__ void __launch_bounds__(MXU_THREADS)
 // K9b
 // ---------------------------------------------------------------------------
 
+// ops/_mxu2d.py:synthesis_plan, in its order.
 struct SynPlan {
-  int len;
-  int ks, kw;          // k-steps per 16 output rows (H), 8 output columns (W)
-  int brows, bcols;    // staged band window
-  int sb, sz;          // strides of the bands (= 8 mod 16) and of Z (= 4 mod 8)
+  int tu, tv;          // outputs of a tile
+  int dq_h, dq_w;      // first band row / column read: u0 / 2 + dq
+  int e_h, e_w;        // output u0 + mu takes tap e + mu - 2 mq of row q0 + mq
+  int o;               // the window starts o columns left of that
+  int base;            // first window column of output columns [0, 8)
+  int ks, kw;          // k-steps per 8 output rows (H), 8 columns (W)
+  int brows, bcols;    // the largest staged band window
+  int sb, st;          // strides: window, W output (transposed)
   int tiles_h, tiles_w;
+  int bbuf;            // floats of one ring stage
+  int stages;          // depth of the ring, 2 or 3
 };
-
-static SynPlan syn_plan(int len, int out_h, int out_w) {
-  SynPlan p;
-  p.len = len;
-  // 16 output rows read (15 + L) / 2 + 1 band rows, 8 columns (7 + L) / 2 + 1
-  p.ks = ((len + 15) / 2 + 1 + 7) / 8;
-  p.kw = ((len + 7) / 2 + 1 + 7) / 8;
-  p.brows = S_TU / 2 - 8 + 8 * p.ks;
-  p.bcols = (S_TV / 2 - 4 + 8 * p.kw + 7) / 8 * 8;
-  p.sb = p.bcols % 16 == 8 ? p.bcols : p.bcols + 8;
-  p.sz = p.bcols + 4;
-  p.tiles_h = (out_h + S_TU - 1) / S_TU;
-  p.tiles_w = (out_w + S_TV - 1) / S_TV;
-  return p;
-}
-
-static size_t syn_smem(const SynPlan& p) {
-  return sizeof(FragA) * p.ks * 64 + sizeof(FragB) * p.kw * 64 +
-         sizeof(float) * (4 * static_cast<size_t>(p.brows) * p.sb +
-                          2 * static_cast<size_t>(S_TU) * p.sz);
-}
+#define SYN_PLAN_INTS 18
 
 template <typename T>
 struct Bands4 {
   const T* band[4];  // ll, lh, hl, hh
 };
 
-__global__ void __launch_bounds__(MXU_THREADS)
-    mxu2d_synthesis_kernel(const Bands4<float> bands, float* __restrict__ out,
-                           const __grid_constant__ Taps<float> taps,
-                           const SynPlan plan, int m_h, int m_w, int out_h,
-                           int out_w, int off_h, int off_w, int circular,
-                           int half_h, int half_w) {
-  extern __shared__ uint4 smem[];
-  FragA* tab_h = reinterpret_cast<FragA*>(smem);
-  FragB* tab_w = reinterpret_cast<FragB*>(tab_h + plan.ks * 64);
-  float* bs = reinterpret_cast<float*>(tab_w + plan.kw * 64);  // [4][brows][sb]
-  float* zs = bs + 4 * plan.brows * plan.sb;                   // [2][S_TU][sz]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int L = plan.len;
-  unsigned blk = blockIdx.x;
-  const int tx = static_cast<int>(blk % static_cast<unsigned>(plan.tiles_w));
-  blk /= static_cast<unsigned>(plan.tiles_w);
-  const int ty = static_cast<int>(blk % static_cast<unsigned>(plan.tiles_h));
-  const unsigned b = blk / static_cast<unsigned>(plan.tiles_h);
-  const int u0 = ty * S_TU, v0 = tx * S_TV;
-  // first staged band row / column (floor division), and e = u0 + off -
-  // 2 q0 in {L - 1, L}: output u0 + mu reads tap e + mu - 2 mq of row q0 + mq
-  const int q0 = (u0 + off_h - L + 1) >> 1, qc0 = (v0 + off_w - L + 1) >> 1;
-  const int e_h = u0 + off_h - 2 * q0, e_w = v0 + off_w - 2 * qc0;
+struct SynTile {
+  int64_t b;
+  int u0, v0, rows, cols;  // live outputs
+  int nbs, ncs;            // 8-row and 16-column blocks of them
+  int br, bc;              // the band window they read
+  int q0, c0;              // its first band row / column
+};
 
-  // SH's A fragments: A[r][c] = rec[e_h + r - 16s - 2c]
-  for (int e = tid; e < plan.ks * 64; e += MXU_THREADS) {
-    const int s = e >> 6, ln = e & 31, gg = ln >> 2, tt = ln & 3;
-    const float* f = (e >> 5) & 1 ? taps.hi : taps.lo;
-    const int k = e_h + gg - 16 * s - 2 * tt;
-    FragA fr;
-    split(tap_at(f, L, k), fr.big[0], fr.small[0]);
-    split(tap_at(f, L, k + 8), fr.big[1], fr.small[1]);
-    split(tap_at(f, L, k - 8), fr.big[2], fr.small[2]);
-    split(tap_at(f, L, k), fr.big[3], fr.small[3]);
-    tab_h[e] = fr;
+__device__ __forceinline__ SynTile syn_tile(const SynPlan& p, int64_t tile, int out_h, int out_w) {
+  SynTile t;
+  const int64_t per_image = int64_t(p.tiles_h) * p.tiles_w;
+  t.b = tile / per_image;
+  const int rest = static_cast<int>(tile - t.b * per_image);
+  const int ty = rest / p.tiles_w;
+  t.u0 = ty * p.tu;
+  t.v0 = (rest - ty * p.tiles_w) * p.tv;
+  t.rows = min(p.tu, out_h - t.u0);
+  t.cols = min(p.tv, out_w - t.v0);
+  t.nbs = cdiv(t.rows, 8);
+  t.ncs = cdiv(t.cols, 16);
+  t.br = cdiv(4 * (t.nbs - 1) + 8 * p.ks, 16) * 16;
+  t.bc = 8 * (t.ncs - 1) + 4 + p.base + 8 * p.kw;
+  t.q0 = t.u0 / 2 + p.dq_h;
+  t.c0 = t.v0 / 2 + p.dq_w - p.o;
+  return t;
+}
+
+// The four bands' windows: W[o][r][c] = B_o(q0 + r, c0 + c) modulo half
+// (circular; the fold's other terms come after) or zero outside the bands.
+__device__ __forceinline__ void syn_stage(float* bs, const Bands4<float>& bands, const SynPlan& p,
+                                          const SynTile& t, int m_h, int m_w, int circular,
+                                          int half_h, int half_w) {
+  const int64_t image = t.b * m_h * m_w;
+  const bool vec_rows = m_w % 4 == 0 && aligned16(bands.band[0]) && aligned16(bands.band[1]) &&
+                        aligned16(bands.band[2]) && aligned16(bands.band[3]);
+  const int plane = p.brows * p.sb;
+  const int lim_h = circular ? half_h : m_h, lim_w = circular ? half_w : m_w;
+  if (t.q0 >= 0 && t.q0 + t.br <= lim_h && t.c0 >= 0 && t.c0 + t.bc <= lim_w) {
+    // the window lies inside the bands: one walk for the four
+    const int64_t at = image + static_cast<int64_t>(t.q0) * m_w + t.c0;
+    if (vec_rows) {
+      for (Walk it(threadIdx.x, MXU_THREADS, t.bc / 4); it.outer < t.br; it.next()) {
+        const int64_t src = at + it.outer * static_cast<int64_t>(m_w) + 4 * it.inner;
+        const int dst = it.outer * p.sb + 4 * it.inner;
+#pragma unroll
+        for (int o = 0; o < 4; ++o) copy16(bs + o * plane + dst, bands.band[o] + src);
+      }
+    } else {
+      for (Walk it(threadIdx.x, MXU_THREADS, t.bc); it.outer < t.br; it.next()) {
+        const int64_t src = at + it.outer * static_cast<int64_t>(m_w) + it.inner;
+        const int dst = it.outer * p.sb + it.inner;
+#pragma unroll
+        for (int o = 0; o < 4; ++o) copy4(bs + o * plane + dst, bands.band[o] + src, true);
+      }
+    }
+    return;
   }
-  // SW's B fragments: B[k][n] = rec[e_w + n - 16s - 2k]
-  for (int e = tid; e < plan.kw * 64; e += MXU_THREADS) {
-    const int s = e >> 6, ln = e & 31, gg = ln >> 2, tt = ln & 3;
-    const float* f = (e >> 5) & 1 ? taps.hi : taps.lo;
-    const int k = e_w + gg - 16 * s - 2 * tt;
-    FragB fr;
-    split(tap_at(f, L, k), fr.big[0], fr.small[0]);
-    split(tap_at(f, L, k - 8), fr.big[1], fr.small[1]);
-    tab_w[e] = fr;
-  }
-  // the band window, folded modulo half (circular) or zero outside
-  const int64_t band0 = static_cast<int64_t>(b) * m_h * m_w;
-  for (int r = warp; r < plan.brows; r += MXU_WARPS) {
-    int qa = q0 + r;
+  for (Walk it(threadIdx.x, MXU_THREADS, t.bc / 4); it.outer < t.br; it.next()) {
+    int qa = t.q0 + it.outer;
     bool row_in = true;
-    if (circular)
+    if (circular) {
       qa = wrap_index(qa, half_h, half_h);
-    else
+    } else {
       row_in = qa >= 0 && qa < m_h;
-    for (int c = lane; c < plan.bcols; c += 32) {
-      int qb = qc0 + c;
-      bool in = row_in;
-      if (circular)
-        qb = wrap_index(qb, half_w, half_w);
-      else
-        in = in && qb >= 0 && qb < m_w;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (in) {
-        for (int ra = qa; ra < m_h; ra += half_h) {
-          const int64_t line = band0 + static_cast<int64_t>(ra) * m_w;
-          for (int rb = qb; rb < m_w; rb += half_w)
-            for (int o = 0; o < 4; ++o) v[o] += bands.band[o][line + rb];
+      qa = row_in ? qa : 0;
+    }
+    const int64_t line = image + static_cast<int64_t>(qa) * m_w;
+    const int at = it.outer * p.sb + 4 * it.inner;
+    const int qb = t.c0 + 4 * it.inner;
+    if (!row_in) {
+#pragma unroll
+      for (int o = 0; o < 4; ++o) zero4(bs + o * plane + at);
+    } else if (vec_rows && qb >= 0 && qb + 4 <= lim_w) {
+#pragma unroll
+      for (int o = 0; o < 4; ++o) copy16(bs + o * plane + at, bands.band[o] + line + qb);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int c = qb + e;
+        bool in = true;
+        if (circular) {
+          c = wrap_index(c, half_w, half_w);
+        } else {
+          in = c >= 0 && c < m_w;
+          c = in ? c : 0;
+        }
+#pragma unroll
+        for (int o = 0; o < 4; ++o) copy4(bs + o * plane + at + e, bands.band[o] + line + c, in);
+      }
+    }
+  }
+}
+
+// K9a's VJP: each staged position (ra0, rb0) also collects the band
+// positions (ra0 + k half_h, rb0 + l half_w) < (m_h, m_w), (k, l) != 0;
+// only the rows or columns below m - half have any.
+__device__ __forceinline__ void syn_fold(float* bs, const Bands4<float>& bands, const SynPlan& p,
+                                         const SynTile& t, int m_h, int m_w, int half_h,
+                                         int half_w) {
+  // a window whose rows and columns lie in [m - half, half) has none
+  if (t.q0 >= m_h - half_h && t.q0 + t.br <= half_h && t.c0 >= m_w - half_w &&
+      t.c0 + t.bc <= half_w)
+    return;
+  const int64_t image = t.b * m_h * m_w;
+  const int plane = p.brows * p.sb;
+  for (Walk it(threadIdx.x, MXU_THREADS, t.bc); it.outer < t.br; it.next()) {
+    const int ra0 = wrap_index(t.q0 + it.outer, half_h, half_h);
+    const int rb0 = wrap_index(t.c0 + it.inner, half_w, half_w);
+    if (ra0 + half_h >= m_h && rb0 + half_w >= m_w) continue;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ra = ra0; ra < m_h; ra += half_h) {
+      const int64_t line = image + static_cast<int64_t>(ra) * m_w;
+      for (int rb = ra == ra0 ? rb0 + half_w : rb0; rb < m_w; rb += half_w) {
+#pragma unroll
+        for (int o = 0; o < 4; ++o) v[o] += bands.band[o][line + rb];
+      }
+    }
+    const int at = it.outer * p.sb + it.inner;
+#pragma unroll
+    for (int o = 0; o < 4; ++o) bs[o * plane + at] += v[o];
+  }
+}
+
+__global__ void __launch_bounds__(MXU_THREADS, 2)
+    mxu2d_synthesis_kernel(const __grid_constant__ Bands4<float> bands, float* __restrict__ out,
+                           const __grid_constant__ Taps<float> taps, const SynPlan p, int len,
+                           int m_h, int m_w, int out_h, int out_w, int circular, int half_h,
+                           int half_w, int64_t total) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FragB* tab_w = reinterpret_cast<FragB*>(smem_raw);
+  FragB* tab_h = tab_w + p.kw * 64;
+  float* ring = reinterpret_cast<float*>(tab_h + p.ks * 64);
+  float* ts = ring + p.stages * p.bbuf;  // [2 (T lo, hi)][tv][st]: T transposed
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bool fold = circular && (half_h < m_h || half_w < m_w);
+
+  // SW: B[k][n] = rec[e_w + n + 2 o - 2 base - 16s - 2k] (window columns
+  // 4 j + base + 8 s + k of output column 8 j + n); SH: B[k][n] = rec[e_h +
+  // n - 16s - 2k] (band rows 4 b + 8 s + k of output row 8 b + n)
+  build_table(tab_w, p.kw, taps, len, p.e_w + 2 * p.o - 2 * p.base, -16, -2, 1);
+  build_table(tab_h, p.ks, taps, len, p.e_h, -16, -2, 1);
+
+  const int plane = p.brows * p.sb;
+  int64_t tile = blockIdx.x;
+  for (int j = 0; j < p.stages - 1; ++j) {
+    const int64_t tj = tile + int64_t(j) * gridDim.x;
+    if (tj < total)
+      syn_stage(ring + j * p.bbuf, bands, p, syn_tile(p, tj, out_h, out_w), m_h, m_w, circular,
+                half_h, half_w);
+    commit_async();
+  }
+  for (int k = 0; tile < total; ++k, tile += gridDim.x) {
+    __syncthreads();  // the last tile's passes are done with its stage and T
+    const int64_t ahead = tile + int64_t(p.stages - 1) * gridDim.x;
+    if (ahead < total)
+      syn_stage(ring + ((k + p.stages - 1) % p.stages) * p.bbuf, bands, p,
+                syn_tile(p, ahead, out_h, out_w), m_h, m_w, circular, half_h, half_w);
+    commit_async();
+    wait_oldest(p.stages);
+    __syncthreads();
+    float* const cur = ring + (k % p.stages) * p.bbuf;
+    const SynTile tl = syn_tile(p, tile, out_h, out_w);
+    if (fold) {
+      syn_fold(cur, bands, p, tl, m_h, m_w, half_h, half_w);
+      __syncthreads();
+    }
+
+    // W pass: units (16 band rows, 8 output columns) into T^T[f][v][qa]:
+    // T_lo += ll SW_lo, T_hi += lh SW_lo, then hl and hh with SW_hi
+    const int nts = 2 * tl.ncs;
+    const int nw = (tl.br / 16) * nts;
+    for (int u0 = warp; u0 < nw; u0 += MXU_WARPS * SYN_UNITS_W) {
+      const int live = cdiv(nw - u0, MXU_WARPS);
+      float acc[SYN_UNITS_W][1][4] = {}, acc_hi[SYN_UNITS_W][1][4] = {};
+      int at[SYN_UNITS_W];
+#pragma unroll
+      for (int i = 0; i < SYN_UNITS_W; ++i) {
+        const int u = u0 + MXU_WARPS * i, mt = u / nts, n = u - mt * nts;
+        at[i] = 16 * mt * p.sb + 4 * n + p.base + lane_a(lane, p.sb);
+      }
+      for (int s = 0; s < p.kw; ++s) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const FragB w[1] = {tab_w[(2 * s + f) * 32 + lane]};
+          FragA a_lo[SYN_UNITS_W], a_hi[SYN_UNITS_W];
+#pragma unroll
+          for (int i = 0; i < SYN_UNITS_W; ++i) {
+            if (i < live) {
+              load_a(a_lo[i], cur + 2 * f * plane + at[i] + 8 * s);        // ll, hl
+              load_a(a_hi[i], cur + (2 * f + 1) * plane + at[i] + 8 * s);  // lh, hh
+            }
+          }
+          mma3(acc, a_lo, w, live);
+          mma3(acc_hi, a_hi, w, live);
         }
       }
-      for (int o = 0; o < 4; ++o) bs[(o * plan.brows + r) * plan.sb + c] = v[o];
+#pragma unroll
+      for (int i = 0; i < SYN_UNITS_W; ++i) {
+        const int u = u0 + MXU_WARPS * i, mt = u / nts, n = u - mt * nts;
+        if (i < live) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int at_t = (8 * n + c_n(t, e)) * p.st + 16 * mt + c_m(g, e);
+            ts[at_t] = acc[i][0][e];
+            ts[p.tv * p.st + at_t] = acc_hi[i][0][e];
+          }
+        }
+      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // H pass: Z_lo = SH_lo ll + SH_hi lh, Z_hi = SH_lo hl + SH_hi hh, for
-  // output rows 16 mt + r over the k-steps from band row 8 mt
-  const int nb = plan.bcols / 8;
-  const int plane_s = plan.brows * plan.sb;
-  for (int u = warp; u < S_TU / 16 * nb; u += MXU_WARPS) {
-    const int mt = u / nb, nt = u % nb;
-    float z_lo[4] = {0.f, 0.f, 0.f, 0.f}, z_hi[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s = 0; s < plan.ks; ++s) {
-      const float* base = bs + (8 * mt + 8 * s) * plan.sb + 8 * nt;
-      const FragA& a_lo = tab_h[(2 * s) * 32 + lane];
-      const FragA& a_hi = tab_h[(2 * s + 1) * 32 + lane];
-      FragB f;
-      load_b(f, base, plan.sb, g, t);
-      mma3(z_lo, a_lo, f);
-      load_b(f, base + plane_s, plan.sb, g, t);
-      mma3(z_lo, a_hi, f);
-      load_b(f, base + 2 * plane_s, plan.sb, g, t);
-      mma3(z_hi, a_lo, f);
-      load_b(f, base + 3 * plane_s, plan.sb, g, t);
-      mma3(z_hi, a_hi, f);
-    }
-    float* z = zs + 16 * mt * plan.sz + 8 * nt;
-    store_c(z, plan.sz, g, t, z_lo);
-    store_c(z + S_TU * plan.sz, plan.sz, g, t, z_hi);
-  }
-  __syncthreads();
-
-  // W pass: out = Z_lo SW_lo + Z_hi SW_hi for output columns 8 nt + n over
-  // the k-steps from band column 4 nt
-  const int ntiles = S_TV / 8;
-  float* dst = out + static_cast<int64_t>(b) * out_h * out_w;
-  for (int u = warp; u < S_TU / 16 * ntiles; u += MXU_WARPS) {
-    const int mt = u / ntiles, nt = u % ntiles;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* base = zs + 16 * mt * plan.sz + 4 * nt;
-    for (int s = 0; s < plan.kw; ++s) {
-      FragA a;
-      load_a(a, base + 8 * s, plan.sz, g, t);
-      mma3(acc, a, tab_w[(2 * s) * 32 + lane]);
-      load_a(a, base + S_TU * plan.sz + 8 * s, plan.sz, g, t);
-      mma3(acc, a, tab_w[(2 * s + 1) * 32 + lane]);
-    }
-    const int vv = v0 + 8 * nt + 2 * t;
-    for (int half = 0; half < 2; ++half) {
-      const int uu = u0 + 16 * mt + g + 8 * half;
-      if (uu >= out_h) continue;
-      for (int q = 0; q < 2; ++q)
-        if (vv + q < out_w)
-          dst[static_cast<int64_t>(uu) * out_w + vv + q] = acc[2 * half + q];
+    // H pass: units (16 output columns, 8 output rows): out^T = T_lo^T
+    // SH_lo^T + T_hi^T SH_hi^T
+    const int nh = tl.ncs * tl.nbs;
+    float* const dst = out + (tl.b * out_h + tl.u0) * out_w + tl.v0;
+    for (int u0 = warp; u0 < nh; u0 += MXU_WARPS * SYN_UNITS_H) {
+      const int live = cdiv(nh - u0, MXU_WARPS);
+      float acc[SYN_UNITS_H][1][4] = {};
+      int at[SYN_UNITS_H];
+#pragma unroll
+      for (int i = 0; i < SYN_UNITS_H; ++i) {
+        const int u = u0 + MXU_WARPS * i, nb = u / tl.ncs, mc = u - nb * tl.ncs;
+        at[i] = 16 * mc * p.st + 4 * nb + lane_a(lane, p.st);
+      }
+      for (int s = 0; s < p.ks; ++s) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const FragB b[1] = {tab_h[(2 * s + f) * 32 + lane]};
+          FragA a[SYN_UNITS_H];
+#pragma unroll
+          for (int i = 0; i < SYN_UNITS_H; ++i)
+            if (i < live) load_a(a[i], ts + f * p.tv * p.st + at[i] + 8 * s);
+          mma3(acc, a, b, live);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < SYN_UNITS_H; ++i) {
+        const int u = u0 + MXU_WARPS * i, nb = u / tl.ncs, mc = u - nb * tl.ncs;
+        if (i < live) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 8 * nb + c_n(t, e), c = 16 * mc + c_m(g, e);
+            if (r < tl.rows && c < tl.cols) dst[static_cast<int64_t>(r) * out_w + c] = acc[i][0][e];
+          }
+        }
+      }
     }
   }
 }
@@ -453,68 +747,126 @@ __global__ void __launch_bounds__(MXU_THREADS)
 // C entry points
 // ---------------------------------------------------------------------------
 
-static bool grid_ok(int64_t blocks) {
-  return blocks > 0 && blocks < (int64_t(1) << 31);
+static int cdiv_host(int a, int b) { return (a + b - 1) / b; }
+
+static size_t ana_smem(const AnaPlan& p) {
+  return sizeof(FragB) * (p.kw + p.kh) * 64 +
+         sizeof(float) * (static_cast<size_t>(p.stages) * p.xbuf + 2 * static_cast<size_t>(p.tn) * p.sy);
 }
 
-// The arguments of ptwt_dwt2 (dwt2.cu); float32 only (dtype 0), at most 64
-// taps.  Returns a cudaError_t after the launch, or PTWT_BAD_ARGUMENT.
-extern "C" int ptwt_mxu2d_analysis(int dtype, const void* x, void* out,
-                                   const double* lo, const double* hi, int len,
-                                   long long batch, int h, int w, int per_h,
-                                   int per_w, int m_h, int m_w, int pad,
-                                   int circular, void* stream) {
-  if (dtype != 0 || len < 1 || len > MXU_MAX_TAPS || batch < 1 || h < 1 ||
-      w < 1 || m_h < 1 || m_w < 1 || pad < 0 ||
-      (circular && (per_h < h || per_w < w)))
-    return PTWT_BAD_ARGUMENT;
-  const AnaPlan plan = ana_plan(len, m_h, m_w);
-  const int64_t blocks = batch * plan.tiles_h * static_cast<int64_t>(plan.tiles_w);
-  const size_t smem = ana_smem(plan);
-  if (!grid_ok(blocks) || smem > MXU_MAX_SMEM) return PTWT_BAD_ARGUMENT;
-  cudaError_t err = cudaFuncSetAttribute(
-      mxu2d_analysis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+static size_t syn_smem(const SynPlan& p) {
+  return sizeof(FragB) * (p.kw + p.ks) * 64 +
+         sizeof(float) * (static_cast<size_t>(p.stages) * p.bbuf + 2 * static_cast<size_t>(p.tv) * p.st);
+}
+
+// The plan the Python side made must cover the launch: every window,
+// stride and stage it implies inside the buffers it sizes.
+static bool ana_plan_ok(const AnaPlan& p, int len, int pad, int m_h, int m_w) {
+  return p.tm >= 8 && p.tm % 8 == 0 && p.tn >= 16 && p.tn % 16 == 0 &&
+         p.off == ((-pad) % 4 + 4) % 4 && p.kw >= 1 && 8 * p.kw >= p.off + 14 + len &&
+         p.kh >= 1 && 8 * p.kh >= 14 + len && p.xrows % 16 == 0 &&
+         p.xrows >= 2 * p.tm - 16 + 8 * p.kh && p.xcols >= 2 * p.tn - 16 + 8 * p.kw &&
+         p.xcols % 4 == 0 && p.sx >= p.xcols && p.sx % 4 == 0 && p.sy >= p.xrows &&
+         p.sy % 4 == 0 && p.tiles_h == cdiv_host(m_h, p.tm) && p.tiles_w == cdiv_host(m_w, p.tn) &&
+         p.xbuf % 4 == 0 && p.xbuf >= int64_t(p.xrows) * p.sx && p.stages >= 2 && p.stages <= 3 &&
+         ana_smem(p) <= MXU_MAX_SMEM;
+}
+
+static bool syn_plan_ok(const SynPlan& p, int len, int off_h, int off_w, int out_h, int out_w) {
+  const int dq_h = (off_h - len + 1) >> 1, dq_w = (off_w - len + 1) >> 1;
+  const int e_h = off_h - 2 * dq_h, e_w = off_w - 2 * dq_w;
+  // output columns [0, 8) read window columns o + ceil((e_w - L + 1) / 2)
+  // .. o + (7 + e_w) / 2, output rows [0, 8) band rows 0 .. (7 + e_h) / 2
+  const int lo = (e_w - len + 2) >> 1, hi = (7 + e_w) >> 1;
+  return p.tu >= 8 && p.tu % 8 == 0 && p.tv >= 16 && p.tv % 16 == 0 && p.dq_h == dq_h &&
+         p.dq_w == dq_w && p.e_h == e_h && p.e_w == e_w && p.o == (dq_w % 4 + 4) % 4 &&
+         p.base >= 0 && p.base % 4 == 0 && p.base <= p.o + lo && p.kw >= 1 &&
+         p.base + 8 * p.kw > p.o + hi && p.ks >= 1 && 8 * p.ks > (7 + e_h) / 2 &&
+         p.brows % 16 == 0 && p.brows >= p.tu / 2 - 4 + 8 * p.ks &&
+         p.bcols >= p.tv / 2 - 4 + p.base + 8 * p.kw && p.bcols % 4 == 0 && p.sb >= p.bcols &&
+         p.sb % 4 == 0 && p.st >= p.brows && p.st % 4 == 0 &&
+         p.tiles_h == cdiv_host(out_h, p.tu) && p.tiles_w == cdiv_host(out_w, p.tv) &&
+         p.bbuf % 4 == 0 && p.bbuf >= 4 * int64_t(p.brows) * p.sb && p.stages >= 2 &&
+         p.stages <= 3 && syn_smem(p) <= MXU_MAX_SMEM;
+}
+
+// Raise the kernel's shared-memory limit and size its persistent grid:
+// as many blocks as the SMs hold at once, at most one per tile.
+template <typename K>
+static int prepare(K kernel, size_t smem, int64_t total, unsigned* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MXU_THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mxu2d_analysis_kernel<<<static_cast<unsigned>(blocks), MXU_THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out),
-      make_taps<float>(lo, hi, len), plan, h, w, per_h, per_w, m_h, m_w, pad,
-      circular, batch * static_cast<int64_t>(m_h) * m_w);
+  const int64_t resident = int64_t(sms) * (per_sm > 0 ? per_sm : 1);
+  *blocks = static_cast<unsigned>(total < resident ? total : resident);
+  return 0;
+}
+
+// The tiles of a launch, walked with a 64-bit index.
+static bool tiles_ok(int64_t total) { return total > 0 && total < (int64_t(1) << 40); }
+
+// The arguments of ptwt_dwt2 (dwt2.cu), then K9a's plan (ANA_PLAN_INTS
+// ints); float32 only (dtype 0), at most 64 taps.  Returns a cudaError_t
+// after the launch, or PTWT_BAD_ARGUMENT.
+extern "C" int ptwt_mxu2d_analysis(int dtype, const void* x, void* out, const double* lo,
+                                   const double* hi, int len, long long batch, int h, int w,
+                                   int per_h, int per_w, int m_h, int m_w, int pad, int circular,
+                                   const int* plan_ints, int plan_len, void* stream) {
+  if (dtype != 0 || len < 1 || len > MXU_MAX_TAPS || batch < 1 || h < 1 || w < 1 || m_h < 1 ||
+      m_w < 1 || pad < 0 || (circular && (per_h < h || per_w < w)) || !plan_ints ||
+      plan_len != ANA_PLAN_INTS)
+    return PTWT_BAD_ARGUMENT;
+  AnaPlan p;
+  static_assert(sizeof(AnaPlan) == ANA_PLAN_INTS * sizeof(int), "AnaPlan is its ints");
+  memcpy(&p, plan_ints, sizeof(p));
+  const int64_t total = batch * p.tiles_h * static_cast<int64_t>(p.tiles_w);
+  if (!ana_plan_ok(p, len, pad, m_h, m_w) || !tiles_ok(total)) return PTWT_BAD_ARGUMENT;
+  const size_t smem = ana_smem(p);
+  unsigned blocks = 0;
+  if (int err = prepare(mxu2d_analysis_kernel, smem, total, &blocks)) return err;
+  mxu2d_analysis_kernel<<<blocks, MXU_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), make_taps<float>(lo, hi, len), p,
+      len, h, w, per_h, per_w, m_h, m_w, pad, circular, total,
+      batch * static_cast<int64_t>(m_h) * m_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The arguments of ptwt_idwt2 (dwt2.cu), with per_h == out_h and
-// per_w == out_w (no clamped output rows); float32 only, at most 64 taps.
-extern "C" int ptwt_mxu2d_synthesis(int dtype, const void* ll, const void* lh,
-                                    const void* hl, const void* hh, void* out,
-                                    const double* lo, const double* hi,
-                                    int len, long long batch, int m_h, int m_w,
-                                    int out_h, int out_w, int off_h, int off_w,
-                                    int circular, int half_h, int half_w,
-                                    int per_h, int per_w, void* stream) {
+// per_w == out_w (no clamped output rows), then K9b's plan (SYN_PLAN_INTS
+// ints); float32 only, at most 64 taps.
+extern "C" int ptwt_mxu2d_synthesis(int dtype, const void* ll, const void* lh, const void* hl,
+                                    const void* hh, void* out, const double* lo,
+                                    const double* hi, int len, long long batch, int m_h, int m_w,
+                                    int out_h, int out_w, int off_h, int off_w, int circular,
+                                    int half_h, int half_w, int per_h, int per_w,
+                                    const int* plan_ints, int plan_len, void* stream) {
   const bool folds = half_h != m_h || half_w != m_w;
-  if (dtype != 0 || len < 1 || len > MXU_MAX_TAPS || batch < 1 || m_h < 1 ||
-      m_w < 1 || out_h < 1 || out_w < 1 || off_h < 0 || off_w < 0 ||
-      half_h < 1 || half_h > m_h || half_w < 1 || half_w > m_w ||
-      per_h != out_h || per_w != out_w || (folds && !circular))
+  if (dtype != 0 || len < 1 || len > MXU_MAX_TAPS || batch < 1 || m_h < 1 || m_w < 1 ||
+      out_h < 1 || out_w < 1 || off_h < 0 || off_w < 0 || half_h < 1 || half_h > m_h ||
+      half_w < 1 || half_w > m_w || per_h != out_h || per_w != out_w || (folds && !circular) ||
+      !plan_ints || plan_len != SYN_PLAN_INTS)
     return PTWT_BAD_ARGUMENT;
-  const SynPlan plan = syn_plan(len, out_h, out_w);
-  const int64_t blocks = batch * plan.tiles_h * static_cast<int64_t>(plan.tiles_w);
-  const size_t smem = syn_smem(plan);
-  if (!grid_ok(blocks) || smem > MXU_MAX_SMEM) return PTWT_BAD_ARGUMENT;
-  cudaError_t err = cudaFuncSetAttribute(
-      mxu2d_synthesis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  SynPlan p;
+  static_assert(sizeof(SynPlan) == SYN_PLAN_INTS * sizeof(int), "SynPlan is its ints");
+  memcpy(&p, plan_ints, sizeof(p));
+  const int64_t total = batch * p.tiles_h * static_cast<int64_t>(p.tiles_w);
+  if (!syn_plan_ok(p, len, off_h, off_w, out_h, out_w) || !tiles_ok(total))
+    return PTWT_BAD_ARGUMENT;
+  const size_t smem = syn_smem(p);
+  unsigned blocks = 0;
+  if (int err = prepare(mxu2d_synthesis_kernel, smem, total, &blocks)) return err;
   Bands4<float> bands;
   bands.band[0] = static_cast<const float*>(ll);
   bands.band[1] = static_cast<const float*>(lh);
   bands.band[2] = static_cast<const float*>(hl);
   bands.band[3] = static_cast<const float*>(hh);
-  mxu2d_synthesis_kernel<<<static_cast<unsigned>(blocks), MXU_THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      bands, static_cast<float*>(out), make_taps<float>(lo, hi, len), plan,
-      m_h, m_w, out_h, out_w, off_h, off_w, circular, half_h, half_w);
+  mxu2d_synthesis_kernel<<<blocks, MXU_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      bands, static_cast<float*>(out), make_taps<float>(lo, hi, len), p, len, m_h, m_w, out_h,
+      out_w, circular, half_h, half_w, total);
   return static_cast<int>(cudaGetLastError());
 }

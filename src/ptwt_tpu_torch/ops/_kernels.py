@@ -86,13 +86,13 @@ _ENTRY_POINTS = {
     "ptwt_pyramid2d_synthesis": (
         "pyramid2d", [_I, _P, _PA, _P, _D, _D, _I, _LL, _IA, _I, _P]
     ),
-    # K9a / K9b take the arguments of ptwt_dwt2 / ptwt_idwt2
+    # K9a / K9b take the arguments of ptwt_dwt2 / ptwt_idwt2, then a plan
     "ptwt_mxu2d_analysis": (
-        "mxu2d", [_I, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        "mxu2d", [_I, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _IA, _I, _P]
     ),
     "ptwt_mxu2d_synthesis": (
         "mxu2d",
-        [_I, _P, _P, _P, _P, _P, _D, _D, _I, _LL, *[_I] * 11, _P],
+        [_I, _P, _P, _P, _P, _P, _D, _D, _I, _LL, *[_I] * 11, _IA, _I, _P],
     ),
 }
 

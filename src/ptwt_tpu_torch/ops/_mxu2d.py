@@ -16,11 +16,13 @@ y[128i : 128i+KH, :]``; the synthesis with ``SH_lo/SH_hi`` and
   range, the circular ``periodization`` synthesis, and the fold of the
   band rows past half the period (K9a's VJP).
 
-A block stages its input window in shared memory with the mode's
-extension (wrap, zeros, or band rows folded modulo half the period):
-that choice is made at staging, not in the products.  The products run on
-the tensor cores as ``mma.sync.m16n8k8`` with TF32 operands and float32
-accumulators.  One TF32 pass keeps 10 mantissa bits, about 3 decimal
+A persistent block walks tiles of the output with a ring of staged
+windows (:func:`analysis_plan`, :func:`synthesis_plan`: the ints the
+kernels take and check), each window staged in shared memory with the
+mode's extension (wrap, zeros, or band rows folded modulo half the
+period): that choice is made at staging, not in the products.  The
+products run on the tensor cores as ``mma.sync.m16n8k8`` with TF32
+operands and float32 accumulators.  One TF32 pass keeps 10 mantissa bits, about 3 decimal
 digits: 5e-4 relative on the headline's level on an H100, 25 times the
 port's 2e-5 limit (a debug build, ``-DPTWT_MXU2D_ONE_PASS``); so every
 operand is split ``a = a_hi + a_lo`` (``a_hi =
@@ -99,6 +101,119 @@ def mxu2_synthesis_ok(m_h: int, m_w: int, filt_len: int) -> bool:
 def mxu2_level_ok(h: int, w: int, filt_len: int, dtype: torch.dtype) -> bool:
     """Run this level (either direction, image ``h x w``) through K9?"""
     return dtype == torch.float32 and mxu2_analysis_ok(h, w, filt_len)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' tile plans (the ints csrc/mxu2d.cu takes and checks)
+# ---------------------------------------------------------------------------
+
+#: Shared memory of one block (bytes): two blocks share an SM of the H100
+#: (228 KB, 1 KB of it reserved per block), so that one block's staging
+#: and barriers overlap the other's products.
+SMEM_LIMIT = 115712
+#: Tiles tried in order, the first whose block fits :data:`SMEM_LIMIT` with
+#: a ring of three staged windows, then of two: K9a (band rows, band
+#: columns); K9b (output rows, output columns), its rows cut to the most
+#: whose band window is whole 16-row slabs.
+ANALYSIS_TILES = ((64, 64), (64, 32), (32, 32), (16, 32), (8, 16))
+SYNTHESIS_TILES = ((128, 128), (128, 64), (64, 64), (32, 64), (32, 32), (8, 16))
+#: Bytes of one lane's B operand fragment in the tables: an 8 x 8 B
+#: operand, 2 big and 2 small TF32 words.
+FRAG_B_BYTES = 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _stride(n: int, mod: int, rem: int) -> int:
+    """The least stride >= ``n`` that is ``rem`` modulo ``mod`` (shared
+    memory rows whose fragment loads hit distinct banks)."""
+    return n + (rem - n) % mod
+
+
+def analysis_smem(plan: tuple) -> int:
+    """Shared memory of one K9a block: the two fragment tables, the ring
+    of staged input windows and the W pass's output, transposed."""
+    tn, kw, kh, sy, xbuf, stages = plan[1], plan[3], plan[4], plan[8], plan[11], plan[12]
+    return 64 * FRAG_B_BYTES * (kw + kh) + 4 * (stages * xbuf + 2 * tn * sy)
+
+
+@functools.lru_cache(maxsize=256)
+def analysis_plan(filt_len: int, pad: int, m_h: int, m_w: int) -> tuple:
+    """K9a's plan: ``AnaPlan`` of ``csrc/mxu2d.cu``, 13 ints.
+
+    ``tm, tn``: the band positions of a tile; ``off``: the staged window
+    starts ``off`` columns left of the tile's first read (``2 j0 - pad``),
+    so its 4-column chunks are 16-byte aligned; ``kw``: k-steps of 8 input
+    columns per 8 band columns (the W pass), ``kh``: of 8 rows of the W
+    pass's output per 8 band rows (the H pass); ``xrows, xcols``: the
+    largest staged window (the W pass computes 16-row slabs, so ``xrows``
+    is the H pass's reach rounded up to 16); ``sx, sy``: row strides of
+    the window and of the transposed W pass output; ``tiles_h, tiles_w``;
+    ``xbuf``: the floats of one ring stage; ``stages``: the ring's depth.
+    """
+    L = filt_len
+    off = (-pad) % 4
+    kw = _cdiv(off + 14 + L, 8)
+    kh = _cdiv(14 + L, 8)
+    for stages in (3, 2):
+        for tm, tn in ANALYSIS_TILES:
+            xrows = _cdiv(2 * tm - 16 + 8 * kh, 16) * 16
+            xcols = 2 * tn - 16 + 8 * kw
+            sx, sy = _stride(xcols, 8, 4), _stride(xrows, 16, 4)
+            plan = (tm, tn, off, kw, kh, xrows, xcols, sx, sy, _cdiv(m_h, tm), _cdiv(m_w, tn),
+                    xrows * sx, stages)
+            if analysis_smem(plan) <= SMEM_LIMIT:
+                return plan
+    raise ValueError(f"no K9a tile holds {L} taps")
+
+
+def synthesis_smem(plan: tuple) -> int:
+    """Shared memory of one K9b block: the tables, the ring of staged band
+    windows (four bands each) and the W pass's output, transposed."""
+    tv, ks, kw, st, bbuf, stages = plan[1], plan[8], plan[9], plan[13], plan[16], plan[17]
+    return 64 * FRAG_B_BYTES * (kw + ks) + 4 * (stages * bbuf + 2 * tv * st)
+
+
+@functools.lru_cache(maxsize=256)
+def synthesis_plan(
+    filt_len: int, off_h: int, off_w: int, m_h: int, m_w: int, out_h: int, out_w: int
+) -> tuple:
+    """K9b's plan: ``SynPlan`` of ``csrc/mxu2d.cu``, 18 ints.
+
+    ``tu, tv``: the outputs of a tile; a tile at ``(u0, v0)`` reads band
+    rows from ``q0 = u0 / 2 + dq_h`` and columns from ``v0 / 2 + dq_w``,
+    and output ``u0 + mu`` takes tap ``e_h + mu - 2 mq`` of band row ``q0
+    + mq``; ``o``: the staged window starts ``o`` columns left of that,
+    16-byte aligned; ``base``: the first window column of output columns
+    ``[0, 8)`` (those of 8 n start ``4 n`` further); ``ks``: k-steps of 8
+    band rows per 8 output rows (the H pass), ``kw``: of 8 band columns per
+    8 output columns (the W pass, run first); ``brows, bcols``: the largest
+    staged window; ``sb, st``: row strides of the window and of the
+    transposed W pass output; ``tiles_h, tiles_w``; ``bbuf``: the floats of
+    one ring stage; ``stages``: the ring's depth.
+    """
+    L = filt_len
+    dq_h, dq_w = (off_h - L + 1) // 2, (off_w - L + 1) // 2
+    e_h, e_w = off_h - 2 * dq_h, off_w - 2 * dq_w
+    o = dq_w % 4
+    lo = -((L - 1 - e_w) // 2)  # ceil((e_w - L + 1) / 2)
+    base = (o + lo) // 4 * 4
+    kw = _cdiv(o + (7 + e_w) // 2 + 1 - base, 8)
+    ks = (7 + e_h) // 2 // 8 + 1
+    for stages in (3, 2):
+        for rows, tv in SYNTHESIS_TILES:
+            # rows r reach band row r / 2 - 4 + 8 ks: whole 16-row slabs
+            tu = max(8, rows - (rows - 8 + 16 * ks) % 32)
+            brows = _cdiv(tu // 2 - 4 + 8 * ks, 16) * 16
+            bcols = tv // 2 - 4 + base + 8 * kw
+            sb, st = _stride(bcols, 8, 4), _stride(brows, 16, 4)
+            plan = (tu, tv, dq_h, dq_w, e_h, e_w, o, base, ks, kw, brows, bcols, sb, st,
+                    _cdiv(out_h, tu), _cdiv(out_w, tv), 4 * brows * sb, stages)
+            if synthesis_smem(plan) <= SMEM_LIMIT:
+                return plan
+    raise ValueError(f"no K9b tile holds {L} taps")
 
 
 # ---------------------------------------------------------------------------
@@ -319,10 +434,12 @@ def mxu2_dwt_call(
     b, h, w = x.shape
     out = torch.empty((4, b, m_h, m_w), dtype=x.dtype, device=x.device)
     if out.numel():
+        plan = analysis_plan(len(lo), pad, m_h, m_w)
         _kernels.launch(
             "K9a", "ptwt_mxu2d_analysis", x.device, x.dtype,
             x, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
             b, h, w, per_h, per_w, m_h, m_w, pad, int(circular),
+            _kernels.int_array(plan), len(plan),
         )
     return out
 
@@ -348,10 +465,12 @@ def mxu2_idwt_call(
     fold = fold or (m_h, m_w, out_h, out_w)
     out = torch.empty((b, out_h, out_w), dtype=ref.dtype, device=ref.device)
     if out.numel():
+        plan = synthesis_plan(len(lo), off, off, m_h, m_w, out_h, out_w)
         _kernels.launch(
             "K9b", "ptwt_mxu2d_synthesis", ref.device, ref.dtype,
             *bands, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
             b, m_h, m_w, out_h, out_w, off, off, int(circular), *fold,
+            _kernels.int_array(plan), len(plan),
         )
     return out
 

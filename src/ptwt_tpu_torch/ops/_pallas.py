@@ -85,8 +85,16 @@ __all__ = [
 
 def fused_wavedec_applicable(n: int, filt_len: int, level: int) -> bool:
     """Static gate: ``level`` periodization levels halve ``n`` exactly,
-    and the kernels hold the filter."""
-    return level >= 1 and n > 0 and n % (1 << level) == 0 and 2 <= filt_len <= MAX_TAPS
+    and the kernels hold the filter.  An odd-length bank declines: pywt's
+    periodization then gives bands of ``(n + L - 1) // 2 - L // 2 + ...``
+    other than ``n / 2`` (31 and 15 on 64 samples at 7 taps), which the
+    per-level route computes."""
+    return level >= 1 and n > 0 and n % (1 << level) == 0 and _even_bank(filt_len)
+
+
+def _even_bank(filt_len: int) -> bool:
+    """The pyramid kernels' filter gate: an even length they hold."""
+    return filt_len % 2 == 0 and 2 <= filt_len <= MAX_TAPS
 
 
 def _runs(level: int) -> list[int]:
@@ -403,10 +411,11 @@ def _pyramid2d_runs(h: int, w: int, filt_len: int, level: int, itemsize: int):
 
 def fused_wavedec2d_applicable(h: int, w: int, filt_len: int, level: int, dtype) -> bool:
     """Static gate: ``level`` periodization levels halve ``[h, w]`` exactly,
-    the kernels hold the filter, and the plan holds every run."""
+    the kernels hold the filter (an even length: an odd bank's bands are
+    not half the axis, as for K6), and the plan holds every run."""
     if level < 1 or h < 1 or w < 1 or h % (1 << level) or w % (1 << level):
         return False
-    if not 2 <= filt_len <= MAX_TAPS or dtype not in _ITEMSIZE:
+    if not _even_bank(filt_len) or dtype not in _ITEMSIZE:
         return False
     return _pyramid2d_runs(h, w, filt_len, level, _ITEMSIZE[dtype]) is not None
 

@@ -110,8 +110,11 @@ _SMEM_LIMIT = 232448
 
 
 def _long_lane(n: int, filt_len: int) -> bool:
-    """The K7/K8 length gate: a long axis and a filter the kernels hold."""
-    return n > FLAT_MIN_LANES and 2 <= filt_len <= MAX_TAPS
+    """The K7/K8 length gate: a long axis and a filter the kernels hold.
+
+    The kernels' edge blocks size their strips for an even-length bank;
+    an odd bank declines to the per-level K3/K4 route."""
+    return n > FLAT_MIN_LANES and filt_len % 2 == 0 and 2 <= filt_len <= MAX_TAPS
 
 
 # ---------------------------------------------------------------------------

@@ -181,9 +181,12 @@ def _outer_inner(shape: Sequence[int], ax: int) -> tuple[int, int]:
 def _analysis_plan(n: int, filt_len: int, mode: str) -> tuple[int, int, int, int]:
     """``(m, period, pad, code)`` of K3 on an unpadded axis of ``n``."""
     if mode == "periodization":
-        # odd axes repeat their last sample (pywt's edge pad to even)
+        # odd axes repeat their last sample (pywt's edge pad to even); an
+        # odd-length bank gives period / 2 - 1 bands, as the padded
+        # convolution of the plain version does
         period = n + n % 2
-        return period // 2, period, filt_len // 2 - 1, _WRAP
+        pad = filt_len // 2 - 1
+        return (period + 2 * pad - filt_len) // 2 + 1, period, pad, _WRAP
     if mode == "valid":
         return max((n - filt_len) // 2 + 1, 0), n, 0, _ZERO
     if mode not in _MODE_CODE:

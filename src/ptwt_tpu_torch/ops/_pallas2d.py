@@ -80,11 +80,13 @@ def _reach_ok(h: int, w: int, filt_len: int) -> bool:
 
 
 def fused2_analysis_applicable(h: int, w: int, filt_len: int, mode: str) -> bool:
-    """Run this 2d analysis level through K1?"""
+    """Run this 2d analysis level through K1?  Not ``periodization`` with
+    an odd-length bank, whose bands are not half the period (K3/K4 run
+    it)."""
     if mode == "periodic":
         if h % 2 or w % 2:
             return False
-    elif mode != "periodization":
+    elif mode != "periodization" or filt_len % 2:
         return False
     return _reach_ok(h, w, filt_len)
 
@@ -109,6 +111,8 @@ def fused2_synthesis_applicable(
     ``(2L-3)//2`` crop of an even-shaped original).
     """
     if mode == "periodization":
+        if filt_len % 2:
+            return False
         std = (0, 0)
     elif mode == "periodic":
         std = (_std_pad(filt_len),) * 2

@@ -16,9 +16,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import model_kernels  # noqa: F401
 
 import ptwt_tpu as jptwt
 import ptwt_tpu_torch as tptwt
+from ptwt_tpu_torch.ops import _pallas as t6
+from ptwt_tpu_torch.ops import _pallas1d_multi as t8
 from ptwt_tpu_torch.utils import coeffs_from_numpy, coeffs_to_numpy
 
 MODES = ["zero", "constant", "reflect", "periodic", "symmetric", "periodization"]
@@ -160,6 +163,59 @@ def test_waverec_rejects_mismatched_band(mode):
     coeffs[1] = coeffs[1][..., :-1]
     with pytest.raises(ValueError):
         tptwt.waverec(coeffs, "db2", mode=mode)
+
+
+def _odd_bank():
+    """A user's 7-tap bank (no registry wavelet has an odd length)."""
+    rs = np.random.RandomState(70)
+    return tuple(rs.randn(7) for _ in range(4))
+
+
+# (shape, mode, level): the K6 periodization pyramid's and the K7/K8 long
+# lanes' inputs; their gates decline an odd bank, so the levels run K3/K4
+ODD_BANK_1D = [
+    ((1, 64), "periodization", 2),
+    ((3, 64), "periodization", 1),
+    ((2, 70000), "reflect", 2),
+    ((2, 70000), "periodic", 1),
+    ((2, 70000), "zero", 3),
+]
+
+
+@pytest.mark.parametrize("shape,mode,level", ODD_BANK_1D)
+def test_odd_bank_takes_the_per_level_route(model_kernels, shape, mode, level):  # noqa: F811
+    """The CUDA glue on the numpy kernel model gives ``ptwt_tpu``'s band
+    lengths and values for an odd bank (31 and 15 on 64 samples in
+    periodization), and the round trip too, launching K3/K4 only."""
+    bank = _odd_bank()
+    assert not t6.fused_wavedec_applicable(shape[-1], 7, level)
+    assert not t8._long_lane(shape[-1], 7)
+    assert t8._long_lane(shape[-1], 8) == (shape[-1] > t8.FLAT_MIN_LANES)
+    x = np.random.RandomState(71).randn(*shape)
+    want = jptwt.wavedec(jnp.asarray(x), bank, mode=mode, level=level)
+    got = tptwt.wavedec(torch.from_numpy(x), bank, mode=mode, level=level)
+    _assert_coeffs(got, want, 1e-10)
+    ran = _same_reconstruction(
+        lambda: tptwt.waverec(got, bank, mode=_rec_mode(mode)),
+        lambda: jptwt.waverec(want, bank, mode=_rec_mode(mode)),
+    )
+    assert {k for k, v in model_kernels.items() if v} == ({"K3", "K4"} if ran else {"K3"})
+
+
+def _same_reconstruction(port, reference):
+    """Both give the same array (True), or both refuse the chain (False):
+    ``ptwt_tpu`` raises on most multi-level chains of an odd bank, whose
+    band lengths do not match the crops it infers."""
+    try:
+        want = np.asarray(reference())
+    except AssertionError:
+        with pytest.raises(AssertionError, match="padding error"):
+            port()
+        return False
+    got = port()
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-10, rtol=0)
+    return True
 
 
 def test_wavedec_rejects_bad_input():

@@ -20,6 +20,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 import ptwt_tpu_torch as tptwt  # noqa: E402
 from ptwt_tpu_torch.ops import _kernels  # noqa: E402
+from ptwt_tpu_torch.ops import _mxu2d as t9  # noqa: E402
 from ptwt_tpu_torch.ops import _pallas as t5  # noqa: E402
 from ptwt_tpu_torch.ops import _pallas as t6  # noqa: E402
 from ptwt_tpu_torch.ops import _pallas1d as t7  # noqa: E402
@@ -624,6 +625,52 @@ def test_cuda_k5_public_path_matches_cpu(cuda_device, shape, level):
     assert float((grad.cpu() - want[2]).abs().max()) <= 1e-10
 
 
+# an odd-length bank (a user's 7 taps) on the inputs of the K5, K6 and
+# K7/K8 routes, whose gates decline it: K3/K4 run every level
+ODD_BANK_CASES = [
+    ((1, 64), "periodization", 2),
+    ((3, 64), "periodization", 1),
+    ((2, 70000), "reflect", 2),
+    ((2, 70000), "periodic", 1),
+    ((2, 70000), "zero", 3),
+    ((1, 64, 64), "periodization", 2),
+    ((2, 64, 48), "periodization", 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mode,level", ODD_BANK_CASES)
+def test_cuda_odd_bank_matches_cpu(cuda_device, shape, mode, level):
+    gen = torch.Generator().manual_seed(73)
+    bank = tuple(torch.randn(7, generator=gen, dtype=torch.float64).numpy() for _ in range(4))
+    x = torch.randn(*shape, generator=gen, dtype=torch.float64)
+    one_d = len(shape) == 2
+    fwd, inv = (tptwt.wavedec, tptwt.waverec) if one_d else (tptwt.wavedec2, tptwt.waverec2)
+    flat = (lambda c: list(c)) if one_d else _flat2
+    rec_mode = "periodization" if mode == "periodization" else None
+    _kernels.reset_launch_counts()
+    got = fwd(x.to(cuda_device), bank, mode=mode, level=level)
+    torch.cuda.synchronize()
+    assert {k for k, v in _kernels.LAUNCHES.items() if v} == {"K3"}
+    want = fwd(x, bank, mode=mode, level=level)
+    assert [tuple(c.shape) for c in flat(got)] == [tuple(c.shape) for c in flat(want)]
+    assert _rel_err([c.cpu() for c in flat(got)], flat(want)) <= 1e-10
+    try:
+        rec_want = inv(want, bank, mode=rec_mode)
+    except AssertionError:
+        # a multi-level chain of odd-bank bands is refused on both devices
+        with pytest.raises(AssertionError, match="padding error"):
+            inv(got, bank, mode=rec_mode)
+        return
+    rec = inv(got, bank, mode=rec_mode)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K4"] and not any(
+        _kernels.LAUNCHES[k] for k in ("K5b", "K6b", "K7b", "K8b", "K2")
+    )
+    assert tuple(rec.shape) == tuple(rec_want.shape)
+    assert float((rec.cpu() - rec_want).abs().max()) <= 1e-10
+
+
 @pytest.mark.cuda
 def test_cuda_2d_long_last_axis_runs_k7(cuda_device):
     """A 2d level whose last axis passes the gate runs K7 along it."""
@@ -708,6 +755,51 @@ def test_cuda_k9_vjps_match_plain(mxu2d, monkeypatch, wavelet, shape, mode):
     plain = _k9_plain(monkeypatch, t2d.fused2_idwt_level, subbands, rl, rh, mode)
     want = torch.autograd.grad(plain, subbands, ct)
     assert _rel_err(list(grads), list(want)) <= 2e-5
+
+
+# each K9 instance through its wrapper: the smallest image the gate takes,
+# a ragged one (periodic m = 195 x 387: a 3-row last tile row) and a
+# user's odd 7-tap bank
+K9_LAUNCH_CASES = [
+    ((64, 256, 256), "db4", "periodic"),
+    ((64, 256, 256), "db4", "periodization"),
+    ((4, 384, 768), "db4", "periodic"),
+    ((4, 384, 768), "sym6", "periodization"),
+    ((4, 384, 768), "odd7", "periodic"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bank,mode", K9_LAUNCH_CASES)
+def test_cuda_k9_instances_match_plain(mxu2d, shape, bank, mode):
+    """K9a, K9b, K9a's VJP (K9b folding the band rows past half the
+    period) and K9b's VJP (K9a, zero-bounded in periodic) against their
+    plain versions (2e-5 relative to the band's magnitude), one launch
+    each."""
+    if bank == "odd7":
+        gen = torch.Generator().manual_seed(74)
+        lo, hi, rl, rh = ((torch.randn(7, generator=gen, dtype=torch.float64) / 7**0.5).tolist() for _ in range(4))
+    else:
+        lo, hi, rl, rh = (torch.as_tensor(f).tolist() for f in _banks(bank))
+    b, h, w = shape
+    L = len(lo)
+    p = L // 2 - 1 if mode == "periodization" else _std_pad(L)
+    m_h, m_w = (h // 2, w // 2) if mode == "periodization" else ((h + 2 * p - L) // 2 + 1, (w + 2 * p - L) // 2 + 1)
+    circ = mode == "periodization"
+    fold = (h // 2, w // 2, h, w)
+    x = torch.randn(shape, device=mxu2d)
+    bands = [torch.randn(b, m_h, m_w, device=mxu2d) for _ in range(4)]
+    for kernel, fn, args in (
+        ("K9a", "dwt", (x, lo, hi, h, w, m_h, m_w, p)),
+        ("K9b", "idwt", (bands, rl, rh, h, w, p, circ)),
+        ("K9b", "idwt", (bands, lo, hi, h, w, p, True, fold)),
+        ("K9a", "dwt", (x, rl, rh, h, w, m_h, m_w, p, circ)),
+    ):
+        _kernels.reset_launch_counts()
+        got = getattr(t9, f"mxu2_{fn}_call")(*args)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {kernel: 1}
+        assert _rel_err(got, getattr(t9, f"mxu2_{fn}_plain")(*args)) <= 2e-5
 
 
 @pytest.mark.cuda

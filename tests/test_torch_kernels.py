@@ -34,6 +34,7 @@ from ptwt_tpu.ops._dispatch import analysis_nd as j_analysis_nd
 from ptwt_tpu.ops._dispatch import synthesis_nd as j_synthesis_nd
 from ptwt_tpu.utils import get_filter_arrays as j_filters
 from ptwt_tpu_torch.ops import _kernels
+from ptwt_tpu_torch.ops import _mxu2d as t9
 from ptwt_tpu_torch.ops import _pallas as t6
 from ptwt_tpu_torch.ops import _pallas1d as t7
 from ptwt_tpu_torch.ops import _pallas1d_multi as t8
@@ -600,20 +601,26 @@ def _model_pyramid2d_synthesis(ll_in, det, out, lo, hi, n_taps, batch, plan, sme
 
 def _model_mxu2d(entry, dtype, a):
     """The argument rules of ``ptwt_mxu2d_*`` (``csrc/mxu2d.cu``): float32,
-    at most 64 taps, and for the synthesis no clamped output rows; the
-    launch then computes what the K1/K2 launch with the same arguments
-    does.  Returns that entry's name."""
+    at most 64 taps, for the synthesis no clamped output rows, and the
+    tile plan of ``ops/_mxu2d.py`` last (``tests/test_torch_mxu2d_tiles.py``
+    replays the kernels on it); the launch then computes what the K1/K2
+    launch with the same arguments does.  Returns that entry's name and
+    arguments."""
     assert dtype == torch.float32, "K9 takes float32 only"
+    *a, plan, plan_len = a
+    assert len(plan) == plan_len
     if entry == "ptwt_mxu2d_analysis":
         n_taps, circ = a[4], a[13]
         assert not circ or (a[8] >= a[6] and a[9] >= a[7])
         assert 1 <= n_taps <= 64
-        return "ptwt_dwt2"
+        assert list(plan) == list(t9.analysis_plan(n_taps, a[12], a[10], a[11]))
+        return "ptwt_dwt2", a
     n_taps, m_h, m_w, out_h, out_w, circ, half_h, half_w, per_h, per_w = a[7], *a[9:13], *a[15:20]
     assert 1 <= n_taps <= 64
     assert (per_h, per_w) == (out_h, out_w), "K9b writes no clamped output rows"
     assert circ or (half_h, half_w) == (m_h, m_w), "a fold needs circular reads"
-    return "ptwt_idwt2"
+    assert list(plan) == list(t9.synthesis_plan(n_taps, a[13], a[14], m_h, m_w, out_h, out_w))
+    return "ptwt_idwt2", a
 
 
 def _model_launch(kernel, entry, device, dtype, *a):
@@ -622,7 +629,7 @@ def _model_launch(kernel, entry, device, dtype, *a):
     K4's fold instance, as the transposed K3 operator)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     if entry.startswith("ptwt_mxu2d_"):
-        entry = _model_mxu2d(entry, dtype, a)
+        entry, a = _model_mxu2d(entry, dtype, a)
     if entry == "ptwt_fwt1d_analysis":
         x, lo_out, *his = a[:6]
         _model_analysis_1d(x, lo_out, his, *a[6:], itemsize)

@@ -160,6 +160,33 @@ def test_public_path_matches_jax(model_kernels, shape, wavelet, level, runs):  #
         assert _used(model_kernels) == {"K5a", "K5b"}
 
 
+# (shape, level): an odd bank in periodization gives bands of period / 2 - 1
+# (31 and 15 on 64 samples at 7 taps); K5's gate, and K1/K2's, decline it
+ODD_BANK_2D = [((1, 64, 64), 2), ((2, 64, 48), 1)]
+
+
+@pytest.mark.parametrize("shape,level", ODD_BANK_2D)
+def test_odd_bank_takes_the_per_level_route(model_kernels, shape, level):  # noqa: F811
+    rs = np.random.RandomState(72)
+    bank = tuple(rs.randn(7) for _ in range(4))
+    assert not t5.fused_wavedec2d_applicable(*shape[1:], 7, level, torch.float64)
+    x = rs.randn(*shape)
+    want = jptwt.wavedec2(jnp.asarray(x), bank, mode="periodization", level=level)
+    got = tptwt.wavedec2(torch.from_numpy(x), bank, mode="periodization", level=level)
+    for g, w_ in zip(_flat(got), _flat(want)):
+        _close(g, w_, 1e-10)
+    try:
+        rec_want = np.asarray(jptwt.waverec2(want, bank, mode="periodization"))
+    except AssertionError:
+        # the reference refuses a multi-level chain of odd-bank bands
+        with pytest.raises(AssertionError, match="padding error"):
+            tptwt.waverec2(got, bank, mode="periodization")
+        assert _used(model_kernels) == {"K3"}
+        return
+    _close(tptwt.waverec2(got, bank, mode="periodization"), rec_want, 1e-10)
+    assert _used(model_kernels) == {"K3", "K4"}
+
+
 def test_periodization_is_inferred_on_the_k5_route(model_kernels):  # noqa: F811
     x = torch.from_numpy(np.random.RandomState(7).randn(1, 64, 64))
     coeffs = tptwt.wavedec2(x, "db3", mode="periodization", level=3)
