@@ -2409,8 +2409,9 @@ def round_trips_k9() -> dict:
 
 def k9_times() -> dict:
     """Device ms of K9a, K9b and both VJP instances (as the autograd
-    backward runs them) with the opt-in, and of K1, K2 and their VJPs
-    without it, on the periodic level 1 of :data:`K9_SHAPES` (db4,
+    backward runs them, and launched alone) with the opt-in, and of K1,
+    K2 and their VJPs without it, on the periodic level 1 of
+    :data:`K9_SHAPES` (db4,
     float32), each call's launches asserted; then the periodic headline
     round trip with and without the opt-in (:func:`round_trips_k9`, median
     Mpix/s): the rows ``--parent`` compares in turns (entry points both
@@ -2437,6 +2438,17 @@ def k9_times() -> dict:
                 rec = _pallas2d.fused2_idwt_level(leaves, rl, rh, "periodic")
                 ct = randn(rec.shape, f32, SEED + 390)
                 out[f"{kb} VJP {name}"] = time_ms(lambda: torch.autograd.grad(rec, leaves, ct, retain_graph=True))
+                # the VJP launches alone, as the autograd Functions make them
+                # (without the engine and the stack of the four cotangents)
+                _, h, w = shape
+                p = std_pad(len(dl))
+                m = bands[0].shape[-1]
+                fold = (h // 2, w // 2, h, w)
+                dec = [_kernels.static_taps(f) for f in (dl, dh)]
+                rec_taps = [_kernels.static_taps(f) for f in (rl, rh)]
+                out[f"{ka} VJP direct {name}"] = time_ms(lambda: _pallas2d._idwt2_kernel(cts, *dec, h, w, p, True, fold))
+                out[f"{kb} VJP direct {name}"] = time_ms(
+                    lambda: _pallas2d._dwt2_kernel(ct, *rec_taps, h, w, m, m, p, False))
                 del bands, outs, cts, leaves, rec, ct
         del x, xd
     trips = round_trips_k9()

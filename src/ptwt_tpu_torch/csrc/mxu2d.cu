@@ -43,12 +43,12 @@
 // pass keeps about 3 decimal digits: built with -DPTWT_MXU2D_ONE_PASS it
 // is 5e-4 off the plain version relative to the band's magnitude on the
 // headline's level on an H100, 25 times the port's 2e-5 limit (PERF.md).
-// So each operand is split, a = a_big + a_small with a_big = tf32(a) and
-// a_small = tf32(a - a_big), and each product is small*big + big*small +
-// big*big (3xTF32) accumulated in float32, which drops only the
-// small*small term (about 2^-22 relative).  tf32() rounds to nearest, ties
-// away from zero (cvt.rna's rounding), in integer arithmetic: cvt.rna runs
-// at the card's conversion rate, a quarter of the integer one.
+// So each operand is split, a = a_big + a_small with a_big = a cut to
+// TF32 and a_small = a - a_big, and each product is small*big + big*small
+// + big*big (3xTF32) accumulated in float32, which drops the small*small
+// term and small's bits past TF32's (about 2^-20 relative).  The split is
+// two integer and float operations: cvt.rna.tf32.f32 runs at the card's
+// conversion rate, a quarter of the integer one.
 //
 // Bound on the H100: bytes.  K9a reads the image once and writes four
 // quarter-size bands, K9b the mirror image: the same bytes as K1/K2; the
@@ -79,6 +79,7 @@
 // * K9b's fold runs only in the VJP instance (half < m), as a second pass
 //   over the staged positions whose band row or column has rows past half.
 #include <cstring>
+#include <mutex>
 
 #include "common.cuh"
 
@@ -99,17 +100,15 @@ struct __align__(16) FragB {  // an 8x8 B operand, split
   uint32_t big[2], small[2];
 };
 
-// tf32(x), rounded to nearest with ties away from zero (cvt.rna.tf32.f32)
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
+// x = big + small: big is x cut to TF32's 10 mantissa bits (exact), small
+// the rest (exact in float32), of which the tensor cores take the top 10
+// bits.  Two integer and float operations, no conversion instruction.
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
+  big = __float_as_uint(x) & 0xffffe000u;
 #ifdef PTWT_MXU2D_ONE_PASS
   small = 0u;
 #else
-  small = to_tf32(x - __uint_as_float(big));
+  small = __float_as_uint(x - __uint_as_float(big));
 #endif
 }
 
@@ -586,32 +585,52 @@ __device__ __forceinline__ void syn_stage(float* bs, const Bands4<float>& bands,
 }
 
 // K9a's VJP: each staged position (ra0, rb0) also collects the band
-// positions (ra0 + k half_h, rb0 + l half_w) < (m_h, m_w), (k, l) != 0;
-// only the rows or columns below m - half have any.
+// positions (ra0 + half_h, rb0), (ra0, rb0 + half_w) and (ra0 + half_h,
+// rb0 + half_w) that lie in the band (m < 2 half: K9's gate takes images
+// of 128 rows and more, m - half < 32).  Only the rows ra0 < xh = m_h -
+// half_h and the columns rb0 < xw have any.  Their positions form one flat
+// list, spread over the block so that every thread's loads are in flight
+// at once: first the window rows of band rows k < xh (whole), then in the
+// other rows the window columns of band columns i < xw (the window,
+// narrower than half, reads each band row and column at most once).
+__device__ __forceinline__ int fold_items(const SynTile& t, int xh, int xw, int half_h,
+                                          int half_w) {
+  if (t.q0 >= xh && t.q0 + t.br <= half_h && t.c0 >= xw && t.c0 + t.bc <= half_w) return 0;
+  return xh * t.bc + t.br * xw;
+}
+
 __device__ __forceinline__ void syn_fold(float* bs, const Bands4<float>& bands, const SynPlan& p,
                                          const SynTile& t, int m_h, int m_w, int half_h,
-                                         int half_w) {
-  // a window whose rows and columns lie in [m - half, half) has none
-  if (t.q0 >= m_h - half_h && t.q0 + t.br <= half_h && t.c0 >= m_w - half_w &&
-      t.c0 + t.bc <= half_w)
-    return;
-  const int64_t image = t.b * m_h * m_w;
+                                         int half_w, int n) {
+  const int xh = m_h - half_h, xw = m_w - half_w, n_rows = xh * t.bc;
+  const int64_t image = t.b * m_h * m_w, down = static_cast<int64_t>(half_h) * m_w;
   const int plane = p.brows * p.sb;
-  for (Walk it(threadIdx.x, MXU_THREADS, t.bc); it.outer < t.br; it.next()) {
-    const int ra0 = wrap_index(t.q0 + it.outer, half_h, half_h);
-    const int rb0 = wrap_index(t.c0 + it.inner, half_w, half_w);
-    if (ra0 + half_h >= m_h && rb0 + half_w >= m_w) continue;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int ra = ra0; ra < m_h; ra += half_h) {
-      const int64_t line = image + static_cast<int64_t>(ra) * m_w;
-      for (int rb = ra == ra0 ? rb0 + half_w : rb0; rb < m_w; rb += half_w) {
-#pragma unroll
-        for (int o = 0; o < 4; ++o) v[o] += bands.band[o][line + rb];
-      }
+  for (int f = threadIdx.x; f < n; f += MXU_THREADS) {
+    int r, c, ra0, rb0;
+    if (f < n_rows) {
+      ra0 = f / t.bc;
+      c = f - ra0 * t.bc;
+      r = wrap_index(ra0 - t.q0, half_h, half_h);
+      rb0 = wrap_index(t.c0 + c, half_w, half_w);
+    } else {
+      r = (f - n_rows) / xw;
+      rb0 = f - n_rows - r * xw;
+      ra0 = wrap_index(t.q0 + r, half_h, half_h);
+      c = wrap_index(rb0 - t.c0, half_w, half_w);
+      if (ra0 < xh) continue;  // a whole row, above
     }
-    const int at = it.outer * p.sb + it.inner;
+    if (r >= t.br || c >= t.bc) continue;
+    const bool row = ra0 < xh, col = rb0 < xw;
+    const int64_t at = image + static_cast<int64_t>(ra0) * m_w + rb0;
+    float v[4];
 #pragma unroll
-    for (int o = 0; o < 4; ++o) bs[o * plane + at] += v[o];
+    for (int o = 0; o < 4; ++o) {
+      const float* src = bands.band[o] + at;
+      v[o] = (row ? src[down] : 0.f) + (col ? src[half_w] : 0.f) +
+             (row && col ? src[down + half_w] : 0.f);
+    }
+#pragma unroll
+    for (int o = 0; o < 4; ++o) bs[o * plane + r * p.sb + c] += v[o];
   }
 }
 
@@ -656,8 +675,11 @@ __global__ void __launch_bounds__(MXU_THREADS, 2)
     float* const cur = ring + (k % p.stages) * p.bbuf;
     const SynTile tl = syn_tile(p, tile, out_h, out_w);
     if (fold) {
-      syn_fold(cur, bands, p, tl, m_h, m_w, half_h, half_w);
-      __syncthreads();
+      const int n = fold_items(tl, m_h - half_h, m_w - half_w, half_h, half_w);
+      if (n > 0) {
+        syn_fold(cur, bands, p, tl, m_h, m_w, half_h, half_w, n);
+        __syncthreads();
+      }
     }
 
     // W pass: units (16 band rows, 8 output columns) into T^T[f][v][qa]:
@@ -791,18 +813,32 @@ static bool syn_plan_ok(const SynPlan& p, int len, int off_h, int off_w, int out
 }
 
 // Raise the kernel's shared-memory limit and size its persistent grid:
-// as many blocks as the SMs hold at once, at most one per tile.
+// as many blocks as the SMs hold at once, at most one per tile.  The
+// attribute and the occupancy are asked once per device and size, not at
+// every launch (host time between a backward's launches leaves the card
+// idle).
 template <typename K>
 static int prepare(K kernel, size_t smem, int64_t total, unsigned* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MXU_THREADS, smem);
+  static std::mutex lock;
+  static int known_device = -1, resident = 0;
+  static size_t known_smem = 0;
+  std::lock_guard<std::mutex> guard(lock);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device != known_device || smem != known_smem)) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MXU_THREADS, smem);
+    if (err == cudaSuccess) {
+      known_device = device;
+      known_smem = smem;
+      resident = sms * (per_sm > 0 ? per_sm : 1);
+    }
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t resident = int64_t(sms) * (per_sm > 0 ? per_sm : 1);
   *blocks = static_cast<unsigned>(total < resident ? total : resident);
   return 0;
 }
@@ -855,7 +891,8 @@ extern "C" int ptwt_mxu2d_synthesis(int dtype, const void* ll, const void* lh, c
   static_assert(sizeof(SynPlan) == SYN_PLAN_INTS * sizeof(int), "SynPlan is its ints");
   memcpy(&p, plan_ints, sizeof(p));
   const int64_t total = batch * p.tiles_h * static_cast<int64_t>(p.tiles_w);
-  if (!syn_plan_ok(p, len, off_h, off_w, out_h, out_w) || !tiles_ok(total))
+  if (!syn_plan_ok(p, len, off_h, off_w, out_h, out_w) || !tiles_ok(total) ||
+      (folds && (m_h >= 2 * half_h || m_w >= 2 * half_w || p.brows > half_h || p.bcols > half_w)))
     return PTWT_BAD_ARGUMENT;
   const size_t smem = syn_smem(p);
   unsigned blocks = 0;

@@ -25,9 +25,9 @@ products run on the tensor cores as ``mma.sync.m16n8k8`` with TF32
 operands and float32 accumulators.  One TF32 pass keeps 10 mantissa bits, about 3 decimal
 digits: 5e-4 relative on the headline's level on an H100, 25 times the
 port's 2e-5 limit (a debug build, ``-DPTWT_MXU2D_ONE_PASS``); so every
-operand is split ``a = a_hi + a_lo`` (``a_hi =
-tf32(a)``, ``a_lo = tf32(a - a_hi)``) and each product is ``hi*hi +
-hi*lo + lo*hi`` (3xTF32), about float32's accuracy.  The band matrices
+operand is split ``a = a_hi + a_lo`` (``a_hi`` = ``a`` cut to TF32,
+``a_lo = a - a_hi``) and each product is ``hi*hi + hi*lo + lo*hi``
+(3xTF32), about float32's accuracy.  The band matrices
 are never loaded: they are 98% zeros (a 384 x 256 ``FW`` holds 2,048
 taps at db4) and would not fit in shared memory, so each thread builds
 its operand fragments from the taps and a block multiplies only the

@@ -378,25 +378,46 @@ def _synthesis_stage(blk, at, tile, tl, bands, plan, geom, paths):
     for o, band in enumerate(bands):
         values = _stage_rows_cols(band[tl["b"]], src_row, src_col, row_in, col_in, vector, inside, paths)
         blk.write("ring", idx + o * plane, values, tile, at, at + blk.stage)
-    if not (circular and (half_h < m_h or half_w < m_w)):
-        return
-    # the fold: positions whose band row or column has rows past half
-    ra0 = _wrap(tl["q0"] + np.arange(tl["br"]), half_h, half_h)
-    rb0 = _wrap(tl["c0"] + np.arange(tl["bc"]), half_w, half_w)
-    extra = (ra0[:, None] + half_h < m_h) | (rb0[None, :] + half_w < m_w)
-    pos = at + np.arange(tl["br"])[:, None] * sb + np.arange(tl["bc"])[None, :]
-    for o, band in enumerate(bands):
-        img = band[tl["b"]]
-        folded = np.zeros((half_h, half_w))
-        for ra in range(0, m_h, half_h):
-            for rb in range(0, m_w, half_w):
-                part = img[ra : ra + half_h, rb : rb + half_w]
-                folded[: part.shape[0], : part.shape[1]] += part
-        add = (folded - img[:half_h, :half_w])[ra0[:, None], rb0[None, :]]
-        assert np.abs(add[~extra]).max(initial=0.0) == 0.0
-        sel = pos[extra] + o * plane
-        assert (blk.ring_tile[sel] == tile).all()
-        blk.ring[sel] += add[extra]
+
+
+def _synthesis_fold(blk, cur, tile, tl, bands, plan, half_h, half_w):
+    """``syn_fold``, after the stage lands: each window position whose band
+    row or column has rows past half, taken once from a flat list (the
+    window rows of band rows k < xh whole, then in the other rows the
+    window columns of band columns i < xw), adds the band positions half a
+    period further (m < 2 half: one more term per axis); the positions are
+    those the folded band says collect more."""
+    _, m_h, m_w = bands[0].shape
+    brows, bcols, sb = plan[10], plan[11], plan[12]
+    xh, xw = m_h - half_h, m_w - half_w
+    assert m_h < 2 * half_h and m_w < 2 * half_w and brows <= half_h and bcols <= half_w
+    plane = brows * sb
+    ra0 = (tl["q0"] + np.arange(tl["br"])) % half_h
+    rb0 = (tl["c0"] + np.arange(tl["bc"])) % half_w
+    extra = (ra0[:, None] < xh) | (rb0[None, :] < xw)
+    skip = tl["q0"] >= xh and tl["q0"] + tl["br"] <= half_h and tl["c0"] >= xw and tl["c0"] + tl["bc"] <= half_w
+    items = []
+    for f in range(0 if skip else xh * tl["bc"] + tl["br"] * xw):
+        if f < xh * tl["bc"]:
+            a0, c = divmod(f, tl["bc"])
+            r, rb = (a0 - tl["q0"]) % half_h, rb0[c]
+        else:
+            r, rb = divmod(f - xh * tl["bc"], xw)
+            a0, c = ra0[r], (rb - tl["c0"]) % half_w
+            if a0 < xh:
+                continue
+        if r < tl["br"] and c < tl["bc"]:
+            items.append((r, c, a0, rb))
+    assert len({(r, c) for r, c, _, _ in items}) == len(items), "a fold position was taken twice"
+    assert {(r, c) for r, c, _, _ in items} == set(zip(*np.nonzero(extra))), "the fold list missed a position"
+    for r, c, a0, rb in items:
+        for o, band in enumerate(bands):
+            img = band[tl["b"]]
+            add = (img[a0 + half_h, rb] if a0 < xh else 0.0) + (img[a0, rb + half_w] if rb < xw else 0.0)
+            add += img[a0 + half_h, rb + half_w] if a0 < xh and rb < xw else 0.0
+            pos = cur + o * plane + r * sb + c
+            assert blk.ring_tile[pos] == tile
+            blk.ring[pos] += add
 
 
 def replay_synthesis(bands, lo, hi, out_h, out_w, off, circular, fold=None, grid=7, paths=None):
@@ -409,6 +430,7 @@ def replay_synthesis(bands, lo, hi, out_h, out_w, off, circular, fold=None, grid
     plan = t9.synthesis_plan(len(lo), off, off, m_h, m_w, out_h, out_w)
     tu, tv = plan[:2]
     base, ks, kw, brows, _, sb, st, tiles_h, tiles_w, bbuf, stages = plan[7:18]
+    fold_launch = circular and (half_h < m_h or half_w < m_w)
     assert t9.synthesis_smem(plan) <= t9.SMEM_LIMIT
     sw, sh = _synthesis_tables(lo, hi, plan)
     a_b, a_t = _a_index(sb), _a_index(st)
@@ -427,6 +449,8 @@ def replay_synthesis(bands, lo, hi, out_h, out_w, off, circular, fold=None, grid
         for _, tile, cur in _ring(blk, bbuf, stages, list(range(block, total, grid)), stage):
             tl = _synthesis_tile(plan, tile, out_h, out_w)
             ncs, nbs = tl["ncs"], tl["nbs"]
+            if fold_launch:
+                _synthesis_fold(blk, cur, tile, tl, bands, plan, half_h, half_w)
             # W pass: (16 band rows, 8 output columns): T_lo = ll SW_lo + hl
             # SW_hi, T_hi = lh SW_lo + hh SW_hi, into T^T
             nts = 2 * ncs
@@ -592,6 +616,8 @@ def test_plans_fit_and_cover():
             assert base <= o + -((L - 1 - e_w) // 2) and base + 8 * kw > o + (7 + e_w) // 2
             assert 8 * ks > (7 + e_h) // 2 and brows >= tu // 2 - 4 + 8 * ks
             assert sb % 8 == 4 and st % 16 == 4 and bbuf == 4 * brows * sb and stages in (2, 3)
+            # the fold of K9a's VJP: windows narrower than half the period
+            assert brows <= 512 and bcols <= 512
             assert t9.synthesis_smem(plan) <= t9.SMEM_LIMIT
 
 
