@@ -41,14 +41,16 @@
 //
 // Precision: mma.sync.m16n8k8 takes TF32 operands (10 mantissa bits).  One
 // pass keeps about 3 decimal digits: built with -DPTWT_MXU2D_ONE_PASS it
-// is 5e-4 off the plain version relative to the band's magnitude on the
-// headline's level on an H100, 25 times the port's 2e-5 limit (PERF.md).
-// So each operand is split, a = a_big + a_small with a_big = a cut to
-// TF32 and a_small = a - a_big, and each product is small*big + big*small
-// + big*big (3xTF32) accumulated in float32, which drops the small*small
-// term and small's bits past TF32's (about 2^-20 relative).  The split is
-// two integer and float operations: cvt.rna.tf32.f32 runs at the card's
-// conversion rate, a quarter of the integer one.
+// is some 1e-3 off the plain version relative to the band's magnitude on
+// the headline's level on an H100, 50 times the port's 2e-5 limit
+// (PERF.md).  So each operand is split, a = a_big + a_small with a_big = a
+// cut to TF32 and a_small = a - a_big, and each product is small*big +
+// big*small + big*big (3xTF32) accumulated in float32, which drops the
+// small*small term and small's bits past TF32's (about 2^-20 relative).
+// The split is an integer and a float operation, where cvt.rna.tf32.f32
+// would issue at the conversion rate (16 a clock per SM at compute
+// capability 9.0, a quarter of the integer rate, by the CUDA programming
+// guide's throughput table).
 //
 // Bound on the H100: bytes.  K9a reads the image once and writes four
 // quarter-size bands, K9b the mirror image: the same bytes as K1/K2; the
@@ -60,10 +62,10 @@
 //   tiles with a ring of staged windows, two or three deep: the windows of
 //   the next tiles are in flight (cp.async) while the current tile's
 //   products run, and one block's staging and barriers overlap the other
-//   block's products.  A window that lies inside the image (or band) stages as 16-byte
-//   copies with no index arithmetic; one that crosses an edge copies 16
-//   bytes where a 4-column chunk lies inside, else element copies with the
-//   modulo or a zero fill.
+//   block's products.  A window that lies inside the image (or band)
+//   stages with no index map, 16 bytes a copy where its rows are 16-byte
+//   aligned; one that crosses an edge copies 16 bytes where a 4-column
+//   chunk lies inside, else element copies with the modulo or a zero fill.
 // * A tile stages and computes only what its live positions need: the
 //   last tile row or column of an image (515 = 8 x 64 + 3 band rows at
 //   the headline's periodic level 1) costs its 3 live rows, not 64.
@@ -76,8 +78,9 @@
 // * A warp runs one kind of product (small x big, big x small, big x big)
 //   over all its accumulators before the next, so dependent mma.sync are
 //   2 U apart.
-// * K9b's fold runs only in the VJP instance (half < m), as a second pass
-//   over the staged positions whose band row or column has rows past half.
+// * K9b's fold runs only in the VJP instance (half < m), and only in the
+//   tiles whose window reads a band row or column past half: a second pass
+//   over those positions once the stage has landed.
 #include <cstring>
 #include <mutex>
 
