@@ -411,6 +411,13 @@ def mxu2_idwt_plain(
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=256)
+def _plan_array(plan: tuple):
+    """The host copy of a plan the C entry point takes, made once per plan:
+    host time between a backward's launches leaves the card idle."""
+    return _kernels.int_array(plan)
+
+
 def _check_float32(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.float32:
         raise ValueError(f"K9 takes float32 only, got {name} of {t.dtype}")
@@ -439,7 +446,7 @@ def mxu2_dwt_call(
             "K9a", "ptwt_mxu2d_analysis", x.device, x.dtype,
             x, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
             b, h, w, per_h, per_w, m_h, m_w, pad, int(circular),
-            _kernels.int_array(plan), len(plan),
+            _plan_array(plan), len(plan),
         )
     return out
 
@@ -470,7 +477,7 @@ def mxu2_idwt_call(
             "K9b", "ptwt_mxu2d_synthesis", ref.device, ref.dtype,
             *bands, out, _kernels.taps_array(lo), _kernels.taps_array(hi), len(lo),
             b, m_h, m_w, out_h, out_w, off, off, int(circular), *fold,
-            _kernels.int_array(plan), len(plan),
+            _plan_array(plan), len(plan),
         )
     return out
 
