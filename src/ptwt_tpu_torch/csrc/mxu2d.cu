@@ -48,7 +48,7 @@
 // big*small + big*big (3xTF32) accumulated in float32, which drops the
 // small*small term and small's bits past TF32's (about 2^-20 relative).
 // The split is an integer and a float operation, where cvt.rna.tf32.f32
-// would issue at the conversion rate (16 a clock per SM at compute
+// would run at the conversion rate (16 a clock per SM at compute
 // capability 9.0, a quarter of the integer rate, by the CUDA programming
 // guide's throughput table).
 //
