@@ -115,8 +115,8 @@ SMEM_LIMIT = 115712
 #: a ring of three staged windows, then of two: K9a (band rows, band
 #: columns); K9b (output rows, output columns), its rows cut to the most
 #: whose band window is whole 16-row slabs.
-ANALYSIS_TILES = ((64, 64), (64, 32), (32, 32), (16, 32), (8, 16))
-SYNTHESIS_TILES = ((128, 128), (128, 64), (64, 64), (32, 64), (32, 32), (8, 16))
+ANALYSIS_TILES = ((32, 32), (16, 32), (8, 16))
+SYNTHESIS_TILES = ((64, 64), (32, 64), (32, 32), (8, 16))
 #: Bytes of one lane's B operand fragment in the tables: an 8 x 8 B
 #: operand, 2 big and 2 small TF32 words.
 FRAG_B_BYTES = 16
