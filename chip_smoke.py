@@ -128,7 +128,24 @@ Phases, each raising (non-zero exit) on failure:
    ``reflect`` (K3 and the two-pair K4 2,149,056,512), and K1's VJP on the
    periodic level; the first and the last image against the plain version
    run on that image alone (2e-5); 43 GB of device memory at peak on an
-   H100, freed before the phase ends.
+   H100, freed before the phase ends;
+14. the 3d and fully separable main paths: ``wavedec3`` -> ``waverec3`` on
+   ``[32, 100, 100, 100]`` (db5, 3 levels) and ``fswavedec2`` ->
+   ``fswaverec2`` on ``[32, 1000, 1000]`` (db5, 5 levels), float32,
+   ``reflect`` (``bench.py``'s d3 and fs2 rows), then every other mode,
+   float64, axes not last and ``fswavedec3``/``fswaverec3`` on smaller
+   shapes at odd levels: bands and reconstruction against the plain path
+   on the card (relative to ``max(1, |band|)``, 2e-5 float32, 1e-10
+   float64), round trip within 1e-4, and the launches of each direction
+   (K3 once per axis and level; K4 four times per 3d or fs3 level, twice
+   per fs2 level; no other kernel); at full width one backward against
+   autograd through the plain path (1e-4 of the largest entry, the K3 <->
+   K4 twins), each K3/K4 launch of d3's level 1 and its VJP beside its
+   bound, with the synthesis level by the JAX package's stacking route
+   beside the package's, and the round trip's and the backward's device
+   and wall ms and device-busy share (``chip_smoke.py --nd-times``, a
+   process of its own: late in a long one the profiler's windows lose
+   launches).
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -157,7 +174,8 @@ them to the kernels line as ``in_turns``.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (fourteen kernels,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
-sums per round trip and per step, K3 and K4 their per-launch rows), the
+sums per round trip and per step, K3 and K4 their per-launch rows and
+phase 14's launches, times and d3 level-1 rows), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -199,6 +217,7 @@ from ptwt_tpu_torch.ops import (  # noqa: E402
     _pallas2,
     _mxu2d,
     _pallas2d,
+    synthesis_nd,
 )
 from ptwt_tpu_torch.utils import fwt_pad, get_filter_arrays  # noqa: E402
 
@@ -2518,6 +2537,337 @@ def check_past_2_31() -> None:
     log(f"  phase 13 peak device memory {peak!r} GB")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the 3d and fully separable main paths
+# ---------------------------------------------------------------------------
+
+#: the public entry points of each N-d transform, and its (K3, K4)
+#: launches per level: 3d synthesis runs axis -1's four (lo, hi) pairs as
+#: two two-pair launches, then one launch each along -2 and -3
+ND_FUNCS = {
+    "3d": ("wavedec3", "waverec3"),
+    "fs2": ("fswavedec2", "fswaverec2"),
+    "fs3": ("fswavedec3", "fswaverec3"),
+}
+ND_LAUNCHES = {"3d": (3, 4), "fs2": (2, 2), "fs3": (3, 4)}
+#: bench.py's d3 and fs2 rows at full width (float32): (name, kind, shape,
+#: wavelet, mode, level)
+ND_FULL = (
+    ("d3", "3d", (32, 100, 100, 100), "db5", "reflect", 3),
+    ("fs2", "fs2", (32, 1000, 1000), "db5", "reflect", 5),
+)
+ND_SMALL_3D = (4, 34, 40, 46)
+ND_SMALL_2D = (4, 340, 460)
+#: the smaller runs: (name, kind, shape, wavelet, mode, level, dtype, axes):
+#: every other mode, float64, axes not last and fswavedec3, at odd levels.
+#: A periodization chain of the separable transforms does not round-trip:
+#: one level comes back shorter and three raise ValueError, as in ptwt_tpu.
+ND_SMALL = (
+    *((f"{kind} {mode}", kind, ND_SMALL_2D if kind == "fs2" else ND_SMALL_3D, "db5", mode, 3, torch.float32, None)
+      for kind in ND_FUNCS for mode in ("zero", "symmetric", "periodic", "periodization")),
+    ("fs2 periodization level 1", "fs2", ND_SMALL_2D, "db5", "periodization", 1, torch.float32, None),
+    ("3d reflect float64", "3d", (2, 34, 40, 46), "db5", "reflect", 3, torch.float64, None),
+    ("fs2 reflect float64", "fs2", (2, 340, 460), "db5", "reflect", 3, torch.float64, None),
+    ("fs3 periodic float64", "fs3", (2, 34, 40, 46), "sym4", "periodic", 1, torch.float64, None),
+    ("3d axes (0, 2, 3)", "3d", (34, 4, 40, 46), "sym4", "zero", 3, torch.float32, (0, 2, 3)),
+    ("fs2 axes (0, 2)", "fs2", (340, 4, 460), "db5", "symmetric", 3, torch.float32, (0, 2)),
+)
+
+
+def nd_leaves(coeffs) -> list:
+    """The approximation, then each level's bands by sorted key."""
+    return [coeffs[0]] + [d[k] for d in coeffs[1:] for k in sorted(d)]
+
+
+def nd_forward(kind: str, x, wavelet: str, mode: str, level: int, axes):
+    kwargs = {} if axes is None else {"axes": axes}
+    return getattr(ptwt, ND_FUNCS[kind][0])(x, wavelet, mode=mode, level=level, **kwargs)
+
+
+def nd_inverse(kind: str, coeffs, wavelet: str, mode: str, axes):
+    """The inverse as a user calls it: ``waverec3`` told of periodization,
+    ``fswaverec*`` (no mode argument) the padded synthesis."""
+    kwargs = {} if axes is None else {"axes": axes}
+    if kind == "3d":
+        kwargs["mode"] = mode if mode == "periodization" else None
+    return getattr(ptwt, ND_FUNCS[kind][1])(coeffs, wavelet, **kwargs)
+
+
+def nd_only(counts: dict, want: dict, label: str) -> None:
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want} and no other kernel")
+
+
+def nd_crop(rec: torch.Tensor, x: torch.Tensor, kind: str, axes) -> torch.Tensor:
+    """The reconstruction cropped to the input on the transformed axes."""
+    index = [slice(None)] * x.ndim
+    for ax in axes if axes is not None else range(-(2 if kind == "fs2" else 3), 0):
+        index[ax] = slice(0, x.shape[ax])
+    return rec[tuple(index)]
+
+
+def nd_run(name: str, kind: str, x: torch.Tensor, wavelet: str, mode: str, level: int, axes=None) -> dict:
+    """Phase 14's check of one configuration: the forward and the inverse on
+    the kernel path, each with the counts set to 0 just before it and read
+    just after, against the plain path on the card (bands relative to
+    ``max(1, |band|)``: 2e-5 float32, 1e-10 float64), the round trip against
+    the input (1e-4), and the launches of each direction."""
+    k3, k4 = ND_LAUNCHES[kind]
+    _kernels.reset_launch_counts()
+    coeffs = nd_forward(kind, x, wavelet, mode, level, axes)
+    torch.cuda.synchronize()
+    fwd_counts = dict(_kernels.LAUNCHES)
+    _kernels.reset_launch_counts()
+    try:
+        rec = nd_inverse(kind, coeffs, wavelet, mode, axes)
+    except ValueError as err:
+        rec = err
+    torch.cuda.synchronize()
+    inv_counts = dict(_kernels.LAUNCHES)
+    nd_only(fwd_counts, {"K3": k3 * level}, f"{name} forward")
+    with plain_versions():
+        ref = nd_forward(kind, x, wavelet, mode, level, axes)
+        try:
+            ref_rec = nd_inverse(kind, ref, wavelet, mode, axes)
+        except ValueError as err:
+            ref_rec = err
+    tol = TOL[x.dtype]
+    out = {"forward": fwd_counts["K3"]}
+    out["coeff_rel_err"] = check(
+        f"{name} coefficients vs plain path (relative)", rel_err(nd_leaves(coeffs), nd_leaves(ref)), tol
+    )
+    if isinstance(ref_rec, ValueError):
+        if not (isinstance(rec, ValueError) and kind != "3d" and mode == "periodization"):
+            raise AssertionError(f"{name}: the plain path raised {ref_rec!r}, the kernel path gave {rec!r}")
+        log(f"  {name}: both paths raise ValueError ({rec})")
+        return out
+    if isinstance(rec, ValueError):
+        raise rec
+    nd_only(inv_counts, {"K4": k4 * level}, f"{name} inverse")
+    out["inverse"] = inv_counts["K4"]
+    out["rec_rel_err"] = check(f"{name} reconstruction vs plain path (relative)", rel_err(rec, ref_rec), tol)
+    if kind != "3d" and mode == "periodization":
+        log(f"  {name}: {list(rec.shape)} from {list(x.shape)}, one padded synthesis level (as ptwt_tpu)")
+        return out
+    out["round_trip_err"] = check(f"{name} round trip vs input", max_abs(nd_crop(rec, x, kind, axes), x), ROUND_TRIP_TOL)
+    return out
+
+
+def nd_gradient(name: str, kind: str, x: torch.Tensor, wavelet: str, mode: str, level: int) -> dict:
+    """One backward through the forward and the inverse, cotangents on every
+    band and on the reconstruction, against autograd through the plain path
+    on the card: within 1e-4 of the largest entry; the backward launches
+    each forward launch's twin (K3 <-> K4)."""
+    k3, k4 = ND_LAUNCHES[kind]
+
+    def grad_of(xd):
+        xd = leaf(xd)
+        coeffs = nd_forward(kind, xd, wavelet, mode, level, None)
+        outs = [*nd_leaves(coeffs), nd_inverse(kind, coeffs, wavelet, mode, None)]
+        cts = [randn(o.shape, o.dtype, SEED + 600 + i) for i, o in enumerate(outs)]
+        _kernels.reset_launch_counts()
+        (grad,) = torch.autograd.grad(outs, xd, cts)
+        torch.cuda.synchronize()
+        return grad, dict(_kernels.LAUNCHES)
+
+    grad, back = grad_of(x)
+    nd_only(back, {"K3": k4 * level, "K4": k3 * level}, f"{name} backward")
+    with plain_versions():
+        want, _ = grad_of(x)
+    scale = float(want.abs().max())
+    err = check(f"{name} gradient vs plain path (over its largest entry {scale!r})", max_abs(grad, want) / scale,
+                TRAIN_GRAD_TOL)
+    return {"backward": {k: v for k, v in back.items() if v}, "grad_rel_err": err}
+
+
+def nd_times(kind: str, x: torch.Tensor, wavelet: str, mode: str, level: int, label: str) -> dict:
+    """CUDA-event device ms and wall ms (3 warm-ups, median of 20) of one
+    round trip and of one backward through it, and the device-busy share
+    of each (``torch.profiler``'s device time over the wall ms)."""
+    def round_trip():
+        return nd_inverse(kind, nd_forward(kind, x, wavelet, mode, level, None), wavelet, mode, None)
+
+    xd = leaf(x)
+    coeffs = nd_forward(kind, xd, wavelet, mode, level, None)
+    outs = [*nd_leaves(coeffs), nd_inverse(kind, coeffs, wavelet, mode, None)]
+    cts = [randn(o.shape, o.dtype, SEED + 620 + i) for i, o in enumerate(outs)]
+
+    def backward():
+        return torch.autograd.grad(outs, xd, cts, retain_graph=True)
+
+    out = {}
+    launches = level * sum(ND_LAUNCHES[kind])  # the backward launches each one's twin
+    for what, run in (("round_trip", round_trip), ("backward", backward)):
+        out[f"{what}_ms"] = time_ms(run)
+        out[f"{what}_wall_ms"] = wall_ms(run)
+        busy, complete = nd_busy_ms(run, f"{label} {what}", launches)
+        out[f"{what}_busy_ms"] = busy
+        out[f"{what}_busy_share"] = busy / out[f"{what}_wall_ms"]
+        out[f"{what}_profile_complete"] = complete
+    return out
+
+
+def nd_busy_ms(run, label: str, launches: int) -> tuple[float, bool]:
+    """Device busy ms of one call of ``run`` from ``torch.profiler`` (the
+    device time of every kernel and copy it ran), and whether the window
+    holds all ``launches`` K3/K4 launches (late in a long process the
+    profiler's windows lose some: :func:`nd_times_all` runs in a process
+    of its own)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    run()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        dev = getattr(evt, "self_device_time_total", None)
+        rows.append(((dev if dev is not None else evt.self_cuda_time_total) / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
+    seen = sum(count for _, count, key in rows if "_axis_kernel" in key)
+    log(f"  profiled {label}: device busy {busy!r} ms, {seen} of {launches} K3/K4 launches in the window")
+    for ms, count, key in rows[:6]:
+        log(f"    {ms!r} ms x{count} {key[:100]}")
+    return busy, seen == launches
+
+
+def nd_times_all() -> dict:
+    """``--nd-times``: :func:`nd_times` of every ``ND_FULL`` row."""
+    out = {}
+    for i, (name, kind, shape, wavelet, mode, level) in enumerate(ND_FULL):
+        x = randn(shape, torch.float32, SEED + 700 + i)
+        out[name] = nd_times(kind, x, wavelet, mode, level, name)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def d3_launch_rows(x: torch.Tensor, wavelet: str, mode: str) -> dict:
+    """Device ms of each K3/K4 launch of d3's level 1 (float32), beside its
+    bound (each input read once, each output written once over the HBM
+    rate, against the taps' multiply-adds over the float32 peak): K3 along
+    -3 (``inner`` a whole ``h w`` plane), -2 and -1 (the packed siblings in
+    ``outer``), and back K4 along -1 (two two-pair launches), -2 (two
+    pairs) and -3 (one pair, plane-sized ``inner``), and each one's VJP
+    launch through autograd (one launch: K3's is K4's fold instance, K4's a
+    zero-bounded K3; along -1 one of the two K4 launches).  Also the synthesis
+    level as route (a) would run it, the JAX package's: the pairs of each
+    axis stacked into one pair of batch 4 and 2, three launches and the
+    stacking copies, against the package's route (b)."""
+    dl, dh, _, _ = get_filter_arrays(wavelet, flip=True, dtype=x.dtype)
+    _, _, rl, rh = get_filter_arrays(wavelet, flip=False, dtype=x.dtype)
+    L = len(dl)
+    item = x.element_size()
+    pad = std_pad(L)
+    a = _pallas2.pallas_dwt_axis(x, -3, dl, dh, mode)
+    b = _pallas2.pallas_dwt_axis(a, -2, dl, dh, mode)
+    c = _pallas2.pallas_dwt_axis(b, -1, dl, dh, mode)
+    bands = list(c.flatten(0, 2).unbind(0))  # index 4w + 2h + d
+    sub = [bands[4 * w + 2 * h + d] for d, h, w in ((i >> 2, (i >> 1) & 1, i & 1) for i in range(8))]
+    crops = [(pad, pad)] * 3  # the finest level's crop, as waverec3 takes it
+
+    def idwt(los, his, axis):
+        return _pallas2.pallas_idwt_axis(los, his, axis, rl, rh, *crops[3 + axis], mode)
+
+    lo_h = idwt(sub[0::4], sub[1::4], -1)
+    hi_h = idwt(sub[2::4], sub[3::4], -1)
+    d_pair = idwt(lo_h.unbind(0), hi_h.unbind(0), -2)
+    rec = idwt(d_pair[:1].unbind(0), d_pair[1:].unbind(0), -3)
+    rows = {}
+
+    def row(name, run, ins, outs, flops):
+        nbytes = item * (sum(t.numel() for t in ins) + sum(t.numel() for t in outs))
+        ms, by = bound(nbytes, flops)
+        rows[name] = {"ms": time_ms(run), "bound_ms": ms, "bound_by": by, "bytes": nbytes}
+        rows[name]["ms_over_bound"] = rows[name]["ms"] / ms
+
+    row("K3 -3 (plane inner)", lambda: _pallas2.pallas_dwt_axis(x, -3, dl, dh, mode), [x], [a], 4.0 * L * a[0].numel())
+    row("K3 -2 (siblings in outer)", lambda: _pallas2.pallas_dwt_axis(a, -2, dl, dh, mode), [a], [b], 4.0 * L * b[0].numel())
+    row("K3 -1 (siblings in outer)", lambda: _pallas2.pallas_dwt_axis(b, -1, dl, dh, mode), [b], [c], 4.0 * L * c[0].numel())
+    row("K4 -1 (two pairs) x2", lambda: (idwt(sub[0::4], sub[1::4], -1), idwt(sub[2::4], sub[3::4], -1)),
+        sub, [lo_h, hi_h], 2.0 * L * (lo_h.numel() + hi_h.numel()))
+    row("K4 -2 (two pairs)", lambda: idwt(lo_h.unbind(0), hi_h.unbind(0), -2), [lo_h, hi_h], [d_pair],
+        2.0 * L * d_pair.numel())
+    row("K4 -3 (plane inner)", lambda: idwt(d_pair[:1].unbind(0), d_pair[1:].unbind(0), -3), [d_pair], [rec],
+        2.0 * L * rec.numel())
+    # the VJPs as the autograd backward runs them: K3's is one launch of
+    # K4's fold instance, K4's one zero-bounded K3 launch
+    for i, (axis, src, out) in enumerate(((-3, x, a), (-2, a, b), (-1, b, c))):
+        sl = leaf(src)
+        y = _pallas2.pallas_dwt_axis(sl, axis, dl, dh, mode)
+        ct = randn(y.shape, y.dtype, SEED + 640 + i)
+        row(f"K3 VJP {axis}", lambda y=y, sl=sl, ct=ct: torch.autograd.grad(y, sl, ct, retain_graph=True),
+            [ct], [src], 4.0 * L * out[0].numel())
+    for i, (axis, los, his) in enumerate((
+        (-1, sub[0::4], sub[1::4]),
+        (-2, lo_h.unbind(0), hi_h.unbind(0)),
+        (-3, d_pair[:1].unbind(0), d_pair[1:].unbind(0)),
+    )):
+        ins = [leaf(t) for t in (*los, *his)]
+        y = idwt(ins[: len(los)], ins[len(los):], axis)
+        ct = randn(y.shape, y.dtype, SEED + 650 + i)
+        row(f"K4 VJP {axis} ({len(los)} pair{'s' if len(los) > 1 else ''})",
+            lambda y=y, ins=ins, ct=ct: torch.autograd.grad(y, ins, ct, retain_graph=True),
+            [ct], ins, 2.0 * L * y.numel())
+
+    def route_a():
+        # the JAX package's synthesis: stack each axis's lo and hi
+        # selections into one pair of batch G, one launch per axis
+        los = torch.stack(sub[0::2])  # (d, h, w=0) for (d, h) in order
+        his = torch.stack(sub[1::2])
+        hw = idwt([los], [his], -1)[0]  # [4, B, d, h, W]
+        dh_ = idwt([hw[0::2]], [hw[1::2]], -2)[0]  # [2, B, d, H, W]
+        return idwt([dh_[0]], [dh_[1]], -3)[0]
+
+    def route_b():
+        return synthesis_nd(sub, rl, rh, pads=crops, mode=mode, ndim=3)
+
+    got_a, got_b = route_a(), route_b()
+    check("d3 level 1 synthesis: route (a) vs route (b)", max_abs(got_a, got_b), 2e-5)
+    check("d3 level 1 synthesis: route (b) vs the launches above", max_abs(got_b, rec[0]), 0.0)
+    rows["synthesis route (b), 4 launches"] = {"ms": time_ms(route_b)}
+    rows["synthesis route (a), 3 launches and stacks"] = {"ms": time_ms(route_a)}
+    return rows
+
+
+def check_nd() -> dict:
+    """Phase 14: ``ND_FULL`` (checks, gradient, d3's level-1 launches, and
+    the times in a process of its own, ``--nd-times``) and then
+    ``ND_SMALL``; returns the full-width rows."""
+    nd = {}
+    for i, (name, kind, shape, wavelet, mode, level) in enumerate(ND_FULL):
+        log(f"  {name}: {ND_FUNCS[kind][0]} -> {ND_FUNCS[kind][1]} on {list(shape)}, {wavelet}, {mode}, level {level}")
+        x = randn(shape, torch.float32, SEED + 700 + i)
+        res = nd_run(name, kind, x, wavelet, mode, level)
+        res.update(nd_gradient(name, kind, x, wavelet, mode, level))
+        if kind == "3d":
+            res["level1"] = d3_launch_rows(x, wavelet, mode)
+            for row_name, row in res["level1"].items():
+                log(f"  {name} level 1 {row_name}: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
+        nd[name] = res
+        del x
+        torch.cuda.empty_cache()
+    # the times in a process of their own, whose profiler windows hold
+    # every launch (late in this one they lose some)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--nd-times"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--nd-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    *lines, last = proc.stdout.strip().splitlines()
+    log("\n".join(lines))
+    for name, times in json.loads(last).items():
+        nd[name]["times"] = times
+        log(f"  {name}: " + " ".join(f"{k}={v!r}" for k, v in times.items()))
+    for i, (name, kind, shape, wavelet, mode, level, dtype, axes) in enumerate(ND_SMALL):
+        nd_run(name, kind, randn(shape, dtype, SEED + 720 + i), wavelet, mode, level, axes)
+    return nd
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -2726,6 +3076,9 @@ def main() -> int:
     log(f"phase 13: launches past 2^31 outputs, {list(BIG)} float32")
     check_past_2_31()
 
+    log("phase 14: the 3d and separable main paths (bench.py's d3 and fs2 rows)")
+    nd = check_nd()
+
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
         source, replaces = REPLACES[name]
@@ -2789,6 +3142,19 @@ def main() -> int:
             )
             if axis_turns:
                 entry["in_turns"] = {k: v for k, v in axis_turns.items() if mine(k) or (name == "K3" and "index" in k)}
+            # phase 14: per round trip and per backward of the d3 and fs2
+            # rows, their times, and d3's level-1 launches beside their bound
+            entry["nd_main_paths"] = {
+                row: {
+                    "launches": nd[row]["forward" if name == "K3" else "inverse"],
+                    "vjp_launches": nd[row]["backward"][VJP_OF[name]],
+                    **nd[row]["times"],
+                }
+                for row, *_ in ND_FULL
+            }
+            entry["d3_level1"] = {
+                k: v for k, v in nd["d3"]["level1"].items() if k.startswith(name) or (name == "K4" and "route" in k)
+            }
         kernels.append(entry)
     vjp_kernel = {"K5a": "K5b", "K5b": "K5a", "K6a": "K6b", "K6b": "K6a",
                   "K7a": "K7b", "K8a": "K8b", "K7b": "K7a", "K8b": "K8a"}
@@ -2952,7 +3318,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times),
-                        ("--k9-times", k9_times)):
+                        ("--k9-times", k9_times), ("--nd-times", nd_times_all)):
         if flag in sys.argv:
             if not torch.cuda.is_available():
                 sys.exit("chip_smoke: CUDA is not available")

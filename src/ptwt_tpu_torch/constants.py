@@ -21,6 +21,9 @@ __all__ = [
     "WaveletCoeff1d",
     "WaveletDetailTuple2d",
     "WaveletCoeff2d",
+    "WaveletDetailDict",
+    "WaveletCoeffNd",
+    "WaveletCoeff2dSeparable",
 ]
 
 #: Supported real compute dtypes; every kernel is built for both.
@@ -125,3 +128,12 @@ class WaveletDetailTuple2d(NamedTuple):
 
 #: 2d coefficients ``(cA_n, (H_n, V_n, D_n), ..., (H_1, V_1, D_1))``.
 WaveletCoeff2d = tuple
+
+#: N-d detail coefficients keyed by per-axis filter strings like ``"aad"``.
+WaveletDetailDict = dict
+
+#: N-d coefficients ``(cA_n, {"aad": ...}, ...)``.
+WaveletCoeffNd = tuple
+
+#: Separable 2d coefficients (same container as N-d).
+WaveletCoeff2dSeparable = tuple

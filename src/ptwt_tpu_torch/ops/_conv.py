@@ -27,6 +27,8 @@ def periodization_wrap(data: torch.Tensor, axis: int, filt_len: int) -> torch.Te
     moved = data.movedim(axis, -1)
     size = moved.shape[-1]
     target = size - (filt_len - 2)  # (n-1)*2 + L  ->  2n
+    if target <= 0:  # no band samples (n = 0): nothing to fold onto
+        return moved[..., :0].movedim(-1, axis)
     # place sample p at (p - pad) + k*target for some k >= 0, then sum the
     # target-long chunks
     start = (-pad) % target

@@ -594,7 +594,8 @@ def flat_wavedec_lane_multi(
     kernel = "K8a" if depth > 1 else "K7a"
     packed, *his = _LaneAnalysis.apply(x2, kernel, lo, hi, depth, mode)
     lo_band, hi_band = packed.unbind(0)
-    return lo_band.reshape(*lead, -1), [h.reshape(*lead, -1) for h in (*his, hi_band)]
+    # explicit lengths: an empty batch leaves no -1 to infer
+    return lo_band.reshape(*lead, lo_band.shape[-1]), [h.reshape(*lead, h.shape[-1]) for h in (*his, hi_band)]
 
 
 def flat_waverec_lane_multi(coeffs, rec_lo, rec_hi, pads, lens) -> torch.Tensor:

@@ -85,5 +85,6 @@ def synthesis_slices_lastaxis(
     even, odd = phases
     if even.shape[-1] != odd.shape[-1]:
         odd = F.pad(odd, (0, 1))
-    out = torch.stack([even, odd], dim=-1).reshape(*lo.shape[:-1], -1)
+    # explicit length: an empty batch leaves no -1 to infer
+    out = torch.stack([even, odd], dim=-1).reshape(*lo.shape[:-1], 2 * even.shape[-1])
     return out[..., :full]

@@ -91,8 +91,11 @@ def postprocess_tensor(
 
 
 def coeff_tree_map(fn: Callable[[Any], Any], coeffs: Any) -> Any:
-    """Apply ``fn`` to every leaf, preserving lists, tuples and
-    NamedTuples."""
+    """Apply ``fn`` to every leaf, preserving lists, tuples, NamedTuples
+    and dicts (a dict comes back with its keys sorted, as JAX's pytree map
+    returns it)."""
+    if isinstance(coeffs, dict):
+        return {key: coeff_tree_map(fn, coeffs[key]) for key in sorted(coeffs)}
     if isinstance(coeffs, tuple) and hasattr(coeffs, "_fields"):
         return type(coeffs)(*(coeff_tree_map(fn, v) for v in coeffs))
     if isinstance(coeffs, (list, tuple)):

@@ -218,6 +218,89 @@ def _same_reconstruction(port, reference):
     return True
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("mode", MODES)
+def test_empty_batch_matches_jax(mode, dtype):
+    """``[0, 64]`` gives empty bands and round-trips to an empty array of
+    the input's shape, as ``ptwt_tpu`` does."""
+    x = np.zeros((0, 64), dtype=dtype)
+    _round_trip(x, "db2", mode, 2, TOL[dtype])
+    assert tuple(tptwt.waverec(tptwt.wavedec(torch.from_numpy(x), "db2", mode=mode, level=2), "db2",
+                               mode=_rec_mode(mode)).shape) == x.shape
+
+
+@pytest.mark.parametrize("mode,n,level", [("reflect", 70000, 6), ("periodization", 64, 2), ("zero", 64, 2)])
+def test_empty_batch_on_the_kernel_glue(model_kernels, mode, n, level):  # noqa: F811
+    """The CUDA glue (on the numpy kernel model) takes an empty batch on
+    every route: the fused K8 run and K3/K4 levels of ``[0, 70000]``, the
+    K6 pyramid and the per-level route; the wrappers launch nothing.  The
+    bands have ``ptwt_tpu``'s shapes, and the reconstruction the input's
+    (``ptwt_tpu.waverec`` itself stops with ``ZeroDivisionError`` on the
+    ``[0, 70000]`` bands, in its slices synthesis).
+    """
+    x = np.zeros((0, n))
+    want = jptwt.wavedec(jnp.asarray(x), "db4", mode=mode, level=level)
+    got = tptwt.wavedec(torch.from_numpy(x), "db4", mode=mode, level=level)
+    _assert_coeffs(got, want, 1e-12)
+    assert tuple(tptwt.waverec(got, "db4", mode=_rec_mode(mode)).shape) == x.shape
+    assert not any(model_kernels.values())
+
+
+def _same_outcome(port, reference):
+    """``ptwt_tpu`` and the port raise the same exception type, or give
+    arrays of the same shape and values."""
+    try:
+        want = reference()
+    except Exception as err:  # noqa: BLE001 - the type is what is compared
+        with pytest.raises(type(err)):
+            port()
+        return None
+    got = port()
+    want = want if isinstance(want, list) else [want]
+    got = got if isinstance(got, list) else [got]
+    assert [tuple(g.shape) for g in got] == [np.asarray(w).shape for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-10, rtol=0)
+    return got
+
+
+def _odd_bank_of(taps: int):
+    rs = np.random.RandomState(72)
+    return tuple(rs.randn(taps) for _ in range(4))
+
+
+@pytest.mark.parametrize("route", ["plain", "glue"])
+@pytest.mark.parametrize(
+    "shape,taps,level,rec",
+    [
+        ((1, 4), 3, 3, False),  # level 3's input is empty: ValueError
+        ((1, 6), 3, 4, False),  # level 4's
+        ((1, 1), 9, 1, True),  # the [1, 0] bands reconstruct to [1, 0]
+        ((1, 2), 5, 1, True),
+    ],
+)
+def test_odd_bank_empty_chain_matches_jax(request, route, shape, taps, level, rec):
+    """An odd-length bank's periodization chain whose bands run empty:
+    ``wavedec`` raises ``ValueError`` where ``ptwt_tpu`` does, and
+    ``waverec`` of the empty bands gives ``ptwt_tpu``'s shape."""
+    if route == "glue":
+        request.getfixturevalue("model_kernels")
+    bank = _odd_bank_of(taps)
+    x = np.random.RandomState(73).randn(*shape)
+    got = _same_outcome(
+        lambda: tptwt.wavedec(torch.from_numpy(x), bank, mode="periodization", level=level),
+        lambda: jptwt.wavedec(jnp.asarray(x), bank, mode="periodization", level=level),
+    )
+    assert (got is not None) == rec
+    if rec:
+        want = jptwt.wavedec(jnp.asarray(x), bank, mode="periodization", level=level)
+        out = _same_outcome(
+            lambda: tptwt.waverec(got, bank, mode="periodization"),
+            lambda: jptwt.waverec(want, bank, mode="periodization"),
+        )
+        assert tuple(out[0].shape) == (1, 0)
+
+
 def test_wavedec_rejects_bad_input():
     with pytest.raises(ValueError, match="dtype"):
         tptwt.wavedec(torch.zeros(16, dtype=torch.float16), "haar")

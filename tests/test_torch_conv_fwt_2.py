@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import model_kernels  # noqa: F401
 
 import ptwt_tpu as jptwt
 import ptwt_tpu_torch as tptwt
@@ -164,6 +165,62 @@ def test_waverec2_rejects_malformed_container(mode):
     coeffs[1] = coeffs[1][0]  # array instead of 3-tuple
     with pytest.raises(ValueError):
         tptwt.waverec2(coeffs, "db2", mode=mode)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("mode", MODES)
+def test_empty_batch_matches_jax(mode, dtype):
+    """``[0, 32, 32]`` gives empty bands and round-trips to an empty array
+    of the input's shape, as ``ptwt_tpu`` does."""
+    x = np.zeros((0, 32, 32), dtype=dtype)
+    want = jptwt.wavedec2(jnp.asarray(x), "db2", mode=mode, level=2)
+    got = tptwt.wavedec2(torch.from_numpy(x), "db2", mode=mode, level=2)
+    _assert_coeffs(got, want, TOL[dtype])
+    rec_mode = mode if mode == "periodization" else None
+    rec_want = np.asarray(jptwt.waverec2(want, "db2", mode=rec_mode))
+    rec = tptwt.waverec2(got, "db2", mode=rec_mode)
+    assert tuple(rec.shape) == rec_want.shape == x.shape
+
+
+@pytest.mark.parametrize("mode", ["periodization", "periodic", "reflect"])
+def test_empty_batch_on_the_kernel_glue(model_kernels, mode):  # noqa: F811
+    """The CUDA glue (on the numpy kernel model) takes an empty batch on the
+    K5 pyramid, K1/K2 and K3/K4 routes and launches nothing."""
+    x = np.zeros((0, 32, 32))
+    got = tptwt.wavedec2(torch.from_numpy(x), "db2", mode=mode, level=2)
+    _assert_coeffs(got, jptwt.wavedec2(jnp.asarray(x), "db2", mode=mode, level=2), 1e-12)
+    assert tuple(tptwt.waverec2(got, "db2", mode=mode).shape) == x.shape
+    assert not any(model_kernels.values())
+
+
+def _odd_bank_of(taps: int):
+    rs = np.random.RandomState(74)
+    return tuple(rs.randn(taps) for _ in range(4))
+
+
+@pytest.mark.parametrize("route", ["plain", "glue"])
+def test_odd_bank_empty_chain_matches_jax(request, route):
+    """An odd-length bank's periodization chain whose bands run empty:
+    ``wavedec2`` raises ``ValueError`` where ``ptwt_tpu`` does (``[1, 52,
+    6]``, 3 taps, level 4: the last level's input has no columns), and
+    ``waverec2`` of ``[1, 1, 54]``'s bands (9 taps, level 1) gives ``[1, 0,
+    52]``, as ``ptwt_tpu`` does."""
+    if route == "glue":
+        request.getfixturevalue("model_kernels")
+    x = np.random.RandomState(75).randn(1, 52, 6)
+    bank = _odd_bank_of(3)
+    with pytest.raises(ValueError):
+        jptwt.wavedec2(jnp.asarray(x), bank, mode="periodization", level=4)
+    with pytest.raises(ValueError, match="negative dimensions"):
+        tptwt.wavedec2(torch.from_numpy(x), bank, mode="periodization", level=4)
+    x = np.random.RandomState(76).randn(1, 1, 54)
+    bank = _odd_bank_of(9)
+    want = jptwt.wavedec2(jnp.asarray(x), bank, mode="periodization", level=1)
+    got = tptwt.wavedec2(torch.from_numpy(x), bank, mode="periodization", level=1)
+    _assert_coeffs(got, want, 1e-10)
+    rec_want = np.asarray(jptwt.waverec2(want, bank, mode="periodization"))
+    rec = tptwt.waverec2(got, bank, mode="periodization")
+    assert tuple(rec.shape) == rec_want.shape == (1, 0, 52)
 
 
 def test_wavedec2_rejects_bad_axes():

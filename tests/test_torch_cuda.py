@@ -954,3 +954,145 @@ def test_cuda_k1_vjp_past_2_31_outputs(cuda_device):
     for i, (xi, gi) in enumerate(zip(_ends(x.detach()), _ends(grad))):
         ci = [_ends(c)[i] for c in cts.unbind(0)]
         assert _rel_err(gi, t2d.dwt2_level_vjp_plain(xi, dl, dh, "periodic", ci)) <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# empty batches, and the 3d and fully separable transforms on K3/K4
+# ---------------------------------------------------------------------------
+
+ALL_MODES = ["zero", "constant", "reflect", "periodic", "symmetric", "periodization"]
+EMPTY_CASES = [
+    *(("1d", (0, 64), mode, 2) for mode in ALL_MODES),
+    ("1d", (0, 70000), "reflect", 6),  # the fused K8 run, then K3/K4 levels
+    *(("2d", (0, 32, 32), mode, 2) for mode in ALL_MODES),
+    *(("3d", (0, 8, 8, 8), mode, 2) for mode in ALL_MODES),
+    *(("fs2", (0, 16, 16), mode, 1) for mode in ALL_MODES),
+]
+ND_FUNCS = {
+    "1d": (tptwt.wavedec, tptwt.waverec),
+    "2d": (tptwt.wavedec2, tptwt.waverec2),
+    "3d": (tptwt.wavedec3, tptwt.waverec3),
+    "fs2": (tptwt.fswavedec2, tptwt.fswaverec2),
+    "fs3": (tptwt.fswavedec3, tptwt.fswaverec3),
+}
+
+
+def _leaves(coeffs) -> list:
+    out = []
+    for c in coeffs:
+        if isinstance(c, dict):
+            out.extend(c[k] for k in sorted(c))
+        elif isinstance(c, tuple):
+            out.extend(c)
+        else:
+            out.append(c)
+    return out
+
+
+def _inverse(kind, coeffs, wavelet, mode, **kwargs):
+    inv = ND_FUNCS[kind][1]
+    if kind.startswith("fs"):  # no mode argument: the padded synthesis
+        return inv(coeffs, wavelet, **kwargs)
+    return inv(coeffs, wavelet, mode=mode if mode == "periodization" else None, **kwargs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,mode,level", EMPTY_CASES)
+def test_cuda_empty_batch_matches_cpu(cuda_device, kind, shape, mode, level):
+    """An empty batch gives the CPU path's empty bands and reconstruction
+    (the input's shape) on the card, and launches no kernel."""
+    fwd = ND_FUNCS[kind][0]
+    x = torch.zeros(shape, dtype=torch.float32)
+    want = fwd(x, "db4", mode=mode, level=level)
+    _kernels.reset_launch_counts()
+    got = fwd(x.to(cuda_device), "db4", mode=mode, level=level)
+    rec = _inverse(kind, got, "db4", mode)
+    torch.cuda.synchronize()
+    assert [tuple(c.shape) for c in _leaves(got)] == [tuple(c.shape) for c in _leaves(want)]
+    assert tuple(rec.shape) == tuple(_inverse(kind, want, "db4", mode).shape)
+    assert rec.device.type == "cuda" and not any(_kernels.LAUNCHES.values())
+
+
+# (kind, shape, wavelet, mode, level, axes): odd and even axes, every mode,
+# float64 against the CPU path; K3 launches per level, K4 launches per level
+ND_CASES = [
+    *(("3d", (2, 17, 20, 23), "db3", mode, 2, None) for mode in ALL_MODES),
+    ("3d", (9, 2, 12, 14), "sym4", "zero", 1, (0, 2, 3)),
+    ("3d", (1, 5, 6, 7), "coif17", "periodization", 1, None),
+    *(("fs2", (3, 33, 40), "db3", mode, 2, None) for mode in ALL_MODES),
+    ("fs2", (14, 3, 20), "bior2.2", "symmetric", 2, (0, 2)),
+    *(("fs3", (2, 17, 20, 23), "db2", mode, 2, None) for mode in ("reflect", "periodic", "periodization")),
+]
+ND_LAUNCHES = {"3d": (3, 4), "fs2": (2, 2), "fs3": (3, 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,wavelet,mode,level,axes", ND_CASES)
+def test_cuda_nd_transforms_match_cpu(cuda_device, kind, shape, wavelet, mode, level, axes):
+    """``wavedec3``/``waverec3`` and ``fswavedec2/3``/``fswaverec2/3`` on the
+    card against the CPU path (float64): coefficients, reconstruction, the
+    launches of each direction and of the backward (each K3 launch's VJP
+    is one K4 launch and each K4 launch's one K3 launch), and the
+    gradient."""
+    fwd = ND_FUNCS[kind][0]
+    kwargs = {} if axes is None else {"axes": axes}
+    gen = torch.Generator().manual_seed(80)
+    x = torch.randn(shape, generator=gen, dtype=torch.float64)
+
+    def run(device):
+        xd = x.to(device).requires_grad_()
+        coeffs = fwd(xd, wavelet, mode=mode, level=level, **kwargs)
+        counts = dict(_kernels.LAUNCHES)
+        try:
+            rec = _inverse(kind, coeffs, wavelet, mode, **kwargs)
+        except ValueError:  # fswaverec* of a periodization chain (as ptwt_tpu)
+            assert kind.startswith("fs") and mode == "periodization" and level > 1
+            rec = None
+        counts["inverse K4"] = _kernels.LAUNCHES["K4"]
+        leaves = _leaves(coeffs)
+        weights = [torch.randn(t.shape, generator=torch.Generator().manual_seed(81 + i), dtype=torch.float64)
+                   for i, t in enumerate(leaves)]
+        loss = sum((t * w.to(device)).sum() for t, w in zip(leaves, weights))
+        if rec is not None:
+            loss = loss + (rec**2).sum()
+        _kernels.reset_launch_counts()
+        (grad,) = torch.autograd.grad(loss, xd)
+        return leaves, rec, grad, counts
+
+    _kernels.reset_launch_counts()
+    leaves, rec, grad, fwd_counts = run(cuda_device)
+    back = dict(_kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    k3, k4 = ND_LAUNCHES[kind]
+    inverse_k4 = fwd_counts.pop("inverse K4")
+    assert {k: v for k, v in fwd_counts.items() if v} == {"K3": k3 * level}
+    want_leaves, want_rec, want_grad, _ = run("cpu")
+    assert [tuple(c.shape) for c in leaves] == [tuple(c.shape) for c in want_leaves]
+    assert _rel_err([c.detach().cpu() for c in leaves], [c.detach() for c in want_leaves]) <= 1e-10
+    if want_rec is None:
+        assert rec is None
+        assert {k: v for k, v in back.items() if v} == {"K4": k3 * level}
+    else:
+        assert _rel_err(rec.detach().cpu(), want_rec.detach()) <= 1e-10
+        assert inverse_k4 == k4 * level
+        assert {k: v for k, v in back.items() if v} == {"K3": k4 * level, "K4": k3 * level}
+    assert _rel_err(grad.cpu(), want_grad) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["3d", "fs2"])
+def test_cuda_nd_round_trip_float32(cuda_device, kind):
+    """A float32 round trip of a few levels at a size that spans many tiles
+    (the d3 and fs2 rows' shapes, cut in batch): the input within 1e-4,
+    launches K3 x (axes x levels), K4 x (2 or 4 per level)."""
+    shape, level = ((2, 100, 100, 100), 3) if kind == "3d" else ((2, 1000, 1000), 5)
+    fwd = ND_FUNCS[kind][0]
+    x = torch.randn(shape, dtype=torch.float32, device=cuda_device)
+    _kernels.reset_launch_counts()
+    coeffs = fwd(x, "db5", mode="reflect", level=level)
+    rec = _inverse(kind, coeffs, "db5", "reflect")
+    torch.cuda.synchronize()
+    k3, k4 = ND_LAUNCHES[kind]
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K3": k3 * level, "K4": k4 * level}
+    crop = rec[(Ellipsis, *(slice(0, n) for n in shape[1:]))]
+    assert float((crop - x).abs().max()) <= 1e-4

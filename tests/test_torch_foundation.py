@@ -172,7 +172,8 @@ def test_import_pulls_in_no_jax():
         "import sys; sys.path.insert(0, sys.argv[1]);"
         "import ptwt_tpu_torch, ptwt_tpu_torch.ops, ptwt_tpu_torch.utils,"
         " ptwt_tpu_torch.conv_transform, ptwt_tpu_torch.ops._pallas,"
-        " ptwt_tpu_torch.ops._pallas1d, ptwt_tpu_torch.ops._pallas1d_multi;"
+        " ptwt_tpu_torch.ops._pallas1d, ptwt_tpu_torch.ops._pallas1d_multi,"
+        " ptwt_tpu_torch.conv_transform_3, ptwt_tpu_torch.separable_conv_transform;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ptwt_tpu' or m.startswith('ptwt_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
