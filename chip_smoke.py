@@ -145,7 +145,28 @@ Phases, each raising (non-zero exit) on failure:
    beside the package's, and the round trip's and the backward's device
    and wall ms and device-busy share (``chip_smoke.py --nd-times``, a
    process of its own: late in a long one the profiler's windows lose
-   launches).
+   launches);
+15. the stationary and boundary-wavelet matrix transforms
+   (``bench.py``'s mat1d, mat2d and swt rows), float32 at full width:
+   ``MatrixWavedec("db5", 10)`` -> ``MatrixWaverec`` on ``[32, 10**6]``
+   (levels 1-4 one launch of K8a's sameshift instance, then five K3
+   launches and a dense product; back five K4 launches and one of K8b's
+   sameshift instance: asserted), ``MatrixWavedec2("db4", 4)`` ->
+   ``MatrixWaverec2`` on ``[16, 256, 256]`` (dense products only: no
+   launch) and ``swt`` -> ``iswt`` (db2, 4 levels) on ``[32, 2**17]`` (no
+   launch); then float64, Gram-Schmidt, ``kron`` and ``reference``, 3d, a
+   long H with a short W under a lowered cutoff, odd lengths and the swt
+   default level at smaller shapes: bands and reconstruction against the
+   plain kernel versions on the card (2e-5 float32, 1e-10 float64,
+   relative to ``max(1, |band|)``), round trip within 1e-4 (float32);
+   one backward through mat1d's round trip against autograd through the
+   plain path (1e-4 of the largest entry, its launches asserted); mat2d in
+   float32 under a TF32-allowing global matmul precision against float64
+   (1e-5); the sameshift K8a and K8b launches alone against their plain
+   versions (float32 and float64); and each full-width row's forward,
+   round trip (and mat1d's backward) device and wall ms and busy share,
+   with the sameshift launches beside their byte bound
+   (``chip_smoke.py --mat-times``, a process of its own).
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -175,8 +196,9 @@ them to the kernels line as ``in_turns``.
 The last lines are a ``{"kernels": [...]}`` JSON line (fourteen kernels,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
 sums per round trip and per step, K3 and K4 their per-launch rows and
-phase 14's launches, times and d3 level-1 rows), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+phase 14's launches, times and d3 level-1 rows; K8a and K8b a
+``sameshift`` row from phase 15), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2867,6 +2889,282 @@ def check_nd() -> dict:
         nd_run(name, kind, randn(shape, dtype, SEED + 720 + i), wavelet, mode, level, axes)
     return nd
 
+# ---------------------------------------------------------------------------
+# phase 15: the stationary and boundary-wavelet matrix transforms
+# ---------------------------------------------------------------------------
+
+#: bench.py's mat1d, mat2d and swt rows at full width (float32): (name,
+#: shape, wavelet, level)
+MAT_FULL = (
+    ("mat1d", (32, 1_000_000), "db5", 10),
+    ("mat2d", (16, 256, 256), "db4", 4),
+    ("swt", (32, 2**17), "db2", 4),
+)
+#: the launches of mat1d's analysis and synthesis: the first four levels
+#: (10**6 -> 62 500) in one K8a launch of its sameshift instance, the long
+#: levels 62 500, 31 250, 15 626, 7 814 and 3 908 on K3 (``valid``), the
+#: last (1 954) a dense product; back the mirror, K4 and one K8b launch
+MAT1D_LAUNCHES = ({"K8a": 1, "K3": 5}, {"K4": 5, "K8b": 1})
+#: one backward through mat1d's round trip: each fused run's backward is
+#: the VJP of its per-level chain, whose levels past 2**16 samples run on
+#: K7 (the chain K7a x4, its VJP K7b x4, and the synthesis run's
+#: mirror), the per-level K3/K4 launches each their twin
+MAT1D_BACKWARD = {"K3": 5, "K4": 5, "K7a": 8, "K7b": 8}
+#: the smaller runs: (name, kind, shape, wavelet, level, dtype, keywords,
+#: the long-axis cutoff or None)
+MAT_SMALL = (
+    ("mat1d float64", "1d", (4, 1_000_000), "db5", 10, torch.float64, {}, None),
+    ("mat1d gramschmidt", "1d", (4, 2**17), "sym6", 8, torch.float32, {"orthogonalization": "gramschmidt"}, None),
+    ("mat1d odd length", "1d", (4, 100_001), "db5", 5, torch.float32, {}, None),
+    ("mat2d kron", "2d", (4, 64, 80), "db3", 3, torch.float32, {"separable": False}, None),
+    ("mat2d reference", "2d", (2, 32, 30), "db2", 2, torch.float64,
+     {"separable": False, "nonseparable": "reference"}, None),
+    ("mat2d long H short W", "2d", (4, 3000, 40), "db3", 2, torch.float32, {}, 1024),
+    ("mat3d", "3d", (4, 34, 40, 46), "db3", 2, torch.float32, {}, None),
+    ("mat3d float64 odd", "3d", (2, 17, 20, 23), "sym4", 2, torch.float64, {}, None),
+    ("swt default level", "swt", (4, 2**10), "db3", None, torch.float32, {}, None),
+    ("swt float64 odd", "swt", (3, 999), "sym4", 1, torch.float64, {}, None),
+)
+MAT_KIND = {"1d": ("MatrixWavedec", "MatrixWaverec"), "2d": ("MatrixWavedec2", "MatrixWaverec2"),
+            "3d": ("MatrixWavedec3", "MatrixWaverec3")}
+MAT_ROUND_TRIP_TOL = {torch.float32: ROUND_TRIP_TOL, torch.float64: 1e-8}
+
+
+def mat_leaves(coeffs) -> list:
+    out = []
+    for c in coeffs:
+        out += [c[k] for k in sorted(c)] if isinstance(c, dict) else list(c) if isinstance(c, tuple) else [c]
+    return out
+
+
+def mat_transform(kind: str, wavelet: str, level, kwargs: dict):
+    """The forward and the inverse as a user calls them."""
+    if kind == "swt":
+        return (lambda x: ptwt.swt(x, wavelet, level)), (lambda c: ptwt.iswt(c, wavelet))
+    dec_name, rec_name = MAT_KIND[kind]
+    rec_kwargs = {k: v for k, v in kwargs.items() if k != "odd_coeff_padding_mode"}
+    dec = getattr(ptwt, dec_name)(wavelet, level, **kwargs)
+    rec = getattr(ptwt, rec_name)(wavelet, **rec_kwargs)
+    return dec, rec
+
+
+def mat_run(name: str, kind: str, x: torch.Tensor, wavelet: str, level, kwargs: dict, want=None) -> dict:
+    """Phase 15's check of one configuration: the forward and the inverse
+    with the counts set to 0 just before each and read just after, against
+    the same transform through the plain kernel versions on the card (bands
+    relative to ``max(1, |band|)``: 2e-5 float32, 1e-10 float64), and the
+    round trip against the input (1e-4 float32)."""
+    fwd, inv = mat_transform(kind, wavelet, level, kwargs)
+    _kernels.reset_launch_counts()
+    coeffs = fwd(x)
+    torch.cuda.synchronize()
+    fwd_counts = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    _kernels.reset_launch_counts()
+    rec = inv(coeffs)
+    torch.cuda.synchronize()
+    inv_counts = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    log(f"  {name}: launches forward {fwd_counts}, inverse {inv_counts}")
+    if want is not None and (fwd_counts, inv_counts) != want:
+        raise AssertionError(f"{name}: launches {fwd_counts} / {inv_counts}, expected {want[0]} / {want[1]}")
+    with plain_versions():
+        pfwd, pinv = mat_transform(kind, wavelet, level, kwargs)
+        ref = pfwd(x)
+        ref_rec = pinv(ref)
+    tol = TOL[x.dtype]
+    out = {"forward": fwd_counts, "inverse": inv_counts}
+    out["coeff_rel_err"] = check(f"{name} bands vs plain path (relative)", rel_err(mat_leaves(coeffs), mat_leaves(ref)), tol)
+    out["rec_rel_err"] = check(f"{name} reconstruction vs plain path (relative)", rel_err(rec, ref_rec), tol)
+    crop = rec[(Ellipsis, *(slice(0, n) for n in x.shape[1:]))] if kind != "swt" else rec
+    out["round_trip_err"] = check(f"{name} round trip vs input", max_abs(crop, x), MAT_ROUND_TRIP_TOL[x.dtype])
+    return out
+
+
+def sameshift_cases(dtype) -> list:
+    """K8a's and K8b's sameshift instances at mat1d's shapes: the signal
+    (batch 32 float32, 4 float64) and the bands of its fused run."""
+    from ptwt_tpu_torch.ops._boundary_long import _conv_offset
+
+    rows = 32 if dtype == torch.float32 else 4
+    shape, wavelet, _ = MAT_FULL[0][1], MAT_FULL[0][2], MAT_FULL[0][3]
+    dl, dh, _, _ = get_filter_arrays(wavelet, flip=True, dtype=dtype)
+    _, _, rl, rh = get_filter_arrays(wavelet, flip=False, dtype=dtype)
+    a = _conv_offset(len(dl))
+    n = shape[1]
+    x = randn((rows, n), dtype, SEED + 800)
+    bands = [randn((rows, n >> 4), dtype, SEED + 801)] + [randn((rows, n >> lvl), dtype, SEED + 802 + lvl)
+                                                          for lvl in (4, 3, 2, 1)]
+    lens = [n >> lvl for lvl in range(4)]
+    return [
+        ("K8a", lambda: _pallas1d_multi.sameshift_analysis(x, dl, dh, a, 4),
+         lambda: _pallas1d_multi.sameshift_analysis_plain(x, dl, dh, a, 4), [x]),
+        ("K8b", lambda: _pallas1d_multi.flat_waverec_lane_multi(bands, rl, rh, (a,) * 4, lens),
+         lambda: _pallas1d_multi.multi_synthesis_plain(bands, rl, rh, (a,) * 4, lens), bands),
+    ]
+
+
+def ss_leaves(out) -> list:
+    """``(lo_D, [hi_1, ..., hi_D])`` as one list."""
+    return [out[0], *out[1]]
+
+
+def check_sameshift(errors: dict) -> None:
+    """The sameshift K8a and K8b launches alone against their plain versions
+    (every band position: the kernels compute the zero-extended chain
+    everywhere), float32 and float64, one launch each."""
+    for dtype in (torch.float32, torch.float64):
+        for name, kernel, plain, _ in sameshift_cases(dtype):
+            _kernels.reset_launch_counts()
+            got = kernel()
+            torch.cuda.synchronize()
+            if dict(_kernels.LAUNCHES)[name] != 1 or sum(_kernels.LAUNCHES.values()) != 1:
+                raise AssertionError(f"sameshift {name}: launches {dict(_kernels.LAUNCHES)}")
+            want = plain()
+            got, want = (ss_leaves(got), ss_leaves(want)) if name == "K8a" else (got, want)
+            err = check(f"sameshift {name} {dtype} vs plain (relative)", rel_err(got, want), TOL[dtype])
+            slot = errors.setdefault(name, {})
+            slot[dtype] = {"abs": max_abs(got, want), "rel": err}
+            del got, want
+    torch.cuda.empty_cache()
+
+
+def mat1d_gradient(x: torch.Tensor) -> dict:
+    """One backward through mat1d's round trip, cotangents on every band
+    and on the reconstruction, against autograd through the plain path on
+    the card (1e-4 of the largest entry), and its launches."""
+    _, wavelet, level = MAT_FULL[0][1:]
+
+    def grad_of(xd):
+        xd = leaf(xd)
+        fwd, inv = mat_transform("1d", wavelet, level, {})
+        coeffs = fwd(xd)
+        outs = [*coeffs, inv(coeffs)]
+        cts = [randn(o.shape, o.dtype, SEED + 820 + i) for i, o in enumerate(outs)]
+        _kernels.reset_launch_counts()
+        (grad,) = torch.autograd.grad(outs, xd, cts)
+        torch.cuda.synchronize()
+        return grad, {k: v for k, v in _kernels.LAUNCHES.items() if v}
+
+    grad, back = grad_of(x)
+    log(f"  mat1d backward launches {back}")
+    if back != MAT1D_BACKWARD:
+        raise AssertionError(f"mat1d backward: launches {back}, expected {MAT1D_BACKWARD}")
+    with plain_versions():
+        want, _ = grad_of(x)
+    scale = float(want.abs().max())
+    err = check(f"mat1d gradient vs plain path (over its largest entry {scale!r})", max_abs(grad, want) / scale,
+                TRAIN_GRAD_TOL)
+    return {"backward": back, "grad_rel_err": err}
+
+
+def check_tf32_ignored() -> float:
+    """mat2d's forward in float32 with the global matmul precision at
+    ``"high"`` (TF32) against its float64 forward: within 1e-5 relative,
+    and the caller's setting is back afterwards."""
+    shape, wavelet, level = MAT_FULL[1][1:]
+    x = randn(shape, torch.float64, SEED + 830)
+    dec = ptwt.MatrixWavedec2(wavelet, level)
+    want = mat_leaves(dec(x))
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = [c.double() for c in mat_leaves(dec(x.float()))]
+        if torch.get_float32_matmul_precision() != "high":
+            raise AssertionError("the matrix transforms did not restore the caller's matmul precision")
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    return check("mat2d float32 under TF32-allowing global precision vs float64 (relative)", rel_err(got, want), 1e-5)
+
+
+def mat_busy_ms(run, label: str) -> float:
+    """Device busy ms of one call of ``run`` from ``torch.profiler``."""
+    return sum(ms for ms, _, _ in profile(run, label, top=6))
+
+
+def mat_times() -> dict:
+    """``--mat-times``: each full-width row's forward, round trip (and
+    mat1d's backward): CUDA-event device ms and wall ms (3 warm-ups, median
+    of 20) and the device-busy share from ``torch.profiler``; then the
+    sameshift K8a and K8b launches, their plain versions and their bound
+    (float32)."""
+    out = {}
+    for i, (name, shape, wavelet, level) in enumerate(MAT_FULL):
+        kind = {"mat1d": "1d", "mat2d": "2d", "swt": "swt"}[name]
+        x = randn(shape, torch.float32, SEED + 840 + i)
+        fwd, inv = mat_transform(kind, wavelet, level, {})
+        runs = {"forward": lambda: fwd(x), "round_trip": lambda: inv(fwd(x))}
+        if name == "mat1d":
+            xd = leaf(x)
+            coeffs = fwd(xd)
+            outs = [*coeffs, inv(coeffs)]
+            cts = [randn(o.shape, o.dtype, SEED + 850 + j) for j, o in enumerate(outs)]
+            runs["backward"] = lambda: torch.autograd.grad(outs, xd, cts, retain_graph=True)
+        for what, run in runs.items():
+            row = {"ms": time_ms(run), "wall_ms": wall_ms(run)}
+            row["busy_ms"] = mat_busy_ms(run, f"{name} {what}")
+            row["busy_share"] = row["busy_ms"] / row["wall_ms"]
+            out[f"{name} {what}"] = row
+            log(f"  {name} {what}: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
+        del x, runs
+        if name == "mat1d":
+            del xd, coeffs, outs, cts
+        torch.cuda.empty_cache()
+    L = len(get_filter_arrays(MAT_FULL[0][2], flip=True)[0])
+    for name, kernel, plain, ins in sameshift_cases(torch.float32):
+        outs = ss_leaves(kernel()) if name == "K8a" else [kernel()]
+        nbytes = 4 * (sum(t.numel() for t in ins) + sum(t.numel() for t in outs))
+        # one multiply-add (2 operations) per tap for each lo and hi position
+        # of every level (K8a), or per tap pair for each output of every
+        # step (K8b): 4 L operations per hi position either way
+        his = outs[1:] if name == "K8a" else ins[1:]
+        ms, by = bound(nbytes, 4.0 * L * sum(t.numel() for t in his))
+        out[f"sameshift {name}"] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain), "bound_ms": ms,
+                                    "bound_by": by, "bytes": nbytes}
+        out[f"sameshift {name}"]["ms_over_bound"] = out[f"sameshift {name}"]["ms"] / ms
+        log(f"  sameshift {name}: " + " ".join(f"{k}={v!r}" for k, v in out[f"sameshift {name}"].items()))
+    return out
+
+
+def check_mat(errors: dict) -> dict:
+    """Phase 15: ``MAT_FULL`` (checks with the launch counts, mat1d's
+    gradient, the TF32 check, the sameshift launches alone, and the times
+    in a process of their own, ``--mat-times``), then ``MAT_SMALL``;
+    returns the full-width rows."""
+    mat = {}
+    want = {"mat1d": MAT1D_LAUNCHES, "mat2d": ({}, {}), "swt": ({}, {})}
+    for i, (name, shape, wavelet, level) in enumerate(MAT_FULL):
+        kind = {"mat1d": "1d", "mat2d": "2d", "swt": "swt"}[name]
+        log(f"  {name}: {list(shape)}, {wavelet}, level {level}, float32")
+        x = randn(shape, torch.float32, SEED + 840 + i)
+        mat[name] = mat_run(name, kind, x, wavelet, level, {}, want[name])
+        if name == "mat1d":
+            mat[name].update(mat1d_gradient(x))
+        del x
+        torch.cuda.empty_cache()
+    mat["tf32_check_rel_err"] = check_tf32_ignored()
+    check_sameshift(errors)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--mat-times"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--mat-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    *lines, last = proc.stdout.strip().splitlines()
+    log("\n".join(lines))
+    mat["times"] = json.loads(last)
+    for i, (name, kind, shape, wavelet, level, dtype, kwargs, cutoff) in enumerate(MAT_SMALL):
+        from ptwt_tpu_torch.ops import long_boundary_cutoff, set_long_boundary_cutoff
+
+        old = long_boundary_cutoff()
+        if cutoff is not None:
+            set_long_boundary_cutoff(cutoff)
+        try:
+            mat[name] = mat_run(name, kind, randn(shape, dtype, SEED + 860 + i), wavelet, level, kwargs)
+        finally:
+            set_long_boundary_cutoff(old)
+    # H (3000, then 1500) runs the banded apply along -2, W (40) a product
+    if mat["mat2d long H short W"]["forward"] != {"K3": 2} or mat["mat2d long H short W"]["inverse"] != {"K4": 2}:
+        raise AssertionError(f"mat2d long H short W: {mat['mat2d long H short W']}")
+    torch.cuda.empty_cache()
+    return mat
+
 
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
@@ -3079,6 +3377,10 @@ def main() -> int:
     log("phase 14: the 3d and separable main paths (bench.py's d3 and fs2 rows)")
     nd = check_nd()
 
+    log("phase 15: the stationary and matrix transforms (bench.py's mat1d, mat2d and swt rows)")
+    errors_ss = {}
+    mat = check_mat(errors_ss)
+
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
         source, replaces = REPLACES[name]
@@ -3262,6 +3564,23 @@ def main() -> int:
         if "vjp_library_ms" in vjp:
             entry["vjp_library_ms"] = vjp["vjp_library_ms"]
             entry["vjp_library_note"] = vjp["vjp_library_note"]
+        if name in ("K8a", "K8b"):
+            # phase 15: the sameshift instance, the interiors of mat1d's
+            # fused runs (launches per mat1d analysis or synthesis)
+            times = mat["times"][f"sameshift {name}"]
+            entry["sameshift"] = {
+                "launches": mat["mat1d"]["forward" if name == "K8a" else "inverse"][name],
+                "max_abs_err": errors_ss[name][torch.float32]["abs"],
+                "max_abs_err_f64": errors_ss[name][torch.float64]["abs"],
+                "rel_err": errors_ss[name][torch.float32]["rel"],
+                "ms": times["ms"],
+                "plain_ms": times["plain_ms"],
+                "bound_ms": times["bound_ms"],
+                "bound_by": times["bound_by"],
+                "library_ms": None,
+                "library_note": "no single library call computes four fused levels",
+                "mat_main_paths": {k: v for k, v in mat["times"].items() if not k.startswith("sameshift")},
+            }
         kernels.append(entry)
     for name in KERNELS_K9:
         source, replaces = REPLACES[name]
@@ -3318,7 +3637,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times),
-                        ("--k9-times", k9_times), ("--nd-times", nd_times_all)):
+                        ("--k9-times", k9_times), ("--nd-times", nd_times_all), ("--mat-times", mat_times)):
         if flag in sys.argv:
             if not torch.cuda.is_available():
                 sys.exit("chip_smoke: CUDA is not available")

@@ -16,6 +16,7 @@ import torch
 __all__ = [
     "SUPPORTED_DTYPES",
     "BoundaryMode",
+    "OrthogonalizeMethod",
     "Wavelet",
     "WaveletTensorTuple",
     "WaveletCoeff1d",
@@ -34,6 +35,10 @@ SUPPORTED_DTYPES = {torch.float32, torch.float64}
 BoundaryMode = Literal[
     "constant", "zero", "reflect", "periodic", "symmetric", "periodization"
 ]
+
+#: How the boundary-wavelet matrix transforms orthogonalize their deficient
+#: boundary rows.
+OrthogonalizeMethod = Literal["qr", "gramschmidt"]
 
 
 class Wavelet(Protocol):

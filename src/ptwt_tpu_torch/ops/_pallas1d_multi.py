@@ -23,7 +23,12 @@ steps are fused the same way.  Here two hand-written CUDA kernels
 At depth 1 the pair carries K7's contract (:mod:`._pallas1d`), and with
 circular reads K6's (:mod:`._pallas`); all of them launch through
 :func:`analysis_pyramid` and :func:`synthesis_pyramid` below, which count
-each launch under the name of the contract it carries.
+each launch under the name of the contract it carries.  Their
+*sameshift* instances compute the interiors of the boundary-wavelet long
+runs (:mod:`._boundary_long`): every level offset by the ``sameshift``
+offset ``a`` on an exactly halving chain, zero outside each band, no edge
+block (:func:`sameshift_analysis`, :func:`_adjoint_plan`; K8b through
+:func:`flat_waverec_lane_multi` with every crop ``a``).
 
 The static bookkeeping that is math is ported: the band lengths ``m_l``,
 the interior/edge ranges (:func:`_interior_ranges`), and the read biases
@@ -86,6 +91,8 @@ __all__ = [
     "flat_waverec_lane_multi",
     "multi_analysis_plain",
     "multi_synthesis_plain",
+    "sameshift_analysis",
+    "sameshift_analysis_plain",
     "synthesis_pyramid",
 ]
 
@@ -264,14 +271,16 @@ def _multi_plan(n: int, filt_len: int, depth: int, mode: str, itemsize: int):
 
 
 def _adjoint_plan(filt_len: int, out_len: int, lens: Sequence[int], offs: Sequence[int], itemsize: int):
-    """Plan of the analysis pyramid kernel as the VJP of a fused synthesis
-    run (K8b's, K7b's): ``(ints, smem_bytes)``.
+    """Plan of the analysis pyramid kernel with per-level offsets and no
+    edge block: ``(ints, smem_bytes)``.  Level l (band of ``lens[l-1]``
+    samples) reads level l - 1 from ``2i - offs[l-1]``, zero outside it,
+    starting from the ``out_len``-sample input.
 
-    The transpose of synthesis step l (band l of ``lens[l-1]`` samples,
-    crop ``offs[l-1]``) is one analysis level with the rec taps and
-    ``pad_l = offs[l-1]``, reading the cotangent of the ``out_len``-sample
-    output zero outside it; no edge block, and every cone value outside
-    its band is zeroed before the next level reads it.
+    Two instances: the VJP of a fused synthesis run (K8b's, K7b's; the
+    transpose of step l is one analysis level with the rec taps and
+    ``pad_l = offs[l-1]``), and the *sameshift* instance, the interiors of
+    a boundary-wavelet long run (the dec taps, an exactly halving chain,
+    every offset the ``sameshift`` offset ``a``).
     """
     depth = len(lens)
     _check_taps(depth, filt_len)
@@ -528,6 +537,23 @@ def multi_analysis_plain(
     return cur, his
 
 
+def sameshift_analysis_plain(
+    x: torch.Tensor, dec_lo, dec_hi, pad: int, depth: int
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The plain version of K8a's sameshift instance: ``depth`` levels of
+    :func:`dwt_axis_plain` in ``valid`` on each band zero-padded by
+    ``pad`` and ``L - 2 - pad``, so level ``l`` has half the samples of
+    level ``l - 1``.  ``(lo_depth, [hi_1, ..., hi_depth])``."""
+    filt_len = len(dec_lo)
+    his = []
+    cur = x
+    for _ in range(depth):
+        padded = torch.nn.functional.pad(cur, (pad, filt_len - 2 - pad))
+        cur, h = dwt_axis_plain(padded, -1, dec_lo, dec_hi, "valid")
+        his.append(h)
+    return cur, his
+
+
 def multi_synthesis_plain(coeffs, rec_lo, rec_hi, pads, lens) -> torch.Tensor:
     """``depth`` steps of :func:`idwt_axis_plain` on the last axis, each
     cropped to ``lens`` by ``pads`` (fine to coarse), as the JAX
@@ -596,6 +622,26 @@ def flat_wavedec_lane_multi(
     lo_band, hi_band = packed.unbind(0)
     # explicit lengths: an empty batch leaves no -1 to infer
     return lo_band.reshape(*lead, lo_band.shape[-1]), [h.reshape(*lead, h.shape[-1]) for h in (*his, hi_band)]
+
+
+def sameshift_analysis(
+    x2: torch.Tensor, dec_lo, dec_hi, pad: int, depth: int
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The interiors of a boundary-wavelet long run on ``x2 = [rows, n]``:
+    ``(lo_depth, [hi_1, ..., hi_depth])`` as :func:`sameshift_analysis_plain`
+    computes them.  ``dec_lo``/``dec_hi`` are flipped.  A CPU tensor runs
+    the plain version; a CUDA tensor one launch of K8a's sameshift
+    instance (:func:`_adjoint_plan`).  No autograd Function: the run that
+    calls it differentiates its whole map
+    (:class:`~._boundary_long.LongAnalysisRun`)."""
+    if _on_cpu(x2):
+        return sameshift_analysis_plain(x2, dec_lo, dec_hi, pad, depth)
+    lo = _kernels.static_taps(dec_lo)
+    hi = _kernels.static_taps(dec_hi)
+    x2 = x2.contiguous()
+    n = x2.shape[-1]
+    ints, smem = _adjoint_plan(len(lo), n, [n >> lvl for lvl in range(1, depth + 1)], [pad] * depth, x2.element_size())
+    return _launch_analysis("K8a", x2, lo, hi, ints, smem, False, None)
 
 
 def flat_waverec_lane_multi(coeffs, rec_lo, rec_hi, pads, lens) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Shared utilities: padding, axes/batch preprocessing, filter arrays."""
 
+from ._deprecation import deprecated_alias
 from ._padding import fwt_pad, get_pad, translate_mode
 from ._preprocess import (
     SUBBAND_ORDERS,
@@ -19,6 +20,7 @@ from ._preprocess import (
 )
 
 __all__ = [
+    "deprecated_alias",
     "fwt_pad",
     "get_pad",
     "translate_mode",

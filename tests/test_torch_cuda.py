@@ -1096,3 +1096,132 @@ def test_cuda_nd_round_trip_float32(cuda_device, kind):
     assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K3": k3 * level, "K4": k4 * level}
     crop = rec[(Ellipsis, *(slice(0, n) for n in shape[1:]))]
     assert float((crop - x).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the stationary and boundary-wavelet matrix transforms
+# ---------------------------------------------------------------------------
+
+
+def _matrix_pair(dim):
+    return {1: (tptwt.MatrixWavedec, tptwt.MatrixWaverec), 2: (tptwt.MatrixWavedec2, tptwt.MatrixWaverec2),
+            3: (tptwt.MatrixWavedec3, tptwt.MatrixWaverec3)}[dim]
+
+
+def _flat_matrix(coeffs):
+    out = []
+    for c in coeffs:
+        out += [c[k] for k in sorted(c)] if isinstance(c, dict) else list(c) if isinstance(c, tuple) else [c]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_matrix_1d_matches_cpu(cuda_device, dtype):
+    """``bench.py``'s mat1d row at batch 2 (db5, 10 levels, ``10**6``
+    samples): the analysis launches K8a once (its sameshift instance,
+    levels 1-4) and K3 five times, the synthesis K4 five times and K8b
+    once; bands, reconstruction and the gradient against the CPU."""
+    gen = torch.Generator().manual_seed(90)
+    x = torch.randn(2, 10**6, generator=gen, dtype=torch.float64)
+    tol = 1e-10 if dtype == torch.float64 else 2e-5
+
+    def run(device):
+        xd = x.to(device=device, dtype=dtype).requires_grad_()
+        _kernels.reset_launch_counts()
+        coeffs = tptwt.MatrixWavedec("db5", 10)(xd)
+        fwd = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        _kernels.reset_launch_counts()
+        rec = tptwt.MatrixWaverec("db5")(coeffs)
+        inv = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        weights = [torch.randn(c.shape, generator=torch.Generator().manual_seed(91 + i), dtype=dtype)
+                   for i, c in enumerate(coeffs)]
+        loss = sum((c * w.to(device)).sum() for c, w in zip(coeffs, weights)) + (rec**2).sum()
+        (grad,) = torch.autograd.grad(loss, xd)
+        return coeffs, rec, grad, fwd, inv
+
+    coeffs, rec, grad, fwd, inv = run(cuda_device)
+    torch.cuda.synchronize()
+    assert fwd == {"K8a": 1, "K3": 5} and inv == {"K4": 5, "K8b": 1}
+    want, want_rec, want_grad, fwd_cpu, _ = run("cpu")
+    assert fwd_cpu == {}
+    assert _rel_err([c.detach().cpu() for c in coeffs], [c.detach() for c in want]) <= tol
+    assert _rel_err(rec.detach().cpu(), want_rec.detach()) <= tol
+    assert float((rec.detach().cpu() - x.to(dtype)).abs().max()) <= (1e-10 if dtype == torch.float64 else 1e-4)
+    assert _rel_err(grad.cpu(), want_grad) <= 10 * tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dim,shape,kw,cutoff",
+    [(2, (4, 256, 256), {"separable": True}, None), (2, (2, 64, 48), {"separable": False}, None),
+     (2, (2, 40, 36), {"separable": False, "nonseparable": "reference"}, None),
+     (2, (2, 3000, 40), {"separable": True}, 2048), (3, (2, 34, 40, 46), {}, None),
+     (3, (1, 20, 16, 300), {}, 128), (1, (3, 4096), {"orthogonalization": "gramschmidt"}, None)],
+)
+def test_cuda_matrix_transforms_match_cpu(cuda_device, dim, shape, kw, cutoff):
+    """Dense products, the long axes (one K3 launch each way along a long
+    axis, ``axis=-2`` or ``-1``) and both 2d backends, float64, against the
+    CPU."""
+    from ptwt_tpu_torch.ops import long_boundary_cutoff, set_long_boundary_cutoff
+
+    dec_cls, rec_cls = _matrix_pair(dim)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(92), dtype=torch.float64)
+    rec_kw = {k: v for k, v in kw.items() if k != "odd_coeff_padding_mode"}
+    old = long_boundary_cutoff()
+    try:
+        if cutoff is not None:
+            set_long_boundary_cutoff(cutoff)
+        out = {}
+        for device in (cuda_device, "cpu"):
+            coeffs = dec_cls("db3", 2, **kw)(x.to(device))
+            out[str(device)] = (coeffs, rec_cls("db3", **rec_kw)(coeffs))
+    finally:
+        set_long_boundary_cutoff(old)
+    (got, got_rec), (want, want_rec) = out[str(cuda_device)], out["cpu"]
+    assert _rel_err([c.cpu() for c in _flat_matrix(got)], _flat_matrix(want)) <= 1e-10
+    assert _rel_err(got_rec.cpu(), want_rec) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_cuda_matrix_products_ignore_tf32(cuda_device):
+    """With the global float32 matmul precision at ``"high"`` (TF32), a
+    float32 ``MatrixWavedec``/``MatrixWavedec2`` on the card still agrees
+    with its float64 result within 1e-5 relative: every product runs at
+    the transforms' own precision, ``"highest"``; the caller's setting is
+    back afterwards."""
+    prev = torch.get_float32_matmul_precision()
+    gen = torch.Generator().manual_seed(93)
+    cases = [(tptwt.MatrixWavedec("db4", 4), torch.randn(8, 2048, generator=gen, dtype=torch.float64)),
+             (tptwt.MatrixWavedec2("db4", 4), torch.randn(4, 256, 256, generator=gen, dtype=torch.float64))]
+    try:
+        torch.set_float32_matmul_precision("high")
+        for dec, x in cases:
+            want = [c.cpu() for c in _flat_matrix(dec(x.to(cuda_device)))]
+            got = [c.double().cpu() for c in _flat_matrix(dec(x.to(device=cuda_device, dtype=torch.float32)))]
+            assert torch.get_float32_matmul_precision() == "high"
+            assert _rel_err(got, want) <= 1e-5
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("wavelet,shape,level", [("db2", (4, 2**12), 4), ("sym6", (2, 3, 100), 2), ("db4", (2, 64), None)])
+def test_cuda_swt_matches_cpu(cuda_device, dtype, wavelet, shape, level):
+    """``swt``/``iswt`` (plain torch ops on both devices) and a gradient."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(94), dtype=dtype)
+    tol = 1e-12 if dtype == torch.float64 else 2e-5
+
+    def run(device):
+        xd = x.to(device).requires_grad_()
+        coeffs = tptwt.swt(xd, wavelet, level)
+        rec = tptwt.iswt(coeffs, wavelet)
+        loss = sum((c * (i + 1)).sum() for i, c in enumerate(coeffs)) + (rec**2).sum()
+        return coeffs, rec, torch.autograd.grad(loss, xd)[0]
+
+    coeffs, rec, grad = run(cuda_device)
+    want, want_rec, want_grad = run("cpu")
+    assert _rel_err([c.detach().cpu() for c in coeffs], [c.detach() for c in want]) <= tol
+    assert _rel_err(rec.detach().cpu(), want_rec.detach()) <= tol
+    assert _rel_err(grad.cpu(), want_grad) <= 10 * tol

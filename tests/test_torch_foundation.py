@@ -173,7 +173,11 @@ def test_import_pulls_in_no_jax():
         "import ptwt_tpu_torch, ptwt_tpu_torch.ops, ptwt_tpu_torch.utils,"
         " ptwt_tpu_torch.conv_transform, ptwt_tpu_torch.ops._pallas,"
         " ptwt_tpu_torch.ops._pallas1d, ptwt_tpu_torch.ops._pallas1d_multi,"
-        " ptwt_tpu_torch.conv_transform_3, ptwt_tpu_torch.separable_conv_transform;"
+        " ptwt_tpu_torch.conv_transform_3, ptwt_tpu_torch.separable_conv_transform,"
+        " ptwt_tpu_torch.stationary_transform, ptwt_tpu_torch.sparse_math,"
+        " ptwt_tpu_torch.matmul_transform, ptwt_tpu_torch.matmul_transform_2,"
+        " ptwt_tpu_torch.matmul_transform_3, ptwt_tpu_torch.ops._boundary,"
+        " ptwt_tpu_torch.ops._boundary_long, ptwt_tpu_torch.utils._deprecation;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ptwt_tpu' or m.startswith('ptwt_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
