@@ -166,7 +166,30 @@ Phases, each raising (non-zero exit) on failure:
    versions (float32 and float64); and each full-width row's forward,
    round trip (and mat1d's backward) device and wall ms and busy share,
    with the sameshift launches beside their byte bound
-   (``chip_smoke.py --mat-times``, a process of its own).
+   (``chip_smoke.py --mat-times``, a process of its own);
+16. the wavelet packet trees and the continuous transform (``bench.py``'s
+   wp2d and cwt rows): ``WaveletPacket2D`` on ``[16, 512, 512]`` (db3,
+   ``reflect``, maxlevel 3, float32): the full expansion (21 splits, K3
+   x42) and ``reconstruct()`` (21 merges, K4 x42), every node against the
+   same tree on the plain path on the card (relative to ``max(1,
+   |node|)``, 2e-5), the root of the round trip within 1e-4 of the input,
+   then with the 64 leaves scaled, and one backward (K3 x42, K4 x42)
+   against autograd through the plain path (1e-4 of the largest entry);
+   ``WaveletPacket`` on ``[32, 10**6]`` (db5, ``reflect``, maxlevel 3: K7a
+   x7, K7b x7); then ``periodic`` (K1 on the even nodes, K3 on the odd),
+   ``periodization`` (K5a/K5b), the separable backend and ``boundary``
+   (dense products) at full width, float64 at batch 2, and 1d
+   ``periodization`` (K6), ``zero`` and ``boundary`` on ``[4, 2**15]`` in
+   both dtypes, each direction's launches asserted; ``cwt`` on ``[32,
+   10**4]`` (``shan0.1-0.4``, scales 1-30, one FFT size group: three FFT
+   calls, no kernel launch) within 1e-5 of the same call in float64 on the
+   card, its frequencies the CPU's; seven other wavelets on ``[4, 2048]``
+   over two or more FFT sizes, float32 against float64 and float64
+   against the CPU (1e-10); three SGD steps on a ``ShannonWavelet``'s
+   parameters on the card at the cwt row's width against the same steps
+   on the CPU (losses 1e-5 relative, gradients 1e-4 of the largest); and
+   each row's device ms (CUDA events), wall ms, busy share and top device
+   operations (``chip_smoke.py --pkt-times``, a process of its own).
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -193,11 +216,16 @@ the periodic level 1 of ``[16, 1024, 1024]`` and ``[64, 256, 256]``, and
 the periodic headline round trip with and without the opt-in; and adds
 them to the kernels line as ``in_turns``.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (fourteen kernels,
+Phase 14's ``--nd-times`` also times the plain version and one library
+call beside each K3/K4 launch and VJP of d3's level 1.
+
+The last lines are phase 16's ``{"packets_cwt": ...}`` line, a
+``{"kernels": [...]}`` JSON line (fourteen kernels,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
 sums per round trip and per step, K3 and K4 their per-launch rows and
-phase 14's launches, times and d3 level-1 rows; K8a and K8b a
-``sameshift`` row from phase 15), the card's name and power limit, and
+phase 14's launches, times and d3 level-1 rows, and phase 16's wp2d
+launches; K7a and K7b wp1d's; K8a and K8b a ``sameshift`` row from phase
+15), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2759,11 +2787,14 @@ def nd_busy_ms(run, label: str, launches: int) -> tuple[float, bool]:
 
 
 def nd_times_all() -> dict:
-    """``--nd-times``: :func:`nd_times` of every ``ND_FULL`` row."""
+    """``--nd-times``: :func:`nd_times` of every ``ND_FULL`` row, and d3's
+    level-1 plain and library rows (:func:`d3_plain_library`)."""
     out = {}
     for i, (name, kind, shape, wavelet, mode, level) in enumerate(ND_FULL):
         x = randn(shape, torch.float32, SEED + 700 + i)
         out[name] = nd_times(kind, x, wavelet, mode, level, name)
+        if kind == "3d":
+            out[name]["level1"] = d3_plain_library(x, wavelet, mode)
         del x
         torch.cuda.empty_cache()
     return out
@@ -2857,6 +2888,70 @@ def d3_launch_rows(x: torch.Tensor, wavelet: str, mode: str) -> dict:
     return rows
 
 
+def lanes(t: torch.Tensor, axis: int) -> torch.Tensor:
+    """``t`` as ``[pre, 1, n, post]``: ``axis`` the conv's spatial H."""
+    ax = t.ndim + axis
+    return t.reshape(math.prod(t.shape[:ax]), 1, t.shape[ax], math.prod(t.shape[ax + 1:]))
+
+
+def d3_plain_library(x: torch.Tensor, wavelet: str, mode: str) -> dict:
+    """The plain version's and one library call's device ms beside each row
+    of :func:`d3_launch_rows` (float32).  The library calls compute one
+    launch's level with the transformed axis as the conv's H, on inputs
+    made beforehand: ``F.conv2d`` (stride 2 along H) on the input padded
+    by ``fwt_pad`` for K3 and on the cotangent padded by the crop for K4's
+    VJP; ``F.conv_transpose2d`` on the stacked (lo, hi) pairs for K4 and
+    on the packed cotangent for K3's VJP, before the crop or the fold."""
+    dl, dh, _, _ = get_filter_arrays(wavelet, flip=True, dtype=x.dtype)
+    _, _, rl, rh = get_filter_arrays(wavelet, flip=False, dtype=x.dtype)
+    L, pad = len(dl), std_pad(len(dl))
+    wa, wr = axis_filters(dl, dh, -2, x.dtype), axis_filters(rl, rh, -2, x.dtype)
+    a = _pallas2.pallas_dwt_axis(x, -3, dl, dh, mode)
+    b = _pallas2.pallas_dwt_axis(a, -2, dl, dh, mode)
+    c = _pallas2.pallas_dwt_axis(b, -1, dl, dh, mode)
+    bands = list(c.flatten(0, 2).unbind(0))
+    sub = [bands[4 * w + 2 * h + d] for d, h, w in ((i >> 2, (i >> 1) & 1, i & 1) for i in range(8))]
+    lo_h = _pallas2.pallas_idwt_axis(sub[0::4], sub[1::4], -1, rl, rh, pad, pad, mode)
+    hi_h = _pallas2.pallas_idwt_axis(sub[2::4], sub[3::4], -1, rl, rh, pad, pad, mode)
+    d_pair = _pallas2.pallas_idwt_axis(lo_h.unbind(0), hi_h.unbind(0), -2, rl, rh, pad, pad, mode)
+    rows = {}
+
+    def row(name, plain, library, note):
+        rows[name] = {"plain_ms": time_ms(plain), "library_ms": time_ms(library), "library": note}
+
+    for i, (name, axis, src, out) in enumerate((
+        ("-3 (plane inner)", -3, x, a), ("-2 (siblings in outer)", -2, a, b), ("-1 (siblings in outer)", -1, b, c),
+    )):
+        padded = lanes(fwt_pad(src, L, mode=mode, axes=(src.ndim + axis,)), axis)
+        ct = randn(out.shape, out.dtype, SEED + 640 + i)
+        ct_in = lanes(ct, axis).reshape(2, -1, out.shape[axis], lanes(src, axis).shape[-1]).transpose(0, 1).contiguous()
+        row(f"K3 {name}", lambda src=src, axis=axis: _pallas2.dwt_axis_plain(src, axis, dl, dh, mode),
+            lambda padded=padded: F.conv2d(padded, wa, stride=(2, 1)), "F.conv2d, input padded beforehand")
+        row(f"K3 VJP {axis}", lambda src=src, axis=axis, ct=ct: _pallas2.dwt_axis_vjp_plain(src, axis, dl, dh, mode, ct),
+            lambda ct_in=ct_in: F.conv_transpose2d(ct_in, wa, stride=(2, 1)), "F.conv_transpose2d, before the fold")
+    for i, (name, axis, pairs, vjp_pairs) in enumerate((
+        ("K4 -1 (two pairs) x2", -1, list(zip(sub[0::2], sub[1::2])), list(zip(sub[0::4], sub[1::4]))),
+        ("K4 -2 (two pairs)", -2, list(zip(lo_h.unbind(0), hi_h.unbind(0))), None),
+        ("K4 -3 (plane inner)", -3, [(d_pair[0], d_pair[1])], None),
+    )):
+        vjp_pairs = vjp_pairs or pairs
+        stacked = torch.cat([torch.cat([lanes(lo, axis), lanes(hi, axis)], 1) for lo, hi in pairs])
+        outs = [_pallas2.idwt_axis_plain(lo, hi, axis, rl, rh, pad, pad, mode) for lo, hi in vjp_pairs]
+        cts = [randn(o.shape, o.dtype, SEED + 650 + i + 10 * j) for j, o in enumerate(outs)]
+        ct_pad = torch.cat([F.pad(lanes(g, axis), (0, 0, pad, pad)) for g in cts])
+        row(name, lambda pairs=pairs, axis=axis: [_pallas2.idwt_axis_plain(lo, hi, axis, rl, rh, pad, pad, mode)
+                                                  for lo, hi in pairs],
+            lambda stacked=stacked: F.conv_transpose2d(stacked, wr, stride=(2, 1)), "F.conv_transpose2d, before the crop")
+        n = len(vjp_pairs)
+        row(f"K4 VJP {axis} ({n} pair{'s' if n > 1 else ''})",
+            lambda vjp_pairs=vjp_pairs, axis=axis, cts=cts: [
+                _pallas2.idwt_axis_vjp_plain(lo, hi, axis, rl, rh, pad, pad, mode, g) for (lo, hi), g in zip(vjp_pairs, cts)],
+            lambda ct_pad=ct_pad: F.conv2d(ct_pad, wr, stride=(2, 1)), "F.conv2d, cotangent padded beforehand")
+    for name, r in rows.items():
+        log(f"  d3 level 1 {name}: " + " ".join(f"{k}={v!r}" for k, v in r.items()))
+    return rows
+
+
 def check_nd() -> dict:
     """Phase 14: ``ND_FULL`` (checks, gradient, d3's level-1 launches, and
     the times in a process of its own, ``--nd-times``) and then
@@ -2883,6 +2978,8 @@ def check_nd() -> dict:
     *lines, last = proc.stdout.strip().splitlines()
     log("\n".join(lines))
     for name, times in json.loads(last).items():
+        for row_name, extra in times.pop("level1", {}).items():
+            nd[name]["level1"][row_name].update(extra)
         nd[name]["times"] = times
         log(f"  {name}: " + " ".join(f"{k}={v!r}" for k, v in times.items()))
     for i, (name, kind, shape, wavelet, mode, level, dtype, axes) in enumerate(ND_SMALL):
@@ -3166,6 +3263,378 @@ def check_mat(errors: dict) -> dict:
     return mat
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the wavelet packet trees and the continuous transform
+# ---------------------------------------------------------------------------
+
+#: bench.py's wp2d row and the reference's 1d speed-test width at full
+#: width, float32: (name, dim, shape, wavelet, mode, maxlevel)
+PKT_FULL = (
+    ("wp2d", 2, (16, 512, 512), "db3", "reflect", 3),
+    ("wp1d", 1, (32, 1_000_000), "db5", "reflect", 3),
+)
+#: the launches of the full expansion and of ``reconstruct()``: wp2d's 21
+#: splits two K3 launches each and its 21 merges two K4 launches each;
+#: wp1d's 7 nodes (10**6, 500 004 and 250 006 samples) one K7 launch each
+#: way; wp2d's backward each launch's twin
+PKT_LAUNCHES = {"wp2d": ({"K3": 42}, {"K4": 42}), "wp1d": ({"K7a": 7}, {"K7b": 7})}
+PKT_BACKWARD = {"K3": 42, "K4": 42}
+#: the other backends and dtypes: (name, dim, shape, wavelet, mode,
+#: maxlevel, dtype, tree keywords, the (forward, reconstruct) launches).
+#: The 2d boundary tree's 512-sample axes are under the long-axis cutoff
+#: (dense products, no launch); the 1d one's 32 768-sample nodes over it
+#: (one K3 or K4 launch a level, `valid`); 1d periodization splits on K6.
+PKT_MORE = (
+    # K1 splits the even nodes (512, 258), K3 the odd 131s; the merges take
+    # no mode (as in ptwt_tpu, only periodization passes one), so waverec2
+    # runs the padded synthesis on K4
+    ("wp2d periodic", 2, (16, 512, 512), "db3", "periodic", 3, torch.float32, {}, ({"K1": 5, "K3": 32}, {"K4": 42})),
+    ("wp2d periodization", 2, (16, 512, 512), "db3", "periodization", 3, torch.float32, {},
+     ({"K5a": 21}, {"K5b": 21})),
+    ("wp2d separable", 2, (16, 512, 512), "db3", "reflect", 3, torch.float32, {"separable": True},
+     ({"K3": 42}, {"K4": 42})),
+    ("wp2d boundary", 2, (16, 512, 512), "db3", "boundary", 3, torch.float32, {}, ({}, {})),
+    ("wp2d reflect float64", 2, (2, 512, 512), "db3", "reflect", 3, torch.float64, {}, ({"K3": 42}, {"K4": 42})),
+    ("wp1d periodization", 1, (4, 2**15), "db5", "periodization", 3, torch.float32, {},
+     ({"K6a": 7}, {"K6b": 7})),
+    ("wp1d zero", 1, (4, 2**15), "db5", "zero", 3, torch.float32, {}, ({"K3": 7}, {"K4": 7})),
+    ("wp1d boundary", 1, (4, 2**15), "db5", "boundary", 3, torch.float32, {}, ({"K3": 7}, {"K4": 7})),
+    ("wp1d periodization float64", 1, (4, 2**15), "db5", "periodization", 3, torch.float64, {},
+     ({"K6a": 7}, {"K6b": 7})),
+    ("wp1d zero float64", 1, (4, 2**15), "db5", "zero", 3, torch.float64, {}, ({"K3": 7}, {"K4": 7})),
+    ("wp1d boundary gramschmidt float64", 1, (4, 2**15), "db5", "boundary", 3, torch.float64,
+     {"orthogonalization": "gramschmidt"}, ({"K3": 7}, {"K4": 7})),
+)
+#: bench.py's cwt row: (name, shape, wavelet, scales, sampling period); its
+#: 30 scales share one FFT size, 16 384 (the wavelet spans 41-1201 samples)
+PKT_CWT = ("cwt", (32, 10**4), "shan0.1-0.4", tuple(range(1, 31)), (4 / 800) * np.pi)
+PKT_CWT_MORE = ("mexh", "morl", "gaus3", "cgau2", "cmor1.5-1.0", "fbsp1-1.5-1.0", "db4")
+PKT_CWT_SMALL = (4, 2048)
+#: spans two or more FFT sizes for every wavelet of PKT_CWT_MORE
+PKT_CWT_SCALES = (1.0, 3.0, 10.0, 40.0, 300.0)
+#: the cwt row's limits (float32 against float64 on the card, float64
+#: against the CPU); the smaller runs take the port's float32 limit, 2e-5.
+#: Past the row's largest scale, 30, a float32 limit grows with the scale,
+#: as float32's error does (about linearly; each run logs it scale by
+#: scale): each coefficient is a difference of neighbours of a cumulative
+#: sum over some 16 s samples
+CWT_TOL = {torch.float32: 1e-5, torch.float64: 1e-10}
+CWT_TOL_SCALE = 30.0
+CWT_LR = 1e-3
+
+
+def pkt_cls(dim: int):
+    return ptwt.WaveletPacket if dim == 1 else ptwt.WaveletPacket2D
+
+
+def pkt_tree(dim: int, x, wavelet: str, mode: str, level: int, kwargs: dict):
+    return pkt_cls(dim)(x, wavelet, mode=mode, maxlevel=level, **kwargs)
+
+
+def pkt_scale(tree, order: list) -> None:
+    """Scale every leaf by its own gain, 0.5 to 1.5."""
+    for i, key in enumerate(order):
+        tree[key] = tree[key] * (0.5 + i / len(order))
+
+
+def pkt_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: v for k, v in _kernels.LAUNCHES.items() if v}
+
+
+def pkt_run(name: str, dim: int, x: torch.Tensor, wavelet: str, mode: str, level: int, kwargs: dict, want) -> dict:
+    """Phase 16's check of one tree: the full expansion and
+    ``reconstruct()`` with the counts set to 0 just before each and read
+    just after, every node against the same tree on the plain path on the
+    card (relative to ``max(1, |node|)``: 2e-5 float32, 1e-10 float64),
+    the root of the unscaled round trip against the input (1e-4 float32,
+    1e-8 float64), then the tree with scaled leaves, reconstructed again,
+    node by node against the plain path."""
+    order = pkt_cls(dim).get_level(level, "natural")
+    axes = (-1,) if dim == 1 else (-2, -1)
+    _kernels.reset_launch_counts()
+    tree = pkt_tree(dim, x, wavelet, mode, level, kwargs)
+    tree.initialize(order)
+    fwd = pkt_counts()
+    nodes = dict(tree.data)
+    _kernels.reset_launch_counts()
+    tree.reconstruct()
+    inv = pkt_counts()
+    log(f"  {name}: {len(nodes)} nodes, launches forward {fwd}, reconstruct {inv}")
+    if (fwd, inv) != tuple(want):
+        raise AssertionError(f"{name}: launches {fwd} / {inv}, expected {want[0]} / {want[1]}")
+    with plain_versions():
+        ref = pkt_tree(dim, x, wavelet, mode, level, kwargs)
+        ref.initialize(order)
+        ref_nodes = dict(ref.data)
+        ref.reconstruct()
+    tol = TOL[x.dtype]
+    keys = sorted(nodes)
+    out = {"nodes": len(keys), "forward": fwd, "inverse": inv}
+    out["node_rel_err"] = check(f"{name} nodes vs plain path (relative)",
+                                rel_err([nodes[k] for k in keys], [ref_nodes[k] for k in keys]), tol)
+    root = tree[""][tuple([Ellipsis] + [slice(0, n) for n in x.shape[len(x.shape) - len(axes):]])]
+    out["round_trip_err"] = check(f"{name} round trip vs input", max_abs(root, x), MAT_ROUND_TRIP_TOL[x.dtype])
+    pkt_scale(tree, order)
+    tree.reconstruct()
+    with plain_versions():
+        pkt_scale(ref, order)
+        ref.reconstruct()
+    out["scaled_rel_err"] = check(f"{name} scaled reconstruction vs plain path, every node (relative)",
+                                  rel_err([tree.data[k] for k in keys], [ref.data[k] for k in keys]), tol)
+    return out
+
+
+def pkt_gradient(x: torch.Tensor) -> dict:
+    """One backward through wp2d's scaled round trip against autograd
+    through the plain path on the card (1e-4 of the largest entry): the
+    backward launches each launch's twin, K3 <-> K4, and no other kernel."""
+    _, dim, _, wavelet, mode, level = PKT_FULL[0]
+    order = pkt_cls(dim).get_level(level, "natural")
+
+    def grad_of(xd):
+        xd = leaf(xd)
+        tree = pkt_tree(dim, xd, wavelet, mode, level, {})
+        tree.initialize(order)
+        pkt_scale(tree, order)
+        tree.reconstruct()
+        ct = randn(tree[""].shape, x.dtype, SEED + 910)
+        _kernels.reset_launch_counts()
+        (grad,) = torch.autograd.grad(tree[""], xd, ct)
+        return grad, pkt_counts()
+
+    grad, back = grad_of(x)
+    log(f"  wp2d backward launches {back}")
+    if back != PKT_BACKWARD:
+        raise AssertionError(f"wp2d backward: launches {back}, expected {PKT_BACKWARD}")
+    with plain_versions():
+        want, _ = grad_of(x)
+    scale = float(want.abs().max())
+    err = check(f"wp2d gradient vs plain path (over its largest entry {scale!r})", max_abs(grad, want) / scale,
+                TRAIN_GRAD_TOL)
+    return {"backward": back, "grad_rel_err": err}
+
+
+@contextlib.contextmanager
+def fft_calls():
+    """Count the calls of ``torch.fft.fft`` and ``torch.fft.ifft``."""
+    calls = {"fft": 0, "ifft": 0}
+    saved = {name: getattr(torch.fft, name) for name in calls}
+
+    def counted(name):
+        def run(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+
+        return run
+
+    for name in calls:
+        setattr(torch.fft, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.fft, name, fn)
+
+
+def cwt_run(name: str, x: torch.Tensor, wavelet: str, scales, period: float, tol: dict, groups=None) -> dict:
+    """Phase 16's check of one ``cwt`` call on the card: no kernel launch
+    (cuFFT through ``torch.fft``), the FFT calls of its size groups (one
+    data FFT, one stacked wavelet FFT and one inverse FFT each), float32
+    against the same call in float64 on the card and float64 against the
+    CPU (relative to ``max(1, |coef|)``, within ``tol``; float32 scale by
+    scale, its limit times ``max(1, scale / 30)``), the frequencies equal
+    to the CPU's."""
+    _kernels.reset_launch_counts()
+    with fft_calls() as calls:
+        coef, freqs = ptwt.cwt(x, scales, wavelet, sampling_period=period)
+        launched = pkt_counts()
+    n_groups = calls["ifft"]
+    log(f"  {name}: {list(coef.shape)} {coef.dtype}, FFT calls {calls}, launches {launched}")
+    if launched or calls["fft"] != 2 * n_groups or (groups is not None and n_groups != groups):
+        raise AssertionError(f"{name}: launches {launched}, FFT calls {calls}, expected {groups} size groups")
+    if not torch.isfinite(torch.view_as_real(coef) if coef.is_complex() else coef).all():
+        raise AssertionError(f"{name}: non-finite coefficients")
+    out = {"fft_calls": dict(calls), "size_groups": n_groups}
+    if x.dtype == torch.float32:
+        ref, _ = ptwt.cwt(x.double(), scales, wavelet, sampling_period=period)
+        raw = [rel_err(c.to(r.dtype), r) for c, r in zip(coef, ref)]
+        log(f"  {name} float32 vs float64 by scale: " + ", ".join(f"{s!r}: {e!r}" for s, e in zip(scales, raw)))
+        out["rel_err_by_scale"] = raw
+        errs = [e / max(1.0, s / CWT_TOL_SCALE) for e, s in zip(raw, scales)]
+        out["rel_err_vs_float64"] = check(f"{name} float32 vs float64 on the card (relative, per scale over "
+                                          f"max(1, scale / {CWT_TOL_SCALE}))", max(errs), tol[x.dtype])
+    else:
+        ref, _ = ptwt.cwt(x.cpu(), scales, wavelet, sampling_period=period)
+        out["rel_err_vs_cpu"] = check(f"{name} vs the CPU (relative)", rel_err(coef.cpu(), ref), tol[x.dtype])
+    _, cpu_freqs = ptwt.cwt(x[..., :64].cpu(), scales, wavelet, sampling_period=period)
+    if not np.array_equal(freqs, cpu_freqs):
+        raise AssertionError(f"{name}: frequencies differ from the CPU's")
+    return out
+
+
+def cwt_target(x: torch.Tensor) -> torch.Tensor:
+    """The power of a fixed Shannon wavelet's transform of ``x``."""
+    _, _, _, scales, period = PKT_CWT
+    with torch.no_grad():
+        fixed = ptwt.ShannonWavelet.from_frequencies(0.12, 0.35).to(x.device)
+        return ptwt.cwt(x, scales, fixed, sampling_period=period)[0].abs() ** 2
+
+
+def cwt_loss(x: torch.Tensor, wav, target: torch.Tensor) -> torch.Tensor:
+    """``mean((|cwt|^2 - target)^2) / mean(target^2)`` at the cwt row."""
+    _, _, _, scales, period = PKT_CWT
+    coef, _ = ptwt.cwt(x, scales, wav, sampling_period=period)
+    return ((coef.abs() ** 2 - target) ** 2).mean() / (target**2).mean()
+
+
+def cwt_steps(x: torch.Tensor, device) -> tuple[list, list]:
+    """Three SGD steps on a ``ShannonWavelet``'s two parameters (on
+    ``device``) against :func:`cwt_target`."""
+    target = cwt_target(x)
+    wav = ptwt.ShannonWavelet.from_frequencies(0.1, 0.4).to(device)
+    opt = torch.optim.SGD(wav.parameters(), lr=CWT_LR)
+    losses, grads = [], []
+    for _ in range(TRAIN_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = cwt_loss(x, wav, target)
+        loss.backward()
+        grads.append(torch.stack([wav.bandwidth_par.grad, wav.center_par.grad]).cpu())
+        opt.step()
+        losses.append(loss.item())
+    return losses, grads
+
+
+def cwt_learnable(x: torch.Tensor) -> dict:
+    """The learnable step at the cwt row's full width, parameters and data
+    on the card, against the same steps on the CPU: losses within 1e-5
+    relative, gradients within 1e-4 of the largest."""
+    losses, grads = cwt_steps(x, DEVICE)
+    want_losses, want_grads = cwt_steps(x.cpu(), "cpu")
+    log(f"  learnable cwt losses {losses} (CPU {want_losses})")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    check("learnable cwt losses vs CPU (relative)", loss_err, TRAIN_LOSS_RTOL)
+    scale = float(max(g.abs().max() for g in want_grads))
+    grad_err = max(float((g - w).abs().max()) for g, w in zip(grads, want_grads)) / scale
+    check(f"learnable cwt gradients vs CPU (over the largest {scale!r})", grad_err, TRAIN_GRAD_TOL)
+    return {"losses": losses, "loss_rel_err": loss_err, "grad_rel_err": grad_err}
+
+
+def pkt_bytes(tree) -> int:
+    """Bytes one full expansion must move: each parent read once, each
+    child written once (``reconstruct()`` the same, reversed)."""
+    item = tree[""].element_size()
+    return item * sum(t.numel() * (2 if k and len(k) < tree.maxlevel else 1) for k, t in tree.data.items())
+
+
+def pkt_row(label: str, run, nbytes=None) -> dict:
+    row = {"ms": time_ms(run), "wall_ms": wall_ms(run)}
+    rows = profile(run, label, top=6)
+    row["busy_ms"] = sum(ms for ms, _, _ in rows)
+    row["busy_share"] = row["busy_ms"] / row["wall_ms"]
+    row["top"] = [[key[:80], ms, count] for ms, count, key in rows[:5]]
+    if nbytes is not None:
+        row["bytes"] = nbytes
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 0.0)
+    log(f"  {label}: " + " ".join(f"{k}={v!r}" for k, v in row.items() if k != "top"))
+    return row
+
+
+def pkt_times() -> dict:
+    """``--pkt-times``: wp2d's and wp1d's full expansion and round trip (and
+    wp2d's backward), the cwt row and the learnable cwt step: CUDA-event
+    ms and wall ms (3 warm-ups, median of 20), the device-busy ms and share
+    from ``torch.profiler`` and its top device operations; bound: the bytes
+    each input read once and each output written once over the HBM rate
+    (the rows' operations take less).  The events
+    span host gaps where the host enqueues a row for longer than
+    :func:`time_ms`'s leading sleep lasts (wp2d), or where a pageable
+    host-to-device copy waits for the sleep (cwt's per-scale index
+    copies): there the busy ms is the device time."""
+    out = {}
+    for i, (name, dim, shape, wavelet, mode, level) in enumerate(PKT_FULL):
+        x = randn(shape, torch.float32, SEED + 900 + i)
+        order = pkt_cls(dim).get_level(level, "natural")
+
+        def forward():
+            tree = pkt_tree(dim, x, wavelet, mode, level, {})
+            tree.initialize(order)
+            return tree
+
+        nbytes = pkt_bytes(forward())
+        out[f"{name} forward"] = pkt_row(f"{name} forward", forward, nbytes)
+        out[f"{name} round trip"] = pkt_row(f"{name} round trip", lambda: forward().reconstruct(), 2 * nbytes)
+        if name == "wp2d":
+            xd = leaf(x)
+            tree = pkt_tree(dim, xd, wavelet, mode, level, {})
+            tree.initialize(order)
+            pkt_scale(tree, order)
+            tree.reconstruct()
+            root, ct = tree[""], randn(tree[""].shape, torch.float32, SEED + 910)
+            out["wp2d backward"] = pkt_row("wp2d backward", lambda: torch.autograd.grad(root, xd, ct, retain_graph=True),
+                                           2 * nbytes)
+            del xd, tree, root, ct
+        del x
+        torch.cuda.empty_cache()
+    name, shape, wavelet, scales, period = PKT_CWT
+    x = randn(shape, torch.float32, SEED + 920)
+    coef, _ = ptwt.cwt(x, scales, wavelet, sampling_period=period)
+    out["cwt forward"] = pkt_row("cwt forward", lambda: ptwt.cwt(x, scales, wavelet, sampling_period=period),
+                                 x.numel() * x.element_size() + coef.numel() * coef.element_size())
+    target = cwt_target(x)
+    wav = ptwt.ShannonWavelet.from_frequencies(0.1, 0.4).to(DEVICE)
+    opt = torch.optim.SGD(wav.parameters(), lr=CWT_LR)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        cwt_loss(x, wav, target).backward()
+        opt.step()
+
+    out["cwt learnable step"] = pkt_row("cwt learnable step", step)
+    return out
+
+
+def check_pkt() -> dict:
+    """Phase 16: ``PKT_FULL`` (checks with the launch counts, wp2d's
+    gradient), ``PKT_MORE``, the cwt row and ``PKT_CWT_MORE``, the
+    learnable step, and the times in a process of their own
+    (``--pkt-times``); returns the full-width rows."""
+    pkt = {}
+    for i, (name, dim, shape, wavelet, mode, level) in enumerate(PKT_FULL):
+        log(f"  {name}: {list(shape)}, {wavelet}, {mode}, maxlevel {level}, float32, full expansion")
+        x = randn(shape, torch.float32, SEED + 900 + i)
+        pkt[name] = pkt_run(name, dim, x, wavelet, mode, level, {}, PKT_LAUNCHES[name])
+        if name == "wp2d":
+            pkt[name].update(pkt_gradient(x))
+        del x
+        torch.cuda.empty_cache()
+    for i, (name, dim, shape, wavelet, mode, level, dtype, kwargs, want) in enumerate(PKT_MORE):
+        log(f"  {name}: {list(shape)}, {wavelet}, {mode} {kwargs or ''}, maxlevel {level}, {dtype}")
+        pkt[name] = pkt_run(name, dim, randn(shape, dtype, SEED + 930 + i), wavelet, mode, level, kwargs, want)
+        torch.cuda.empty_cache()
+    name, shape, wavelet, scales, period = PKT_CWT
+    log(f"  {name}: {list(shape)}, {wavelet}, scales 1-30, float32")
+    x = randn(shape, torch.float32, SEED + 920)
+    pkt[name] = cwt_run(name, x, wavelet, scales, period, CWT_TOL, groups=1)
+    pkt[name]["learnable"] = cwt_learnable(x)
+    del x
+    torch.cuda.empty_cache()
+    for i, wav in enumerate(PKT_CWT_MORE):
+        for dtype in (torch.float32, torch.float64):
+            row = cwt_run(f"cwt {wav} {dtype}", randn(PKT_CWT_SMALL, dtype, SEED + 940 + i), wav, PKT_CWT_SCALES, 0.1,
+                          TOL)
+            if row["size_groups"] < 2:
+                raise AssertionError(f"cwt {wav}: scales {PKT_CWT_SCALES} took one FFT size")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--pkt-times"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--pkt-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    *lines, last = proc.stdout.strip().splitlines()
+    log("\n".join(lines))
+    pkt["times"] = json.loads(last)
+    return pkt
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -3381,6 +3850,10 @@ def main() -> int:
     errors_ss = {}
     mat = check_mat(errors_ss)
 
+    log("phase 16: the wavelet packet trees and the continuous transform (bench.py's wp2d and cwt rows)")
+    pkt = check_pkt()
+    print(json.dumps({"packets_cwt": pkt}))
+
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
         source, replaces = REPLACES[name]
@@ -3456,6 +3929,13 @@ def main() -> int:
             }
             entry["d3_level1"] = {
                 k: v for k, v in nd["d3"]["level1"].items() if k.startswith(name) or (name == "K4" and "route" in k)
+            }
+            # phase 16: per full expansion / reconstruct() of wp2d, its
+            # backward, and the separable tree
+            entry["wp2d"] = {
+                "launches": pkt["wp2d"]["forward" if name == "K3" else "inverse"][name],
+                "vjp_launches": pkt["wp2d"]["backward"][VJP_OF[name]],
+                "launches_separable": pkt["wp2d separable"]["forward" if name == "K3" else "inverse"][name],
             }
         kernels.append(entry)
     vjp_kernel = {"K5a": "K5b", "K5b": "K5a", "K6a": "K6b", "K6b": "K6a",
@@ -3564,6 +4044,9 @@ def main() -> int:
         if "vjp_library_ms" in vjp:
             entry["vjp_library_ms"] = vjp["vjp_library_ms"]
             entry["vjp_library_note"] = vjp["vjp_library_note"]
+        if name in ("K7a", "K7b"):
+            # phase 16: per full expansion / reconstruct() of wp1d
+            entry["wp1d_launches"] = pkt["wp1d"]["forward" if name == "K7a" else "inverse"][name]
         if name in ("K8a", "K8b"):
             # phase 15: the sameshift instance, the interiors of mat1d's
             # fused runs (launches per mat1d analysis or synthesis)
@@ -3637,7 +4120,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times),
-                        ("--k9-times", k9_times), ("--nd-times", nd_times_all), ("--mat-times", mat_times)):
+                        ("--k9-times", k9_times), ("--nd-times", nd_times_all), ("--mat-times", mat_times),
+                        ("--pkt-times", pkt_times)):
         if flag in sys.argv:
             if not torch.cuda.is_available():
                 sys.exit("chip_smoke: CUDA is not available")

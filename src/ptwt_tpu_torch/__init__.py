@@ -4,23 +4,22 @@ The 1d, 2d and 3d fast wavelet transforms (``wavedec``/``waverec``,
 ``wavedec2``/``waverec2``, ``wavedec3``/``waverec3``), the fully
 separable 2d and 3d transforms (``fswavedec2``/``fswaverec2``,
 ``fswavedec3``/``fswaverec3``), the stationary transform (``swt``/
-``iswt``) and the boundary-wavelet matrix transforms (``MatrixWavedec``/
-``MatrixWaverec`` in 1d, 2d and 3d) run on the device of their input: on
+``iswt``), the boundary-wavelet matrix transforms (``MatrixWavedec``/
+``MatrixWaverec`` in 1d, 2d and 3d), the wavelet packet trees
+(``WaveletPacket``, ``WaveletPacket2D``) and the continuous transform
+(``cwt``, with the differentiable ``ShannonWavelet`` and
+``ComplexMorletWavelet`` modules) run on the device of their input: on
 an NVIDIA H100 through hand-written CUDA kernels (built from ``csrc/`` at
-first use) and, for the matrix transforms' dense operators, full-float32
-matrix products; on the CPU through their plain torch versions.
-Non-tensor inputs go to the CUDA device.  Still to come from the JAX
-package's list: the wavelet packets (``WaveletPacket``,
-``WaveletPacket2D``), the continuous transform (``cwt``) and the
-continuous-wavelet helpers (``ShannonWavelet``, ``ComplexMorletWavelet``,
-``ContinuousWavelet``, ``DiscreteContinuousWavelet``,
-``central_frequency``, ``scale2frequency``).  This package imports
-``torch``, numpy and scipy, and nothing of JAX or of ``ptwt_tpu``.
+first use), for the matrix transforms' dense operators full-float32
+matrix products, and for ``cwt`` cuFFT through ``torch.fft``; on the CPU
+through their plain torch versions.  Non-tensor inputs go to the CUDA
+device.  This package imports ``torch``, numpy and scipy, and nothing of
+JAX or of ``ptwt_tpu``.
 """
 
 from .constants import (
     Wavelet,
-    WaveletCoeff1d,
+    WaveletCoeff1d,  # noqa: F401  (a container alias, not in __all__ as in ptwt_tpu)
     WaveletCoeff2d,
     WaveletCoeff2dSeparable,
     WaveletCoeffNd,
@@ -28,50 +27,69 @@ from .constants import (
     WaveletDetailTuple2d,
     WaveletTensorTuple,
 )
+from .continuous_transform import ComplexMorletWavelet, ShannonWavelet, cwt
 from .conv_transform import wavedec, waverec
 from .conv_transform_2 import wavedec2, waverec2
 from .conv_transform_3 import wavedec3, waverec3
 from .matmul_transform import MatrixWavedec, MatrixWaverec
 from .matmul_transform_2 import MatrixWavedec2, MatrixWaverec2
 from .matmul_transform_3 import MatrixWavedec3, MatrixWaverec3
+from .packets import WaveletPacket, WaveletPacket2D
 from .separable_conv_transform import fswavedec2, fswavedec3, fswaverec2, fswaverec3
 from .stationary_transform import iswt, swt
 from .version import VERSION, get_version
+from .wavelets import (
+    ContinuousWavelet,
+    DiscreteContinuousWavelet,
+    central_frequency,
+    dwt_max_level,
+    dwtn_max_level,
+    scale2frequency,
+    swt_max_level,
+    wavelist,
+)
 from .wavelets import Wavelet as RegistryWavelet
-from .wavelets import dwt_max_level, dwtn_max_level, swt_max_level, wavelist
 
 __all__ = [
-    "MatrixWavedec",
-    "MatrixWavedec2",
-    "MatrixWavedec3",
-    "MatrixWaverec",
-    "MatrixWaverec2",
-    "MatrixWaverec3",
-    "VERSION",
-    "RegistryWavelet",
     "Wavelet",
-    "WaveletCoeff1d",
+    "WaveletTensorTuple",
+    "WaveletDetailTuple2d",
     "WaveletCoeff2d",
     "WaveletCoeff2dSeparable",
     "WaveletCoeffNd",
     "WaveletDetailDict",
-    "WaveletDetailTuple2d",
-    "WaveletTensorTuple",
-    "dwt_max_level",
-    "dwtn_max_level",
+    "VERSION",
+    "get_version",
+    "wavedec",
+    "waverec",
+    "wavedec2",
+    "waverec2",
+    "wavedec3",
+    "waverec3",
     "fswavedec2",
     "fswavedec3",
     "fswaverec2",
     "fswaverec3",
-    "get_version",
-    "iswt",
     "swt",
-    "swt_max_level",
-    "wavedec",
-    "wavedec2",
-    "wavedec3",
-    "waverec",
-    "waverec2",
-    "waverec3",
+    "iswt",
+    "cwt",
+    "MatrixWavedec",
+    "MatrixWaverec",
+    "MatrixWavedec2",
+    "MatrixWaverec2",
+    "MatrixWavedec3",
+    "MatrixWaverec3",
+    "WaveletPacket",
+    "WaveletPacket2D",
+    "ShannonWavelet",
+    "ComplexMorletWavelet",
+    "RegistryWavelet",
+    "ContinuousWavelet",
+    "DiscreteContinuousWavelet",
     "wavelist",
+    "dwt_max_level",
+    "dwtn_max_level",
+    "swt_max_level",
+    "central_frequency",
+    "scale2frequency",
 ]

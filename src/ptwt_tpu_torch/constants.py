@@ -8,7 +8,7 @@ against either package keeps working.
 
 from __future__ import annotations
 
-from typing import Literal, NamedTuple, Optional, Protocol, Sequence
+from typing import Literal, NamedTuple, Optional, Protocol, Sequence, Union
 
 import numpy as np
 import torch
@@ -16,7 +16,9 @@ import torch
 __all__ = [
     "SUPPORTED_DTYPES",
     "BoundaryMode",
+    "ExtendedBoundaryMode",
     "OrthogonalizeMethod",
+    "PacketNodeOrder",
     "Wavelet",
     "WaveletTensorTuple",
     "WaveletCoeff1d",
@@ -36,9 +38,16 @@ BoundaryMode = Literal[
     "constant", "zero", "reflect", "periodic", "symmetric", "periodization"
 ]
 
+#: A padding mode, or ``boundary`` for the boundary-wavelet matrix backend
+#: of the packet trees.
+ExtendedBoundaryMode = Union[Literal["boundary"], BoundaryMode]
+
 #: How the boundary-wavelet matrix transforms orthogonalize their deficient
 #: boundary rows.
 OrthogonalizeMethod = Literal["qr", "gramschmidt"]
+
+#: The two node orders of a packet level.
+PacketNodeOrder = Literal["natural", "freq"]
 
 
 class Wavelet(Protocol):

@@ -13,6 +13,7 @@ import math
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -1225,3 +1226,127 @@ def test_cuda_swt_matches_cpu(cuda_device, dtype, wavelet, shape, level):
     assert _rel_err([c.detach().cpu() for c in coeffs], [c.detach() for c in want]) <= tol
     assert _rel_err(rec.detach().cpu(), want_rec.detach()) <= tol
     assert _rel_err(grad.cpu(), want_grad) <= 10 * tol
+
+
+# packet trees: (dim, shape, wavelet, mode, orthogonalization, separable);
+# 1d on a lane past 2**16 samples takes K7 at its first levels
+PACKET_CASES = [
+    *((1, (3, 257), "db3", mode, "qr", False) for mode in ALL_MODES),
+    (1, (2, 70001), "db5", "reflect", "qr", False),
+    (1, (2, 512), "db3", "boundary", "qr", False),
+    (1, (2, 300), "sym4", "boundary", "gramschmidt", False),
+    *((2, (2, 45, 38), "db3", mode, "qr", sep) for mode in ALL_MODES for sep in (False, True)),
+    (2, (2, 64, 64), "db2", "boundary", "qr", False),
+    (2, (1, 40, 36), "db2", "boundary", "gramschmidt", True),
+]
+
+
+def _packet_tree(dim, x, wavelet, mode, orth, separable, level):
+    if dim == 1:
+        return tptwt.WaveletPacket(x, wavelet, mode=mode, maxlevel=level, orthogonalization=orth)
+    return tptwt.WaveletPacket2D(x, wavelet, mode=mode, maxlevel=level, orthogonalization=orth, separable=separable)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim,shape,wavelet,mode,orth,separable", PACKET_CASES)
+def test_cuda_packets_match_cpu(cuda_device, dim, shape, wavelet, mode, orth, separable, dtype):
+    """Every node of a fully expanded tree, its reconstruction after
+    scaling the leaves, and the gradient through it: on the card against
+    the CPU plain path, every node on the card."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(95), dtype=dtype)
+    tol = _tol1d(dtype)
+    level = 2
+
+    def run(device):
+        xd = x.to(device).requires_grad_()
+        wp = _packet_tree(dim, xd, wavelet, mode, orth, separable, level)
+        order = wp.get_level(level, "natural")
+        wp.initialize(order)
+        nodes = {k: v.detach().clone() for k, v in wp.data.items()}
+        for i, key in enumerate(order):
+            wp[key] = wp[key] * (1.0 + 0.1 * i)
+        try:
+            wp.reconstruct()
+        except AssertionError as err:  # separable periodization: as ptwt_tpu
+            return nodes, err, None
+        (grad,) = torch.autograd.grad((wp[""] ** 2).sum(), xd)
+        return nodes, wp[""].detach(), grad
+
+    _kernels.reset_launch_counts()
+    nodes, rec, grad = run(cuda_device)
+    torch.cuda.synchronize()
+    launched = sum(_kernels.LAUNCHES.values())
+    want, want_rec, want_grad = run("cpu")
+    assert set(nodes) == set(want)
+    assert all(v.device.type == "cuda" for v in nodes.values())
+    assert _rel_err([nodes[k].cpu() for k in want], list(want.values())) <= tol
+    assert (mode == "boundary") or launched > 0
+    if isinstance(want_rec, AssertionError):
+        assert isinstance(rec, AssertionError) and separable and mode == "periodization"
+        return
+    assert _rel_err(rec.cpu(), want_rec) <= tol
+    assert _rel_err(grad.cpu(), want_grad) <= 10 * tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,shape", [(1, (0, 64)), (2, (0, 16, 18))])
+@pytest.mark.parametrize("mode", ["reflect", "periodization", "boundary"])
+def test_cuda_packets_empty_batch_matches_cpu(cuda_device, dim, shape, mode):
+    x = torch.zeros(shape, dtype=torch.float32)
+
+    def run(device):
+        wp = _packet_tree(dim, x.to(device), "db2", mode, "qr", False, 2)
+        wp.initialize(wp.get_level(2, "natural"))
+        shapes = {k: tuple(v.shape) for k, v in wp.data.items()}
+        wp.reconstruct()
+        return shapes, wp[""]
+
+    shapes, rec = run(cuda_device)
+    want, want_rec = run("cpu")
+    assert shapes == want and tuple(rec.shape) == tuple(want_rec.shape) and rec.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["shan0.1-0.4", "mexh", "morl", "gaus3", "cgau2", "cmor1.5-1.0", "fbsp1-1.5-1.0",
+                                  "db4"])
+@pytest.mark.parametrize("shape", [(4, 2048), (0, 300)])
+def test_cuda_cwt_matches_cpu(cuda_device, name, dtype, shape):
+    """``cwt`` on cuFFT against the CPU in float64, scales spanning several
+    FFT sizes; also an empty batch.  Float32 is held to 2e-5 up to scale
+    30 and to a limit growing with the scale past it, as its error does
+    (each coefficient differences neighbours of a long cumulative sum)."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(96), dtype=dtype)
+    scales = [1.0, 2.5, 7.0, 30.0, 120.0]
+    got, freqs = tptwt.cwt(x.to(cuda_device), scales, name, sampling_period=0.1)
+    want, want_freqs = tptwt.cwt(x.double(), scales, name, sampling_period=0.1)
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert got.dtype == (want.dtype if dtype == torch.float64 else tptwt.cwt(x, [1.0], name)[0].dtype)
+    if x.numel():
+        tol = 2e-5 if dtype == torch.float32 else 1e-10
+        for g, w, s in zip(got.cpu(), want, scales):
+            assert _rel_err(g.to(w.dtype), w) <= tol * max(1.0, s / 30.0)
+    assert (freqs == want_freqs).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params_on", ["cpu", "cuda"])
+@pytest.mark.parametrize("cls", ["ShannonWavelet", "ComplexMorletWavelet"])
+def test_cuda_learnable_cwt_gradients_match_cpu(cuda_device, cls, params_on):
+    """The differentiable wavelets' gradients with the data on the card
+    (parameters on the CPU or the card) against everything on the CPU."""
+    x = torch.randn(3, 1000, generator=torch.Generator().manual_seed(97), dtype=torch.float64)
+    scales = np.arange(1, 20)
+
+    def grads(data_device, param_device):
+        wav = getattr(tptwt, cls).from_frequencies(0.8, 0.6).to(param_device)
+        coeffs, freqs = tptwt.cwt(x.to(data_device), scales, wav)
+        loss = (coeffs.abs() ** 2).mean() + freqs.sum()
+        return loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, list(wav.parameters()))]
+
+    loss, got = grads(cuda_device, cuda_device if params_on == "cuda" else "cpu")
+    want_loss, want = grads("cpu", "cpu")
+    assert abs(float(loss - want_loss)) <= 1e-10 * abs(float(want_loss))
+    for g, w in zip(got, want):
+        assert abs(float(g - w)) <= 1e-9 * abs(float(w))

@@ -165,6 +165,16 @@ def test_unsupported_dtype_raises():
         ptwt_torch.wavedec2(torch.zeros(8, 8, dtype=torch.float16), "haar")
 
 
+def test_public_names_match_jax():
+    """The port exports the JAX package's whole public list, in its order."""
+    import ptwt_tpu
+
+    assert set(ptwt_torch.__all__) == set(ptwt_tpu.__all__)
+    assert ptwt_torch.__all__ == ptwt_tpu.__all__
+    for name in ptwt_torch.__all__:
+        assert getattr(ptwt_torch, name) is not None
+
+
 def test_import_pulls_in_no_jax():
     """The port never imports JAX or ptwt_tpu (checked in a fresh process)."""
     src = Path(__file__).resolve().parent.parent / "src"
@@ -177,7 +187,8 @@ def test_import_pulls_in_no_jax():
         " ptwt_tpu_torch.stationary_transform, ptwt_tpu_torch.sparse_math,"
         " ptwt_tpu_torch.matmul_transform, ptwt_tpu_torch.matmul_transform_2,"
         " ptwt_tpu_torch.matmul_transform_3, ptwt_tpu_torch.ops._boundary,"
-        " ptwt_tpu_torch.ops._boundary_long, ptwt_tpu_torch.utils._deprecation;"
+        " ptwt_tpu_torch.ops._boundary_long, ptwt_tpu_torch.utils._deprecation,"
+        " ptwt_tpu_torch.packets, ptwt_tpu_torch.continuous_transform;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ptwt_tpu' or m.startswith('ptwt_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
