@@ -189,7 +189,32 @@ Phases, each raising (non-zero exit) on failure:
    parameters on the card at the cwt row's width against the same steps
    on the CPU (losses 1e-5 relative, gradients 1e-4 of the largest); and
    each row's device ms (CUDA events), wall ms, busy share and top device
-   operations (``chip_smoke.py --pkt-times``, a process of its own).
+   operations (``chip_smoke.py --pkt-times``, a process of its own);
+17. learnable filter banks (``wavelets_learnable.SoftOrthogonalWavelet``
+   from db4 or db5, float32): (a) ``examples/learnable_wavelet_compression.py``'s
+   step on ``[16, 256]`` (its ``make_batch`` signals, numpy seeded at 0;
+   ``wavedec`` ``periodic`` level 4 and ``waverec``; ``0.1 sparsity + 100
+   fidelity + 10 quality``), 20 Adam steps (rate 1e-3) on the card and on
+   the CPU from the same start; (b) the headline ``[16, 1024, 1024]``,
+   ``wavedec2``/``waverec2`` level 4, ``periodic`` and ``reflect``, and (c)
+   d1 ``[32, 10**6]`` db5 level 10 ``reflect``, each 3 SGD steps with the
+   input requiring grad too, against the plain path on the card: every
+   step's launches exact (K3 and K4 once per axis and level, their VJP
+   twins, one KT per launch; no other kernel), the first step's gradients
+   equal bit for bit in two runs; then KT through its wrapper against its
+   plain versions (autograd through the plain levels) at (b)'s level 1
+   along -2 and -1 and d1's level 1, and in every mode along axes -1, -2
+   and -3 on odd and even lengths, db4 and a 7-tap bank, K4's one- and
+   two-pair launches, float32 and float64; an empty batch (no launch);
+   two launches of one gradient (equal bit for bit); K3 against its plain
+   version on d1's 10^6-sample level-1 axis; ``wavedec3``, ``fswavedec2``,
+   a ``WaveletPacket2D`` split and a ``periodization`` ``wavedec2`` with
+   the bank in float64 against the CPU.  Limits: losses 1e-5 relative,
+   filter and data gradients 1e-4 of their largest entry (float64: 1e-10).
+   Then (``chip_smoke.py --learn-times``, a process of its own) KT at (b)'s
+   level 1 along -2 and -1 beside its bound, its plain version and
+   ``torch.nn.grad.conv2d_weight`` / ``conv1d_weight``, and the step of
+   (a), (b) and (c): device ms, wall ms and busy share.
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -219,8 +244,9 @@ them to the kernels line as ``in_turns``.
 Phase 14's ``--nd-times`` also times the plain version and one library
 call beside each K3/K4 launch and VJP of d3's level 1.
 
-The last lines are phase 16's ``{"packets_cwt": ...}`` line, a
-``{"kernels": [...]}`` JSON line (fourteen kernels,
+The last lines are phase 16's ``{"packets_cwt": ...}`` line, phase 17's
+``{"learnable": ...}`` line, a ``{"kernels": [...]}`` JSON line (fifteen
+kernels: KT, the taps' gradient, last,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
 sums per round trip and per step, K3 and K4 their per-launch rows and
 phase 14's launches, times and d3 level-1 rows, and phase 16's wp2d
@@ -270,6 +296,7 @@ from ptwt_tpu_torch.ops import (  # noqa: E402
     synthesis_nd,
 )
 from ptwt_tpu_torch.utils import fwt_pad, get_filter_arrays  # noqa: E402
+from ptwt_tpu_torch.wavelets_learnable import SoftOrthogonalWavelet  # noqa: E402
 
 DEVICE = torch.device("cuda")
 SEED = 0
@@ -3635,6 +3662,435 @@ def check_pkt() -> dict:
     return pkt
 
 
+# ---------------------------------------------------------------------------
+# phase 17: learnable filter banks (K3/K4 per axis, the taps' gradient KT)
+# ---------------------------------------------------------------------------
+
+#: KT's source; it replaces no Pallas kernel: for a traced bank the JAX
+#: package takes its slices route, which XLA differentiates
+KT_SOURCE = ("src/ptwt_tpu_torch/csrc/axis.cu",
+             "none (XLA's derivative of src/ptwt_tpu/ops/_dispatch.py:135 _dwt_axis_slices)")
+#: examples/learnable_wavelet_compression.py's workload: (batch, samples),
+#: wavelet, level, mode, Adam steps and rate
+LEARN_EXAMPLE = ((16, 256), "db4", 4, "periodic", 20, 1e-3)
+#: the headline (bench.py:3) and d1 (bench.py:14) with a learnable bank:
+#: (name, kind, shape, wavelet, level, mode), float32, SGD steps
+LEARN_FULL = (
+    ("2d periodic", "2d", SHAPE, WAVELET, LEVEL, "periodic"),
+    ("2d reflect", "2d", SHAPE, WAVELET, LEVEL, "reflect"),
+    ("d1 reflect", "1d", D1_SHAPE, WAVELET_1D, LEVEL_1D, "reflect"),
+)
+LEARN_LR = 1e-3
+#: KT against its plain versions: (name, shape, axis, mode, taps, dtype,
+#: K4's pair counts): (b)'s level 1 along -2 and -1 (periodic), d1's level
+#: 1 (reflect, K3's taps), then every mode on odd and even axes -1/-2/-3
+#: with db4 and a 7-tap bank in both dtypes
+KT_MAIN = (
+    ("headline level 1, axis -2", SHAPE, -2, "periodic", 8, torch.float32, (1,)),
+    ("headline level 1, axis -1", (2, SHAPE[0], 515, SHAPE[2]), -1, "periodic", 8, torch.float32, (2,)),
+    ("d1 level 1, axis -1", D1_SHAPE, -1, "reflect", 10, torch.float32, ()),
+)
+KT_SMALL = tuple(
+    (f"{mode} axis {axis} {taps} taps {str(dtype)[6:]}", shape, axis, mode, taps, dtype, (1, 2))
+    for mode in (*MODES, "valid")
+    for axis, shape in ((-1, (3, 5, 1001)), (-2, (4, 130, 70)), (-3, (33, 4, 64)))
+    for taps in (8, 7)
+    for dtype in (torch.float32, torch.float64)
+)
+#: the other entry points with a learnable bank, float64, against the CPU:
+#: (name, kind, shape, mode, level)
+LEARN_MORE = (
+    ("wavedec3", "3d", (2, 20, 22, 24), "reflect", 2),
+    ("fswavedec2", "fs2", (2, 60, 70), "zero", 2),
+    ("WaveletPacket2D split", "packet", (2, 64, 66), "reflect", 1),
+    ("wavedec2 periodization", "2d", (2, 64, 64), "periodization", 2),
+)
+LEARN_TOL = {torch.float32: TRAIN_GRAD_TOL, torch.float64: 1e-10}
+
+
+def learn_bank(wavelet: str, dtype, device):
+    return SoftOrthogonalWavelet.from_wavelet(wavelet, dtype=dtype).to(device)
+
+
+def learn_launches(kind: str, level: int, data_grad: bool) -> dict:
+    """One step's launches: each level's K3 and K4 launches (one per axis),
+    their VJP twins (but the first analysis launch's where the data needs
+    no gradient) and one KT per launch."""
+    per = {"1d": 1, "2d": 2}[kind] * level
+    return {"K3": 2 * per, "K4": 2 * per - (not data_grad), "KT": 2 * per}
+
+
+def make_batch(rng: np.random.RandomState, batch: int, n: int) -> np.ndarray:
+    """``examples/learnable_wavelet_compression.py``'s signals: random cubic
+    trends plus a few jumps."""
+    t = np.linspace(0.0, 1.0, n)
+    coefs = rng.randn(batch, 4)
+    smooth = sum(coefs[:, k : k + 1] * t**k for k in range(4))
+    jumps = np.zeros((batch, n))
+    for b in range(batch):
+        for pos in rng.randint(0, n, size=3):
+            jumps[b, pos:] += rng.randn()
+    return (smooth + jumps).astype(np.float32)
+
+
+def learn_run(kind: str, x, filt, mode: str, level: int) -> tuple[list, torch.Tensor]:
+    """The details and the reconstruction (cropped to ``x``) of one
+    transform round trip with the filter bank ``filt``."""
+    if kind == "1d":
+        coeffs = ptwt.wavedec(x, filt, mode=mode, level=level)
+        details, rec = list(coeffs[1:]), ptwt.waverec(coeffs, filt)
+    elif kind == "2d":
+        coeffs = ptwt.wavedec2(x, filt, mode=mode, level=level)
+        details, rec = [d for t in coeffs[1:] for d in t], ptwt.waverec2(coeffs, filt, mode=mode)
+    elif kind == "3d":
+        coeffs = ptwt.wavedec3(x, filt, mode=mode, level=level)
+        details, rec = [coeffs[l][k] for l in range(1, level + 1) for k in sorted(coeffs[l])], \
+            ptwt.waverec3(coeffs, filt)
+    elif kind == "fs2":
+        coeffs = ptwt.fswavedec2(x, filt, mode=mode, level=level)
+        details, rec = [coeffs[l][k] for l in range(1, level + 1) for k in sorted(coeffs[l])], \
+            ptwt.fswaverec2(coeffs, filt)
+    else:  # one packet split, then the merge
+        tree = ptwt.WaveletPacket2D(x, filt, mode=mode, maxlevel=level)
+        keys = ptwt.WaveletPacket2D.get_level(level, "natural")
+        details = [tree[k] for k in keys]
+        tree.reconstruct()
+        rec = tree[""]
+    return details, rec[tuple([Ellipsis] + [slice(0, s) for s in x.shape[1:]])]
+
+
+def learn_loss(bank, x, kind: str, mode: str, level: int) -> torch.Tensor:
+    """The example's loss: ``0.1 sparsity + 100 fidelity + 10 quality``."""
+    details, rec = learn_run(kind, x, bank.filter_bank, mode, level)
+    sparsity = sum(d.abs().mean() for d in details)
+    fidelity = ((rec - x) ** 2).mean()
+    return 0.1 * sparsity + 100.0 * fidelity + 10.0 * bank.wavelet_loss()
+
+
+def learn_step(bank, x, kind: str, mode: str, level: int, out: dict) -> None:
+    """One loss and backward: appends the loss, the filter gradients (and
+    the data's, where it requires grad) and the launches (the counts set
+    to 0 just before the forward, read after the backward) to ``out``."""
+    for p in bank.parameters():
+        p.grad = None
+    _kernels.reset_launch_counts()
+    loss = learn_loss(bank, x, kind, mode, level)
+    loss.backward()
+    out.setdefault("launches", []).append(pkt_counts())
+    out.setdefault("losses", []).append(loss.item())
+    out.setdefault("grads", []).append(torch.cat([p.grad.reshape(-1) for p in bank.parameters()]).cpu())
+    out.setdefault("data_grads", [])
+    if x.requires_grad:
+        out["data_grads"].append(x.grad.cpu())
+        x.grad = None
+
+
+def learn_steps(bank, xs, kind: str, mode: str, level: int, opt, follow=None) -> tuple[dict, dict]:
+    """One optimizer step per input of ``xs`` (:func:`learn_step`).  With
+    ``follow`` (a bank on another device), each step is also evaluated
+    there at this bank's parameters (copied over first) on the same input:
+    the second dict."""
+    out, followed = {}, {}
+    for x in xs:
+        if follow is not None:
+            with torch.no_grad():
+                for p, q in zip(follow.parameters(), bank.parameters()):
+                    p.copy_(q)
+            y = x.detach().to(follow.dec_lo.device).requires_grad_(x.requires_grad)
+            learn_step(follow, y, kind, mode, level, followed)
+        learn_step(bank, x, kind, mode, level, out)
+        opt.step()
+    return out, followed
+
+
+def learn_compare(name: str, got: dict, want: dict, dtype, grads: bool = True) -> dict:
+    """Losses within 1e-5 relative, gradients within 1e-4 of their largest
+    entry (float64: both 1e-10)."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+    check(f"{name} losses (relative)", loss_err, TRAIN_LOSS_RTOL if dtype == torch.float32 else 1e-10)
+    out = {"losses": got["losses"], "loss_rel_err": loss_err}
+    for key in ("grads", "data_grads") if grads else ():
+        if not want[key]:
+            continue
+        scale = max(float(g.abs().max()) for g in want[key])
+        err = max(max_abs(g, w) for g, w in zip(got[key], want[key])) / scale
+        out[f"{key[:-1]}_rel_err"] = check(f"{name} {key.replace('_', ' ')} (over the largest {scale!r})", err,
+                                           LEARN_TOL[dtype])
+    return out
+
+
+def check_learn_example() -> dict:
+    """(a) the example's 20 Adam steps on the card, every step's launches
+    exact (K3, K4 and KT only), each step also evaluated on the CPU at the
+    card's parameters and batch.  Float32, the example's type: losses
+    within 1e-5 relative.  Its filter gradients are not comparable between
+    two float32 implementations: db4 annihilates the batches' cubic
+    trends, so most detail coefficients are rounding noise and the
+    sparsity term's ``sign(c)`` with them (the differences are logged).
+    Float64, the same steps: losses and gradients within 1e-10.  Then the
+    float32 steps run free on the CPU from the same start: Adam scales
+    noise-level gradients up to full steps, so the two runs part (logged,
+    not held to a limit)."""
+    (batch, n), wavelet, level, mode, steps, lr = LEARN_EXAMPLE
+    rng = np.random.RandomState(0)
+    make_batch(rng, batch, n)  # the example's evaluation batch
+    batches = [torch.from_numpy(make_batch(rng, batch, n)) for _ in range(steps)]
+    want = learn_launches("1d", level, False)
+    out = {"launches_per_step": want}
+    for dtype in (torch.float32, torch.float64):
+        bank = learn_bank(wavelet, dtype, DEVICE)
+        opt = torch.optim.Adam(bank.parameters(), lr=lr)
+        card, cpu = learn_steps(bank, [b.to(DEVICE, dtype) for b in batches], "1d", mode, level, opt,
+                                follow=learn_bank(wavelet, dtype, "cpu"))
+        if any(c != want for c in card["launches"]):
+            raise AssertionError(f"example steps: launches {card['launches']}, expected {want} each step")
+        tag = str(dtype)[6:]
+        log(f"  example {tag}: {steps} Adam steps, losses {card['losses'][0]!r} -> {card['losses'][-1]!r}, "
+            f"launches per step {want}")
+        row = learn_compare(f"example {tag} card vs CPU at the card's parameters", card, cpu, dtype,
+                            grads=dtype == torch.float64)
+        if dtype == torch.float32:
+            scale = max(float(g.abs().max()) for g in cpu["grads"])
+            row["grad_rel_diff_not_held"] = max(max_abs(g, w) for g, w in zip(card["grads"], cpu["grads"])) / scale
+            log(f"  example float32 filter gradients, card vs CPU (not held, sign noise): "
+                f"{row['grad_rel_diff_not_held']!r} of the largest {scale!r}")
+            alone = learn_bank(wavelet, dtype, "cpu")
+            free, _ = learn_steps(alone, batches, "1d", mode, level, torch.optim.Adam(alone.parameters(), lr=lr))
+            row["free_run_loss_rel_diff_not_held"] = max(
+                abs(a - b) / abs(b) for a, b in zip(card["losses"], free["losses"]))
+            log(f"  example float32, the CPU's own 20 steps against the card's: losses part by "
+                f"{row['free_run_loss_rel_diff_not_held']!r} (not held)")
+        out[tag] = row
+    return out
+
+
+def check_learn_full(i: int, name: str, kind: str, shape, wavelet: str, level: int, mode: str) -> dict:
+    """(b)/(c): 3 SGD steps with a learnable bank and an input that requires
+    grad, on the kernel path against the plain path on the card; the
+    launches of every step exact, and two runs of the first step's
+    gradients equal bit for bit."""
+    x = randn(shape, torch.float32, SEED + 1700 + i)
+
+    def run(steps: int):
+        bank = learn_bank(wavelet, torch.float32, DEVICE)
+        opt = torch.optim.SGD(bank.parameters(), lr=LEARN_LR)
+        return learn_steps(bank, [leaf(x) for _ in range(steps)], kind, mode, level, opt)[0]
+
+    got = run(TRAIN_STEPS)
+    want = learn_launches(kind, level, True)
+    if any(c != want for c in got["launches"]):
+        raise AssertionError(f"{name}: launches {got['launches']}, expected {want} each step")
+    log(f"  {name}: launches per step {want}")
+    again = run(1)
+    if not (torch.equal(again["grads"][0], got["grads"][0]) and torch.equal(again["data_grads"][0],
+                                                                          got["data_grads"][0])):
+        raise AssertionError(f"{name}: two runs of the same step gave different gradients")
+    log(f"  {name}: two runs of the first step's gradients agree bit for bit")
+    with plain_versions():
+        plain = run(TRAIN_STEPS)
+    out = learn_compare(f"{name} kernel vs plain path", got, plain, torch.float32)
+    out["launches_per_step"] = want
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def kt_case(name: str, shape, axis: int, mode: str, taps: int, dtype, groups, seed: int) -> dict:
+    """KT through its wrapper against its plain versions (autograd through
+    the plain levels, on the card): K3's taps on ``shape`` along ``axis``,
+    K4's with one or two (lo, hi) pairs and the standard crop.  Each
+    error is over the gradient's largest entry."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dl, dh, rl, rh = (torch.randn(taps, dtype=torch.float64, generator=gen).numpy() for _ in range(4))
+    x = randn(shape, dtype, seed)
+    ax = axis % x.ndim
+    m, period, pad, code = _pallas2._analysis_plan(x.shape[ax], taps, mode)
+    band_shape = [m if i == ax else s for i, s in enumerate(shape)]
+    ct = randn([2, *band_shape], dtype, seed + 1)
+    errs, abs_errs = {}, {}
+    _kernels.reset_launch_counts()
+    got = _pallas2._tap_grad_kernel(x, ax, [ct[0]], [ct[1]], taps, period, pad, code)
+    want = torch.stack(_pallas2.dwt_axis_tap_grad_plain(x, axis, dl, dh, mode, ct)).double()
+    abs_errs["K3 taps"] = max_abs(got, want)
+    errs["K3 taps"] = abs_errs["K3 taps"] / float(want.abs().max())
+    del x, ct
+    p = 0 if mode == "periodization" else std_pad(taps)
+    circular = mode == "periodization"
+    for g in groups:
+        los = [randn(band_shape, dtype, seed + 2 + j) for j in range(g)]
+        his = [randn(band_shape, dtype, seed + 4 + j) for j in range(g)]
+        out_len = 2 * m - 2 * p if circular else 2 * (m - 1) + taps - 2 * p
+        cot = randn([g, *[out_len if i == ax else s for i, s in enumerate(shape)]], dtype, seed + 6)
+        per, c = (2 * m, _pallas2._WRAP_ZERO) if circular else (out_len, _pallas2._ZERO)
+        off = p + taps // 2 - 1 if circular else p
+        got = _pallas2._tap_grad_kernel(cot, ax + 1, los, his, taps, per, off, c)
+        want = torch.stack(_pallas2.idwt_axis_tap_grad_plain(los, his, axis, rl, rh, p, p, mode, cot)).double()
+        key = f"K4 taps, {g} pair{'s' * (g > 1)}"
+        abs_errs[key] = max_abs(got, want)
+        errs[key] = abs_errs[key] / float(want.abs().max())
+    launched = pkt_counts()
+    if launched != {"KT": 1 + len(groups)}:
+        raise AssertionError(f"KT {name}: launches {launched}, expected {1 + len(groups)} KT")
+    if not max(errs.values()) <= LEARN_TOL[dtype]:
+        raise AssertionError(f"KT {name}: {errs} exceed {LEARN_TOL[dtype]!r}")
+    return {"rel": errs, "abs": abs_errs}
+
+
+def kt_worst(errors: dict, dtype, kind: str) -> float:
+    return max(max(e[kind].values()) for e in errors[dtype].values())
+
+
+def check_kt(errors: dict) -> None:
+    """KT at the main path's shapes and at ``KT_SMALL``, an empty batch (no
+    launch, zero gradients) and two launches of one gradient (equal bit
+    for bit); K3 against its plain version on the d1 level-1 axis of 10^6
+    samples."""
+    for i, (name, shape, axis, mode, taps, dtype, groups) in enumerate(KT_MAIN + KT_SMALL):
+        errs = kt_case(name, shape, axis, mode, taps, dtype, groups, SEED + 1800 + i)
+        errors.setdefault(dtype, {})[name] = errs
+        if i < len(KT_MAIN):
+            log(f"  KT {name}, {mode}, {list(shape)}, over the largest entry: "
+                + ", ".join(f"{k} {v!r}" for k, v in errs["rel"].items()))
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.float64):
+        log(f"  KT every mode, axis and bank, {dtype}: worst {kt_worst(errors, dtype, 'rel')!r} of the largest "
+            f"entry (limit {LEARN_TOL[dtype]!r}), {kt_worst(errors, dtype, 'abs')!r} absolute")
+    x = randn((0, 64), torch.float32, SEED + 1890)
+    m, period, pad, code = _pallas2._analysis_plan(64, 8, "reflect")
+    _kernels.reset_launch_counts()
+    empty = _pallas2._tap_grad_kernel(x, 1, [x.new_zeros(0, m)], [x.new_zeros(0, m)], 8, period, pad, code)
+    if pkt_counts() or empty.abs().max() != 0:
+        raise AssertionError("KT on an empty batch launched or gave a nonzero gradient")
+    log("  KT on an empty batch: no launch, zero gradient")
+    x = randn(SHAPE, torch.float32, SEED + 1891)
+    m, period, pad, code = _pallas2._analysis_plan(SHAPE[1], 8, "periodic")
+    ct = randn((2, SHAPE[0], m, SHAPE[2]), torch.float32, SEED + 1892)
+    first = _pallas2._tap_grad_kernel(x, 1, [ct[0]], [ct[1]], 8, period, pad, code)
+    if not torch.equal(first, _pallas2._tap_grad_kernel(x, 1, [ct[0]], [ct[1]], 8, period, pad, code)):
+        raise AssertionError("two KT launches of one gradient differ")
+    log("  KT: two launches of one gradient agree bit for bit")
+    del x, ct
+    x = randn(D1_SHAPE, torch.float32, SEED + 1893)
+    dl, dh, _, _ = banks_1d(torch.float32)
+    got = _pallas2.pallas_dwt_axis(x, -1, dl, dh, REFLECT_1)
+    want = torch.stack(_pallas2.dwt_axis_plain(x, -1, dl, dh, REFLECT_1))
+    errors["K3 d1"] = check(f"K3 on {list(D1_SHAPE)} (the d1 level-1 axis), {REFLECT_1}, vs plain",
+                            max_abs(got, want), TOL[torch.float32])
+    del x, got, want
+    torch.cuda.empty_cache()
+
+
+def check_learn_more() -> dict:
+    """``LEARN_MORE``: the learnable bank (float64) through the other
+    entry points on the card against the CPU, filter and data gradients
+    within 1e-10 of their largest entry, K3/K4/KT only."""
+    out = {}
+    for i, (name, kind, shape, mode, level) in enumerate(LEARN_MORE):
+        x = randn(shape, torch.float64, SEED + 1900 + i)
+        bank = learn_bank(WAVELET, torch.float64, DEVICE)
+        card, cpu = learn_steps(bank, [leaf(x)], kind, mode, level, torch.optim.SGD(bank.parameters(), lr=LEARN_LR),
+                                follow=learn_bank(WAVELET, torch.float64, "cpu"))
+        launched = card["launches"][0]
+        if set(launched) != {"K3", "K4", "KT"}:
+            raise AssertionError(f"{name}: launches {launched}, expected K3, K4 and KT only")
+        log(f"  {name} {list(shape)} {mode}: launches {launched}")
+        out[name] = learn_compare(f"{name} card vs CPU", card, cpu, torch.float64)
+        out[name]["launches"] = launched
+    return out
+
+
+def kt_library(x: torch.Tensor, ct: torch.Tensor, axis: int, taps: int, mode: str):
+    """``torch.nn.grad.conv{2,1}d_weight`` computing KT's K3 gradient on an
+    input padded beforehand (the yardstick; the port never calls it), and
+    its arguments."""
+    padded = fwt_pad(x, taps, mode=mode, axes=(axis,))
+    if axis == -2:
+        inp = padded.unsqueeze(1)
+        grad_out = ct.transpose(0, 1).contiguous()
+        return lambda: torch.nn.grad.conv2d_weight(inp, (2, 1, taps, 1), grad_out, stride=(2, 1))
+    inp = padded.reshape(-1, 1, padded.shape[-1])
+    grad_out = ct.reshape(2, -1, ct.shape[-1]).transpose(0, 1).contiguous()
+    return lambda: torch.nn.grad.conv1d_weight(inp, (2, 1, taps), grad_out, stride=2)
+
+
+def learn_times() -> dict:
+    """``--learn-times``: KT at (b)'s level 1 along -2 and -1 (CUDA events,
+    median of 20 after 3 warm-ups; its plain version; the library
+    yardstick; the bound: x and the bands read once, against 2 L operations
+    per band element at the float32 peak), then one SGD step of every
+    ``LEARN_FULL`` row and the example's Adam step: device ms (events),
+    wall ms and the profiler's busy share."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    dl, dh, _, _ = banks_2d()
+    for name, shape, axis, mode, taps, dtype, _ in KT_MAIN[:2]:
+        x = randn(shape, dtype, SEED + 1950)
+        ax = axis % x.ndim
+        m, period, pad, code = _pallas2._analysis_plan(x.shape[ax], taps, mode)
+        ct = randn([2, *[m if i == ax else s for i, s in enumerate(shape)]], dtype, SEED + 1951)
+        nbytes = (x.numel() + ct.numel()) * x.element_size()
+        row = {"ms": time_ms(lambda: _pallas2._tap_grad_kernel(x, ax, [ct[0]], [ct[1]], taps, period, pad, code)),
+               "plain_ms": time_ms(lambda: _pallas2.dwt_axis_tap_grad_plain(x, axis, dl, dh, mode, ct)),
+               "library_ms": time_ms(kt_library(x, ct, axis, taps, mode)),
+               "library_note": "torch.nn.grad.conv2d_weight / conv1d_weight, input padded beforehand",
+               "bytes": nbytes}
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * taps * ct.numel())
+        log(f"  KT {name}: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
+        out[f"KT {name}"] = row
+        del x, ct
+        torch.cuda.empty_cache()
+    for i, (name, kind, shape, wavelet, level, mode) in enumerate(LEARN_FULL):
+        x = leaf(randn(shape, torch.float32, SEED + 1700 + i))
+        bank = learn_bank(wavelet, torch.float32, DEVICE)
+        opt = torch.optim.SGD(bank.parameters(), lr=LEARN_LR)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            x.grad = None
+            learn_loss(bank, x, kind, mode, level).backward()
+            opt.step()
+
+        out[f"{name} step"] = pkt_row(f"{name} step", step)
+        del x, bank, opt
+        torch.cuda.empty_cache()
+    (batch, n), wavelet, level, mode, _, lr = LEARN_EXAMPLE
+    x = torch.from_numpy(make_batch(np.random.RandomState(0), batch, n)).to(DEVICE)
+    bank = learn_bank(wavelet, torch.float32, DEVICE)
+    opt = torch.optim.Adam(bank.parameters(), lr=lr)
+
+    def example_step():
+        opt.zero_grad(set_to_none=True)
+        learn_loss(bank, x, "1d", mode, level).backward()
+        opt.step()
+
+    out["example step"] = pkt_row("example step", example_step)
+    return out
+
+
+def check_learn() -> dict:
+    """Phase 17: (a) the example's steps, (b) and (c) the learnable steps at
+    full width, KT against its plain versions, the other entry points, and
+    the times in a process of their own (``--learn-times``)."""
+    learn = {"errors": {}}
+    log("  (a) examples/learnable_wavelet_compression.py's step, [16, 256] float32")
+    learn["example"] = check_learn_example()
+    for i, (name, kind, shape, wavelet, level, mode) in enumerate(LEARN_FULL):
+        log(f"  ({'b' if kind == '2d' else 'c'}) {name}: {list(shape)}, {wavelet}, level {level}, float32, "
+            f"{TRAIN_STEPS} SGD steps")
+        learn[name] = check_learn_full(i, name, kind, shape, wavelet, level, mode)
+    check_kt(learn["errors"])
+    learn["more"] = check_learn_more()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--learn-times"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--learn-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    *lines, last = proc.stdout.strip().splitlines()
+    log("\n".join(lines))
+    learn["times"] = json.loads(last)
+    return learn
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -3853,6 +4309,10 @@ def main() -> int:
     log("phase 16: the wavelet packet trees and the continuous transform (bench.py's wp2d and cwt rows)")
     pkt = check_pkt()
     print(json.dumps({"packets_cwt": pkt}))
+
+    log("phase 17: learnable filter banks (K3/K4 per axis, the taps' gradient on KT)")
+    learn = check_learn()
+    print(json.dumps({"learnable": {k: v for k, v in learn.items() if k != "errors"}}))
 
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
@@ -4101,6 +4561,33 @@ def main() -> int:
             "small": {"shape": list(K9_SHAPES[1][1]), "bound_ms": row["bound_ms_small"]},
             "in_turns": {k: v for k, v in turns_k9.items() if k.split()[0] in (name, twin, "K1", "K2", "round")},
         })
+    kt = learn["times"]
+    kt_errors = learn["errors"]
+    kernels.append({
+        "name": "KT",
+        "route": "cuda",
+        "source": KT_SOURCE[0],
+        "replaces": KT_SOURCE[1],
+        # per SGD step of the learnable periodic headline, phase 17 (b)
+        "launches": learn["2d periodic"]["launches_per_step"]["KT"],
+        # the worst of every KT case of phase 17, absolute and over the
+        # gradient's largest entry
+        "max_abs_err": kt_worst(kt_errors, torch.float32, "abs"),
+        "max_abs_err_f64": kt_worst(kt_errors, torch.float64, "abs"),
+        "rel_err": kt_worst(kt_errors, torch.float32, "rel"),
+        "rel_err_f64": kt_worst(kt_errors, torch.float64, "rel"),
+        "ms": kt[f"KT {KT_MAIN[0][0]}"]["ms"],
+        "plain_ms": kt[f"KT {KT_MAIN[0][0]}"]["plain_ms"],
+        "bound_ms": kt[f"KT {KT_MAIN[0][0]}"]["bound_ms"],
+        "bound_by": kt[f"KT {KT_MAIN[0][0]}"]["bound_by"],
+        "library_ms": kt[f"KT {KT_MAIN[0][0]}"]["library_ms"],
+        "library_note": kt[f"KT {KT_MAIN[0][0]}"]["library_note"],
+        "ms_is": f"K3's taps at {KT_MAIN[0][0]} (periodic, {list(KT_MAIN[0][1])})",
+        "axis_minus_1": kt[f"KT {KT_MAIN[1][0]}"],
+        "launches_per_step": {name: learn[name]["launches_per_step"] for name, *_ in LEARN_FULL},
+        "example_launches_per_step": learn["example"]["launches_per_step"],
+        "steps": {k: v for k, v in kt.items() if not k.startswith("KT")},
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(
@@ -4121,7 +4608,7 @@ def main() -> int:
 if __name__ == "__main__":
     for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times),
                         ("--k9-times", k9_times), ("--nd-times", nd_times_all), ("--mat-times", mat_times),
-                        ("--pkt-times", pkt_times)):
+                        ("--pkt-times", pkt_times), ("--learn-times", learn_times)):
         if flag in sys.argv:
             if not torch.cuda.is_available():
                 sys.exit("chip_smoke: CUDA is not available")

@@ -7,7 +7,9 @@ a padded mode runs its first levels in fused runs of up to four through
 K8 (:mod:`.ops._pallas1d_multi`) and its last synthesis steps likewise;
 every other level goes through :func:`~ptwt_tpu_torch.ops.analysis_nd` /
 :func:`~ptwt_tpu_torch.ops.synthesis_nd` (K7 on a long axis, K3/K4
-otherwise).  CUDA tensors launch the hand-written kernels, CPU tensors
+otherwise).  A filter bank that requires grad declines every fused route
+(K6, K8 and K7), as the JAX package's gates decline a traced bank: each
+level runs on K3/K4, whose backward also gives the filters' gradient.  CUDA tensors launch the hand-written kernels, CPU tensors
 their plain torch versions.  Coefficient semantics (the pywt pad rule,
 odd lengths, the order ``[cA_n, cD_n, ..., cD_1]``) follow pywt.
 """
@@ -20,6 +22,7 @@ import torch
 
 from .constants import SUPPORTED_DTYPES, BoundaryMode, Wavelet, WaveletCoeff1d
 from .ops import analysis_nd, synthesis_nd
+from .ops._kernels import filters_need_grad
 from .ops._pallas import (
     fused_wavedec1d_per,
     fused_wavedec_applicable,
@@ -114,7 +117,8 @@ def wavedec(
     if level is None:
         level = dwt_max_level(data.shape[-1], filt_len)
 
-    if mode == "periodization" and fused_wavedec_applicable(data.shape[-1], filt_len, level):
+    learn = filters_need_grad(dec_lo, dec_hi)
+    if mode == "periodization" and not learn and fused_wavedec_applicable(data.shape[-1], filt_len, level):
         # the whole level pyramid: one read of the signal, one write per band
         result = fused_wavedec1d_per(data, dec_lo, dec_hi, level)
         return postprocess_coeffs(result, ndim=1, ds=ds, axes=axis)
@@ -123,7 +127,7 @@ def wavedec(
     res_lo = data
     done = 0
     # long last axes: fuse runs of levels into one kernel launch each
-    while done < level:
+    while done < level and not learn:
         depth = flat_multi_depth(res_lo.shape[-1], filt_len, mode, level - done)
         if depth < 2:
             break
@@ -187,9 +191,11 @@ def waverec(
         inferred = infer_periodization([c.shape[-1] for c in coeffs[1:]], filt_len)
         mode = "periodization" if inferred else "reflect"
     periodization = mode == "periodization"
+    learn = filters_need_grad(rec_lo, rec_hi)
 
     if (
         periodization
+        and not learn
         and len(coeffs) >= 2
         and all(
             c.shape[-1] == coeffs[0].shape[-1] * 2 ** max(i - 1, 0)
@@ -223,7 +229,7 @@ def waverec(
         steps.append((padl, padr, m_cur))
 
     fuse_from = len(steps)
-    if not periodization:
+    if not periodization and not learn:
         # long last axes: fuse the final (long) steps into one launch
         depth = flat_multi_syn_depth([s[2] for s in steps], filt_len, mode)
         if depth >= 2:

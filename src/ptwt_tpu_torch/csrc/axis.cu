@@ -1,5 +1,6 @@
 // K3 and K4: one filter-bank level along one axis, as shared-memory tiles,
-// each kernel also the other's VJP.
+// each kernel also the other's VJP; and KT, the gradient with respect to
+// the taps of a K3 or K4 launch (its own section below).
 //
 // K3 replaces the Pallas kernel ptwt_tpu/ops/_pallas2.py:_analysis_kernel,
 // K4 replaces ptwt_tpu/ops/_pallas2.py:_synthesis_kernel; K4's fold
@@ -587,6 +588,196 @@ __global__ void __launch_bounds__(PTWT_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// KT: the filter taps' gradient of a K3 or K4 launch
+// ---------------------------------------------------------------------------
+
+// KT replaces no Pallas kernel: the JAX package keeps a traced filter bank
+// off its kernels and lets XLA differentiate its slices route, while the
+// port keeps such a bank's data on K3/K4 and differentiates the taps here.
+// One contract serves both directions:
+//
+//   g_f[k] = sum over (o, j, c) of band_f[o, j, c] * x[o, src(2j + k - pad), c]
+//
+// for the two filters f (lo, hi) and every tap k < len, src() being K3's
+// source_of map.  For K3's (dec) taps, x is the level's input, pad, mode
+// and period are K3's, and the bands are the cotangents of its (lo, hi)
+// output.  For K4's (rec) taps, x is the output cotangent of a K4 launch
+// (its G pairs folded into `outer`), pad = off, the mode zero (or, for
+// periodization, modulo 2m with zeros past out_len: the crop is an offset
+// into the uncropped frame), and the bands are the launch's (lo, hi)
+// inputs, pair g's rows under x's rows of group g.
+//
+// Bound on the H100: bytes (x and the bands read once; the 2 len sums are
+// a few bytes).  A block owns tiles of t band positions times a run of the
+// fastest index, as K3 does (64 columns of inner in float32, 32 in
+// float64, on a middle axis; 16 rows on the last axis), stages the tile's
+// window of x (2t + len - 2 positions, through the mode's map) and its
+// band tiles into shared memory, and accumulates: thread (s, lane) sums
+// the products of sum s = f len + k over the tile's elements lane, lane +
+// lanes, ... in float64, for float32 inputs too (a tap sums ~10^7 products
+// at the headline).  Blocks walk their tiles in a fixed order over a grid
+// of at most `cap` blocks; each writes its 2 len sums to its row of
+// `partial` (lanes added in order), and a second launch adds the rows in a
+// fixed tree: no atomics, so the result is the same bit for bit from run
+// to run.
+
+struct TapArgs {
+  int64_t outer, inner;  // outer: rows of one pair (K4's taps) or of x
+  int groups, n, m, period, pad, mode, len;
+};
+
+static size_t plan_taps(AxisTile& tile, int64_t rows, int m, int64_t inner, int len,
+                        size_t item) {
+  tile.last = inner == 1;
+  tile.plane = 0;
+  if (tile.last) {
+    tile.run = AXIS_ROWS;
+    tile.shift = 0;
+    tile.runs = (rows + tile.run - 1) / tile.run;
+    balance(tile, m, static_cast<int>(1024 / item), false);
+    tile.blocks = tile.runs * tile.tiles;
+  } else {
+    tile.run = pow2_at_least(inner, static_cast<int>(256 / item));
+    tile.shift = log2_of(tile.run);
+    tile.runs = (inner + tile.run - 1) / tile.run;
+    balance(tile, m, static_cast<int>(16384 / item) / tile.run, false);
+    tile.blocks = rows * tile.tiles * tile.runs;
+  }
+  tile.span = 2 * tile.t + len - 2;  // window positions of a whole tile
+  return item * static_cast<size_t>(tile.run) * (tile.span + 2 * tile.t) +
+         sizeof(int) * tile.span;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PTWT_THREADS)
+    tap_grad_kernel(const T* __restrict__ x, const BandPairs<T> bands,
+                    double* __restrict__ partial, const AxisTile tile, const TapArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ double red[PTWT_THREADS];
+  const int run = tile.run, span = tile.span, t = tile.t;
+  // [span][run] (middle) or [run][span] (last), then the two band tiles
+  // [t][run] or [run][t], then the window's sources
+  T* win = reinterpret_cast<T*>(smem_raw);
+  T* bt = win + static_cast<size_t>(run) * span;
+  int* src = reinterpret_cast<int*>(bt + 2 * static_cast<size_t>(run) * t);
+  const int tid = threadIdx.x;
+  const int sums = 2 * a.len, lanes = PTWT_THREADS / sums;
+  const int s = tid / lanes, lane = tid - s * lanes;
+  const int f = s < sums ? s / a.len : 0, k = s < sums ? s - f * a.len : 0;
+  const int64_t rows = a.groups * a.outer;
+  double acc = 0.0;
+  for (int64_t blk = blockIdx.x; blk < tile.blocks; blk += gridDim.x) {
+    int tile_i;
+    int64_t o = 0, lead;  // o: the row of x (middle); lead: first column or row
+    if (tile.last) {
+      tile_i = static_cast<int>(blk % tile.tiles);
+      lead = blk / tile.tiles * run;
+    } else {
+      const int64_t rest = blk / tile.runs;
+      lead = (blk - rest * tile.runs) * run;
+      tile_i = static_cast<int>(rest % tile.tiles);
+      o = rest / tile.tiles;
+    }
+    const int j0 = tile_i * t;
+    const int n_out = min(t, a.m - j0);
+    const int nrun = static_cast<int>(min64(run, (tile.last ? rows : a.inner) - lead));
+    const int wins = 2 * n_out + a.len - 2;
+    for (int w = tid; w < wins; w += PTWT_THREADS)
+      src[w] = source_of(2 * j0 - a.pad + w, a.n, a.period, a.mode);
+    __syncthreads();
+
+    T* bl = bt;
+    T* bh = bt + static_cast<size_t>(run) * t;
+    if (tile.last) {
+      Walk st(tid, wins);
+      for (int e = tid; e < nrun * wins; e += PTWT_THREADS, st.next()) {
+        T* dst = win + st.row * span + st.col;
+        const int q = src[st.col];
+        if (q >= 0)
+          copy_async(dst, x + (lead + st.row) * a.n + q);
+        else
+          *dst = T(0);
+      }
+      Walk sb(tid, n_out);
+      for (int e = tid; e < nrun * n_out; e += PTWT_THREADS, sb.next()) {
+        const int64_t r = lead + sb.row;
+        const int g = static_cast<int>(r / a.outer);
+        const int64_t at = (r - g * a.outer) * a.m + j0 + sb.col;
+        copy_async(bl + sb.row * t + sb.col, bands.lo[g] + at);
+        copy_async(bh + sb.row * t + sb.col, bands.hi[g] + at);
+      }
+    } else {
+      const T* xo = x + o * a.n * a.inner + lead;
+      for (int e = tid; e < wins * run; e += PTWT_THREADS) {
+        const int w = e >> tile.shift, c = e & (run - 1);
+        const int q = src[w];
+        if (q >= 0 && c < nrun)
+          copy_async(win + e, xo + static_cast<int64_t>(q) * a.inner + c);
+        else
+          win[e] = T(0);
+      }
+      const int g = static_cast<int>(o / a.outer);
+      const int64_t base = ((o - g * a.outer) * a.m + j0) * a.inner + lead;
+      for (int e = tid; e < n_out * run; e += PTWT_THREADS) {
+        const int j = e >> tile.shift, c = e & (run - 1);
+        if (c < nrun) {
+          const int64_t at = base + static_cast<int64_t>(j) * a.inner + c;
+          copy_async(bl + e, bands.lo[g] + at);
+          copy_async(bh + e, bands.hi[g] + at);
+        } else {
+          bl[e] = bh[e] = T(0);
+        }
+      }
+    }
+    wait_staged();
+
+    if (s < sums) {
+      const T* bf = f ? bh : bl;
+      if (tile.last) {
+        for (int r = 0; r < nrun; ++r) {
+          const T* wr = win + r * span + k;
+          const T* br = bf + r * t;
+          for (int j = lane; j < n_out; j += lanes)
+            acc += static_cast<double>(br[j]) * static_cast<double>(wr[2 * j]);
+        }
+      } else {
+        for (int e = lane; e < n_out * run; e += lanes) {
+          const int j = e >> tile.shift, c = e & (run - 1);
+          acc += static_cast<double>(bf[e]) *
+                 static_cast<double>(win[((2 * j + k) << tile.shift) + c]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  red[tid] = acc;
+  __syncthreads();
+  if (s < sums && lane == 0) {
+    double sum = 0.0;
+    for (int l = 0; l < lanes; ++l) sum += red[s * lanes + l];
+    partial[static_cast<int64_t>(blockIdx.x) * sums + s] = sum;
+  }
+}
+
+// out[s] = the sum over the `blocks` rows of partial[., s], in a fixed tree.
+__global__ void __launch_bounds__(PTWT_THREADS)
+    tap_reduce_kernel(const double* __restrict__ partial, int blocks, int sums,
+                      double* __restrict__ out) {
+  __shared__ double red[PTWT_THREADS];
+  const int s = blockIdx.x, tid = threadIdx.x;
+  double acc = 0.0;
+  for (int b = tid; b < blocks; b += PTWT_THREADS)
+    acc += partial[static_cast<int64_t>(b) * sums + s];
+  red[tid] = acc;
+  __syncthreads();
+  for (int half = PTWT_THREADS / 2; half > 0; half >>= 1) {
+    if (tid < half) red[tid] += red[tid + half];
+    __syncthreads();
+  }
+  if (tid == 0) out[s] = red[0];
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -665,6 +856,34 @@ static int launch_synthesis(const void* lo0, const void* hi0, const void* lo1,
   return launch_synthesis_as<T, 1, false>(bands, dst, taps, tile, a, smem, stream);
 }
 
+template <typename T>
+static int launch_taps(const void* x, const void* lo0, const void* hi0, const void* lo1,
+                       const void* hi1, int groups, double* out, double* partial, int cap,
+                       int len, long long outer, int n, int period, int m, long long inner,
+                       int pad, int mode, cudaStream_t stream) {
+  BandPairs<T> bands;
+  bands.lo[0] = static_cast<const T*>(lo0);
+  bands.hi[0] = static_cast<const T*>(hi0);
+  bands.lo[1] = static_cast<const T*>(groups > 1 ? lo1 : lo0);
+  bands.hi[1] = static_cast<const T*>(groups > 1 ? hi1 : hi0);
+  TapArgs a{outer, inner, groups, n, m, period, pad, mode, len};
+  AxisTile tile;
+  const size_t smem = plan_taps(tile, groups * static_cast<int64_t>(outer), m, inner, len,
+                                sizeof(T));
+  if (smem > AXIS_SMEM_MAX - sizeof(double) * PTWT_THREADS) return PTWT_BAD_ARGUMENT;
+  auto kernel = tap_grad_kernel<T>;
+  // always set: the static `red` counts against the 48 KB default too
+  if (int err = static_cast<int>(cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem))))
+    return err;
+  const int blocks = static_cast<int>(min64(tile.blocks, cap));
+  kernel<<<blocks, PTWT_THREADS, smem, stream>>>(static_cast<const T*>(x), bands, partial,
+                                                 tile, a);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  tap_reduce_kernel<<<2 * len, PTWT_THREADS, 0, stream>>>(partial, blocks, 2 * len, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // dtype: 0 = float32, 1 = float64.  Returns a cudaError_t after the launch,
 // or PTWT_BAD_ARGUMENT.  x is the unpadded [outer, n, inner] input, out
 // the [2, outer, m, inner] bands; `mode` is one of the AXIS_* codes, and
@@ -710,5 +929,31 @@ extern "C" int ptwt_synthesis_axis(int dtype, const void* lo0, const void* hi0,
   if (dtype == 1)
     return launch_synthesis<double>(lo0, hi0, lo1, hi1, groups, out, rlo, rhi, len, outer,
                                     m, out_len, inner, off, circular, fold, period, s);
+  return PTWT_BAD_ARGUMENT;
+}
+
+// KT.  x is [groups, outer, n, inner] (groups 1 for K3's taps), band pair g
+// [outer, m, inner]; out is the [2, len] float64 gradient (lo taps, then
+// hi), partial [cap, 2 len] float64 scratch.  `mode` and `period` are
+// K3's (the AXIS_* codes).
+extern "C" int ptwt_tap_grad(int dtype, const void* x, const void* lo0, const void* hi0,
+                             const void* lo1, const void* hi1, int groups, void* out,
+                             void* partial, int cap, int len, long long outer, int n,
+                             int period, int m, long long inner, int pad, int mode,
+                             void* stream) {
+  const bool wraps = mode == AXIS_WRAP || mode == AXIS_WRAP_ZERO;
+  if (groups < 1 || groups > 2 || len < 1 || len > PTWT_MAX_TAPS || cap < 1 || outer < 1 ||
+      inner < 1 || n < 1 || m < 1 || pad < 0 || mode < 0 || mode >= AXIS_MODES ||
+      (wraps && period < n))
+    return PTWT_BAD_ARGUMENT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* o = static_cast<double*>(out);
+  double* p = static_cast<double*>(partial);
+  if (dtype == 0)
+    return launch_taps<float>(x, lo0, hi0, lo1, hi1, groups, o, p, cap, len, outer, n,
+                              period, m, inner, pad, mode, s);
+  if (dtype == 1)
+    return launch_taps<double>(x, lo0, hi0, lo1, hi1, groups, o, p, cap, len, outer, n,
+                               period, m, inner, pad, mode, s);
   return PTWT_BAD_ARGUMENT;
 }

@@ -97,7 +97,18 @@ def construct_boundary_s(
 
 
 def _as_wavelet_obj(wavelet) -> Wavelet:
-    return RegistryWavelet(wavelet) if isinstance(wavelet, str) else wavelet
+    if isinstance(wavelet, str):
+        return RegistryWavelet(wavelet)
+    if any(isinstance(f, torch.Tensor) and f.requires_grad for f in getattr(wavelet, "filter_bank", ())):
+        # ptwt_tpu builds these operators with np.asarray too, and refuses a
+        # traced bank there (TracerArrayConversionError, a TypeError)
+        raise TypeError(
+            "the matrix transforms build their operators on the host from constant "
+            "filters and give no filter gradient: pass a bank that does not require "
+            "grad (e.g. tuple(f.detach() for f in bank.filter_bank)), or train the "
+            "bank through wavedec/wavedec2/wavedec3 or the packet trees' padded modes"
+        )
+    return wavelet
 
 
 def _check_orthogonal(wavelet) -> None:

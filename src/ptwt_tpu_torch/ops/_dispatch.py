@@ -34,6 +34,12 @@ halving 1d chain to K6 and ``wavedec2``/``waverec2`` a 2d chain that the
 K5 plan holds to K5 (:mod:`._pallas`), before any level is routed here.
 Here a 2d periodization level runs K1/K2, a 1d one K3/K4.
 
+A filter bank that requires grad (:func:`~._kernels.filters_need_grad`,
+the counterpart of the JAX package's ``_is_concrete``) declines K7 and
+K1/K2 (so K9) here, as the entry points decline K5, K6 and K8 for it:
+every axis of every level runs K3/K4, whose backward gives the filters'
+gradient (KT).  Under ``torch.no_grad()`` the routes are the ones above.
+
 On a CPU tensor the same decisions call the kernels' plain versions.
 """
 
@@ -44,6 +50,7 @@ from typing import Sequence
 import torch
 
 from ..utils._preprocess import SUBBAND_ORDERS
+from ._kernels import filters_need_grad
 from ._pallas1d import dwt_lane_packed, flat_idwt_lane, flat_lane_applicable
 from ._pallas2 import pallas_dwt_axis, pallas_idwt_axis
 from ._pallas2d import (
@@ -70,7 +77,11 @@ def dwt_axis(x: torch.Tensor, axis: int, dec_lo, dec_hi, mode: str) -> torch.Ten
             "negative dimensions are not allowed: an odd-length filter bank's "
             "periodization level on an empty axis has -1 coefficients"
         )
-    if axis % x.ndim == x.ndim - 1 and flat_lane_applicable(x.shape[-1], len(dec_lo), mode):
+    if (
+        axis % x.ndim == x.ndim - 1
+        and not filters_need_grad(dec_lo, dec_hi)
+        and flat_lane_applicable(x.shape[-1], len(dec_lo), mode)
+    ):
         return dwt_lane_packed(x, dec_lo, dec_hi, mode)
     return pallas_dwt_axis(x, axis, dec_lo, dec_hi, mode)
 
@@ -89,7 +100,7 @@ def idwt_axis(
     ``[G, ...]``: K7 per pair on a long last axis (gated on the output
     length, any mode but periodization), K4 for all pairs otherwise."""
     ndim = los[0].ndim
-    if axis % ndim == ndim - 1 and mode != "periodization":
+    if axis % ndim == ndim - 1 and mode != "periodization" and not filters_need_grad(rec_lo, rec_hi):
         out_len = 2 * (los[0].shape[-1] - 1) + len(rec_lo) - padl - padr
         if flat_lane_applicable(out_len, len(rec_lo), mode):
             outs = [flat_idwt_lane(a, b, rec_lo, rec_hi, padl, padr) for a, b in zip(los, his)]
@@ -125,7 +136,7 @@ def analysis_nd(
         bands = packed.flatten(0, 2).unbind(0)
         return tuple(bands[4 * w + 2 * h + d] for d, h, w in SUBBAND_ORDERS[3])
     h, w = data.shape[-2:]
-    if fused2_analysis_applicable(h, w, len(dec_lo), mode):
+    if not filters_need_grad(dec_lo, dec_hi) and fused2_analysis_applicable(h, w, len(dec_lo), mode):
         return fused2_dwt_level(data, dec_lo, dec_hi, mode)
     rows = dwt_axis(data, -2, dec_lo, dec_hi, mode)  # [2 (H bit), B, m_h, w]
     both = dwt_axis(rows, -1, dec_lo, dec_hi, mode)  # [2 (W bit), 2, B, m_h, m_w]
@@ -163,8 +174,10 @@ def synthesis_nd(
         lo, hi = d_pair.unbind(0)
         return idwt_axis((lo,), (hi,), -3, rec_lo, rec_hi, *pads[0], mode).squeeze(0)
     ll, lh, hl, hh = subbands
-    if len({b.shape for b in subbands}) == 1 and fused2_synthesis_applicable(
-        ll.shape[-2], ll.shape[-1], len(rec_lo), mode, pads
+    if (
+        len({b.shape for b in subbands}) == 1
+        and not filters_need_grad(rec_lo, rec_hi)
+        and fused2_synthesis_applicable(ll.shape[-2], ll.shape[-1], len(rec_lo), mode, pads)
     ):
         return fused2_idwt_level(subbands, rec_lo, rec_hi, mode)
     lo, hi = idwt_axis((ll, lh), (hl, hh), -1, rec_lo, rec_hi, *pads[1], mode).unbind(0)

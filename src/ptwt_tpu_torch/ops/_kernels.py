@@ -33,6 +33,9 @@ __all__ = [
     "LAUNCHES",
     "build",
     "check_tensor",
+    "filters_need_grad",
+    "host_taps",
+    "keep_host_taps",
     "launch",
     "reset_launch_counts",
     "static_taps",
@@ -66,6 +69,10 @@ _ENTRY_POINTS = {
     "ptwt_synthesis_axis": (
         "axis",
         [_I, _P, _P, _P, _P, _I, _P, _D, _D, _I, _LL, _I, _I, _LL, _I, _I, _I, _I, _P],
+    ),
+    # KT: the taps' gradient of a K3/K4 launch
+    "ptwt_tap_grad": (
+        "axis", [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _LL, _I, _I, _I, _LL, _I, _I, _P]
     ),
     "ptwt_dwt2": (
         "dwt2", [_I, _P, _P, _D, _D, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -109,12 +116,13 @@ _ENTRY_POINTS = {
 #: launch of the analysis pyramid kernel, counted as K8a.  K9a/K9b (the
 #: tensor-core level of ``csrc/mxu2d.cu``, opt-in) take K1/K2's place on
 #: the levels their gate admits, their VJPs included: K9a's VJP counts as
-#: K9b and K9b's as K9a.
+#: K9b and K9b's as K9a.  KT (``csrc/axis.cu``, no Pallas counterpart) is
+#: the gradient with respect to the filter taps of a K3 or K4 launch.
 LAUNCHES: dict[str, int] = {
     name: 0
     for name in (
         "K1", "K2", "K3", "K4", "K5a", "K5b",
-        "K6a", "K6b", "K7a", "K7b", "K8a", "K8b", "K9a", "K9b",
+        "K6a", "K6b", "K7a", "K7b", "K8a", "K8b", "K9a", "K9b", "KT",
     )
 }
 
@@ -217,25 +225,71 @@ def int_array(values: Sequence[int]):
 
 
 _NO_FILTER_GRAD = (
-    "the CUDA kernels take their filters as constants and give no filter "
-    "gradient: learnable wavelets on the card come with their own slice "
-    "(ROADMAP Queue 1 item 12). Data gradients do run on the card. Detach "
-    "the filters, or use CPU tensors, whose plain path carries filter "
-    "gradients."
+    "this fused kernel takes its filters as constants and gives no filter "
+    "gradient. The public transforms route a filter bank that requires "
+    "grad to the per-axis kernels K3/K4, whose taps' gradient runs on the "
+    "card (KT); call them, or detach the filters."
 )
+
+#: The attribute under which :func:`keep_host_taps` keeps a filter tensor's
+#: host copy.
+_HOST_TAPS = "_ptwt_host_taps"
+
+
+def filters_need_grad(*filts) -> bool:
+    """Would autograd differentiate with respect to one of ``filts``?
+
+    The counterpart of the JAX package's ``_is_concrete`` (negated): where
+    it holds, every fused route declines and the level runs per axis on
+    K3/K4.
+    """
+    return torch.is_grad_enabled() and any(
+        isinstance(f, torch.Tensor) and f.requires_grad for f in filts
+    )
+
+
+def keep_host_taps(filts: Sequence[torch.Tensor]) -> None:
+    """Read the CUDA filter tensors among ``filts`` to the host in one copy
+    and keep each one's taps on it, so that the launches of one transform
+    call cost one device sync between them.
+
+    Call it on tensors made for this call only (the taps are not read
+    again if the tensor changes in place).
+    """
+    todo = [
+        f for f in filts
+        if isinstance(f, torch.Tensor) and f.device.type == "cuda" and not hasattr(f, _HOST_TAPS)
+    ]
+    if not todo:
+        return
+    flat = torch.cat([f.detach().reshape(-1).double() for f in todo]).cpu().tolist()
+    start = 0
+    for f in todo:
+        setattr(f, _HOST_TAPS, flat[start : start + f.numel()])
+        start += f.numel()
+
+
+def host_taps(filt) -> list[float]:
+    """A filter's taps as python floats for the kernel-parameter bank (the
+    copy :func:`keep_host_taps` kept, or one read now)."""
+    if isinstance(filt, torch.Tensor):
+        kept = getattr(filt, _HOST_TAPS, None)
+        if kept is not None:
+            return kept
+        return filt.detach().double().cpu().tolist()
+    return [float(v) for v in np.asarray(filt).ravel()]
 
 
 def static_taps(filt) -> list[float]:
-    """A filter's taps as python floats for the kernel-parameter bank.
+    """:func:`host_taps` for a fused kernel, whose autograd Function takes
+    the taps as constants.
 
     Raises ``NotImplementedError`` for a filter tensor that autograd would
     have to differentiate.
     """
-    if isinstance(filt, torch.Tensor):
-        if torch.is_grad_enabled() and filt.requires_grad:
-            raise NotImplementedError(_NO_FILTER_GRAD)
-        return filt.detach().double().cpu().tolist()
-    return [float(v) for v in np.asarray(filt).ravel()]
+    if filters_need_grad(filt):
+        raise NotImplementedError(_NO_FILTER_GRAD)
+    return host_taps(filt)
 
 
 def taps_array(taps: Sequence[float]):

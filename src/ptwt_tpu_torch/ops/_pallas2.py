@@ -32,13 +32,25 @@ launch, and K3 and K4 are each other's VJP, as K1 and K2 are
   ``2m`` for ``periodization``), every (lo, hi) pair of the launch at
   once.  It counts as a K3 launch.
 
-Data gradients run on the card; a filter tensor that requires grad
-raises there (the kernels take taps as constants).  Double backward
-raises too.
+Filter gradients: the Functions take the filter tensors as inputs (their
+taps still reach the kernels as constants, read to the host once per
+transform call).  Where autograd asks for a filter's gradient, the
+backward also launches **KT** (``_tap_grad_kernel``, ``csrc/axis.cu``;
+no Pallas counterpart: the JAX package differentiates its slices route
+instead), one launch per Function for both filters:
+
+* K3's taps: ``g_f[k] = sum ct_f[j] x[src(2j + k - pad)]`` over the
+  level's input extended by its mode, as K3 stages it;
+* K4's taps: ``g_f[k] = sum band_f[j] ct[2j + k - off]`` over the output
+  cotangent in the uncropped frame (zero outside it; modulo ``2m`` for
+  ``periodization``), summed over the launch's (lo, hi) pairs.
+
+Double backward raises.
 
 Each kernel has a plain torch version here (:func:`dwt_axis_plain`,
 :func:`idwt_axis_plain`, and for the VJPs :func:`dwt_axis_vjp_plain`,
-:func:`idwt_axis_vjp_plain`, autograd through the former), built on
+:func:`idwt_axis_vjp_plain`, for KT :func:`dwt_axis_tap_grad_plain` and
+:func:`idwt_axis_tap_grad_plain`, autograd through the former), built on
 :mod:`._slices` and the padding gather.  The wrappers take it for CPU
 tensors only; a CUDA tensor launches the kernel or raises.
 """
@@ -48,6 +60,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -58,8 +71,10 @@ from ._slices import analysis_slices_lastaxis, synthesis_slices_lastaxis
 
 __all__ = [
     "dwt_axis_plain",
+    "dwt_axis_tap_grad_plain",
     "dwt_axis_vjp_plain",
     "idwt_axis_plain",
+    "idwt_axis_tap_grad_plain",
     "idwt_axis_vjp_plain",
     "pallas_dwt_axis",
     "pallas_idwt_axis",
@@ -169,9 +184,60 @@ def idwt_axis_vjp_plain(
     return grads[0], grads[1]
 
 
+def _leaf_filter(filt, ref: torch.Tensor) -> torch.Tensor:
+    if not isinstance(filt, torch.Tensor):
+        filt = torch.as_tensor(np.asarray(filt, dtype=np.float64))
+    return filt.detach().to(device=ref.device, dtype=ref.dtype).requires_grad_()
+
+
+def _filter_grads(outs, filters, cts) -> tuple:
+    grads = torch.autograd.grad(outs, filters, cts, allow_unused=True)
+    return tuple(torch.zeros_like(f) if g is None else g for g, f in zip(grads, filters))
+
+
+def dwt_axis_tap_grad_plain(
+    x: torch.Tensor, axis: int, dec_lo, dec_hi, mode: str, ct: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`dwt_axis_plain` with respect to its (flipped)
+    filters for the packed cotangent ``ct``: the plain version of KT for
+    K3's taps, ``(g_lo, g_hi)`` in ``x``'s dtype."""
+    with torch.enable_grad():
+        lo_f, hi_f = _leaf_filter(dec_lo, x), _leaf_filter(dec_hi, x)
+        lo, hi = dwt_axis_plain(x.detach(), axis, lo_f, hi_f, mode)
+        return _filter_grads((lo, hi), (lo_f, hi_f), (ct[0], ct[1]))
+
+
+def idwt_axis_tap_grad_plain(
+    los: Sequence[torch.Tensor],
+    his: Sequence[torch.Tensor],
+    axis: int,
+    rec_lo,
+    rec_hi,
+    padl: int,
+    padr: int,
+    mode: str,
+    ct: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`idwt_axis_plain` on each (lo, hi) pair with
+    respect to its filters for the stacked cotangent ``ct`` (``[G,
+    ...]``), summed over the pairs: the plain version of KT for K4's
+    taps, ``(g_lo, g_hi)``."""
+    with torch.enable_grad():
+        lo_f, hi_f = _leaf_filter(rec_lo, ct), _leaf_filter(rec_hi, ct)
+        outs = [
+            idwt_axis_plain(a.detach(), b.detach(), axis, lo_f, hi_f, padl, padr, mode)
+            for a, b in zip(los, his)
+        ]
+        return _filter_grads(outs, (lo_f, hi_f), list(ct.unbind(0)))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+#: Rows of KT's scratch: the most blocks of its first launch (a fixed
+#: grid, so the order of its sums, and the result, never change).
+TAP_BLOCKS = 1024
 
 
 def _outer_inner(shape: Sequence[int], ax: int) -> tuple[int, int]:
@@ -287,29 +353,100 @@ def _synthesis_transpose_kernel(
     return _analysis_kernel(ct, ax + 1, lo, hi, m, ct.shape[ax + 1], off, _ZERO)
 
 
+def _tap_grad_kernel(
+    ext: torch.Tensor,
+    ax: int,
+    los: Sequence[torch.Tensor],
+    his: Sequence[torch.Tensor],
+    n_taps: int,
+    period: int,
+    pad: int,
+    code: int,
+) -> torch.Tensor:
+    """Launch KT -> the ``[2, n_taps]`` float64 gradient of the lo and hi
+    taps: ``g_f[k] = sum band_f[j] ext[src(2j + k - pad)]`` over every row,
+    band position ``j`` and column, ``src`` being K3's map of ``code`` on
+    ``ext``'s axis ``ax`` (K3's taps: ``ext`` the level's input, the bands
+    its output cotangents; K4's taps: ``ext`` the ``[G, ...]`` output
+    cotangent, pair ``g``'s bands under group ``g``)."""
+    ref = los[0]
+    _kernels.check_tensor("ext", ext, ref.dtype, ref.device)
+    for name, t in [("lo", b) for b in los] + [("hi", b) for b in his]:
+        _kernels.check_tensor(name, t, ref.dtype, ref.device)
+        if t.shape != ref.shape:
+            raise ValueError(f"all bands must share one shape, got {t.shape} and {ref.shape}")
+    groups = len(los)
+    n = ext.shape[ax]
+    m = ref.shape[ax - (ext.ndim - ref.ndim)]
+    outer, inner = _outer_inner(ext.shape, ax)
+    if not (ref.numel() and n):  # no products: a zero gradient
+        return torch.zeros([2, n_taps], dtype=torch.float64, device=ref.device)
+    out = torch.empty([2, n_taps], dtype=torch.float64, device=ref.device)
+    partial = torch.empty([TAP_BLOCKS, 2 * n_taps], dtype=torch.float64, device=ref.device)
+    pair1 = (los[-1], his[-1])
+    _kernels.launch(
+        "KT", "ptwt_tap_grad", ref.device, ref.dtype,
+        ext, los[0], his[0], pair1[0], pair1[1], groups, out, partial, TAP_BLOCKS, n_taps,
+        outer // groups, n, period, m, inner, pad, code,
+    )
+    return out
+
+
+def _filter_meta(*filts) -> tuple:
+    return tuple(None if f is None else (f.device, f.dtype, f.shape) for f in filts)
+
+
+def _as_grads(taps: torch.Tensor, metas, needs) -> tuple:
+    """KT's ``[2, L]`` float64 result as the gradients of the filter
+    tensors described by ``metas`` (``None`` where autograd asks for
+    none)."""
+    return tuple(
+        taps[i].to(device=meta[0], dtype=meta[1]).reshape(meta[2]) if need else None
+        for i, (meta, need) in enumerate(zip(metas, needs))
+    )
+
+
 class _AnalysisAxis(torch.autograd.Function):
-    """K3 forward, K4's fold instance backward.  Only the geometry is
-    saved: the map is linear."""
+    """K3 forward; backward K4's fold instance for the input and KT for the
+    filter tensors ``lo_t``/``hi_t`` (``None`` for constant banks).  The
+    input is saved only where a filter needs its gradient: the map is
+    linear in it."""
 
     @staticmethod
-    def forward(ctx, x, ax, lo, hi, m, period, pad, code):
+    def forward(ctx, x, lo_t, hi_t, ax, lo, hi, m, period, pad, code):
         ctx.plan = (ax, x.shape[ax], lo, hi, period, pad, code)
+        ctx.filters = _filter_meta(lo_t, hi_t)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            ctx.save_for_backward(x)
         return _analysis_kernel(x, ax, lo, hi, m, period, pad, code)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
-        grad = _analysis_transpose_kernel(ct.contiguous(), *ctx.plan)
-        return (grad,) + (None,) * 7
+        ct = ct.contiguous()
+        grad = _analysis_transpose_kernel(ct, *ctx.plan) if ctx.needs_input_grad[0] else None
+        filter_grads = (None, None)
+        needs = ctx.needs_input_grad[1:3]
+        if any(needs):
+            (x,) = ctx.saved_tensors
+            ax, _, lo, _, period, pad, code = ctx.plan
+            taps = _tap_grad_kernel(x, ax, [ct[0]], [ct[1]], len(lo), period, pad, code)
+            filter_grads = _as_grads(taps, ctx.filters, needs)
+        return (grad, *filter_grads) + (None,) * 7
 
 
 class _SynthesisAxis(torch.autograd.Function):
-    """K4 forward on ``G`` (lo, hi) pairs, K3 (zero-bounded) backward."""
+    """K4 forward on ``G`` (lo, hi) pairs; backward K3 (zero-bounded) for
+    the bands and KT for the filter tensors, summed over the pairs."""
 
     @staticmethod
-    def forward(ctx, ax, lo, hi, out_len, off, circular, *bands):
+    def forward(ctx, lo_t, hi_t, ax, lo, hi, out_len, off, circular, *bands):
         groups = len(bands) // 2
         ctx.plan = (ax, bands[0].shape[ax], lo, hi, off, circular)
+        ctx.groups = groups
+        ctx.filters = _filter_meta(lo_t, hi_t)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            ctx.save_for_backward(*bands)
         return _synthesis_kernel(
             bands[:groups], bands[groups:], ax, lo, hi, out_len, off, circular
         )
@@ -317,8 +454,27 @@ class _SynthesisAxis(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
-        grads = _synthesis_transpose_kernel(ct.contiguous(), *ctx.plan)
-        return (None,) * 6 + tuple(grads[0]) + tuple(grads[1])
+        ct = ct.contiguous()
+        band_grads = (None,) * (2 * ctx.groups)
+        if any(ctx.needs_input_grad[8:]):
+            grads = _synthesis_transpose_kernel(ct, *ctx.plan)
+            band_grads = tuple(grads[0]) + tuple(grads[1])
+        filter_grads = (None, None)
+        needs = ctx.needs_input_grad[:2]
+        if any(needs):
+            bands = ctx.saved_tensors
+            ax, m, lo, _, off, circular = ctx.plan
+            period, code = (2 * m, _WRAP_ZERO) if circular else (ct.shape[ax + 1], _ZERO)
+            g = ctx.groups
+            taps = _tap_grad_kernel(ct, ax + 1, bands[:g], bands[g:], len(lo), period, off, code)
+            filter_grads = _as_grads(taps, ctx.filters, needs)
+        return (*filter_grads,) + (None,) * 6 + band_grads
+
+
+def _filter_input(filt):
+    """A filter as an input of the Functions: the tensor, or ``None`` for a
+    constant bank (numpy, lists)."""
+    return filt if isinstance(filt, torch.Tensor) else None
 
 
 def pallas_dwt_axis(
@@ -329,15 +485,18 @@ def pallas_dwt_axis(
     ``dec_lo``/``dec_hi`` are flipped (correlation order), as
     ``get_filter_arrays(..., flip=True)`` returns them.  A CPU tensor runs
     :func:`dwt_axis_plain`; a CUDA tensor runs K3 on the unpadded input,
-    every mode's extension applied by the kernel.
+    every mode's extension applied by the kernel, and filters that
+    require grad get theirs from KT.
     """
     if _on_cpu(x):
         return torch.stack(dwt_axis_plain(x, axis, dec_lo, dec_hi, mode))
-    lo = _kernels.static_taps(dec_lo)
-    hi = _kernels.static_taps(dec_hi)
+    lo = _kernels.host_taps(dec_lo)
+    hi = _kernels.host_taps(dec_hi)
     ax = axis % x.ndim
     m, period, pad, code = _analysis_plan(x.shape[ax], len(lo), mode)
-    return _AnalysisAxis.apply(x.contiguous(), ax, lo, hi, m, period, pad, code)
+    return _AnalysisAxis.apply(
+        x.contiguous(), _filter_input(dec_lo), _filter_input(dec_hi), ax, lo, hi, m, period, pad, code
+    )
 
 
 def pallas_idwt_axis(
@@ -365,8 +524,8 @@ def pallas_idwt_axis(
                 for a, b in zip(los, his)
             ]
         )
-    lo = _kernels.static_taps(rec_lo)
-    hi = _kernels.static_taps(rec_hi)
+    lo = _kernels.host_taps(rec_lo)
+    hi = _kernels.host_taps(rec_hi)
     filt_len = len(lo)
     ax = axis % los[0].ndim
     m = los[0].shape[ax]
@@ -379,5 +538,6 @@ def pallas_idwt_axis(
         off = padl
         out_len = 2 * (m - 1) + filt_len - padl - padr
     return _SynthesisAxis.apply(
-        ax, lo, hi, max(out_len, 0), off, mode == "periodization", *los, *his
+        _filter_input(rec_lo), _filter_input(rec_hi),
+        ax, lo, hi, max(out_len, 0), off, mode == "periodization", *los, *his,
     )

@@ -162,9 +162,12 @@ def get_filter_arrays(
     wavelet), or a tuple of four filter arrays.  Static banks come back as
     **numpy** arrays of ``dtype``, so the kernel wrappers read them as
     host constants.  Filters given as tensors stay tensors (cast to
-    ``dtype``), keeping a gradient path into filters that require grad.
+    ``dtype``), keeping a gradient path into filters that require grad;
+    each is a tensor of this call's own, and the taps of those on the card
+    are read to the host once, in one copy, for the kernels' launches.
     Analysis filters come flipped (correlation order) with ``flip=True``.
     """
+    from ..ops._kernels import keep_host_taps
     from ..wavelets import Wavelet as _Wavelet
 
     if isinstance(wavelet, str):
@@ -178,11 +181,15 @@ def get_filter_arrays(
     def _conv(filt):
         if isinstance(filt, torch.Tensor):
             arr = filt.to(dtype)
-            return arr.flip(-1) if flip else arr
+            if flip:
+                return arr.flip(-1)
+            return arr.view_as(arr) if arr is filt else arr
         arr = np.asarray(filt, dtype=np_dtype)
         return arr[::-1].copy() if flip else arr
 
-    return tuple(_conv(f) for f in bank)
+    filters = tuple(_conv(f) for f in bank)
+    keep_host_taps(filters)
+    return filters
 
 
 #: Per-axis hi(1)/lo(0) selection for each 2d output channel: the order

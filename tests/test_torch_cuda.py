@@ -255,10 +255,22 @@ def test_cuda_public_gradients_match_cpu(cuda_device, mode, shape):
 
 @pytest.mark.cuda
 def test_cuda_filter_grad_and_double_backward_raise(cuda_device):
+    """K3's filter gradient (one KT launch) matches the CPU's; double
+    backward raises."""
     x = torch.randn(1, 32, 32, dtype=torch.float64, device=cuda_device, requires_grad=True)
     dl, dh, _, _ = _banks("db2")
-    with pytest.raises(NotImplementedError, match="filter gradient"):
-        t2.pallas_dwt_axis(x, -1, torch.tensor(dl, requires_grad=True), dh, "reflect")
+
+    def filter_grad(device):
+        learn = torch.tensor(dl, device=device, requires_grad=True)
+        out = t2.pallas_dwt_axis(x.detach().to(device), -1, learn, dh, "reflect")
+        return torch.autograd.grad((out**2).sum(), learn)[0]
+
+    _kernels.reset_launch_counts()
+    got = filter_grad(cuda_device)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["KT"] == 1 and _kernels.LAUNCHES["K3"] == 1
+    want = filter_grad("cpu")
+    assert float((got.cpu() - want).abs().max()) <= 1e-10 * float(want.abs().max())
     out = t2.pallas_dwt_axis(x, -1, dl, dh, "reflect")
     (grad,) = torch.autograd.grad((out**2).sum(), x, create_graph=True)
     with pytest.raises(RuntimeError):
@@ -1350,3 +1362,110 @@ def test_cuda_learnable_cwt_gradients_match_cpu(cuda_device, cls, params_on):
     assert abs(float(loss - want_loss)) <= 1e-10 * abs(float(want_loss))
     for g, w in zip(got, want):
         assert abs(float(g - w)) <= 1e-9 * abs(float(w))
+
+
+# ---------------------------------------------------------------------------
+# learnable banks: the tap-gradient kernel KT and the learnable steps
+# ---------------------------------------------------------------------------
+
+
+def _tap_case(mode, shape, axis, taps, dtype, device, seed):
+    """KT's launches of one K3 and one K4 (one and two pairs) against the
+    plain versions: the largest error over each gradient's largest entry."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, dtype=dtype, generator=gen).to(device)
+    dl, dh, rl, rh = (torch.randn(taps, dtype=torch.float64, generator=gen).numpy() for _ in range(4))
+    ax = axis % x.ndim
+    m, period, pad, code = t2._analysis_plan(x.shape[ax], taps, mode)
+    band_shape = [m if i == ax else s for i, s in enumerate(shape)]
+    ct = torch.randn([2, *band_shape], dtype=dtype, generator=gen).to(device)
+    pairs = [(t2._tap_grad_kernel(x, ax, [ct[0]], [ct[1]], taps, period, pad, code),
+              t2.dwt_axis_tap_grad_plain(x, axis, dl, dh, mode, ct))]
+    if mode != "valid":
+        p = 0 if mode == "periodization" else (2 * taps - 3) // 2
+        circular = mode == "periodization"
+        for groups in (1, 2):
+            los = [torch.randn(band_shape, dtype=dtype, generator=gen).to(device) for _ in range(groups)]
+            his = [torch.randn(band_shape, dtype=dtype, generator=gen).to(device) for _ in range(groups)]
+            out_shape = t2.idwt_axis_plain(los[0], his[0], axis, rl, rh, p, p, mode).shape
+            cot = torch.randn([groups, *out_shape], dtype=dtype, generator=gen).to(device)
+            per, c = (2 * m, t2._WRAP_ZERO) if circular else (out_shape[ax], t2._ZERO)
+            off = p + taps // 2 - 1 if circular else p
+            pairs.append((t2._tap_grad_kernel(cot, ax + 1, los, his, taps, per, off, c),
+                          t2.idwt_axis_tap_grad_plain(los, his, axis, rl, rh, p, p, mode, cot)))
+    errs = []
+    for got, want in pairs:
+        want = torch.stack(want).double()
+        errs.append(float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300))
+    return max(errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", AXIS_MODES)
+@pytest.mark.parametrize("axis,shape", [(-1, (3, 5, 257)), (-2, (3, 130, 70)), (-3, (33, 4, 65))])
+@pytest.mark.parametrize("taps", [8, 7])
+def test_cuda_learnable_tap_kernel_matches_plain(cuda_device, dtype, mode, axis, shape, taps):
+    """KT against its plain versions (autograd through the plain levels):
+    every mode, axes -1/-2/-3 on odd and even lengths, an odd-length bank,
+    K4's one- and two-pair launches; float32 within 1e-4 of the largest
+    entry (KT sums in float64, the plain version in float32), float64
+    within 1e-10."""
+    err = _tap_case(mode, shape, axis, taps, dtype, cuda_device, 3)
+    assert err <= (1e-4 if dtype == torch.float32 else 1e-10)
+
+
+@pytest.mark.cuda
+def test_cuda_learnable_tap_kernel_is_reproducible(cuda_device):
+    x = torch.randn(16, 1030, 1024, device=cuda_device)
+    dl, dh, _, _ = _banks("db4")
+    m, period, pad, code = t2._analysis_plan(1030, 8, "reflect")
+    ct = torch.randn(2, 16, m, 1024, device=cuda_device)
+    first = t2._tap_grad_kernel(x, 1, [ct[0]], [ct[1]], 8, period, pad, code)
+    again = t2._tap_grad_kernel(x, 1, [ct[0]], [ct[1]], 8, period, pad, code)
+    assert torch.equal(first, again)
+
+
+def _learnable_loss(bank, x, mode):
+    """The example's loss (``examples/learnable_wavelet_compression.py``):
+    wavedec/waverec level 4, ``0.1 sparsity + 100 fidelity + 10 quality``."""
+    coeffs = tptwt.wavedec(x, bank.filter_bank, mode=mode, level=4)
+    sparsity = sum(c.abs().mean() for c in coeffs[1:])
+    rec = tptwt.waverec(coeffs, bank.filter_bank)
+    fidelity = ((rec[..., : x.shape[-1]] - x) ** 2).mean()
+    return 0.1 * sparsity + 100.0 * fidelity + 10.0 * bank.wavelet_loss()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["periodic", "reflect"])
+def test_cuda_learnable_steps_match_cpu(cuda_device, mode):
+    """The example's workload at its width, [16, 256] float32 (unit-normal
+    signals), 3 Adam steps of a SoftOrthogonalWavelet from db4 on the
+    card: only K3, K4 and KT run, and each step, evaluated on the CPU at
+    the card's parameters, has the card's loss within 1e-5 relative and
+    its filter gradients within 1e-4 of the largest entry.  (Two free runs
+    part: Adam scales the noise-level gradients of the reconstruction
+    filters up to full steps.)"""
+    from ptwt_tpu_torch.wavelets_learnable import SoftOrthogonalWavelet
+
+    x = torch.randn(16, 256, generator=torch.Generator().manual_seed(0))
+    bank = SoftOrthogonalWavelet.from_wavelet("db4", dtype=torch.float32).to(cuda_device)
+    mirror = SoftOrthogonalWavelet.from_wavelet("db4", dtype=torch.float32)
+    opt = torch.optim.Adam(bank.parameters(), lr=1e-3)
+    for _ in range(3):
+        with torch.no_grad():
+            for p, q in zip(mirror.parameters(), bank.parameters()):
+                p.copy_(q)
+        opt.zero_grad()
+        _kernels.reset_launch_counts()
+        loss = _learnable_loss(bank, x.to(cuda_device), mode)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert {k for k, v in _kernels.LAUNCHES.items() if v} == {"K3", "K4", "KT"}
+        want = _learnable_loss(mirror, x, mode)
+        want_grads = torch.autograd.grad(want, list(mirror.parameters()))
+        assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+        scale = max(float(g.abs().max()) for g in want_grads)
+        for p, w in zip(bank.parameters(), want_grads):
+            assert float((p.grad.cpu() - w).abs().max()) <= 1e-4 * scale
+        opt.step()

@@ -188,7 +188,8 @@ def test_import_pulls_in_no_jax():
         " ptwt_tpu_torch.matmul_transform, ptwt_tpu_torch.matmul_transform_2,"
         " ptwt_tpu_torch.matmul_transform_3, ptwt_tpu_torch.ops._boundary,"
         " ptwt_tpu_torch.ops._boundary_long, ptwt_tpu_torch.utils._deprecation,"
-        " ptwt_tpu_torch.packets, ptwt_tpu_torch.continuous_transform;"
+        " ptwt_tpu_torch.packets, ptwt_tpu_torch.continuous_transform,"
+        " ptwt_tpu_torch.wavelets_learnable;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ptwt_tpu' or m.startswith('ptwt_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -623,11 +623,35 @@ def _model_mxu2d(entry, dtype, a):
     return "ptwt_idwt2", a
 
 
+def _model_tap_grad(x, lo0, hi0, lo1, hi1, groups, out, partial, cap, n_taps, outer, n, period, m, inner,
+                    pad, code):
+    """KT (``ptwt_tap_grad``): ``g_f[k] = sum band_f[j] x[src(2j + k - pad)]``
+    over every row and column, pair ``g``'s bands under ``x``'s group ``g``,
+    with the C entry's argument rules."""
+    assert 1 <= groups <= 2 and 1 <= n_taps <= 128 and cap >= 1 and min(outer, inner, n, m) >= 1
+    assert pad >= 0 and 0 <= code <= 5 and (code < 4 or period >= n)
+    assert partial.shape == (cap, 2 * n_taps) and out.shape == (2, n_taps)
+    assert out.dtype == partial.dtype == torch.float64
+    pos = 2 * np.arange(m)[:, None] - pad + np.arange(n_taps)[None, :]
+    src = _axis_source(pos, n, period, code)  # [m, n_taps]
+    xs = x.numpy().reshape(groups, outer, n, inner).astype(np.float64)
+    res = np.zeros((2, n_taps))
+    for g, pair in enumerate([(lo0, hi0), (lo1, hi1)][:groups]):
+        ext = np.where((src >= 0)[None, :, :, None], xs[g][:, np.maximum(src, 0), :], 0.0)
+        for f, band in enumerate(pair):
+            res[f] += np.einsum("omc,omkc->k", band.numpy().reshape(outer, m, inner), ext)
+    out.copy_(torch.from_numpy(res))
+
+
 def _model_launch(kernel, entry, device, dtype, *a):
     """Stand-in for ``_kernels.launch`` that runs the kernels' index rules;
     a VJP launch runs the transpose of its forward's operator (K3's VJP,
     K4's fold instance, as the transposed K3 operator)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
+    if entry == "ptwt_tap_grad":
+        _model_tap_grad(*a)
+        _kernels.LAUNCHES[kernel] += 1
+        return
     if entry.startswith("ptwt_mxu2d_"):
         entry, a = _model_mxu2d(entry, dtype, a)
     if entry == "ptwt_fwt1d_analysis":
@@ -735,8 +759,9 @@ def test_cuda_glue_matches_jax(model_kernels, shape, wavelet, mode, used):
 
 def test_kernel_wrappers_refuse_grad(model_kernels):
     """On the kernel path a data tensor that requires grad gets its
-    gradient from the VJP kernels; a filter that requires grad raises
-    instead of falling back to the plain version."""
+    gradient from the VJP kernels; a filter that requires grad gets its
+    own from KT on K3 (one launch, against the plain version) and raises
+    on the fused K1 instead of falling back to the plain version."""
     x = torch.randn(1, 16, 16, dtype=torch.float64, requires_grad=True)
     dl, dh, _, _ = _banks("db2", np.float64)
     out = t2.pallas_dwt_axis(x, -1, dl, dh, "reflect")
@@ -752,8 +777,11 @@ def test_kernel_wrappers_refuse_grad(model_kernels):
     # K3's VJP is a K4 launch, K1's a K2 launch
     assert model_kernels["K4"] == 1 and model_kernels["K2"] == 1
     learn = torch.tensor(dl, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="filter gradient"):
-        t2.pallas_dwt_axis(x.detach(), -1, learn, dh, "reflect")
+    out = t2.pallas_dwt_axis(x.detach(), -1, learn, dh, "reflect")
+    (grad,) = torch.autograd.grad(out.sum(), learn)
+    want, _ = t2.dwt_axis_tap_grad_plain(x, -1, dl, dh, "reflect", torch.ones_like(out))
+    _close(grad, want.numpy(), 1e-12)
+    assert model_kernels["KT"] == 1 and model_kernels["K4"] == 1
     with pytest.raises(NotImplementedError, match="filter gradient"):
         t2d.fused2_dwt_level(x.detach(), learn, dh, "periodization")
 
