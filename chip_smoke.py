@@ -215,6 +215,35 @@ Phases, each raising (non-zero exit) on failure:
    level 1 along -2 and -1 beside its bound, its plain version and
    ``torch.nn.grad.conv2d_weight`` / ``conv1d_weight``, and the step of
    (a), (b) and (c): device ms, wall ms and busy share.
+18. the tiled multi-device transforms (``ptwt_tpu_torch.parallel``) at
+   full width, float32: t2d (``[16, 1024, 1024]``, db4, 4 levels,
+   ``periodization`` and ``reflect``, rows over ``spatial``), the t2d grid
+   (``periodization``, rows over ``spatial`` and columns over
+   ``spatial_w``), td1 (``[32, 10**6]``, db5, 10 levels, ``reflect``) and
+   td3 (``[32, 100, 100, 100]``, db5, 3 levels, ``reflect``): (a) on one
+   NCCL rank, mesh ``(1, 1)``, every axis local and no P2P call: bands and
+   reconstruction against the serial port on the card (relative to
+   ``max(1, |band|)``, 2e-5), round trip within 1e-4, the launches of each
+   direction (K3/K4 per axis and level, K7a/K7b on d1's levels 1-4), one
+   backward through t2d ``reflect`` against autograd through the plain
+   path (1e-4 of the largest entry; K4 fold and zero-bounded K3 launches),
+   float64 at smaller shapes (1e-10); (b) four processes sharing the card
+   (``chip_smoke.py --tiled-rank R --world 4 --store FILE --out DIR``), a
+   gloo group whose halo slabs go through pinned host memory: every row on
+   ``(1, 4)`` (the grid on ``(1, 2)`` with ``n_spatial_w=2``), rank 0
+   holding the gathered bands against the serial port with (a)'s limits
+   and every rank's launches against the prediction (the overlapped ring:
+   three K3 and three K4 launches a sharded axis and level; td1's level
+   1-2 windows on K7a/K7b), the overlapped and ``PTWT_TPU_NO_OVERLAP=1``
+   schedules equal bit for bit on t2d ``periodization``, one backward of
+   t2d ``periodization`` and ``reflect`` across the ranks (the gradient
+   summed over them against the serial one, 1e-4 of the largest entry),
+   and each rank's round-trip wall ms with the host ms of its ring steps
+   (four processes on one card: not a scaling figure); a rank that fails
+   fails the phase;
+   (c) (``chip_smoke.py --tiled-times``, a process of its own) the t2d and
+   td1 round trips on one rank beside the serial ones: device ms, wall ms,
+   busy share.
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -244,9 +273,19 @@ them to the kernels line as ``in_turns``.
 Phase 14's ``--nd-times`` also times the plain version and one library
 call beside each K3/K4 launch and VJP of d3's level 1.
 
+``python3 chip_smoke.py --tiled-nccl 4`` (not part of the smoke test; four
+cards) runs phase 18 (b) on NCCL, rank R on card R, with no host staging.
+
+``python3 chip_smoke.py --dist-probe`` (not part of the smoke test) runs,
+each in a world of its own on the one card, an all-reduce on two NCCL
+ranks and, on four gloo ranks with CUDA tensors, a send/receive ring, the
+collectives and ``DTensor.full_tensor()`` of even and uneven shards, and
+prints what each rank got: ok, the error's text, or its exit code.
+
 The last lines are phase 16's ``{"packets_cwt": ...}`` line, phase 17's
-``{"learnable": ...}`` line, a ``{"kernels": [...]}`` JSON line (fifteen
-kernels: KT, the taps' gradient, last,
+``{"learnable": ...}`` line, phase 18's ``{"tiled": ...}`` line, a
+``{"kernels": [...]}`` JSON line (fifteen kernels: KT, the taps'
+gradient, last; K3, K4, K7a and K7b with phase 18's ``tiled_launches``,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
 sums per round trip and per step, K3 and K4 their per-launch rows and
 phase 14's launches, times and d3 level-1 rows, and phase 16's wp2d
@@ -4091,6 +4130,568 @@ def check_learn() -> dict:
     return learn
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the tiled multi-device transforms (ptwt_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+#: The tiled rows at full width, float32: (name, kind, shape, wavelet,
+#: level, mode, the mesh of four ranks); one rank runs each row on (1, 1)
+#: (the grid on (1, 1) with ``n_spatial_w=1``).
+TILED_FULL = (
+    ("t2d periodization", "2d", SHAPE, WAVELET, LEVEL, "periodization", {"n_data": 1, "n_spatial": 4}),
+    ("t2d reflect", "2d", SHAPE, WAVELET, LEVEL, "reflect", {"n_data": 1, "n_spatial": 4}),
+    ("t2d grid", "2d", SHAPE, WAVELET, LEVEL, "periodization", {"n_data": 1, "n_spatial": 2, "n_spatial_w": 2}),
+    ("td1", "1d", D1_SHAPE, WAVELET_1D, LEVEL_1D, "reflect", {"n_data": 1, "n_spatial": 4}),
+    ("td3", "3d", (32, 100, 100, 100), "db5", 3, "reflect", {"n_data": 1, "n_spatial": 4}),
+)
+#: Launches of each row's forward and inverse: on one rank (every axis
+#: local: K3 once per axis and level, K4 as the serial 2d and 3d routes; d1's
+#: levels 1-4 and their syntheses on K7a/K7b, their lanes being longer than
+#: 2^16 samples), and per rank of four (a ``periodization`` ring axis: the
+#: interior and both edge strips, three K3 launches, and three K4 launches,
+#: the full synthesis and both neighbours' strips; a padded sharded axis one
+#: launch on the window; d1's windows of 250 010 and 125 012 samples on K7a)
+TILED_LAUNCHES = {
+    "t2d periodization": {1: ({"K3": 8}, {"K4": 8}), 4: ({"K3": 16}, {"K4": 16})},
+    "t2d reflect": {1: ({"K3": 8}, {"K4": 8}), 4: ({"K3": 8}, {"K4": 8})},
+    "t2d grid": {1: ({"K3": 8}, {"K4": 8}), 4: ({"K3": 24}, {"K4": 24})},
+    "td1": {1: ({"K7a": 4, "K3": 6}, {"K7b": 4, "K4": 6}), 4: ({"K7a": 2, "K3": 8}, {"K7b": 2, "K4": 8})},
+    "td3": {1: ({"K3": 9}, {"K4": 12}), 4: ({"K3": 9}, {"K4": 12})},
+}
+#: float64 on one rank at smaller shapes (odd lengths in the padded modes)
+TILED_F64 = (
+    ("t2d periodization", "2d", (2, 128, 128), "db4", 3, "periodization"),
+    ("t2d reflect", "2d", (2, 131, 126), "db4", 3, "reflect"),
+    ("td1", "1d", (2, 140_001), "db5", 3, "reflect"),
+    ("td3", "3d", (2, 40, 34, 31), "db5", 2, "reflect"),
+)
+#: The process groups' timeout, and the seconds the four ranks get in all.
+TILED_TIMEOUT_S = 120
+TILED_RANKS_S = 600
+TILED_REPS = 10
+
+
+def tiled_funcs(kind: str) -> tuple:
+    """The tiled forward and inverse of a kind, and the serial pair."""
+    from ptwt_tpu_torch import parallel
+
+    suffix = {"1d": "", "2d": "2", "3d": "3"}[kind]
+    return (getattr(parallel, f"tiled_wavedec{suffix}"), getattr(parallel, f"tiled_waverec{suffix}"),
+            getattr(ptwt, f"wavedec{suffix}"), getattr(ptwt, f"waverec{suffix}"))
+
+
+def tiled_leaves(coeffs) -> list:
+    """The approximation, then each level's band, tuple in order or dict by
+    key."""
+    out = [coeffs[0]]
+    for entry in coeffs[1:]:
+        if isinstance(entry, dict):
+            out.extend(entry[k] for k in sorted(entry))
+        elif isinstance(entry, torch.Tensor):  # a 1d detail band
+            out.append(entry)
+        else:
+            out.extend(entry)
+    return out
+
+
+def tiled_mesh(ranks: int, kw: dict):
+    import datetime
+
+    from ptwt_tpu_torch.parallel import make_wavelet_mesh
+
+    sizes = kw if ranks > 1 else {k: 1 for k in kw}
+    return make_wavelet_mesh(**sizes, device_type="cuda", timeout=datetime.timedelta(seconds=TILED_TIMEOUT_S))
+
+
+@contextlib.contextmanager
+def tiled_world(backend: str, rank: int, world: int, store: Path):
+    """A process group of ``world`` ranks (``file://`` rendezvous), destroyed
+    on the way out."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TILED_TIMEOUT_S))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def tiled_store(tag: str) -> Path:
+    """A fresh rendezvous file under the checkout's git-ignored ``build/``."""
+    path = ROOT / "build" / "tiled" / f"{tag}-{os.getpid()}-{time.time_ns()}"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+@contextlib.contextmanager
+def no_p2p():
+    """Any P2P call raises (a mesh of one rank must make none)."""
+    import torch.distributed as dist
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a ring of one rank made a P2P call")
+
+    real = dist.batch_isend_irecv
+    dist.batch_isend_irecv = refuse
+    try:
+        yield
+    finally:
+        dist.batch_isend_irecv = real
+
+
+def tiled_run(kind: str, x, wavelet: str, level: int, mode: str, mesh) -> tuple:
+    """The tiled forward and inverse, each with the launch counts set to 0
+    just before it and read just after."""
+    fwd, inv, _, _ = tiled_funcs(kind)
+    _kernels.reset_launch_counts()
+    coeffs = fwd(x, wavelet, level=level, mesh=mesh, mode=mode)
+    torch.cuda.synchronize()
+    fwd_counts = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    _kernels.reset_launch_counts()
+    rec = inv(coeffs, wavelet, mesh=mesh, mode=mode)
+    torch.cuda.synchronize()
+    inv_counts = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    return coeffs, rec, fwd_counts, inv_counts
+
+
+def tiled_serial(kind: str, x, wavelet: str, level: int, mode: str) -> tuple:
+    _, _, fwd, inv = tiled_funcs(kind)
+    coeffs = fwd(x, wavelet, mode=mode, level=level)
+    return tiled_leaves(coeffs), inv(coeffs, wavelet, mode=mode)
+
+
+def tiled_compare(name: str, bands, rec, x, want, want_rec) -> dict:
+    """Bands and reconstruction against the serial port on the card
+    (relative to ``max(1, |band|)``), the round trip against the input."""
+    tol = TOL[x.dtype]
+    return {
+        "band_rel_err": check(f"{name} bands vs the serial port (relative)", rel_err(bands, want), tol),
+        "rec_rel_err": check(f"{name} reconstruction vs the serial port (relative)", rel_err(rec, want_rec), tol),
+        # an odd padded axis comes back one longer, as in pywt
+        "round_trip_err": check(f"{name} round trip vs input", max_abs(rec[tuple(map(slice, x.shape))], x),
+                                ROUND_TRIP_TOL if x.dtype == torch.float32 else TOL[x.dtype]),
+    }
+
+
+def tiled_one_rank() -> dict:
+    """Phase 18 (a): every row on one NCCL rank, no P2P call; one backward;
+    float64 at smaller shapes."""
+    from ptwt_tpu_torch.parallel import _ring
+
+    out = {}
+    with tiled_world("nccl", 0, 1, tiled_store("nccl")), no_p2p():
+        for i, (name, kind, shape, wavelet, level, mode, kw) in enumerate(TILED_FULL):
+            log(f"  (a) {name}: {list(shape)}, {wavelet}, level {level}, {mode}, one rank")
+            mesh = tiled_mesh(1, kw)
+            x = randn(shape, torch.float32, SEED + 1800 + i)
+            _ring.EXCHANGE_LOG = []
+            coeffs, rec, fwd_counts, inv_counts = tiled_run(kind, x, wavelet, level, mode, mesh)
+            exchanges, _ring.EXCHANGE_LOG = _ring.EXCHANGE_LOG, None
+            want_fwd, want_inv = TILED_LAUNCHES[name][1]
+            only(fwd_counts, want_fwd, f"{name} one rank forward")
+            only(inv_counts, want_inv, f"{name} one rank inverse")
+            bands = [c.full_tensor() for c in tiled_leaves(coeffs)]
+            rec = rec.full_tensor()
+            if exchanges:
+                raise AssertionError(f"{name}: one rank exchanged {exchanges}")
+            want, want_rec = tiled_serial(kind, x, wavelet, level, mode)
+            out[name] = {**tiled_compare(f"{name} one rank", bands, rec, x, want, want_rec),
+                         "forward": fwd_counts, "inverse": inv_counts}
+            del x, coeffs, rec, bands, want, want_rec
+            torch.cuda.empty_cache()
+        out["backward"] = tiled_backward()
+        for i, (name, kind, shape, wavelet, level, mode) in enumerate(TILED_F64):
+            mesh = tiled_mesh(1, {"n_data": 1, "n_spatial": 1})
+            x = randn(shape, torch.float64, SEED + 1830 + i)
+            coeffs, rec, _, _ = tiled_run(kind, x, wavelet, level, mode, mesh)
+            want, want_rec = tiled_serial(kind, x, wavelet, level, mode)
+            out[f"{name} float64"] = tiled_compare(
+                f"{name} float64 {list(shape)} one rank", [c.full_tensor() for c in tiled_leaves(coeffs)],
+                rec.full_tensor(), x, want, want_rec,
+            )
+    return out
+
+
+def tiled_backward() -> dict:
+    """One backward of the sum of the squared bands and reconstruction of
+    t2d reflect on one rank against autograd through the plain path on the
+    card: K3's VJPs are K4 fold launches, K4's zero-bounded K3 launches."""
+    name, kind, shape, wavelet, level, mode, kw = TILED_FULL[1]
+    fwd, inv, sfwd, sinv = tiled_funcs(kind)
+    x = leaf(randn(shape, torch.float32, SEED + 1810))
+    mesh = tiled_mesh(1, kw)
+    coeffs = fwd(x, wavelet, level=level, mesh=mesh, mode=mode)
+    rec = inv(coeffs, wavelet, mesh=mesh, mode=mode)
+    loss = sum((c.to_local() ** 2).sum() for c in tiled_leaves(coeffs)) + (rec.to_local() ** 2).sum()
+    _kernels.reset_launch_counts()
+    (grad,) = torch.autograd.grad(loss, x)
+    torch.cuda.synchronize()
+    back = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    fwd_counts, inv_counts = TILED_LAUNCHES[name][1]
+    only(back, {"K4": fwd_counts["K3"], "K3": inv_counts["K4"]}, f"{name} backward")
+    with plain_versions():
+        xs = leaf(x.detach())
+        ref = sfwd(xs, wavelet, mode=mode, level=level)
+        ref_loss = sum((c**2).sum() for c in tiled_leaves(ref)) + (sinv(ref, wavelet, mode=mode) ** 2).sum()
+        (want,) = torch.autograd.grad(ref_loss, xs)
+    err = max_abs(grad, want) / float(want.abs().max())
+    check(f"{name} one rank backward vs autograd through the plain path (of the largest entry)", err,
+          TRAIN_GRAD_TOL)
+    return {"grad_rel_err": err, "launches": back}
+
+
+def host_full(t, cpu_mesh) -> torch.Tensor:
+    """The whole tensor of a ``DTensor`` on a gloo mesh of CUDA tensors,
+    gathered through the host: each rank's shard as a ``DTensor`` of the
+    same layout on a CPU mesh over the same groups (``full_tensor()`` of
+    CUDA shards on a gloo mesh crashes the process, torch 2.11)."""
+    from torch.distributed.tensor import DTensor
+
+    local = t.to_local().detach().cpu()
+    return DTensor.from_local(local, cpu_mesh, t.placements, run_check=False, shape=t.shape,
+                              stride=t.stride()).full_tensor()
+
+
+def tiled_rank(rank: int, world: int, store: Path, outdir: Path, backend: str = "gloo") -> None:
+    """``--tiled-rank R``: one of phase 18 (b)'s ranks.  With gloo every
+    rank shares card 0 (the halo slabs go through pinned host memory);
+    with NCCL (``--tiled-nccl``) rank R runs on card R.  Rank 0 holds the
+    gathered bands against the serial port on its card and the ranks'
+    launch counts against ``TILED_LAUNCHES``; every rank runs one backward
+    (the gradient summed over the ranks, held against the serial one on
+    rank 0), compares the overlapped and the pad-then-compute schedules
+    bit for bit and times the t2d round trip."""
+    global DEVICE
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ptwt_tpu_torch.parallel import _ring
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    if backend == "nccl":
+        DEVICE = torch.device("cuda", rank)
+    out = {}
+    with tiled_world(backend, rank, world, store):
+        meshes = {}
+        for i, (name, kind, shape, wavelet, level, mode, kw) in enumerate(TILED_FULL):
+            key = json.dumps(kw, sort_keys=True)
+            if key not in meshes:
+                mesh = tiled_mesh(world, kw)
+                groups = [mesh.get_group(n) for n in mesh.mesh_dim_names]
+                # gloo gathers CUDA shards through a CPU mesh over the same groups
+                meshes[key] = (mesh, DeviceMesh.from_group(groups, "cpu", mesh=mesh.mesh,
+                                                           mesh_dim_names=mesh.mesh_dim_names)
+                               if backend == "gloo" else None)
+            mesh, cpu_mesh = meshes[key]
+            x = randn(shape, torch.float32, SEED + 1800 + i)  # the whole tensor, on every rank
+            _ring.EXCHANGE_LOG = []
+            coeffs, rec, fwd_counts, inv_counts = tiled_run(kind, x, wavelet, level, mode, mesh)
+            exchanges, _ring.EXCHANGE_LOG = _ring.EXCHANGE_LOG, None
+            traffic = {key: sum(n for _, steps in exchanges for d, n in steps if d == step)
+                       for key, step in (("fwd", 1), ("bwd", -1), ("sum", 0))}
+            bands = [full_of(c, cpu_mesh) for c in tiled_leaves(coeffs)]
+            rec = full_of(rec, cpu_mesh)
+            counts = [None] * world
+            dist.all_gather_object(counts, (fwd_counts, inv_counts))
+            if rank == 0:
+                want_fwd, want_inv = TILED_LAUNCHES[name][world]
+                for r, (f, b) in enumerate(counts):
+                    only(f, want_fwd, f"{name} rank {r} forward")
+                    only(b, want_inv, f"{name} rank {r} inverse")
+                total = {"forward": {k: sum(c[0].get(k, 0) for c in counts) for k in want_fwd},
+                         "inverse": {k: sum(c[1].get(k, 0) for c in counts) for k in want_inv}}
+                log(f"  (b) {name}: launches per rank {counts[0]}, summed over {world} ranks {total}")
+                want, want_rec = tiled_serial(kind, x, wavelet, level, mode)
+                out[name] = {
+                    **tiled_compare(f"{name} {world} {backend} ranks", [b.to(DEVICE) for b in bands],
+                                    rec.to(DEVICE), x, want, want_rec),
+                    "launches_per_rank": {"forward": fwd_counts, "inverse": inv_counts},
+                    "launches_summed": total,
+                    "bytes_sent_rank0": traffic,
+                    "exchanges_rank0": exchanges,
+                }
+                del want, want_rec
+            del x, coeffs, rec, bands
+            torch.cuda.empty_cache()
+        out["backward"] = tiled_rank_backward(meshes, world, rank)
+        out["schedules"] = tiled_schedules(meshes, world, rank)
+        out["times"] = tiled_rank_times(meshes, world, rank, backend)
+    (outdir / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def full_of(t, cpu_mesh) -> torch.Tensor:
+    """The whole tensor of a ``DTensor``: ``full_tensor()``, or through the
+    host on a gloo mesh of CUDA shards (:func:`host_full`)."""
+    return t.full_tensor() if cpu_mesh is None else host_full(t, cpu_mesh)
+
+
+def tiled_rank_backward(meshes: dict, world: int, rank: int) -> dict:
+    """One backward of the sum of the squared bands and reconstruction of
+    t2d ``periodization`` (the ring) and ``reflect`` (the padded levels and
+    their edge sums) across the ranks: each rank's gradient of the whole
+    input holds its own chunk, summed over the ranks, against autograd
+    through the serial port on rank 0's card (1e-4 of the largest entry)."""
+    import torch.distributed as dist
+
+    out = {}
+    for i, (name, kind, shape, wavelet, level, mode, kw) in enumerate(TILED_FULL[:2]):
+        mesh, _ = meshes[json.dumps(kw, sort_keys=True)]
+        fwd, inv, sfwd, sinv = tiled_funcs(kind)
+        x = leaf(randn(shape, torch.float32, SEED + 1800 + i))
+        coeffs = fwd(x, wavelet, level=level, mesh=mesh, mode=mode)
+        rec = inv(coeffs, wavelet, mesh=mesh, mode=mode)
+        loss = sum((c.to_local() ** 2).sum() for c in tiled_leaves(coeffs)) + (rec.to_local() ** 2).sum()
+        _kernels.reset_launch_counts()
+        (grad,) = torch.autograd.grad(loss, x)
+        torch.cuda.synchronize()
+        back = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        dist.all_reduce(grad)  # the chunks are disjoint: the sum is the whole gradient
+        if rank == 0:
+            xs = leaf(x.detach())
+            ref = sfwd(xs, wavelet, mode=mode, level=level)
+            ref_loss = sum((c**2).sum() for c in tiled_leaves(ref)) + (sinv(ref, wavelet, mode=mode) ** 2).sum()
+            (want,) = torch.autograd.grad(ref_loss, xs)
+            err = max_abs(grad, want) / float(want.abs().max())
+            check(f"{name} {world} ranks backward vs the serial port's (of the largest entry)", err, TRAIN_GRAD_TOL)
+            out[name] = {"grad_rel_err": err, "launches_rank0": back}
+        del x, coeffs, rec, loss, grad
+        torch.cuda.empty_cache()
+    return out
+
+
+def tiled_schedules(meshes: dict, world: int, rank: int) -> dict:
+    """t2d periodization overlapped and with ``PTWT_TPU_NO_OVERLAP=1``: every
+    rank's bands and reconstruction equal bit for bit."""
+    import torch.distributed as dist
+
+    name, kind, shape, wavelet, level, mode, kw = TILED_FULL[0]
+    mesh, _ = meshes[json.dumps(kw, sort_keys=True)]
+    x = randn(shape, torch.float32, SEED + 1800)
+    runs = {}
+    for flag in ("", "1"):
+        os.environ["PTWT_TPU_NO_OVERLAP"] = flag
+        coeffs, rec, fwd_counts, inv_counts = tiled_run(kind, x, wavelet, level, mode, mesh)
+        runs[flag] = ([c.to_local() for c in tiled_leaves(coeffs)] + [rec.to_local()], fwd_counts, inv_counts)
+    os.environ.pop("PTWT_TPU_NO_OVERLAP")
+    same = all(torch.equal(a, b) for a, b in zip(runs[""][0], runs["1"][0]))
+    verdicts = [None] * world
+    dist.all_gather_object(verdicts, same)
+    if rank == 0:
+        log(f"  (b) {name}: overlapped and PTWT_TPU_NO_OVERLAP=1 equal bit for bit on ranks {verdicts}; "
+            f"launches per rank {runs[''][1:]} and {runs['1'][1:]}")
+        if not all(verdicts):
+            raise AssertionError(f"{name}: the two ring schedules differ on ranks {verdicts}")
+    return {"bitwise_equal": verdicts, "overlap_launches": runs[""][1:], "no_overlap_launches": runs["1"][1:]}
+
+
+def tiled_rank_times(meshes: dict, world: int, rank: int, backend: str) -> dict:
+    """t2d periodization's round trip on this rank: wall ms (median of
+    ``TILED_REPS`` after 3 warm-ups, every rank starting together), and the
+    host ms spent posting and waiting for the ring steps (the pinned
+    copies, the stream synchronise and gloo's transfer) in one round trip."""
+    import torch.distributed as dist
+
+    from ptwt_tpu_torch.parallel import _ring
+
+    name, kind, shape, wavelet, level, mode, kw = TILED_FULL[0]
+    mesh, _ = meshes[json.dumps(kw, sort_keys=True)]
+    fwd, inv, _, _ = tiled_funcs(kind)
+    x = randn(shape, torch.float32, SEED + 1800)
+    spent = [0.0]
+    post, finish = _ring.Exchange.post, _ring.Exchange.finish
+
+    def timed(fn):
+        def wrapper(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return wrapper
+
+    def round_trip():
+        return inv(fwd(x, wavelet, level=level, mesh=mesh, mode=mode), wavelet, mesh=mesh, mode=mode)
+
+    walls, ring = [], []
+    _ring.Exchange.post, _ring.Exchange.finish = timed(post), timed(finish)
+    try:
+        for rep in range(3 + TILED_REPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            round_trip()
+            torch.cuda.synchronize()
+            if rep >= 3:
+                walls.append((time.perf_counter() - t0) * 1e3)
+                ring.append(spent[0] * 1e3)
+    finally:
+        _ring.Exchange.post, _ring.Exchange.finish = post, finish
+    row = {"wall_ms": statistics.median(walls), "ring_host_ms": statistics.median(ring)}
+    row["ring_host_share"] = row["ring_host_ms"] / row["wall_ms"]
+    rows = [None] * world
+    dist.all_gather_object(rows, row)
+    note = (f"{world} processes sharing one card, halo slabs staged through the host; not a scaling figure"
+            if backend == "gloo" else f"{world} NCCL ranks, one card each")
+    if rank == 0:
+        for r, each in enumerate(rows):
+            log(f"  (b) {name} round trip, rank {r} ({note}): " + " ".join(f"{k}={v!r}" for k, v in each.items()))
+    return {"per_rank": rows, "note": note}
+
+
+def tiled_ranks(world: int = 4, backend: str = "gloo") -> dict:
+    """Phase 18 (b): ``world`` rank processes (gloo: all on card 0; NCCL:
+    one card each), each with a deadline; any rank that fails fails the
+    phase."""
+    store = tiled_store(backend)
+    outdir = store.with_name(store.name + "-out")
+    outdir.mkdir()
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--world", str(world), "--store", str(store),
+           "--out", str(outdir), "--backend", backend]
+    procs = [subprocess.Popen([*cmd, "--tiled-rank", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    deadline = time.monotonic() + TILED_RANKS_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log("\n".join(line for line in logs[0].splitlines() if line.strip()))
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise RuntimeError(f"tiled rank {r} of {world} failed (exit {p.returncode}):\n{text[-4000:]}")
+    return json.loads((outdir / "rank0.json").read_text())
+
+
+def tiled_times() -> dict:
+    """``--tiled-times``: the one-rank tiled round trip of t2d (both modes)
+    and td1 beside the serial round trip of the same row, in one process:
+    device ms (CUDA events), wall ms, the profiler's busy ms and share."""
+    out = {}
+    with tiled_world("nccl", 0, 1, tiled_store("times")):
+        for i, (name, kind, shape, wavelet, level, mode, kw) in enumerate(TILED_FULL):
+            if name not in ("t2d periodization", "t2d reflect", "td1"):
+                continue
+            fwd, inv, sfwd, sinv = tiled_funcs(kind)
+            mesh = tiled_mesh(1, kw)
+            x = randn(shape, torch.float32, SEED + 1800 + i)
+            out[f"{name} tiled"] = pkt_row(
+                f"{name} tiled round trip, one rank",
+                lambda: inv(fwd(x, wavelet, level=level, mesh=mesh, mode=mode), wavelet, mesh=mesh, mode=mode))
+            out[f"{name} serial"] = pkt_row(
+                f"{name} serial round trip", lambda: sinv(sfwd(x, wavelet, mode=mode, level=level), wavelet, mode=mode))
+            del x
+            torch.cuda.empty_cache()
+    return out
+
+
+#: ``--dist-probe``'s operations, each in a world of its own on the one
+#: card: NCCL with two ranks, then gloo with four and CUDA tensors
+DIST_PROBE = (("nccl", 2, "all_reduce"), *(("gloo", 4, op) for op in (
+    "send_recv", "all_reduce", "all_gather", "all_gather_into_tensor", "broadcast",
+    "full_tensor_even", "full_tensor_uneven")))
+
+
+def dist_probe_rank(backend: str, op: str, rank: int, world: int, store: Path) -> None:
+    """``--dist-probe-rank``: one rank of one ``DIST_PROBE`` world; prints
+    ``ok`` or the error's text (a crash shows in the exit code)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    t = torch.full((4,), float(rank + 1), device=DEVICE)
+    with tiled_world(backend, rank, world, store):
+        try:
+            if op == "send_recv":
+                got = torch.empty_like(t)
+                works = dist.batch_isend_irecv([dist.P2POp(dist.isend, t, (rank + 1) % world),
+                                                dist.P2POp(dist.irecv, got, (rank - 1) % world)])
+                for work in works:
+                    work.wait()
+            elif op == "all_reduce":
+                dist.all_reduce(t)
+            elif op == "all_gather":
+                dist.all_gather([torch.empty_like(t) for _ in range(world)], t)
+            elif op == "all_gather_into_tensor":
+                dist.all_gather_into_tensor(torch.empty(4 * world, device=DEVICE), t)
+            elif op == "broadcast":
+                dist.broadcast(t, 0)
+            else:
+                from torch.distributed.tensor import DTensor, Shard
+
+                mesh = tiled_mesh(world, {"n_data": 1, "n_spatial": world})
+                cols = 3 if op.endswith("even") or rank < world - 1 else 1
+                total = 3 * world if op.endswith("even") else 3 * (world - 1) + 1
+                local = torch.full((2, cols), float(rank), device=DEVICE)
+                DTensor.from_local(local, mesh, [Shard(0), Shard(1)], run_check=False,
+                                   shape=torch.Size((2, total)), stride=(total, 1)).full_tensor()
+            torch.cuda.synchronize()
+            print(json.dumps({"rank": rank, "result": "ok"}), flush=True)
+        except Exception as err:  # the probe reports what the operation raised
+            print(json.dumps({"rank": rank, "result": repr(err)[:600]}), flush=True)
+
+
+def dist_probe() -> dict:
+    """``--dist-probe``: which ``torch.distributed`` operations work with
+    several ranks on one card (not run by the smoke test itself)."""
+    out = {}
+    for backend, world, op in DIST_PROBE:
+        store = tiled_store(f"probe-{backend}-{op}")
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-probe-rank", backend, op,
+                                   str(r), str(world), str(store)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for r in range(world)]
+        ranks = []
+        for p in procs:
+            try:
+                stdout, stderr = p.communicate(timeout=180)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+            lines = [line for line in stdout.splitlines() if line.startswith("{")]
+            ranks.append({"exit": p.returncode, "result": json.loads(lines[-1])["result"] if lines else None,
+                          "stderr": stderr.strip().splitlines()[-1][:300] if stderr.strip() else ""})
+        out[f"{backend} x{world} {op}"] = ranks
+        log(f"  {backend} x{world} {op}: {ranks}")
+    return out
+
+
+def tiled_kernel_launches(tiled: dict, name: str) -> dict:
+    """Phase 18's launches of one kernel in each row's forward (K3, K7a) or
+    inverse (K4, K7b): on one rank, per rank of four and summed over them."""
+    direction = "forward" if name in ("K3", "K7a") else "inverse"
+    out = {}
+    for row, *_ in TILED_FULL:
+        four = tiled["four_ranks"][row]
+        counts = {"one_rank": tiled["one_rank"][row][direction].get(name, 0),
+                  "four_ranks_per_rank": four["launches_per_rank"][direction].get(name, 0),
+                  "four_ranks_summed": four["launches_summed"][direction].get(name, 0)}
+        if any(counts.values()):
+            out[row] = counts
+    return out
+
+
+def check_tiled() -> dict:
+    """Phase 18: (a) one NCCL rank, (b) four gloo ranks on the one card,
+    (c) the one-rank times in a process of their own (``--tiled-times``)."""
+    tiled = {"one_rank": tiled_one_rank()}
+    log("  (b) four ranks sharing the card, gloo, halo slabs through pinned host memory")
+    tiled["four_ranks"] = tiled_ranks()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--tiled-times"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--tiled-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    *lines, last = proc.stdout.strip().splitlines()
+    log("\n".join(lines))
+    tiled["times"] = json.loads(last)
+    return tiled
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -4314,6 +4915,10 @@ def main() -> int:
     learn = check_learn()
     print(json.dumps({"learnable": {k: v for k, v in learn.items() if k != "errors"}}))
 
+    log("phase 18: the tiled multi-device transforms (ptwt_tpu_torch.parallel), K3/K4 and K7 per rank")
+    tiled = check_tiled()
+    print(json.dumps({"tiled": tiled}))
+
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
         source, replaces = REPLACES[name]
@@ -4397,6 +5002,8 @@ def main() -> int:
                 "vjp_launches": pkt["wp2d"]["backward"][VJP_OF[name]],
                 "launches_separable": pkt["wp2d separable"]["forward" if name == "K3" else "inverse"][name],
             }
+            # phase 18: each tiled row's launches, one rank and four
+            entry["tiled_launches"] = tiled_kernel_launches(tiled, name)
         kernels.append(entry)
     vjp_kernel = {"K5a": "K5b", "K5b": "K5a", "K6a": "K6b", "K6b": "K6a",
                   "K7a": "K7b", "K8a": "K8b", "K7b": "K7a", "K8b": "K8a"}
@@ -4507,6 +5114,8 @@ def main() -> int:
         if name in ("K7a", "K7b"):
             # phase 16: per full expansion / reconstruct() of wp1d
             entry["wp1d_launches"] = pkt["wp1d"]["forward" if name == "K7a" else "inverse"][name]
+            # phase 18: td1's long levels, one rank and four
+            entry["tiled_launches"] = tiled_kernel_launches(tiled, name)
         if name in ("K8a", "K8b"):
             # phase 15: the sameshift instance, the interiors of mat1d's
             # fused runs (launches per mat1d analysis or synthesis)
@@ -4606,9 +5215,29 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--dist-probe-rank" in sys.argv:
+        i = sys.argv.index("--dist-probe-rank")
+        backend, op, rank, world, store = sys.argv[i + 1 : i + 6]
+        dist_probe_rank(backend, op, int(rank), int(world), Path(store))
+        sys.exit(0)
+    if "--tiled-rank" in sys.argv:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: CUDA is not available")
+        tiled_rank(int(_arg("--tiled-rank")), int(_arg("--world")), Path(_arg("--store")), Path(_arg("--out")),
+                   _arg("--backend") or "gloo")
+        sys.exit(0)
+    if "--tiled-nccl" in sys.argv:
+        # phase 18 (b) on NCCL, one rank per card: needs that many cards
+        world = int(_arg("--tiled-nccl"))
+        if torch.cuda.device_count() < world:
+            sys.exit(f"chip_smoke: --tiled-nccl {world} needs {world} cards")
+        log(f"card: {smi()}; build: {_kernels.build()}")
+        print(json.dumps({"tiled_nccl": tiled_ranks(world, "nccl")}))
+        sys.exit(0)
     for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times),
                         ("--k9-times", k9_times), ("--nd-times", nd_times_all), ("--mat-times", mat_times),
-                        ("--pkt-times", pkt_times), ("--learn-times", learn_times)):
+                        ("--pkt-times", pkt_times), ("--learn-times", learn_times), ("--tiled-times", tiled_times),
+                        ("--dist-probe", dist_probe)):
         if flag in sys.argv:
             if not torch.cuda.is_available():
                 sys.exit("chip_smoke: CUDA is not available")

@@ -1469,3 +1469,66 @@ def test_cuda_learnable_steps_match_cpu(cuda_device, mode):
         for p, w in zip(bank.parameters(), want_grads):
             assert float((p.grad.cpu() - w).abs().max()) <= 1e-4 * scale
         opt.step()
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A (1, 1) mesh of one NCCL rank (the one card); the group is destroyed
+    after the test."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ptwt_tpu_torch.parallel import make_wavelet_mesh
+
+    timeout = datetime.timedelta(seconds=120)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1,
+                            timeout=timeout)
+    try:
+        yield make_wavelet_mesh(1, 1, timeout=timeout)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tiled_leaves(coeffs):
+    return [coeffs[0], *(band for level in coeffs[1:] for band in level)]
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_wavedec2_one_nccl_rank(nccl_mesh, cuda_device):
+    """t2d reflect at [2, 256, 256] on one NCCL rank: the serial port's bands
+    and reconstruction, K3 twice a level and K4 twice a level."""
+    from ptwt_tpu_torch.parallel import tiled_wavedec2, tiled_waverec2
+
+    x = torch.randn(2, 256, 256, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    _kernels.reset_launch_counts()
+    coeffs = tiled_wavedec2(x, "db4", level=3, mesh=nccl_mesh, mode="reflect")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K3": 6}
+    _kernels.reset_launch_counts()
+    rec = tiled_waverec2(coeffs, "db4", mesh=nccl_mesh, mode="reflect").full_tensor()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {"K4": 6}
+    want = tptwt.wavedec2(x, "db4", mode="reflect", level=3)
+    for got, ref in zip(_tiled_leaves(coeffs), _tiled_leaves(want)):
+        got = got.full_tensor()
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 2e-5 * max(1.0, float(ref.abs().max()))
+    assert float((rec - tptwt.waverec2(want, "db4", mode="reflect")).abs().max()) <= 2e-5
+    assert float((rec - x).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_backward_one_nccl_rank(nccl_mesh, cuda_device):
+    """One backward of the sum of the squared bands through t2d reflect on
+    one NCCL rank against autograd through the serial port on the card."""
+    from ptwt_tpu_torch.parallel import tiled_wavedec2
+
+    x = torch.randn(2, 256, 256, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    xt = x.clone().requires_grad_()
+    loss = sum((c.to_local() ** 2).sum() for c in _tiled_leaves(tiled_wavedec2(xt, "db4", level=3,
+                                                                                mesh=nccl_mesh, mode="reflect")))
+    loss.backward()
+    xs = x.clone().requires_grad_()
+    sum((c**2).sum() for c in _tiled_leaves(tptwt.wavedec2(xs, "db4", mode="reflect", level=3))).backward()
+    assert float((xt.grad - xs.grad).abs().max()) <= 1e-4 * float(xs.grad.abs().max())

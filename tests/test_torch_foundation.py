@@ -175,6 +175,68 @@ def test_public_names_match_jax():
         assert getattr(ptwt_torch, name) is not None
 
 
+def test_parallel_names_match_jax():
+    """``ptwt_tpu_torch.parallel`` exports ``ptwt_tpu.parallel``'s list, in
+    its order."""
+    import ptwt_tpu.parallel
+    import ptwt_tpu_torch.parallel
+
+    assert ptwt_tpu_torch.parallel.__all__ == ptwt_tpu.parallel.__all__
+    for name in ptwt_tpu_torch.parallel.__all__:
+        assert callable(getattr(ptwt_tpu_torch.parallel, name))
+
+
+def test_parallel_transport_follows_the_backend(tmp_path, monkeypatch):
+    """The ring's transport is read from the group's backend (never from a
+    caught error), and a world of one rank makes no P2P or collective call
+    and returns its input unchanged."""
+    import datetime
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from ptwt_tpu_torch.parallel import _ring, make_wavelet_mesh, tiled_wavedec2, tiled_waverec2
+
+    for backend, device, staged in (("gloo", "cpu", False), ("gloo", "cuda", True), ("nccl", "cuda", False)):
+        monkeypatch.setattr(dist, "get_backend", lambda group=None, b=backend: b)
+        assert _ring._staged(None, SimpleNamespace(device=torch.device(device))) is staged
+    for backend, device in (("nccl", "cpu"), ("mpi", "cpu"), ("gloo", "meta")):
+        monkeypatch.setattr(dist, "get_backend", lambda group=None, b=backend: b)
+        with pytest.raises(ValueError):
+            _ring._staged(None, SimpleNamespace(device=torch.device(device)))
+    monkeypatch.undo()
+
+    timeout = datetime.timedelta(seconds=60)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1,
+                            timeout=timeout)
+    try:
+        def refuse(*args, **kwargs):
+            raise AssertionError("a ring of one rank made a call")
+
+        for name in ("batch_isend_irecv", "all_reduce", "isend", "irecv"):
+            monkeypatch.setattr(dist, name, refuse)
+        mesh = make_wavelet_mesh(device_type="cpu", timeout=timeout)
+        assert mesh.mesh_dim_names == ("data", "spatial") and tuple(mesh.shape) == (1, 1)
+        t = torch.arange(6.0)
+        assert _ring.ring_shift(t, "spatial", mesh, _ring.FWD) is t
+        assert _ring.exchange([t, t[:2]], [_ring.FWD, _ring.BWD], "spatial", mesh)[1] is not None
+        assert _ring.edge_sum(t, "spatial", mesh) is t
+        x = torch.from_numpy(np.random.RandomState(5).randn(2, 32, 24))
+        for mode in ("periodization", "reflect"):
+            coeffs = tiled_wavedec2(x, "db3", level=2, mesh=mesh, mode=mode)
+            want = ptwt_torch.wavedec2(x, "db3", mode=mode, level=2)
+            for got, ref in zip(coeffs[1:], want[1:]):
+                for g, r in zip(got, ref):
+                    np.testing.assert_allclose(g.full_tensor().numpy(), r.numpy(), atol=1e-12)
+            rec = tiled_waverec2(coeffs, "db3", mesh=mesh, mode=mode).full_tensor()
+            np.testing.assert_allclose(rec.numpy(), ptwt_torch.waverec2(want, "db3", mode=mode).numpy(), atol=1e-12)
+        with pytest.raises(ValueError, match="world size"):
+            make_wavelet_mesh(2, 1, device_type="cpu", timeout=timeout)
+    finally:
+        monkeypatch.undo()
+        dist.destroy_process_group()
+
+
 def test_import_pulls_in_no_jax():
     """The port never imports JAX or ptwt_tpu (checked in a fresh process)."""
     src = Path(__file__).resolve().parent.parent / "src"
@@ -189,7 +251,9 @@ def test_import_pulls_in_no_jax():
         " ptwt_tpu_torch.matmul_transform_3, ptwt_tpu_torch.ops._boundary,"
         " ptwt_tpu_torch.ops._boundary_long, ptwt_tpu_torch.utils._deprecation,"
         " ptwt_tpu_torch.packets, ptwt_tpu_torch.continuous_transform,"
-        " ptwt_tpu_torch.wavelets_learnable;"
+        " ptwt_tpu_torch.wavelets_learnable, ptwt_tpu_torch.parallel,"
+        " ptwt_tpu_torch.parallel._ring, ptwt_tpu_torch.parallel._padded_axis,"
+        " ptwt_tpu_torch.parallel.tiledn, ptwt_tpu_torch.parallel.tiled2d;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ptwt_tpu' or m.startswith('ptwt_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
