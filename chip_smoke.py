@@ -204,15 +204,17 @@ Phases, each raising (non-zero exit) on failure:
    equal bit for bit in two runs; then KT through its wrapper against its
    plain versions (autograd through the plain levels) at (b)'s level 1
    along -2 and -1 and d1's level 1, and in every mode along axes -1, -2
-   and -3 on odd and even lengths, db4 and a 7-tap bank, K4's one- and
-   two-pair launches, float32 and float64; an empty batch (no launch);
+   and -3 on odd and even lengths, db4, a 7-tap bank and banks of 40 and
+   128 taps, K4's one- and two-pair launches, float32 and float64; an
+   empty batch (no launch);
    two launches of one gradient (equal bit for bit); K3 against its plain
    version on d1's 10^6-sample level-1 axis; ``wavedec3``, ``fswavedec2``,
    a ``WaveletPacket2D`` split and a ``periodization`` ``wavedec2`` with
    the bank in float64 against the CPU.  Limits: losses 1e-5 relative,
    filter and data gradients 1e-4 of their largest entry (float64: 1e-10).
    Then (``chip_smoke.py --learn-times``, a process of its own) KT at (b)'s
-   level 1 along -2 and -1 beside its bound, its plain version and
+   level 1 along -2 and -1 and at d1's level 1 beside its bound (bytes, or
+   float64 multiply-adds at 34 TFLOP/s), its plain version and
    ``torch.nn.grad.conv2d_weight`` / ``conv1d_weight``, and the step of
    (a), (b) and (c): device ms, wall ms and busy share.
 18. the tiled multi-device transforms (``ptwt_tpu_torch.parallel``) at
@@ -273,6 +275,13 @@ them to the kernels line as ``in_turns``.
 Phase 14's ``--nd-times`` also times the plain version and one library
 call beside each K3/K4 launch and VJP of d3's level 1.
 
+``python3 chip_smoke.py --kt-turns DIR`` (not part of the smoke test)
+times KT at every ``KT_MAIN`` row for ``DIR`` and this tree in turns
+(``--kt-times``, four processes) and prints each tree's ptxas registers
+and spills and the SASS counts of its KT instances (``--kt-sass``:
+``DFMA``, ``F2F.F64.F32``, ``LDS`` and all instructions, over the kernel
+and over each innermost loop that holds a ``DFMA``, the tap loop).
+
 ``python3 chip_smoke.py --tiled-nccl 4`` (not part of the smoke test; four
 cards) runs phase 18 (b) on NCCL, rank R on card R, with no host staging.
 
@@ -301,6 +310,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -349,9 +359,11 @@ ROUND_TRIP_TOL = 1e-4
 MODES = ("reflect", "zero", "constant", "symmetric", "periodic", "periodization")
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W):
-# HBM3 at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s.
+# HBM3 at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s,
+# float64 outside them at 34 TFLOP/s (KT sums in float64).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_F64_FLOP_PER_S = 34e12
 
 REPLACES = {
     "K1": ("src/ptwt_tpu_torch/csrc/dwt2.cu", "src/ptwt_tpu/ops/_pallas2d.py:224"),
@@ -3723,18 +3735,22 @@ LEARN_LR = 1e-3
 #: KT against its plain versions: (name, shape, axis, mode, taps, dtype,
 #: K4's pair counts): (b)'s level 1 along -2 and -1 (periodic), d1's level
 #: 1 (reflect, K3's taps), then every mode on odd and even axes -1/-2/-3
-#: with db4 and a 7-tap bank in both dtypes
+#: with db4, a 7-tap bank and banks of 40 and 128 taps (three and eight
+#: tap chunks) in both dtypes (``valid`` only where the bank fits the axis,
+#: and K4's taps there only for the short banks, whose crop leaves samples)
 KT_MAIN = (
     ("headline level 1, axis -2", SHAPE, -2, "periodic", 8, torch.float32, (1,)),
     ("headline level 1, axis -1", (2, SHAPE[0], 515, SHAPE[2]), -1, "periodic", 8, torch.float32, (2,)),
     ("d1 level 1, axis -1", D1_SHAPE, -1, "reflect", 10, torch.float32, ()),
 )
 KT_SMALL = tuple(
-    (f"{mode} axis {axis} {taps} taps {str(dtype)[6:]}", shape, axis, mode, taps, dtype, (1, 2))
+    (f"{mode} axis {axis} {taps} taps {str(dtype)[6:]}", shape, axis, mode, taps, dtype,
+     (1, 2) if mode != "valid" or taps <= 8 else ())
     for mode in (*MODES, "valid")
     for axis, shape in ((-1, (3, 5, 1001)), (-2, (4, 130, 70)), (-3, (33, 4, 64)))
-    for taps in (8, 7)
+    for taps in (8, 7, 40, 128)
     for dtype in (torch.float32, torch.float64)
+    if mode != "valid" or taps <= shape[axis]
 )
 #: the other entry points with a learnable bank, float64, against the CPU:
 #: (name, kind, shape, mode, level)
@@ -4052,32 +4068,143 @@ def kt_library(x: torch.Tensor, ct: torch.Tensor, axis: int, taps: int, mode: st
     return lambda: torch.nn.grad.conv1d_weight(inp, (2, 1, taps), grad_out, stride=2)
 
 
+def kt_inputs(shape, axis: int, mode: str, taps: int, dtype):
+    """K3's taps' gradient at a ``KT_MAIN`` row: the input, the packed
+    cotangent and a call of KT through its wrapper."""
+    x = randn(shape, dtype, SEED + 1950)
+    ax = axis % x.ndim
+    m, period, pad, code = _pallas2._analysis_plan(x.shape[ax], taps, mode)
+    ct = randn([2, *[m if i == ax else s for i, s in enumerate(shape)]], dtype, SEED + 1951)
+    return x, ct, lambda: _pallas2._tap_grad_kernel(x, ax, [ct[0]], [ct[1]], taps, period, pad, code)
+
+
+def kt_bound(x: torch.Tensor, ct: torch.Tensor, taps: int) -> dict:
+    """KT's least time, the larger of x and the bands read once over the
+    memory rate and ``taps`` float64 multiply-adds per band element over
+    the float64 peak (KT sums in float64), with both times and the
+    bytes."""
+    nbytes = (x.numel() + ct.numel()) * x.element_size()
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * taps * ct.numel() / PEAK_F64_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes, "f64_ops_bound_ms": t_ops, "bytes": nbytes}
+
+
+def kt_times() -> dict:
+    """``--kt-times``: KT's median device ms at every ``KT_MAIN`` row
+    (CUDA events, 20 after 3 warm-ups), through the wrapper only, so that
+    another tree's package (``--src``) runs it too: the rows ``--kt-turns``
+    compares in turns."""
+    out = {}
+    for name, shape, axis, mode, taps, dtype, _ in KT_MAIN:
+        x, ct, call = kt_inputs(shape, axis, mode, taps, dtype)
+        out[f"KT {name}"] = time_ms(call)
+        del x, ct, call
+        torch.cuda.empty_cache()
+    return out
+
+
+def sass_loops(fn: str) -> list:
+    """The innermost loops of one function's SASS (``cuobjdump -sass``)
+    that hold a ``DFMA``: for each, its counts of ``DFMA``,
+    ``F2F.F64.F32``, ``LDS`` and all instructions.  A loop is the range
+    from a backward branch's target to the branch."""
+    labels = {m.group(1): int(m.group(2), 16)
+              for m in re.finditer(r"(\.L_x_\d+):\s*\n\s*/\*([0-9a-f]+)\*/", fn)}
+    ops = [(int(a, 16), op, rest) for a, op, rest in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", fn)]
+    loops = []
+    for addr, op, rest in ops:
+        if not op.startswith("BRA"):
+            continue
+        m = re.search(r"0x([0-9a-f]+)|\((\.L_x_\d+)\)", rest)
+        target = int(m.group(1), 16) if m and m.group(1) else labels.get(m.group(2)) if m else None
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    counts = []
+    for lo, hi in loops:
+        body = [op for a, op, _ in ops if lo <= a <= hi]
+        if not any(op.startswith("DFMA") for op in body):
+            continue
+        inner = [l2 for l2 in loops if (l2 != (lo, hi) and lo <= l2[0] and l2[1] <= hi
+                 and any(op.startswith("DFMA") for a, op, _ in ops if l2[0] <= a <= l2[1]))]
+        if inner:
+            continue
+        counts.append({"DFMA": sum(o.startswith("DFMA") for o in body),
+                       "F2F.F64.F32": sum(o.startswith("F2F.F64.F32") for o in body),
+                       "LDS": sum(o.startswith("LDS") for o in body), "all": len(body)})
+    return counts
+
+
+def kt_sass() -> dict:
+    """``--kt-sass``: for each KT instance of the built ``axis`` library
+    (``--src`` picks the tree), ptxas' registers and spills (the build's
+    ``-Xptxas -v`` log) and its SASS (``cuobjdump -sass``): the counts of
+    ``DFMA``, ``F2F.F64.F32``, ``LDS`` and all instructions over the
+    kernel and over each innermost loop that holds a ``DFMA`` (the tap
+    loop)."""
+    _kernels.build(("axis",))
+    lib = _kernels._library_path("axis")
+    text = lib.with_suffix(".log").read_text()
+    out = {}
+    for m in re.finditer(r"Compiling entry function '(\w*tap_grad_kernel\w*)'.*?Used (\d+) registers", text, re.S):
+        block = m.group(0)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        out[m.group(1)] = {"registers": int(m.group(2)),
+                           "spill_stores": int(spills.group(1)) if spills else None,
+                           "spill_loads": int(spills.group(2)) if spills else None}
+    cuobjdump = Path(_kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split()[0]
+        if "tap_grad_kernel" not in name:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
+        whole = {"DFMA": sum(o.startswith("DFMA") for o in ops),
+                 "F2F.F64.F32": sum(o.startswith("F2F.F64.F32") for o in ops),
+                 "LDS": sum(o.startswith("LDS") for o in ops), "all": len(ops)}
+        out.setdefault(name, {}).update({"whole": whole, "tap_loops": sass_loops(fn)})
+    return out
+
+
+def kt_turns(parent: Path) -> dict:
+    """``--kt-turns DIR``: KT's times (``--kt-times``) of the tree at DIR
+    and of this one in turns (parent, this, this, parent), then each
+    tree's registers, spills and SASS counts (``--kt-sass``)."""
+    out = {"times": turns(parent, "--kt-times"), "sass": {}}
+    for tree in (parent, ROOT):
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--kt-sass", "--src", str(tree / "src")],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"--kt-sass of {tree} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        out["sass"]["parent" if tree == parent else "change"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    for tree, fns in out["sass"].items():
+        for name, row in fns.items():
+            log(f"  {tree} {name}: {row}")
+    return out
+
+
 def learn_times() -> dict:
-    """``--learn-times``: KT at (b)'s level 1 along -2 and -1 (CUDA events,
-    median of 20 after 3 warm-ups; its plain version; the library
-    yardstick; the bound: x and the bands read once, against 2 L operations
-    per band element at the float32 peak), then one SGD step of every
-    ``LEARN_FULL`` row and the example's Adam step: device ms (events),
-    wall ms and the profiler's busy share."""
+    """``--learn-times``: KT at every ``KT_MAIN`` row ((b)'s level 1 along
+    -2 and -1, d1's level 1; CUDA events, median of 20 after 3 warm-ups;
+    its plain version; the library yardstick; :func:`kt_bound`), then one
+    SGD step of every ``LEARN_FULL`` row and the example's Adam step:
+    device ms (events), wall ms and the profiler's busy share."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
-    dl, dh, _, _ = banks_2d()
-    for name, shape, axis, mode, taps, dtype, _ in KT_MAIN[:2]:
-        x = randn(shape, dtype, SEED + 1950)
-        ax = axis % x.ndim
-        m, period, pad, code = _pallas2._analysis_plan(x.shape[ax], taps, mode)
-        ct = randn([2, *[m if i == ax else s for i, s in enumerate(shape)]], dtype, SEED + 1951)
-        nbytes = (x.numel() + ct.numel()) * x.element_size()
-        row = {"ms": time_ms(lambda: _pallas2._tap_grad_kernel(x, ax, [ct[0]], [ct[1]], taps, period, pad, code)),
+    for name, shape, axis, mode, taps, dtype, _ in KT_MAIN:
+        dl, dh, _, _ = banks_1d(dtype) if shape == D1_SHAPE else banks_2d(dtype)
+        x, ct, call = kt_inputs(shape, axis, mode, taps, dtype)
+        row = {"ms": time_ms(call),
                "plain_ms": time_ms(lambda: _pallas2.dwt_axis_tap_grad_plain(x, axis, dl, dh, mode, ct)),
                "library_ms": time_ms(kt_library(x, ct, axis, taps, mode)),
-               "library_note": "torch.nn.grad.conv2d_weight / conv1d_weight, input padded beforehand",
-               "bytes": nbytes}
-        row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * taps * ct.numel())
+               "library_note": "torch.nn.grad.conv2d_weight / conv1d_weight, input padded beforehand"}
+        row.update(kt_bound(x, ct, taps))
         log(f"  KT {name}: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
         out[f"KT {name}"] = row
-        del x, ct
+        del x, ct, call
         torch.cuda.empty_cache()
     for i, (name, kind, shape, wavelet, level, mode) in enumerate(LEARN_FULL):
         x = leaf(randn(shape, torch.float32, SEED + 1700 + i))
@@ -5192,7 +5319,9 @@ def main() -> int:
         "library_ms": kt[f"KT {KT_MAIN[0][0]}"]["library_ms"],
         "library_note": kt[f"KT {KT_MAIN[0][0]}"]["library_note"],
         "ms_is": f"K3's taps at {KT_MAIN[0][0]} (periodic, {list(KT_MAIN[0][1])})",
+        "bound_is": "bytes over 3.35 TB/s or float64 multiply-adds over 34 TFLOP/s, the larger",
         "axis_minus_1": kt[f"KT {KT_MAIN[1][0]}"],
+        "d1_level_1": kt[f"KT {KT_MAIN[2][0]}"],
         "launches_per_step": {name: learn[name]["launches_per_step"] for name, *_ in LEARN_FULL},
         "example_launches_per_step": learn["example"]["launches_per_step"],
         "steps": {k: v for k, v in kt.items() if not k.startswith("KT")},
@@ -5237,7 +5366,8 @@ if __name__ == "__main__":
     for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times),
                         ("--k9-times", k9_times), ("--nd-times", nd_times_all), ("--mat-times", mat_times),
                         ("--pkt-times", pkt_times), ("--learn-times", learn_times), ("--tiled-times", tiled_times),
-                        ("--dist-probe", dist_probe)):
+                        ("--dist-probe", dist_probe), ("--kt-times", kt_times), ("--kt-sass", kt_sass),
+                        ("--kt-turns", lambda: kt_turns(Path(_arg("--kt-turns")).resolve()))):
         if flag in sys.argv:
             if not torch.cuda.is_available():
                 sys.exit("chip_smoke: CUDA is not available")

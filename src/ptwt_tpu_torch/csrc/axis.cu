@@ -607,155 +607,355 @@ __global__ void __launch_bounds__(PTWT_THREADS)
 // into the uncropped frame), and the bands are the launch's (lo, hi)
 // inputs, pair g's rows under x's rows of group g.
 //
-// Bound on the H100: bytes (x and the bands read once; the 2 len sums are
-// a few bytes).  A block owns tiles of t band positions times a run of the
-// fastest index, as K3 does (64 columns of inner in float32, 32 in
-// float64, on a middle axis; 16 rows on the last axis), stages the tile's
-// window of x (2t + len - 2 positions, through the mode's map) and its
-// band tiles into shared memory, and accumulates: thread (s, lane) sums
-// the products of sum s = f len + k over the tile's elements lane, lane +
-// lanes, ... in float64, for float32 inputs too (a tap sums ~10^7 products
-// at the headline).  Blocks walk their tiles in a fixed order over a grid
-// of at most `cap` blocks; each writes its 2 len sums to its row of
-// `partial` (lanes added in order), and a second launch adds the rows in a
-// fixed tree: no atomics, so the result is the same bit for bit from run
-// to run.
+// Bound on the H100: bytes for short banks (x and the bands read once, 4
+// bytes a float32 element against 2 len float64 multiply-adds per band
+// element: db4 moves its 131.5 MB at the headline's level 1 in 0.039 ms,
+// its 135 M multiply-adds take 0.008 ms at the float64 peak); operations
+// past some 40 taps.  The products are exact in float64 (float32 x
+// float32), so the sums are float64 whatever the input type.  The cost
+// to avoid is everything around the multiply-adds: a float32 value
+// converted to float64, and read from shared memory, once per tap that
+// uses it.  So:
+//
+// * A lane walks consecutive band positions j of one column (middle axis)
+//   or of one row (last axis), keeping the window of x that tap chunk
+//   [cK, cK + K) reads (positions 2j + cK + [0, K)) in K float64
+//   registers: each step reads and converts two new window values and the
+//   two band values once and adds 2K products into 2K float64
+//   accumulators (registers; the step loop is unrolled K / 2 times, so
+//   the window is a ring of registers with no moves and no index
+//   arithmetic).  K is 4, 8, 12 or 16 (the shortest that holds the bank,
+//   16 past 16 taps); a bank of more than K taps runs ceil(len / K) warps,
+//   one chunk each, over the same staged tile.
+// * Middle axis: a warp's lanes are 32 neighbouring columns; a tile is t
+//   band positions (a multiple of K / 2) of them, the window rows
+//   [position][32] (conflict-free, coalesced), staged 16 bytes a lane
+//   where the rows allow it.  Within a run of columns the window
+//   registers carry over from tile to tile, so a tile stages only its 2t
+//   new window rows.
+// * Last axis: a warp takes one row a tile, each lane an odd run of
+//   `lane` band positions (32 runs side by side), so the window, 2t + K - 2
+//   positions, and the band runs are each one contiguous stretch of the
+//   row: staged 16 bytes a lane (the run shifted to the alignment) where
+//   it lies inside the row, else element by element through the mode's
+//   map.  Lanes read the window 2 lane apart and the bands `lane` apart:
+//   an odd run puts the bands on 32 banks, the window on 16 (two-way).
+//   The runs start afresh each tile (K - 2 window reads).
+// * A block (one warp per chunk) owns an equal, contiguous range of the
+//   flattened (column run or row, j) positions and walks it in tiles,
+//   staged by cp.async into a two-stage ring: the next tile loads while
+//   the current one sums.  Tiles are as long as two stages fit
+//   TAP_WARP_SMEM a warp, so some 20 one-warp blocks share an SM.
+// * The grid is the blocks that fit on the card at once (the occupancy
+//   of this build times the SM count), capped by `cap` and by one tile a
+//   block.  Each block writes its 2 len sums (each warp's lanes added in
+//   a fixed butterfly) to its row of `partial`, and a second launch adds
+//   the rows in a fixed tree: no atomics.  The order of the sums depends
+//   on the shapes and on the device (its SM count and this build's
+//   occupancy), never on the run, so two launches give the same bits.
+
+#define TAP_WARP_SMEM 8192  // staged bytes a warp may hold (both stages)
+#define TAP_LANES 32
 
 struct TapArgs {
   int64_t outer, inner;  // outer: rows of one pair (K4's taps) or of x
   int groups, n, m, period, pad, mode, len;
 };
 
-static size_t plan_taps(AxisTile& tile, int64_t rows, int m, int64_t inner, int len,
-                        size_t item) {
-  tile.last = inner == 1;
-  tile.plane = 0;
-  if (tile.last) {
-    tile.run = AXIS_ROWS;
-    tile.shift = 0;
-    tile.runs = (rows + tile.run - 1) / tile.run;
-    balance(tile, m, static_cast<int>(1024 / item), false);
-    tile.blocks = tile.runs * tile.tiles;
-  } else {
-    tile.run = pow2_at_least(inner, static_cast<int>(256 / item));
-    tile.shift = log2_of(tile.run);
-    tile.runs = (inner + tile.run - 1) / tile.run;
-    balance(tile, m, static_cast<int>(16384 / item) / tile.run, false);
-    tile.blocks = rows * tile.tiles * tile.runs;
-  }
-  tile.span = 2 * tile.t + len - 2;  // window positions of a whole tile
-  return item * static_cast<size_t>(tile.run) * (tile.span + 2 * tile.t) +
-         sizeof(int) * tile.span;
+// The tile plan of a KT launch.
+struct TapPlan {
+  int chunks;       // warps of a block, one tap chunk each
+  int t;            // band positions per tile (middle axis: a multiple of K / 2)
+  int lane;         // last axis: band positions a lane walks per tile (odd), t / 32
+  int vec;          // x from an aligned array (middle axis: rows of 16-byte multiples
+                    // and the bands too): staged 16 bytes a lane
+  int bvec;         // last axis: the bands from aligned arrays
+  int win, band;    // elements of a stage's window and of each band tile
+  int64_t groups;   // lane groups: (row, 32 columns) on a middle axis, rows on the last
+  int64_t total;    // groups * m band positions, split evenly over the blocks
+};
+
+static int tap_chunk(int len) { return len <= 4 ? 4 : len <= 8 ? 8 : len <= 12 ? 12 : 16; }
+
+// Stage sizes for tiles of t band positions (on the last axis t = 32 lane,
+// each run with 32 bytes of slack for an aligned copy's shift and rounded
+// to 16 bytes).
+static size_t tap_stage(TapPlan& p, bool last, int t, int kc, size_t item) {
+  const int vw = static_cast<int>(16 / item);
+  const auto round = [vw](int e) { return (e + vw - 1) / vw * vw; };
+  p.t = t;
+  p.win = last ? round(2 * t + kc - 2 + 2 * vw) : TAP_LANES * (2 * t + kc - 2);
+  p.band = last ? round(t + 2 * vw) : TAP_LANES * t;
+  return 2 * item * (p.win + 2 * static_cast<size_t>(p.band));
 }
 
-template <typename T>
+static size_t plan_taps(TapPlan& p, int64_t rows, int m, int64_t inner, int len, size_t item) {
+  const bool last = inner == 1;
+  const int k = tap_chunk(len), u = k / 2;
+  p.chunks = (len + k - 1) / k;
+  const int kc = p.chunks * k;
+  p.groups = last ? rows : rows * ((inner + TAP_LANES - 1) / TAP_LANES);
+  p.total = p.groups * m;
+  const size_t budget = static_cast<size_t>(TAP_WARP_SMEM) * p.chunks;
+  p.lane = 0;
+  if (last) {
+    // the longest odd run a lane that fits, then balanced over a row's tiles
+    int lane = 1;
+    while (tap_stage(p, true, TAP_LANES * (lane + 2), kc, item) <= budget) lane += 2;
+    const int tiles = (m + TAP_LANES * lane - 1) / (TAP_LANES * lane);
+    p.lane = ((m + TAP_LANES * tiles - 1) / (TAP_LANES * tiles)) | 1;
+    return tap_stage(p, true, TAP_LANES * p.lane, kc, item);
+  }
+  const int t_cap = (m + u - 1) / u * u;
+  int t = u;
+  while (t + u <= t_cap && tap_stage(p, false, t + u, kc, item) <= budget) t += u;
+  return tap_stage(p, false, t, kc, item);
+}
+
+// One tile of a block's range: lane group s, band positions [j0, j0 + n),
+// window positions staged from h0 on (relative to 2 j0 - pad): 0 where a
+// range starts, K - 2 where the registers carry the window over.
+struct TapTile {
+  int64_t s;
+  int j0, n, h0;
+  int sh, bsh;  // last axis: where the staged window and bands start in their tiles
+};
+
+__device__ __forceinline__ TapTile first_tap_tile(int64_t f0, int64_t f1, int m, int t) {
+  TapTile tl;
+  tl.s = f0 / m;
+  tl.j0 = static_cast<int>(f0 - tl.s * m);
+  tl.n = static_cast<int>(min64(min64(t, m - tl.j0), f1 - f0));
+  tl.h0 = tl.sh = tl.bsh = 0;
+  return tl;
+}
+
+// Advances to the next tile of [.., f1); false past the range's end.
+// `carry`: the window positions the registers hold over (K - 2, or 0).
+__device__ __forceinline__ bool next_tap_tile(TapTile& tl, int64_t f1, int m, int t, int carry) {
+  const int64_t f = tl.s * m + tl.j0 + tl.n;
+  if (f >= f1) return false;
+  if (tl.j0 + tl.n == m) {  // a new lane group: its window starts afresh
+    ++tl.s;
+    tl.j0 = 0;
+    tl.h0 = 0;
+  } else {  // after a whole tile: the registers hold `carry` window positions
+    tl.j0 += tl.n;
+    tl.h0 = carry;
+  }
+  tl.n = static_cast<int>(min64(min64(t, m - tl.j0), f1 - f));
+  tl.sh = tl.bsh = 0;
+  return true;
+}
+
+// cp.async of 16 bytes, through L2 only.
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src));
+}
+
+// A lane's copy of VW neighbouring elements: 16 bytes, or one element.
+template <int VW, typename T>
+__device__ __forceinline__ void copy_run(T* dst, const T* src) {
+  if constexpr (VW == 1)
+    copy_async(dst, src);
+  else
+    copy_async16(dst, src);
+}
+
+// A middle axis's tile: each lane copies VW neighbouring columns of a
+// position row (VW = 1, or 16 bytes where every row and pointer is
+// aligned), so a warp stages VW rows of 32 columns a copy.
+template <typename T, int VW>
+__device__ __forceinline__ void stage_tap_rows(T* win, T* bl, T* bh, const TapTile& tl,
+                                               const T* __restrict__ x,
+                                               const BandPairs<T>& bands, const TapArgs& a,
+                                               int span, int p0) {
+  constexpr int PER_ROW = TAP_LANES / VW;  // lanes a position row takes
+  const int tid = threadIdx.x, step = blockDim.x / PER_ROW;
+  const int64_t runs = (a.inner + TAP_LANES - 1) / TAP_LANES;
+  const int64_t o = tl.s / runs;
+  const int c = (tid % PER_ROW) * VW;  // the first column within the run
+  const int64_t col = (tl.s - o * runs) * TAP_LANES + c;
+  const bool live = col < a.inner;  // VW divides inner: all VW columns or none
+  const T* xo = x + o * a.n * a.inner + col;
+#pragma unroll 4
+  for (int r = tid / PER_ROW; r < span; r += step) {
+    T* dst = win + r * TAP_LANES + c;
+    const int q = source_of(p0 + r, a.n, a.period, a.mode);
+    if (live && q >= 0) {
+      copy_run<VW>(dst, xo + static_cast<int64_t>(q) * a.inner);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VW; ++v) dst[v] = T(0);
+    }
+  }
+  const bool g = o >= a.outer;
+  const int64_t at = ((o - g * a.outer) * a.m + tl.j0) * a.inner + col;
+  const T* lo = (g ? bands.lo[1] : bands.lo[0]) + at;
+  const T* hi = (g ? bands.hi[1] : bands.hi[0]) + at;
+#pragma unroll 4
+  for (int j = tid / PER_ROW; j < tl.n; j += step) {
+    const int e = j * TAP_LANES + c;
+    if (live) {
+      copy_run<VW>(bl + e, lo + static_cast<int64_t>(j) * a.inner);
+      copy_run<VW>(bh + e, hi + static_cast<int64_t>(j) * a.inner);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VW; ++v) bl[e + v] = bh[e + v] = T(0);
+    }
+  }
+}
+
+// The last axis: `len` elements of the row that starts `row` elements into
+// `base` (of `total`), from position `p0` (its source map `src`), into
+// `dst`.  16 bytes a lane where `vec` (an aligned base, a run inside the
+// row) and the aligned chunks stay inside the array: the run then starts
+// shift = (row + p0) % (16 / item) elements into `dst`, which is returned.
+// Else one element a lane.
+template <typename T, typename Src>
+__device__ __forceinline__ int stage_tap_line(T* dst, const T* base, int64_t row, int p0, int len,
+                                              bool vec, int64_t total, Src src) {
+  constexpr int VW = 16 / sizeof(T);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int64_t at = row + p0;
+  const int shift = static_cast<int>(at % VW), chunks = (shift + len + VW - 1) / VW;
+  if (vec && at - shift + static_cast<int64_t>(chunks) * VW <= total) {
+    for (int i = tid; i < chunks; i += nthreads)
+      copy_async16(dst + i * VW, base + at - shift + i * VW);
+    return shift;
+  }
+#pragma unroll 4
+  for (int c = tid; c < len; c += nthreads) {
+    const int q = src(p0 + c);
+    if (q >= 0)
+      copy_async(dst + c, base + row + q);
+    else
+      dst[c] = T(0);
+  }
+  return 0;
+}
+
+// Stages a tile's window (relative positions [h0, 2n + kc - 2), through the
+// mode's map) and its band tiles into `st`, zeros where a lane has no
+// column or row or a position reads zero.
+template <typename T, bool LAST>
+__device__ __forceinline__ void stage_tap_tile(T* st, TapTile& tl, const T* __restrict__ x,
+                                               const BandPairs<T>& bands, const TapPlan& p,
+                                               const TapArgs& a, int kc) {
+  T* win = st;
+  T* bl = st + p.win;
+  T* bh = bl + p.band;
+  const int span = 2 * tl.n + kc - 2 - tl.h0;
+  const int p0 = 2 * tl.j0 - a.pad + tl.h0;  // the first staged position
+  if constexpr (!LAST) {
+    if (p.vec)
+      stage_tap_rows<T, 16 / sizeof(T)>(win, bl, bh, tl, x, bands, a, span, p0);
+    else
+      stage_tap_rows<T, 1>(win, bl, bh, tl, x, bands, a, span, p0);
+  } else {
+    // one row: the window (16 bytes a lane where its run lies inside the
+    // row), then the bands
+    const int64_t rows = a.groups * a.outer;
+    tl.sh = stage_tap_line(win, x, tl.s * a.n, p0, span, p.vec && p0 >= 0 && p0 + span <= a.n,
+                           rows * a.n,
+                           [&](int q) { return source_of(q, a.n, a.period, a.mode); });
+    const bool g = tl.s >= a.outer;
+    const int64_t at = (tl.s - g * a.outer) * a.m;
+    const auto all = [](int q) { return q; };
+    stage_tap_line(bl, g ? bands.lo[1] : bands.lo[0], at, tl.j0, tl.n, p.bvec, a.outer * a.m, all);
+    tl.bsh = stage_tap_line(bh, g ? bands.hi[1] : bands.hi[0], at, tl.j0, tl.n, p.bvec,
+                            a.outer * a.m, all);
+  }
+}
+
+// Step u (0 <= u < K / 2, a constant once unrolled) of a group of K / 2
+// steps: wp reads the window at the group's first step, b0/b1 its band
+// values.  Slot (2u + k) % K holds window position 2j + k of this step.
+template <typename T, int K, int RS>
+__device__ __forceinline__ void tap_step(double (&w)[K], double (&lo)[K], double (&hi)[K],
+                                         const T* wp, const T* bl, const T* bh, int u) {
+  w[(2 * u + K - 2) % K] = static_cast<double>(wp[(2 * u + K - 2) * RS]);
+  w[(2 * u + K - 1) % K] = static_cast<double>(wp[(2 * u + K - 1) * RS]);
+  const double b0 = static_cast<double>(bl[u * RS]);
+  const double b1 = static_cast<double>(bh[u * RS]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    lo[k] = fma(b0, w[(2 * u + k) % K], lo[k]);
+    hi[k] = fma(b1, w[(2 * u + k) % K], hi[k]);
+  }
+}
+
+template <typename T, int K, bool LAST>
 __global__ void __launch_bounds__(PTWT_THREADS)
     tap_grad_kernel(const T* __restrict__ x, const BandPairs<T> bands,
-                    double* __restrict__ partial, const AxisTile tile, const TapArgs a) {
+                    double* __restrict__ partial, const TapPlan p, const TapArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ double red[PTWT_THREADS];
-  const int run = tile.run, span = tile.span, t = tile.t;
-  // [span][run] (middle) or [run][span] (last), then the two band tiles
-  // [t][run] or [run][t], then the window's sources
-  T* win = reinterpret_cast<T*>(smem_raw);
-  T* bt = win + static_cast<size_t>(run) * span;
-  int* src = reinterpret_cast<int*>(bt + 2 * static_cast<size_t>(run) * t);
-  const int tid = threadIdx.x;
-  const int sums = 2 * a.len, lanes = PTWT_THREADS / sums;
-  const int s = tid / lanes, lane = tid - s * lanes;
-  const int f = s < sums ? s / a.len : 0, k = s < sums ? s - f * a.len : 0;
-  const int64_t rows = a.groups * a.outer;
-  double acc = 0.0;
-  for (int64_t blk = blockIdx.x; blk < tile.blocks; blk += gridDim.x) {
-    int tile_i;
-    int64_t o = 0, lead;  // o: the row of x (middle); lead: first column or row
-    if (tile.last) {
-      tile_i = static_cast<int>(blk % tile.tiles);
-      lead = blk / tile.tiles * run;
-    } else {
-      const int64_t rest = blk / tile.runs;
-      lead = (blk - rest * tile.runs) * run;
-      tile_i = static_cast<int>(rest % tile.tiles);
-      o = rest / tile.tiles;
-    }
-    const int j0 = tile_i * t;
-    const int n_out = min(t, a.m - j0);
-    const int nrun = static_cast<int>(min64(run, (tile.last ? rows : a.inner) - lead));
-    const int wins = 2 * n_out + a.len - 2;
-    for (int w = tid; w < wins; w += PTWT_THREADS)
-      src[w] = source_of(2 * j0 - a.pad + w, a.n, a.period, a.mode);
+  constexpr int U = K / 2;
+  constexpr int RS = LAST ? 1 : TAP_LANES;  // elements between neighbouring positions
+  T* const stage0 = reinterpret_cast<T*>(smem_raw);
+  const int stage = p.win + 2 * p.band;  // elements of one stage
+  const int lane = threadIdx.x & (TAP_LANES - 1), chunk = threadIdx.x >> 5;
+  const int kc = p.chunks * K;
+  const int64_t f0 = blockIdx.x * p.total / gridDim.x;
+  const int64_t f1 = (blockIdx.x + 1) * p.total / gridDim.x;
+  double w[K], lo[K], hi[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) w[k] = lo[k] = hi[k] = 0.0;
+
+  TapTile tl = first_tap_tile(f0, f1, a.m, p.t);
+  if (f0 < f1) stage_tap_tile<T, LAST>(stage0, tl, x, bands, p, a, kc);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int buf = 0; f0 < f1; buf ^= 1) {
+    TapTile nx = tl;
+    const bool more = next_tap_tile(nx, f1, a.m, p.t, LAST ? 0 : K - 2);
+    if (more) stage_tap_tile<T, LAST>(stage0 + (buf ^ 1) * stage, nx, x, bands, p, a, kc);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
 
-    T* bl = bt;
-    T* bh = bt + static_cast<size_t>(run) * t;
-    if (tile.last) {
-      Walk st(tid, wins);
-      for (int e = tid; e < nrun * wins; e += PTWT_THREADS, st.next()) {
-        T* dst = win + st.row * span + st.col;
-        const int q = src[st.col];
-        if (q >= 0)
-          copy_async(dst, x + (lead + st.row) * a.n + q);
-        else
-          *dst = T(0);
-      }
-      Walk sb(tid, n_out);
-      for (int e = tid; e < nrun * n_out; e += PTWT_THREADS, sb.next()) {
-        const int64_t r = lead + sb.row;
-        const int g = static_cast<int>(r / a.outer);
-        const int64_t at = (r - g * a.outer) * a.m + j0 + sb.col;
-        copy_async(bl + sb.row * t + sb.col, bands.lo[g] + at);
-        copy_async(bh + sb.row * t + sb.col, bands.hi[g] + at);
-      }
-    } else {
-      const T* xo = x + o * a.n * a.inner + lead;
-      for (int e = tid; e < wins * run; e += PTWT_THREADS) {
-        const int w = e >> tile.shift, c = e & (run - 1);
-        const int q = src[w];
-        if (q >= 0 && c < nrun)
-          copy_async(win + e, xo + static_cast<int64_t>(q) * a.inner + c);
-        else
-          win[e] = T(0);
-      }
-      const int g = static_cast<int>(o / a.outer);
-      const int64_t base = ((o - g * a.outer) * a.m + j0) * a.inner + lead;
-      for (int e = tid; e < n_out * run; e += PTWT_THREADS) {
-        const int j = e >> tile.shift, c = e & (run - 1);
-        if (c < nrun) {
-          const int64_t at = base + static_cast<int64_t>(j) * a.inner + c;
-          copy_async(bl + e, bands.lo[g] + at);
-          copy_async(bh + e, bands.hi[g] + at);
-        } else {
-          bl[e] = bh[e] = T(0);
-        }
-      }
+    // this lane's first band position in the tile and its steps: a middle
+    // axis's lane walks its column through the whole tile, a last axis's
+    // lane a run of p.lane positions of the row
+    const int j_lane = LAST ? lane * p.lane : 0;
+    const int steps = LAST ? max(0, min(p.lane, tl.n - j_lane)) : tl.n;
+    const T* st = stage0 + buf * stage;
+    const T* wp = st + (LAST ? tl.sh + 2 * j_lane : lane) + (chunk * K - tl.h0) * RS;
+    const T* bl = st + p.win + (LAST ? tl.bsh + j_lane : lane);
+    const T* bh = bl + p.band;
+    if (tl.h0 == 0) {  // a run starts: the first K - 2 window positions
+#pragma unroll
+      for (int i = 0; i < K - 2; ++i) w[i] = static_cast<double>(wp[i * RS]);
     }
-    wait_staged();
-
-    if (s < sums) {
-      const T* bf = f ? bh : bl;
-      if (tile.last) {
-        for (int r = 0; r < nrun; ++r) {
-          const T* wr = win + r * span + k;
-          const T* br = bf + r * t;
-          for (int j = lane; j < n_out; j += lanes)
-            acc += static_cast<double>(br[j]) * static_cast<double>(wr[2 * j]);
-        }
-      } else {
-        for (int e = lane; e < n_out * run; e += lanes) {
-          const int j = e >> tile.shift, c = e & (run - 1);
-          acc += static_cast<double>(bf[e]) *
-                 static_cast<double>(win[((2 * j + k) << tile.shift) + c]);
-        }
-      }
+    int j = 0;
+    for (; j + U <= steps; j += U) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        tap_step<T, K, RS>(w, lo, hi, wp + 2 * j * RS, bl + j * RS, bh + j * RS, u);
     }
+    // a run's last tile only: the next tile (if any) starts afresh
+#pragma unroll
+    for (int u = 0; u < U - 1; ++u)
+      if (j + u < steps) tap_step<T, K, RS>(w, lo, hi, wp + 2 * j * RS, bl + j * RS, bh + j * RS, u);
     __syncthreads();
+    if (!more) break;
+    tl = nx;
   }
-  red[tid] = acc;
-  __syncthreads();
-  if (s < sums && lane == 0) {
-    double sum = 0.0;
-    for (int l = 0; l < lanes; ++l) sum += red[s * lanes + l];
-    partial[static_cast<int64_t>(blockIdx.x) * sums + s] = sum;
+
+  const int sums = 2 * a.len;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    double vl = lo[k], vh = hi[k];
+#pragma unroll
+    for (int off = TAP_LANES / 2; off > 0; off >>= 1) {
+      vl += __shfl_xor_sync(0xffffffffu, vl, off);
+      vh += __shfl_xor_sync(0xffffffffu, vh, off);
+    }
+    const int tap = chunk * K + k;
+    if (lane == 0 && tap < a.len) {
+      partial[static_cast<int64_t>(blockIdx.x) * sums + tap] = vl;
+      partial[static_cast<int64_t>(blockIdx.x) * sums + a.len + tap] = vh;
+    }
   }
 }
 
@@ -856,6 +1056,46 @@ static int launch_synthesis(const void* lo0, const void* hi0, const void* lo1,
   return launch_synthesis_as<T, 1, false>(bands, dst, taps, tile, a, smem, stream);
 }
 
+template <typename T, int K, bool LAST>
+static int launch_tap_plan(const T* x, const BandPairs<T>& bands, double* out, double* partial,
+                           int cap, const TapPlan& p, const TapArgs& a, size_t smem,
+                           cudaStream_t stream) {
+  auto kernel = tap_grad_kernel<T, K, LAST>;
+  if (int err = set_smem(kernel, smem)) return err;
+  const int threads = TAP_LANES * p.chunks;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (int err = static_cast<int>(cudaGetDevice(&dev))) return err;
+  if (int err = static_cast<int>(
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+    return err;
+  if (int err = static_cast<int>(
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)))
+    return err;
+  // the blocks the card holds at once, at most `cap` and one tile each
+  const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  const int blocks = static_cast<int>(min64(min64(cap, resident), (p.total + p.t - 1) / p.t));
+  kernel<<<blocks, threads, smem, stream>>>(x, bands, partial, p, a);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  tap_reduce_kernel<<<2 * a.len, PTWT_THREADS, 0, stream>>>(partial, blocks, 2 * a.len, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool LAST>
+static int launch_tap_chunk(const T* x, const BandPairs<T>& bands, double* out, double* partial,
+                            int cap, const TapPlan& p, const TapArgs& a, size_t smem,
+                            cudaStream_t stream) {
+  switch (tap_chunk(a.len)) {
+    case 4:
+      return launch_tap_plan<T, 4, LAST>(x, bands, out, partial, cap, p, a, smem, stream);
+    case 8:
+      return launch_tap_plan<T, 8, LAST>(x, bands, out, partial, cap, p, a, smem, stream);
+    case 12:
+      return launch_tap_plan<T, 12, LAST>(x, bands, out, partial, cap, p, a, smem, stream);
+    default:
+      return launch_tap_plan<T, 16, LAST>(x, bands, out, partial, cap, p, a, smem, stream);
+  }
+}
+
 template <typename T>
 static int launch_taps(const void* x, const void* lo0, const void* hi0, const void* lo1,
                        const void* hi1, int groups, double* out, double* partial, int cap,
@@ -867,21 +1107,22 @@ static int launch_taps(const void* x, const void* lo0, const void* hi0, const vo
   bands.lo[1] = static_cast<const T*>(groups > 1 ? lo1 : lo0);
   bands.hi[1] = static_cast<const T*>(groups > 1 ? hi1 : hi0);
   TapArgs a{outer, inner, groups, n, m, period, pad, mode, len};
-  AxisTile tile;
-  const size_t smem = plan_taps(tile, groups * static_cast<int64_t>(outer), m, inner, len,
+  TapPlan p;
+  const size_t smem = plan_taps(p, groups * static_cast<int64_t>(outer), m, inner, len,
                                 sizeof(T));
-  if (smem > AXIS_SMEM_MAX - sizeof(double) * PTWT_THREADS) return PTWT_BAD_ARGUMENT;
-  auto kernel = tap_grad_kernel<T>;
-  // always set: the static `red` counts against the 48 KB default too
-  if (int err = static_cast<int>(cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem))))
-    return err;
-  const int blocks = static_cast<int>(min64(tile.blocks, cap));
-  kernel<<<blocks, PTWT_THREADS, smem, stream>>>(static_cast<const T*>(x), bands, partial,
-                                                 tile, a);
-  if (int err = static_cast<int>(cudaGetLastError())) return err;
-  tap_reduce_kernel<<<2 * len, PTWT_THREADS, 0, stream>>>(partial, blocks, 2 * len, out);
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte copies from aligned arrays (on a middle axis, rows of a
+  // multiple of 16 bytes too)
+  const auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  const int vw = static_cast<int>(16 / sizeof(T));
+  const bool bands_aligned = aligned(bands.lo[0]) && aligned(bands.hi[0]) &&
+                             aligned(bands.lo[1]) && aligned(bands.hi[1]);
+  p.vec = aligned(x) && (inner == 1 || (inner % vw == 0 && bands_aligned));
+  p.bvec = inner == 1 && bands_aligned;
+  if (smem > AXIS_SMEM_MAX) return PTWT_BAD_ARGUMENT;
+  const T* xs = static_cast<const T*>(x);
+  if (inner == 1)
+    return launch_tap_chunk<T, true>(xs, bands, out, partial, cap, p, a, smem, stream);
+  return launch_tap_chunk<T, false>(xs, bands, out, partial, cap, p, a, smem, stream);
 }
 
 // dtype: 0 = float32, 1 = float64.  Returns a cudaError_t after the launch,

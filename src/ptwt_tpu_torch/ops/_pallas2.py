@@ -235,9 +235,11 @@ def idwt_axis_tap_grad_plain(
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-#: Rows of KT's scratch: the most blocks of its first launch (a fixed
-#: grid, so the order of its sums, and the result, never change).
-TAP_BLOCKS = 1024
+#: Rows of KT's scratch: the most blocks of its first launch, which runs as
+#: many as fit on the card at once (an H100 holds at most 32 blocks on each
+#: of its 132 SMs), so the order of its sums depends on the shapes and the
+#: device.
+TAP_BLOCKS = 32 * 132
 
 
 def _outer_inner(shape: Sequence[int], ax: int) -> tuple[int, int]:

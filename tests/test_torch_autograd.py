@@ -25,6 +25,7 @@ from ptwt_tpu.ops import _pallas2d as j2d
 from ptwt_tpu_torch.ops import _kernels
 from ptwt_tpu_torch.ops import _pallas2 as t2
 from ptwt_tpu_torch.ops import _pallas2d as t2d
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _close(got: torch.Tensor, want, tol):

@@ -31,6 +31,7 @@ from ptwt_tpu_torch.ops import _pallas as t6
 from ptwt_tpu_torch.ops import _pallas1d as t7
 from ptwt_tpu_torch.ops import _pallas1d_multi as t8
 from ptwt_tpu_torch.ops import _pallas2 as t2
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 PADDED = ["zero", "reflect", "periodic", "symmetric", "constant"]
 

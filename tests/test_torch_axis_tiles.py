@@ -47,6 +47,7 @@ from ptwt_tpu_torch.ops import _pallas1d as t7
 from ptwt_tpu_torch.ops import _pallas1d_multi as t8
 from ptwt_tpu_torch.ops import _pallas2 as t2
 from ptwt_tpu_torch.ops import _pallas2d as t2d
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 # the constants of csrc/axis.cu and csrc/common.cuh
 MAX_TAPS = 128

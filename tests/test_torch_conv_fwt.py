@@ -23,6 +23,7 @@ import ptwt_tpu_torch as tptwt
 from ptwt_tpu_torch.ops import _pallas as t6
 from ptwt_tpu_torch.ops import _pallas1d_multi as t8
 from ptwt_tpu_torch.utils import coeffs_from_numpy, coeffs_to_numpy
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 MODES = ["zero", "constant", "reflect", "periodic", "symmetric", "periodization"]
 TOL = {np.float32: 1e-5, np.float64: 1e-10}

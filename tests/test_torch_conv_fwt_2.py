@@ -20,6 +20,7 @@ import ptwt_tpu as jptwt
 import ptwt_tpu_torch as tptwt
 from ptwt_tpu_torch.constants import WaveletDetailTuple2d
 from ptwt_tpu_torch.utils import coeffs_from_numpy, coeffs_to_numpy
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 MODES = ["zero", "constant", "reflect", "periodic", "symmetric", "periodization"]
 TOL = {np.float32: 2e-5, np.float64: 1e-12}

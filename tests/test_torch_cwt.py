@@ -25,6 +25,7 @@ import ptwt_tpu_torch as tptwt
 from ptwt_tpu_torch.continuous_transform import wavelet_from_numpy
 from test_cwt import _oracle_cwt_one_scale
 from test_published_cwt import NAMES, closed_form_psi
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = {np.float32: 1e-5, np.float64: 1e-10}
 DISCRETE = ["db4", "sym3", "bior2.2", "haar"]

@@ -20,6 +20,7 @@ import ptwt_tpu_torch as ptwt_torch
 import ptwt_tpu_torch.utils as tutils
 import ptwt_tpu_torch.wavelets as twavelets
 from ptwt_tpu_torch.constants import WaveletDetailTuple2d, WaveletTensorTuple
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 DATA = Path(__file__).parent / "data"
 _TABLES = np.load(DATA / "filter_tables.npz")

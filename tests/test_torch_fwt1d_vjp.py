@@ -41,6 +41,7 @@ from ptwt_tpu.utils import fwt_pad
 from ptwt_tpu_torch.ops import _kernels
 from ptwt_tpu_torch.ops import _pallas1d as t7
 from ptwt_tpu_torch.ops import _pallas1d_multi as t8
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 PADDED = ["zero", "reflect", "periodic", "symmetric", "constant"]
 N_ODD, N_EVEN = t8.FLAT_MIN_LANES + 1, t8.FLAT_MIN_LANES + 2

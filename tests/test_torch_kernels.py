@@ -41,6 +41,7 @@ from ptwt_tpu_torch.ops import _pallas1d_multi as t8
 from ptwt_tpu_torch.ops import _pallas2 as t2
 from ptwt_tpu_torch.ops import _pallas2d as t2d
 from ptwt_tpu_torch.utils._padding import source_index
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 AXIS_MODES = ["zero", "reflect", "periodic", "symmetric", "constant", "periodization", "valid"]
 

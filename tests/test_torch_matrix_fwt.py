@@ -32,6 +32,7 @@ from ptwt_tpu_torch import matmul_transform as tmt
 from ptwt_tpu_torch import matmul_transform_2 as tmt2
 from ptwt_tpu_torch import sparse_math as tsm
 from ptwt_tpu_torch.ops import _conv, get_precision, set_precision
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = {np.float32: 2e-5, np.float64: 1e-12}
 KEYS = ["aad", "ada", "add", "daa", "dad", "dda", "ddd"]

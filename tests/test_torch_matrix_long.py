@@ -41,6 +41,7 @@ from ptwt_tpu_torch.ops._boundary_long import (
     long_run_depth,
     long_syn_run_depth,
 )
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 KEYS = ["aad", "ada", "add", "daa", "dad", "dda", "ddd"]
 # the JAX references run under jit: one compile per configuration instead

@@ -48,6 +48,7 @@ from ptwt_tpu_torch.ops import _kernels
 from ptwt_tpu_torch.ops import _mxu2d as t9
 from ptwt_tpu_torch.ops import _pallas2 as t2
 from ptwt_tpu_torch.ops import _pallas2d as t2d
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 _SOURCE = (Path(__file__).resolve().parents[1] / "src/ptwt_tpu_torch/csrc/mxu2d.cu").read_text()
 
@@ -527,8 +528,23 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("shape,bank,mode", CASES)
+def case_params(indices):
+    """``CASES[i]`` with the ids pytest gives them in a parametrisation over
+    all of them: the slow replays run in files of their own
+    (``test_torch_mxu2d_tiles_*.py``), so that the test run spreads them
+    over its workers, and keep their ids."""
+    return pytest.mark.parametrize(
+        "shape,bank,mode", [CASES[i] for i in indices],
+        ids=[f"shape{i}-{CASES[i][1]}-{CASES[i][2]}" for i in indices],
+    )
+
+
+@case_params([0, 6])
 def test_replay_matches_plain(shape, bank, mode):
+    check_replay(shape, bank, mode)
+
+
+def check_replay(shape, bank, mode):
     """K9a, K9b and both VJP instances, each launch against its plain
     version (1e-12), and in float64 the adjoint identity of each pair."""
     lo, hi, rlo, rhi = _bank(bank)

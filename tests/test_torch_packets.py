@@ -22,6 +22,7 @@ import torch
 import ptwt_tpu as jptwt
 import ptwt_tpu_torch as tptwt
 from ptwt_tpu_torch import packets as tpackets
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = {np.float32: 2e-5, np.float64: 1e-10}
 # (mode, orthogonalization): the six padded modes and the matrix backend

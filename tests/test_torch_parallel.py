@@ -17,6 +17,7 @@ import torch
 import _torch_parallel_worker as worker
 from _torch_parallel_check import GRAD_ATOL, check_case, check_grad, bands
 from ptwt_tpu_torch.parallel._padded_axis import sharded_idwt_level
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 SUITE = worker.SUITES["parallel"]
 CASES = [name for name, spec in SUITE.items() if not spec.get("error")]

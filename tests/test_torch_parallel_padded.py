@@ -20,6 +20,7 @@ import pytest
 import _torch_parallel_worker as worker
 from _torch_parallel_check import ATOL, bands, check_case, check_grad
 from ptwt_tpu.parallel import make_wavelet_mesh, tiled_wavedec, tiled_wavedec2, tiled_wavedec3
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 SUITE = worker.SUITES["padded"]
 CASES = list(SUITE)

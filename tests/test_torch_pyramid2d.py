@@ -28,6 +28,7 @@ import ptwt_tpu_torch as tptwt
 from ptwt_tpu.ops import _pallas as j5
 from ptwt_tpu_torch.ops import _kernels
 from ptwt_tpu_torch.ops import _pallas as t5
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL32 = 3e-6
 

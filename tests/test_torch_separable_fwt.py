@@ -19,6 +19,7 @@ from test_torch_kernels import model_kernels  # noqa: F401
 import ptwt_tpu as jptwt
 import ptwt_tpu_torch as tptwt
 from ptwt_tpu_torch.ops import _kernels
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 MODES = ["zero", "constant", "reflect", "periodic", "symmetric", "periodization"]
 TOL = {np.float32: 2e-5, np.float64: 1e-12}

@@ -18,6 +18,7 @@ import torch
 import ptwt_tpu as jptwt
 import ptwt_tpu_torch as tptwt
 from ptwt_tpu.wavelets import Wavelet as JWavelet
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = {np.float32: 2e-5, np.float64: 1e-12}
 # the JAX reference under jit: one compile per configuration instead of
