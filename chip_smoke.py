@@ -246,6 +246,29 @@ Phases, each raising (non-zero exit) on failure:
    (c) (``chip_smoke.py --tiled-times``, a process of its own) the t2d and
    td1 round trips on one rank beside the serial ones: device ms, wall ms,
    busy share.
+19. the reduced-precision mode (``chip_smoke.py --prec-times ROW``, a
+   process for each row, and ``--prec-times conv``): under ``ops.set_precision("high")`` (TF32 products) and
+   ``("default")`` (bfloat16 operands, float32 accumulation and result) in
+   turn, with the caller's global settings at a float32 matmul precision of
+   ``"medium"`` and cuDNN's TF32 off: the headline ``wavedec2`` ->
+   ``waverec2`` in ``periodic``, ``reflect`` and ``periodization``, d3
+   (``[32, 100, 100, 100]``, db5, 3 levels, ``reflect``) and d1 (``[32,
+   10**6]``, db5, 10 levels, ``periodic``), float32 at full width: bands and
+   reconstruction against the float64 transform (max-abs over ``max(1,
+   |leaf|)``: 1e-2 for ``"high"``, 2e-1 for ``"default"``), against
+   ``"highest"`` (nonzero on every leaf a dense level reached; zero, bit
+   for bit, on every leaf of
+   ``periodization``, whose levels stay on K5, and on d1's detail bands of
+   levels 1-9, which stay on K8 and K3), the launches of each direction
+   (none where every axis is at most 2048 samples; K5 as at ``"highest"``;
+   d1 one K3 and one K4 fewer, level 10 going dense; never K1, K2 or K9),
+   one backward of the round trip against float64 (over the gradient's
+   largest entry, ten times the level's limit), the caller's settings
+   unchanged, and each row's device ms (CUDA events and the profiler's busy
+   time), wall ms, busy share and GEMM kernels beside ``"highest"``'s; then
+   ``analysis_conv``/``synthesis_conv`` at the headline's level 1 against
+   float64 at each level, ``"highest"`` within 2e-5 with cuDNN's TF32 flag
+   left on by the caller.
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -292,7 +315,8 @@ collectives and ``DTensor.full_tensor()`` of even and uneven shards, and
 prints what each rank got: ok, the error's text, or its exit code.
 
 The last lines are phase 16's ``{"packets_cwt": ...}`` line, phase 17's
-``{"learnable": ...}`` line, phase 18's ``{"tiled": ...}`` line, a
+``{"learnable": ...}`` line, phase 18's ``{"tiled": ...}`` line, phase 19's
+``{"precision": ...}`` line, a
 ``{"kernels": [...]}`` JSON line (fifteen kernels: KT, the taps'
 gradient, last; K3, K4, K7a and K7b with phase 18's ``tiled_launches``,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
@@ -1749,6 +1773,20 @@ def fwt1d_times(tile_samples=None) -> dict:
     return out
 
 
+def times_process(*args: str, timeout: int = 600) -> dict:
+    """Run ``chip_smoke.py ARGS`` in a process of its own (late in a long
+    process ``torch.profiler``'s windows lose launches), log its lines and
+    return its last line's JSON; raise if it fails."""
+    flag = " ".join(args)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), *args],
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{flag} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    *lines, last = proc.stdout.strip().splitlines()
+    log("\n".join(lines))
+    return json.loads(last)
+
+
 def turns(parent: Path, flag: str) -> dict:
     """``chip_smoke.py flag`` on the parent tree and on this one in turns
     (parent, this, this, parent), each a process of its own started with
@@ -3049,13 +3087,7 @@ def check_nd() -> dict:
         torch.cuda.empty_cache()
     # the times in a process of their own, whose profiler windows hold
     # every launch (late in this one they lose some)
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--nd-times"],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"--nd-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    *lines, last = proc.stdout.strip().splitlines()
-    log("\n".join(lines))
-    for name, times in json.loads(last).items():
+    for name, times in times_process("--nd-times").items():
         for row_name, extra in times.pop("level1", {}).items():
             nd[name]["level1"][row_name].update(extra)
         nd[name]["times"] = times
@@ -3317,13 +3349,7 @@ def check_mat(errors: dict) -> dict:
         torch.cuda.empty_cache()
     mat["tf32_check_rel_err"] = check_tf32_ignored()
     check_sameshift(errors)
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--mat-times"],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"--mat-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    *lines, last = proc.stdout.strip().splitlines()
-    log("\n".join(lines))
-    mat["times"] = json.loads(last)
+    mat["times"] = times_process("--mat-times")
     for i, (name, kind, shape, wavelet, level, dtype, kwargs, cutoff) in enumerate(MAT_SMALL):
         from ptwt_tpu_torch.ops import long_boundary_cutoff, set_long_boundary_cutoff
 
@@ -3703,13 +3729,7 @@ def check_pkt() -> dict:
                           TOL)
             if row["size_groups"] < 2:
                 raise AssertionError(f"cwt {wav}: scales {PKT_CWT_SCALES} took one FFT size")
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--pkt-times"],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"--pkt-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    *lines, last = proc.stdout.strip().splitlines()
-    log("\n".join(lines))
-    pkt["times"] = json.loads(last)
+    pkt["times"] = times_process("--pkt-times")
     return pkt
 
 
@@ -4247,13 +4267,7 @@ def check_learn() -> dict:
         learn[name] = check_learn_full(i, name, kind, shape, wavelet, level, mode)
     check_kt(learn["errors"])
     learn["more"] = check_learn_more()
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--learn-times"],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"--learn-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    *lines, last = proc.stdout.strip().splitlines()
-    log("\n".join(lines))
-    learn["times"] = json.loads(last)
+    learn["times"] = times_process("--learn-times")
     return learn
 
 
@@ -4809,14 +4823,273 @@ def check_tiled() -> dict:
     tiled = {"one_rank": tiled_one_rank()}
     log("  (b) four ranks sharing the card, gloo, halo slabs through pinned host memory")
     tiled["four_ranks"] = tiled_ranks()
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--tiled-times"],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"--tiled-times failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    *lines, last = proc.stdout.strip().splitlines()
-    log("\n".join(lines))
-    tiled["times"] = json.loads(last)
+    tiled["times"] = times_process("--tiled-times")
     return tiled
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the reduced-precision mode (the dense-operator route)
+# ---------------------------------------------------------------------------
+
+#: Phase 19's rows, float32 at full width: (name, dim, shape, wavelet,
+#: mode, level): the headline in three modes, d3 and d1.
+PREC_ROWS = (
+    ("2d periodic", 2, SHAPE, WAVELET, "periodic", LEVEL),
+    ("2d reflect", 2, SHAPE, WAVELET, "reflect", LEVEL),
+    ("2d periodization", 2, SHAPE, WAVELET, "periodization", LEVEL),
+    ("d3", 3, (32, 100, 100, 100), "db5", "reflect", 3),
+    ("d1", 1, D1_SHAPE, WAVELET_1D, "periodic", LEVEL_1D),
+)
+PREC_FUNCS = {1: ("wavedec", "waverec"), 2: ("wavedec2", "waverec2"), 3: ("wavedec3", "waverec3")}
+#: Max-abs error of each band and the reconstruction against the float64
+#: transform, over ``max(1, that leaf's largest magnitude)`` (PERF.md §2):
+#: TF32 products (unit roundoff 2^-11) and bfloat16 operands (2^-8), about
+#: twice the largest reading on the H100; a backward's gradient, over
+#: ``max(1, its largest entry)``, to the same limit.  Each limit must also
+#: fail ``prec_control``.
+PREC_LIMITS = {"high": 3e-3, "default": 3e-2}
+#: ``prec_control``'s boundary error: the first sample along the last axis
+#: of every leaf scaled by this
+PREC_CONTROL = 1.1
+#: The caller's global float32 settings during phase 19, which no product
+#: of the port may leave changed (neither is torch's default).
+PREC_CALLER = ("medium", False)
+
+
+def prec_leaves(coeffs) -> list:
+    """The approximation, then each level's bands (3d: by sorted key)."""
+    out = [coeffs[0]]
+    for item in coeffs[1:]:
+        out += [item[k] for k in sorted(item)] if isinstance(item, dict) else list(item) if isinstance(item, tuple) else [item]
+    return out
+
+
+def prec_forward(dim: int, x, wavelet: str, mode: str, level: int):
+    return getattr(ptwt, PREC_FUNCS[dim][0])(x, wavelet, mode=mode, level=level)
+
+
+def prec_inverse(dim: int, coeffs, wavelet: str, mode: str):
+    rec_mode = mode if dim < 3 or mode == "periodization" else None
+    return getattr(ptwt, PREC_FUNCS[dim][1])(coeffs, wavelet, mode=rec_mode)
+
+
+def prec_counted(fn):
+    _kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _kernels.LAUNCHES.items() if v}
+
+
+def prec_expected(name: str, highest: dict, direction: str) -> dict:
+    """The launches of a reduced-precision run: none where every axis of
+    every level is at most 2048 samples (the 2d headline, d3); the K5
+    pyramids of 2d periodization as at ``"highest"``; d1's launches but one
+    K3 (K4) for level 10, whose 1962 samples go dense."""
+    if name == "2d periodization":
+        return dict(highest)
+    if name == "d1":
+        out = dict(highest)
+        drop = "K3" if direction == "forward" else "K4"
+        out[drop] -= 1
+        return {k: v for k, v in out.items() if v}
+    return {}
+
+
+def prec_same(name: str) -> list:
+    """Which leaves of a reduced-precision forward must equal ``"highest"``'s
+    bit for bit (no dense level reached them): all of 2d periodization
+    (K5), d1's detail bands of levels 1-9 (K8 and K3)."""
+    if name == "2d periodization":
+        return "all"
+    if name == "d1":
+        return "from 2"
+    return "none"
+
+
+def prec_gemms(rows: list) -> list:
+    """The profiler rows of the GEMM kernels (cuBLAS names them ``*gemm*``,
+    ``nvjet*``, ``*xmma*`` or ``cutlass*``)."""
+    return [(ms, count, key[:90]) for ms, count, key in rows
+            if any(s in key.lower() for s in ("gemm", "nvjet", "xmma", "cutlass"))]
+
+
+#: Substrings of the hand-written kernels' names in a profile
+PREC_HAND = ("axis_kernel", "tile_kernel", "pyramid", "mxu2d")
+
+
+def prec_timing(run, label: str, launches: int) -> dict:
+    """Device ms (CUDA events; the profiler's busy ms), wall ms, busy share
+    and the GEMM kernels of one round trip, from a profiler window that
+    must hold every one of its ``launches`` hand-written kernel launches."""
+    rows = profile(run, label, top=6)
+    busy = sum(r[0] for r in rows)
+    wall = wall_ms(run)
+    gemms = prec_gemms(rows)
+    seen = sum(count for _, count, key in rows if any(s in key for s in PREC_HAND))
+    if seen != launches:
+        raise AssertionError(f"{label}: the profile holds {seen} of {launches} kernel launches")
+    return {
+        "events_ms": time_ms(run),
+        "device_ms": busy,
+        "wall_ms": wall,
+        "busy_share": busy / wall,
+        "gemm_ms": sum(r[0] for r in gemms),
+        "gemms": [[ms, count, key] for ms, count, key in gemms],
+        "top": [[ms, count, key[:90]] for ms, count, key in rows[:4]],
+    }
+
+
+def prec_error(got: list, want: list) -> float:
+    """The largest max-abs error of a leaf over ``max(1, its largest
+    magnitude)``."""
+    return max(max_abs(g.double(), w) / max(1.0, float(w.abs().max())) for g, w in zip(got, want))
+
+
+def prec_control(got: list) -> list:
+    """``got`` with a boundary row off by ``PREC_CONTROL - 1`` (what a wrong
+    boundary fold gives): a result each level's limit must reject."""
+    out = []
+    for g in got:
+        g = g.clone()
+        g[..., :1] *= PREC_CONTROL
+        out.append(g)
+    return out
+
+
+def prec_grad(dim: int, x, wavelet: str, mode: str, level: int, w) -> torch.Tensor:
+    """The gradient of one round trip's ``sum(rec * w) + sum(bands)``."""
+    xd = leaf(x)
+    coeffs = prec_forward(dim, xd, wavelet, mode, level)
+    rec = prec_inverse(dim, coeffs, wavelet, mode)
+    loss = (rec * w).sum() + sum(b.sum() for b in prec_leaves(coeffs))
+    (grad,) = torch.autograd.grad(loss, xd)
+    return grad
+
+
+def prec_times() -> dict:
+    """``--prec-times ROW`` (phase 19, one process a row, whose profiler
+    windows then hold every launch): the ``PREC_ROWS`` row named ROW under
+    ``"high"`` and ``"default"`` against the float64 transform and against
+    ``"highest"``, its launches, times, GEMMs and one backward; or, for
+    ``conv``, :func:`prec_conv`.  The caller's global float32 settings
+    (``PREC_CALLER``) must be unchanged after each level."""
+    from ptwt_tpu_torch import ops
+
+    name = _arg("--prec-times")
+    torch.set_float32_matmul_precision(PREC_CALLER[0])
+    torch.backends.cudnn.allow_tf32 = PREC_CALLER[1]
+    try:
+        out = prec_conv() if name == "conv" else prec_row(name)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = True
+    if ops.get_precision() != "highest":
+        raise AssertionError("phase 19 left the port's precision changed")
+    return out
+
+
+def prec_row(name: str) -> dict:
+    from ptwt_tpu_torch import ops
+
+    i, (_, dim, shape, wavelet, mode, level) = next((i, r) for i, r in enumerate(PREC_ROWS) if r[0] == name)
+    log(f"  {name}: {PREC_FUNCS[dim][0]} -> {PREC_FUNCS[dim][1]} on {list(shape)}, {wavelet}, {mode}, level {level}")
+    x = randn(shape, torch.float32, SEED + 1900 + i)
+    w = randn(shape, torch.float32, SEED + 1950 + i)
+    x64 = x.double()
+    coeffs64 = prec_forward(dim, x64, wavelet, mode, level)
+    want = prec_leaves(coeffs64) + [prec_inverse(dim, coeffs64, wavelet, mode)]
+    grad64 = prec_grad(dim, x64, wavelet, mode, level, w.double())
+    del x64, coeffs64
+    coeffs_h, fwd_h = prec_counted(lambda: prec_forward(dim, x, wavelet, mode, level))
+    rec_h, inv_h = prec_counted(lambda: prec_inverse(dim, coeffs_h, wavelet, mode))
+    highest = prec_leaves(coeffs_h) + [rec_h]
+
+    def round_trip():
+        return prec_inverse(dim, prec_forward(dim, x, wavelet, mode, level), wavelet, mode)
+
+    def launches(counts: dict) -> int:
+        return sum(counts["forward"].values()) + sum(counts["inverse"].values())
+
+    row = {"highest": {"error": max_abs([a.double() for a in highest], want),
+                       "launches": {"forward": fwd_h, "inverse": inv_h}}}
+    row["highest"].update(prec_timing(round_trip, f"{name} highest round trip", launches(row["highest"]["launches"])))
+    log(f"  {name} highest: error {row['highest']['error']!r}, events {row['highest']['events_ms']!r} ms")
+    for level_name, limit in PREC_LIMITS.items():
+        ops.set_precision(level_name)
+        try:
+            coeffs, fwd = prec_counted(lambda: prec_forward(dim, x, wavelet, mode, level))
+            rec, inv = prec_counted(lambda: prec_inverse(dim, coeffs, wavelet, mode))
+            got = prec_leaves(coeffs) + [rec]
+            err = check(f"{name} {level_name} vs float64 (relative)", prec_error(got, want), limit)
+            control = prec_error(prec_control(got), want)
+            log(f"  {name} {level_name} control (a boundary row {PREC_CONTROL - 1:.0%} off): {control!r}")
+            if not control > limit:
+                raise AssertionError(f"{name} {level_name}: the limit {limit!r} passes the control ({control!r})")
+            diffs = [float((g - h).abs().max()) if g.numel() else 0.0 for g, h in zip(got, highest)]
+            same = prec_same(name)
+            for j, d in enumerate(diffs):
+                must_equal = same == "all" or (same == "from 2" and 2 <= j < len(diffs) - 1)
+                if must_equal and d != 0.0:
+                    raise AssertionError(f"{name} {level_name}: leaf {j} differs from highest by {d!r} "
+                                         "where no dense level ran")
+                if not must_equal and not d > 0.0:
+                    raise AssertionError(f"{name} {level_name}: leaf {j} equals highest bit for bit: "
+                                         "the reduced mode did not engage")
+            for direction, counts, ref in (("forward", fwd, fwd_h), ("inverse", inv, inv_h)):
+                if any(counts.get(k) for k in ("K1", "K2", "K9a", "K9b")):
+                    raise AssertionError(f"{name} {level_name} {direction}: K1/K2/K9 launched: {counts}")
+                expected = prec_expected(name, ref, direction)
+                if counts != expected:
+                    raise AssertionError(f"{name} {level_name} {direction}: launches {counts}, expected {expected}")
+            grad = prec_grad(dim, x, wavelet, mode, level, w)
+            grad_err = check(f"{name} {level_name} backward vs float64 (relative)",
+                             max_abs(grad.double(), grad64) / max(1.0, float(grad64.abs().max())), limit)
+            entry = {"error": err, "limit": limit, "control_error": control, "max_diff_vs_highest": max(diffs),
+                     "diff_per_leaf": diffs, "launches": {"forward": fwd, "inverse": inv},
+                     "backward_error": grad_err}
+            entry.update(prec_timing(round_trip, f"{name} {level_name} round trip", launches(entry["launches"])))
+        finally:
+            ops.set_precision("highest")
+        if (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32) != PREC_CALLER:
+            raise AssertionError(f"{name} {level_name}: the caller's float32 settings changed")
+        log(f"  {name} {level_name}: error {err!r}, diff vs highest {max(diffs)!r}, events {entry['events_ms']!r} ms, "
+            f"wall {entry['wall_ms']!r} ms, gemms {entry['gemm_ms']!r} ms")
+        row[level_name] = entry
+    return row
+
+
+def prec_conv() -> dict:
+    """``analysis_conv``/``synthesis_conv`` at the headline's level 1 (db4,
+    no padding) at each level against float64, with cuDNN's TF32 flag left
+    on by the caller: ``"highest"`` must hold the float32 limit."""
+    from ptwt_tpu_torch import ops
+    from ptwt_tpu_torch.utils import construct_nd_filter
+
+    dl, dh, rl, rh = banks_2d(torch.float64)
+    dec = construct_nd_filter(dl, dh, 2).to(DEVICE)
+    rec = construct_nd_filter(rl, rh, 2).to(DEVICE)
+    x = randn(SHAPE, torch.float32, SEED + 1990)
+    want = ops.analysis_conv(x.double(), dec)
+    want_rec = ops.synthesis_conv(want, rec)
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for level_name in ("highest", *PREC_LIMITS):
+            ops.set_precision(level_name)
+            try:
+                got = ops.analysis_conv(x, dec.float())
+                got_rec = ops.synthesis_conv(want.float(), rec.float())
+            finally:
+                ops.set_precision("highest")
+            out[level_name] = {"analysis": max_abs(got.double(), want), "synthesis": max_abs(got_rec.double(), want_rec)}
+            log(f"  conv {level_name}: {out[level_name]}")
+            if torch.backends.cudnn.allow_tf32 is not True:
+                raise AssertionError("the convolutions left cuDNN's TF32 flag changed")
+    finally:
+        torch.backends.cudnn.allow_tf32 = PREC_CALLER[1]
+    check("conv highest vs float64 (analysis)", out["highest"]["analysis"], TOL[torch.float32])
+    check("conv highest vs float64 (synthesis)", out["highest"]["synthesis"], TOL[torch.float32])
+    return out
 
 
 def copy_bandwidth() -> float:
@@ -5045,6 +5318,10 @@ def main() -> int:
     log("phase 18: the tiled multi-device transforms (ptwt_tpu_torch.parallel), K3/K4 and K7 per rank")
     tiled = check_tiled()
     print(json.dumps({"tiled": tiled}))
+
+    log('phase 19: the reduced-precision mode ("high", "default"): the dense-operator route')
+    precision = {name: times_process("--prec-times", name) for name in (*(r[0] for r in PREC_ROWS), "conv")}
+    print(json.dumps({"precision": precision}))
 
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
@@ -5367,6 +5644,7 @@ if __name__ == "__main__":
                         ("--k9-times", k9_times), ("--nd-times", nd_times_all), ("--mat-times", mat_times),
                         ("--pkt-times", pkt_times), ("--learn-times", learn_times), ("--tiled-times", tiled_times),
                         ("--dist-probe", dist_probe), ("--kt-times", kt_times), ("--kt-sass", kt_sass),
+                        ("--prec-times", prec_times),
                         ("--kt-turns", lambda: kt_turns(Path(_arg("--kt-turns")).resolve()))):
         if flag in sys.argv:
             if not torch.cuda.is_available():

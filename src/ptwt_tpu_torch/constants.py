@@ -17,14 +17,15 @@ __all__ = [
     "SUPPORTED_DTYPES",
     "BoundaryMode",
     "ExtendedBoundaryMode",
+    "PaddingMode",
     "OrthogonalizeMethod",
     "PacketNodeOrder",
     "Wavelet",
     "WaveletTensorTuple",
     "WaveletCoeff1d",
     "WaveletDetailTuple2d",
-    "WaveletCoeff2d",
     "WaveletDetailDict",
+    "WaveletCoeff2d",
     "WaveletCoeffNd",
     "WaveletCoeff2dSeparable",
 ]
@@ -41,6 +42,9 @@ BoundaryMode = Literal[
 #: A padding mode, or ``boundary`` for the boundary-wavelet matrix backend
 #: of the packet trees.
 ExtendedBoundaryMode = Union[Literal["boundary"], BoundaryMode]
+
+#: Padding used when a matrix transform meets an odd-length axis.
+PaddingMode = Literal["full", "valid", "same", "sameshift"]
 
 #: How the boundary-wavelet matrix transforms orthogonalize their deficient
 #: boundary rows.

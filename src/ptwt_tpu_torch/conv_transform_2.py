@@ -32,6 +32,7 @@ from .utils import (
     coeff_tree_map,
     get_filter_arrays,
     infer_periodization,
+    invalid_coeffs_message,
     postprocess_coeffs,
     postprocess_tensor,
     preprocess_coeffs,
@@ -161,11 +162,7 @@ def waverec2(
     """
     for coeff_tuple in coeffs[1:]:
         if not isinstance(coeff_tuple, tuple) or len(coeff_tuple) != 3:
-            raise ValueError(
-                f"Unexpected detail coefficient type: {type(coeff_tuple)}. "
-                "Detail coefficients must be a 3-tuple of arrays as returned "
-                "by wavedec2."
-            )
+            raise ValueError(invalid_coeffs_message("3-tuple of arrays", coeff_tuple))
     coeffs = coeff_tree_map(as_device_tensor, coeffs)
     coeffs, ds = preprocess_coeffs(coeffs, ndim=2, axes=axes)
     dtype = coeffs[0].dtype

@@ -25,6 +25,7 @@ from .utils import (
     coeff_tree_map,
     get_filter_arrays,
     infer_periodization,
+    invalid_coeffs_message,
     postprocess_coeffs,
     postprocess_tensor,
     preprocess_coeffs,
@@ -133,11 +134,7 @@ def waverec3(
     """
     for coeff_dict in coeffs[1:]:
         if not isinstance(coeff_dict, dict) or len(coeff_dict) != 7:
-            raise ValueError(
-                f"Unexpected detail coefficient type: {type(coeff_dict)}. "
-                "Detail coefficients must be a dict containing 7 arrays as "
-                "returned by wavedec3."
-            )
+            raise ValueError(invalid_coeffs_message("dict containing 7 arrays", coeff_dict))
     coeffs = coeff_tree_map(as_device_tensor, coeffs)
     coeffs, ds = preprocess_coeffs(coeffs, ndim=3, axes=axes)
     dtype = coeffs[0].dtype

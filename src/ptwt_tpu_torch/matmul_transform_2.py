@@ -54,6 +54,7 @@ from .utils import (
     as_device_tensor,
     coeff_tree_map,
     deprecated_alias,
+    invalid_coeffs_message,
     postprocess_coeffs,
     postprocess_tensor,
     preprocess_coeffs,
@@ -420,7 +421,7 @@ class MatrixWaverec2:
         """Reconstruct the image from 2d boundary-wavelet coefficients."""
         for coeff_tuple in coefficients[1:]:
             if not isinstance(coeff_tuple, tuple) or len(coeff_tuple) != 3:
-                raise ValueError(f"Unexpected detail coefficient type: {type(coeff_tuple)}.")
+                raise ValueError(invalid_coeffs_message("3-tuple of arrays", coeff_tuple))
         coeffs = coeff_tree_map(as_device_tensor, coefficients)
         _check_dtype(coeffs[0].dtype)
         coeffs, ds = preprocess_coeffs(coeffs, ndim=2, axes=self.axes)

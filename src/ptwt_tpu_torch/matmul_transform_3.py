@@ -33,6 +33,7 @@ from .utils import (
     as_device_tensor,
     coeff_tree_map,
     deprecated_alias,
+    invalid_coeffs_message,
     postprocess_coeffs,
     postprocess_tensor,
     preprocess_coeffs,
@@ -184,11 +185,7 @@ class MatrixWaverec3:
         """Reconstruct the volume from 3d boundary-wavelet coefficients."""
         for coeff_dict in coefficients[1:]:
             if not isinstance(coeff_dict, dict) or len(coeff_dict) != 7:
-                raise ValueError(
-                    f"Unexpected detail coefficient type: {type(coeff_dict)}. "
-                    "Expected a 7-entry detail dict as returned by "
-                    "MatrixWavedec3."
-                )
+                raise ValueError(invalid_coeffs_message("7-entry detail dict", coeff_dict))
         coeffs = coeff_tree_map(as_device_tensor, coefficients)
         _check_dtype(coeffs[0].dtype)
         coeffs, ds = preprocess_coeffs(coeffs, ndim=3, axes=self.axes)

@@ -7,8 +7,8 @@ of boundary rows, whose values do not depend on ``n`` once the two
 boundaries stop interacting.  So past :func:`long_boundary_cutoff` one
 level is applied as
 
-* the interior through the per-axis routing (:func:`._dispatch.dwt_axis`
-  in ``valid`` on a zero-padded axis, :func:`._dispatch.idwt_axis` in
+* the interior through the per-axis routing (:func:`._dispatch.dwt_axis_packed`
+  in ``valid`` on a zero-padded axis, :func:`._dispatch.idwt_axis_pairs` in
   ``zero`` with the crops ``a`` and ``L - 2 - a``): on a CUDA tensor one
   K3 or one K4 launch, along any axis; plus
 * two small dense edge products, whose rows are measured on a small proxy
@@ -53,7 +53,7 @@ from torch.autograd.function import once_differentiable
 from . import _pallas1d_multi as _multi
 from ._boundary import boundary_analysis_matrix, boundary_synthesis_matrix, strided_conv_matrix
 from ._conv import axis_matmul
-from ._dispatch import dwt_axis, idwt_axis
+from ._dispatch import dwt_axis_packed, idwt_axis_pairs
 
 __all__ = [
     "LongAnalysisOp",
@@ -284,7 +284,7 @@ class LongAnalysisOp(_Constants):
         # zero pad so the valid correlation yields exactly the n/2 rows;
         # rows touching the pad are replaced by the edge products
         pads = [0, 0] * (-axis - 1) + [a, self.filt_len - 2 - a]
-        packed = dwt_axis(
+        packed = dwt_axis_packed(
             F.pad(x, pads), axis, _taps(self._f_lo, x), _taps(self._f_hi, x), "valid"
         )
         lo, hi = packed.unbind(0)
@@ -341,7 +341,7 @@ class LongSynthesisOp(_Constants):
         a = _conv_offset(self.filt_len)
         # the full transposed convolution has 2(m-1)+L outputs; the
         # operator's rows are its [a, a+n) window
-        out = idwt_axis(
+        out = idwt_axis_pairs(
             (lo,), (hi,), axis, _taps(self._rec_lo, lo), _taps(self._rec_hi, lo),
             a, self.filt_len - 2 - a, "zero",
         )[0]

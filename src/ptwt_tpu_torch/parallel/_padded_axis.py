@@ -28,8 +28,8 @@ Where the JAX package reads the rank's coordinate inside ``shard_map``
 host and moved to the input's device, and a rank whose window lies inside
 the signal makes no gather at all.  An axis of one rank runs the serial
 level (its window is the whole extended signal).  Each local level goes
-through :func:`~ptwt_tpu_torch.ops.dwt_axis` (``valid``) and
-:func:`~ptwt_tpu_torch.ops.idwt_axis` (uncropped): K3/K4 on the card, K7a/K7b
+through :func:`~ptwt_tpu_torch.ops._dispatch.dwt_axis_packed` (``valid``) and
+:func:`~ptwt_tpu_torch.ops._dispatch.idwt_axis_pairs` (uncropped): K3/K4 on the card, K7a/K7b
 on a local last axis longer than ``2**16`` samples.
 """
 
@@ -40,7 +40,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..ops import dwt_axis, idwt_axis
+from ..ops._dispatch import dwt_axis_packed, idwt_axis_pairs
 from ._ring import BWD, FWD, edge_sum, exchange
 
 __all__ = [
@@ -153,7 +153,7 @@ def sharded_dwt_level(
     ``cur`` is the local chunk (capacity ``geo['cap_in']``; valid length
     bookkeeping is global and on the host).  Returns the local ``(lo, hi)``
     chunks of capacity ``geo['cap_out']``, packed ``[2, ...]`` as
-    :func:`~ptwt_tpu_torch.ops.dwt_axis` packs them.
+    :func:`~ptwt_tpu_torch.ops._dispatch.dwt_axis_packed` packs them.
     """
     if mode not in _PADDED_MODES:
         raise ValueError(f"Padding mode not supported for tiling: {mode}")
@@ -162,7 +162,7 @@ def sharded_dwt_level(
     cap_in, w_in = geo["cap_in"], geo["w_in"]
     hl, hr = geo["hl"], geo["hr"]
     if s == 1:
-        return dwt_axis(cur, ax, dec_lo, dec_hi, mode)
+        return dwt_axis_packed(cur, ax, dec_lo, dec_hi, mode)
     d = mesh.get_local_rank(axis_name)
 
     slabs, directions = [], []
@@ -227,7 +227,7 @@ def sharded_dwt_level(
             index = np.where(in_head, head_at + np.clip(mapped, 0, e - 1), index)
         source = torch.cat([win, summed], dim=ax)
         win = torch.index_select(source, ax, torch.as_tensor(index, device=cur.device))
-    return dwt_axis(win, ax, dec_lo, dec_hi, "valid")
+    return dwt_axis_packed(win, ax, dec_lo, dec_hi, "valid")
 
 
 def _synthesis_margins(geo: dict, n_out: int, filt_len: int) -> tuple[int, int, int]:
@@ -264,7 +264,7 @@ def sharded_idwt_level(
     mesh,
 ) -> torch.Tensor:
     """One padded-mode synthesis level along the sharded ``axis``, for each
-    (lo, hi) pair (as :func:`~ptwt_tpu_torch.ops.idwt_axis` takes them).
+    (lo, hi) pair (as :func:`~ptwt_tpu_torch.ops._dispatch.idwt_axis_pairs` takes them).
 
     The bands are local chunks of capacity ``geo['cap_out']``; ``n_out`` is
     the (host-resolved) global output length.  Returns the pairs' local
@@ -276,11 +276,11 @@ def sharded_idwt_level(
     cap_fin, margin_l, margin_r = _synthesis_margins(geo, n_out, filt_len)
     f_len = 2 * (cap_out - 1) + filt_len
     if geo["s"] == 1:  # the serial level: crop p on the left, keep n_out
-        return idwt_axis(los, his, ax, rec_lo, rec_hi, p, f_len - p - n_out, "zero")
+        return idwt_axis_pairs(los, his, ax, rec_lo, rec_hi, p, f_len - p - n_out, "zero")
     d = mesh.get_local_rank(axis_name)
 
     # full local transposed convolution (uncropped), [G, ...]
-    full = idwt_axis(los, his, ax, rec_lo, rec_hi, 0, 0, "valid")
+    full = idwt_axis_pairs(los, his, ax, rec_lo, rec_hi, 0, 0, "valid")
     fax = ax + 1
     # place it into a buffer with discard margins: rows outside the valid
     # global range [0, n_out) (the global crop and the garbage-tail

@@ -35,7 +35,7 @@ from torch.distributed.tensor import DTensor
 
 from ..constants import Wavelet, WaveletCoeff2d, WaveletDetailTuple2d
 from ..conv_transform import _adjust_padding_at_reconstruction
-from ..ops import dwt_axis, idwt_axis
+from ..ops._dispatch import dwt_axis_packed, idwt_axis_pairs
 from ..utils import get_filter_arrays
 from ._padded_axis import padded_level_geometry, sharded_dwt_level, sharded_idwt_level
 from ._ring import axis_size
@@ -182,7 +182,7 @@ def _padded_wavedec2(data: torch.Tensor, wavelet, level: int, mesh, mode: str):
     for lvl, geo in enumerate(geos):
         rows = sharded_dwt_level(cur, geo, dec_lo, dec_hi, mode, -2, "spatial", mesh)  # [2 (H bit), B, m, w]
         if geos_w is None:
-            both = dwt_axis(rows, -1, dec_lo, dec_hi, mode)
+            both = dwt_axis_packed(rows, -1, dec_lo, dec_hi, mode)
         else:
             both = sharded_dwt_level(rows, geos_w[lvl], dec_lo, dec_hi, mode, -1, w_axis, mesh)
         # [2 (W bit), 2 (H bit), B, m_h, m_w]
@@ -241,7 +241,7 @@ def _padded_waverec2(coeffs, wavelet, mesh, mode: str) -> DTensor:
     for i, geo in enumerate(geos):
         lh, hl, hh = (prep(c, i + 1) for c in coeffs[1 + i])
         if geos_w is None:
-            merged = idwt_axis((cur, lh), (hl, hh), -1, rec_lo, rec_hi, *w_pads[i], mode)
+            merged = idwt_axis_pairs((cur, lh), (hl, hh), -1, rec_lo, rec_hi, *w_pads[i], mode)
         else:
             merged = sharded_idwt_level(
                 (cur, lh), (hl, hh), geos_w[i], rec_lo, rec_hi, geos_w[i]["n_g"], -1, w_axis, mesh

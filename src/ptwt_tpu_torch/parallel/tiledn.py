@@ -18,8 +18,8 @@ keeps its chunk, ``torch.chunk``'s split, as ``distribute_tensor`` would);
 the coefficients come back as ``DTensor``s with ``Shard`` placements whose
 ``full_tensor()`` gathers the serial transform's bands.
 
-Each local level goes through :func:`~ptwt_tpu_torch.ops.dwt_axis` /
-:func:`~ptwt_tpu_torch.ops.idwt_axis`: K3/K4 on the card (K7a/K7b on a
+Each local level goes through :func:`~ptwt_tpu_torch.ops._dispatch.dwt_axis_packed` /
+:func:`~ptwt_tpu_torch.ops._dispatch.idwt_axis_pairs`: K3/K4 on the card (K7a/K7b on a
 local last axis longer than ``2**16`` samples in a padded mode), their
 plain versions on the CPU.  A local ``periodization`` axis runs K3/K4 in
 that mode, which read modulo the axis and fold the overhang in their index
@@ -47,7 +47,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..constants import Wavelet, WaveletCoeff1d, WaveletCoeffNd
 from ..conv_transform import _adjust_padding_at_reconstruction, _check_dtype
 from ..conv_transform_3 import _DETAIL_KEYS
-from ..ops import dwt_axis, idwt_axis
+from ..ops._dispatch import dwt_axis_packed, idwt_axis_pairs
 from ..utils import SUBBAND_ORDERS, get_filter_arrays
 from ._padded_axis import (
     _with_zeros,
@@ -161,10 +161,10 @@ def _overlap_enabled() -> bool:
 
 
 def _idwt_pairs(los, his, axis: int, rec_lo, rec_hi, padl: int, padr: int, mode: str) -> torch.Tensor:
-    """:func:`~ptwt_tpu_torch.ops.idwt_axis` over any number of (lo, hi)
+    """:func:`~ptwt_tpu_torch.ops._dispatch.idwt_axis_pairs` over any number of (lo, hi)
     pairs, at most two a launch (K4's limit); ``[G, ...]``."""
     outs = [
-        idwt_axis(los[i : i + 2], his[i : i + 2], axis, rec_lo, rec_hi, padl, padr, mode)
+        idwt_axis_pairs(los[i : i + 2], his[i : i + 2], axis, rec_lo, rec_hi, padl, padr, mode)
         for i in range(0, len(los), 2)
     ]
     return outs[0] if len(outs) == 1 else torch.cat(outs)
@@ -195,7 +195,7 @@ def _dwt_axis_ring(x: torch.Tensor, axis: int, dec_lo, dec_hi, halo: int, axis_n
     """One ``valid`` analysis level along a ring-sharded axis, overlapped;
     packed ``[2, ...]``.
 
-    Numerically equivalent to ``dwt_axis`` over the halo-padded ``x``, but
+    Numerically equivalent to ``dwt_axis_packed`` over the halo-padded ``x``, but
     scheduled so that the halo P2P is in flight *while* the bulk of the
     stencil runs: the interior windows depend only on local data, so they
     are launched before the wait; two thin edge strips (a handful of
@@ -206,7 +206,7 @@ def _dwt_axis_ring(x: torch.Tensor, axis: int, dec_lo, dec_hi, halo: int, axis_n
     n = x.shape[ax]
     filt_len = len(dec_lo)
     if halo == 0:
-        return dwt_axis(x, ax, dec_lo, dec_hi, "valid")
+        return dwt_axis_packed(x, ax, dec_lo, dec_hi, "valid")
     b = halo % 2  # interior window phase offset in local coordinates
     i0 = (halo + 1) // 2  # windows touching the top halo
     n_int = (n - b - filt_len) // 2 + 1
@@ -218,19 +218,19 @@ def _dwt_axis_ring(x: torch.Tensor, axis: int, dec_lo, dec_hi, halo: int, axis_n
         or s_r < 0
         or 2 * (i0 - 1) + filt_len - halo > n
     ):
-        return dwt_axis(_halo_pad_sharded(x, halo, ax, axis_name, mesh), ax, dec_lo, dec_hi, "valid")
+        return dwt_axis_packed(_halo_pad_sharded(x, halo, ax, axis_name, mesh), ax, dec_lo, dec_hi, "valid")
     pending = start_exchange(
         [x.narrow(ax, n - halo, halo), x.narrow(ax, 0, halo)], [FWD, BWD], axis_name, mesh
     )
     # interior: windows fully inside x, independent of the exchange
-    inner = dwt_axis(x.narrow(ax, b, 2 * (n_int - 1) + filt_len), ax, dec_lo, dec_hi, "valid")
+    inner = dwt_axis_packed(x.narrow(ax, b, 2 * (n_int - 1) + filt_len), ax, dec_lo, dec_hi, "valid")
     top, bottom = pending.wait()
     # edges: thin strips built from the arrived halos
     left = torch.cat([top, x.narrow(ax, 0, 2 * (i0 - 1) + filt_len - halo)], dim=ax)
-    parts = [dwt_axis(left, ax, dec_lo, dec_hi, "valid"), inner]
+    parts = [dwt_axis_packed(left, ax, dec_lo, dec_hi, "valid"), inner]
     if m - i0 - n_int > 0:
         right = torch.cat([x.narrow(ax, s_r, n - s_r), bottom], dim=ax)
-        parts.append(dwt_axis(right, ax, dec_lo, dec_hi, "valid"))
+        parts.append(dwt_axis_packed(right, ax, dec_lo, dec_hi, "valid"))
     return torch.cat(parts, dim=ax + 1)
 
 
@@ -309,7 +309,7 @@ def _local_wavedecn(x: torch.Tensor, dec_lo, dec_hi, level: int, ndim: int, axis
             if axis in rings:
                 packed = _dwt_axis_ring(packed, axis, dec_lo, dec_hi, halo, rings[axis], mesh)
             else:
-                packed = dwt_axis(packed, axis, dec_lo, dec_hi, "periodization")
+                packed = dwt_axis_packed(packed, axis, dec_lo, dec_hi, "periodization")
         # [2 (last axis bit), ..., 2 (first axis bit), B, ...]: the bit of
         # axis k (0 = first) weighs 2**k in the flat index
         bands = packed.flatten(0, ndim - 1).unbind(0)
@@ -513,8 +513,8 @@ def _padded_wavedec3(data: torch.Tensor, wavelet, level: int, mesh, mode: str):
         if geos_h is not None:
             packed = sharded_dwt_level(packed, geos_h[lvl], dec_lo, dec_hi, mode, -2, h_axis, mesh)
         else:
-            packed = dwt_axis(packed, -2, dec_lo, dec_hi, mode)
-        packed = dwt_axis(packed, -1, dec_lo, dec_hi, mode)
+            packed = dwt_axis_packed(packed, -2, dec_lo, dec_hi, mode)
+        packed = dwt_axis_packed(packed, -1, dec_lo, dec_hi, mode)
         # [2 (w bit), 2 (h bit), 2 (d bit), B, d, h, w]: flat index 4w + 2h + d
         bands = packed.flatten(0, 2).unbind(0)
         by_sel = {(d, h, w): bands[4 * w + 2 * h + d] for d, h, w in SUBBAND_ORDERS[3]}

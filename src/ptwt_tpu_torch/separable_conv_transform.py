@@ -3,7 +3,7 @@
 Counterpart of :mod:`ptwt_tpu.separable_conv_transform`.  There, each
 level applies the one-level 1d ``wavedec``/``waverec`` along every axis in
 turn, band by band.  Here each axis pass is one call of the per-axis
-route (:func:`~ptwt_tpu_torch.ops.dwt_axis` / :func:`~ptwt_tpu_torch.ops.idwt_axis`)
+route (:func:`~ptwt_tpu_torch.ops._dispatch.dwt_axis_packed` / :func:`~ptwt_tpu_torch.ops._dispatch.idwt_axis_pairs`)
 on every sibling band at once, with the same values and no copy of the
 tensor:
 
@@ -34,7 +34,7 @@ from .constants import (
     WaveletDetailDict,
 )
 from .conv_transform import _check_dtype
-from .ops import dwt_axis, idwt_axis
+from .ops._dispatch import dwt_axis_packed, idwt_axis_pairs
 from .utils import (
     as_device_tensor,
     coeff_tree_map,
@@ -56,7 +56,7 @@ def _separable_dwtn(data: torch.Tensor, dec_lo, dec_hi, mode: BoundaryMode) -> W
     packed = data
     for i in range(ndim):
         # the last axis first: each pass puts its (lo, hi) bit in front
-        packed = dwt_axis(packed, -1 - i, dec_lo, dec_hi, mode)
+        packed = dwt_axis_packed(packed, -1 - i, dec_lo, dec_hi, mode)
     # [2 (first axis), ..., 2 (last axis), batch, *bands]: one unbind, whose
     # backward stacks the cotangents once
     keys = ["".join(letters) for letters in itertools.product("ad", repeat=ndim)]
@@ -100,7 +100,7 @@ def _separable_idwtn(bands: WaveletDetailDict, rec_lo, rec_hi) -> torch.Tensor:
                 if group and a.shape != group[0][1].shape:
                     break
                 group.append((a_key[1:], a, d))
-            rec = idwt_axis(
+            rec = idwt_axis_pairs(
                 [a for _, a, _ in group], [d for _, _, d in group], axis, rec_lo, rec_hi, pad, pad, "reflect"
             )
             merged.update(zip([key for key, _, _ in group], rec.unbind(0)))

@@ -205,6 +205,36 @@ SUBBAND_ORDERS: dict[int, tuple[tuple[int, ...], ...]] = {
 }
 
 
+def construct_nd_filter(lo, hi, ndim: int) -> torch.Tensor:
+    """Stack the ``2**ndim`` outer-product filters as ``[2**ndim, 1, *([len] * ndim)]``.
+
+    Channel order follows :data:`SUBBAND_ORDERS`: 1d ``[lo, hi]``; 2d
+    ``[ll, lh, hl, hh]`` with ``lh`` = hi along rows (the pywt "horizontal
+    detail"); 3d ``[lll ... hhh]`` with the last letter selecting the last
+    axis.  Tensors keep their dtype and device (and a gradient path);
+    numpy arrays and sequences become tensors of their own dtype.
+    """
+    lo, hi = torch.as_tensor(lo), torch.as_tensor(hi)
+    filters = []
+    for selectors in SUBBAND_ORDERS[ndim]:
+        filt = lo.new_ones((1,) * ndim)
+        for axis, use_hi in enumerate(selectors):
+            axis_filt = hi if use_hi else lo
+            shape = [1] * ndim
+            shape[axis] = axis_filt.shape[0]
+            filt = filt * axis_filt.reshape(shape)
+        filters.append(filt)
+    return torch.stack(filters)[:, None]
+
+
+def invalid_coeffs_message(kind: str, got) -> str:
+    """Shared error text for malformed coefficient containers."""
+    return (
+        f"Unexpected detail coefficient type: {type(got)}. Detail "
+        f"coefficients must be a {kind} as returned by the decomposition."
+    )
+
+
 def infer_periodization(detail_lens: Sequence[int], filt_len: int) -> bool:
     """True when a waverec chain can only come from ``mode="periodization"``.
 

@@ -1532,3 +1532,107 @@ def test_cuda_tiled_backward_one_nccl_rank(nccl_mesh, cuda_device):
     xs = x.clone().requires_grad_()
     sum((c**2).sum() for c in _tiled_leaves(tptwt.wavedec2(xs, "db4", mode="reflect", level=3))).backward()
     assert float((xt.grad - xs.grad).abs().max()) <= 1e-4 * float(xs.grad.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the reduced-precision mode: the dense-operator route
+# ---------------------------------------------------------------------------
+
+#: max-abs error against float64 over ``max(1, the band's largest
+#: magnitude)`` (PERF.md §2; ``chip_smoke.py``'s phase 19 limits)
+PREC_LIMITS = {"high": 3e-3, "default": 3e-2}
+
+
+@pytest.fixture
+def reduced(request):
+    """The port's precision at one reduced level; back at ``"highest"``
+    afterwards."""
+    from ptwt_tpu_torch.ops import set_precision
+
+    set_precision(request.param)
+    try:
+        yield request.param
+    finally:
+        set_precision("highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduced", ["high", "default"], indirect=True)
+@pytest.mark.parametrize("mode", ["periodic", "reflect", "zero"])
+def test_cuda_reduced_precision_wavedec2(cuda_device, reduced, mode):
+    """Under a reduced precision every level of ``[2, 256, 256]`` (db4, 3
+    levels) is a dense product: no kernel launch, bands and reconstruction
+    within the level's limit of float64 (relative), different from
+    ``"highest"``; the caller's global settings are unchanged."""
+    from ptwt_tpu_torch.ops import set_precision
+
+    gen = torch.Generator().manual_seed(17)
+    x64 = torch.randn(2, 256, 256, generator=gen, dtype=torch.float64).to(cuda_device)
+    x = x64.float()
+    rec_mode = mode if mode == "periodic" else None
+    want = _flat2(tptwt.wavedec2(x64, "db4", mode=mode, level=3))
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    _kernels.reset_launch_counts()
+    coeffs = tptwt.wavedec2(x, "db4", mode=mode, level=3)
+    rec = tptwt.waverec2(coeffs, "db4", mode=rec_mode)
+    torch.cuda.synchronize()
+    assert not any(_kernels.LAUNCHES.values())
+    assert (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32) == saved
+    got = _flat2(coeffs)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert _rel_err([g.double() for g in got], want) <= PREC_LIMITS[reduced]
+    assert _rel_err(rec.double(), x64) <= PREC_LIMITS[reduced]
+    set_precision("highest")
+    exact = _flat2(tptwt.wavedec2(x, "db4", mode=mode, level=3))
+    assert all(float((g - e).abs().max()) > 0 for g, e in zip(got, exact))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduced", ["high", "default"], indirect=True)
+@pytest.mark.parametrize("axis", [-1, -2, -3])
+def test_cuda_axis_matmul_reduced(cuda_device, reduced, axis):
+    """``axis_matmul`` on a float32 tensor at a reduced level: a float32
+    result within the level's limit of float64, relative (odd lengths, so
+    the operands are padded), and its backward the transposed product,
+    within the same limit."""
+    from ptwt_tpu_torch.ops._conv import axis_matmul
+
+    gen = torch.Generator().manual_seed(18)
+    x64 = torch.randn(3, 37, 45, 29, generator=gen, dtype=torch.float64).to(cuda_device)
+    n = x64.shape[axis]
+    mat64 = torch.randn(2 * n + 3, n, generator=gen, dtype=torch.float64).to(cuda_device) / math.sqrt(n)
+    x = x64.float().requires_grad_()
+    out = axis_matmul(x, mat64.float(), axis)
+    want = axis_matmul(x64, mat64, axis)
+    assert out.dtype == torch.float32 and out.shape == want.shape
+    assert _rel_err(out.detach().double(), want) <= PREC_LIMITS[reduced]
+    ct = torch.randn(out.shape, generator=gen, dtype=torch.float64).to(cuda_device)
+    (grad,) = torch.autograd.grad(out, x, ct.float())
+    assert _rel_err(grad.double(), axis_matmul(ct, mat64.mT, axis)) <= PREC_LIMITS[reduced]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_cuda_convs_at_highest_ignore_tf32(cuda_device, ndim):
+    """``analysis_conv``/``synthesis_conv`` on float32 at ``"highest"`` with
+    cuDNN's TF32 flag left on by the caller agree with float64 within
+    2e-5, and leave the flag on."""
+    from ptwt_tpu_torch.ops import analysis_conv, synthesis_conv
+    from ptwt_tpu_torch.utils import construct_nd_filter
+
+    dl, dh, rl, rh = _banks("db4")
+    dec = construct_nd_filter(dl, dh, ndim).to(cuda_device)
+    rec = construct_nd_filter(rl, rh, ndim).to(cuda_device)
+    shape = {1: (64, 4096), 2: (8, 256, 256), 3: (2, 64, 64, 64)}[ndim]
+    x64 = torch.randn(shape, generator=torch.Generator().manual_seed(19), dtype=torch.float64).to(cuda_device)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        bands = analysis_conv(x64.float(), dec.float())
+        want = analysis_conv(x64, dec)
+        assert float((bands.double() - want).abs().max()) <= 2e-5
+        back = synthesis_conv(want.float(), rec.float())
+        assert float((back.double() - synthesis_conv(want, rec)).abs().max()) <= 2e-5
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved

@@ -250,7 +250,8 @@ def test_import_pulls_in_no_jax():
         " ptwt_tpu_torch.stationary_transform, ptwt_tpu_torch.sparse_math,"
         " ptwt_tpu_torch.matmul_transform, ptwt_tpu_torch.matmul_transform_2,"
         " ptwt_tpu_torch.matmul_transform_3, ptwt_tpu_torch.ops._boundary,"
-        " ptwt_tpu_torch.ops._boundary_long, ptwt_tpu_torch.utils._deprecation,"
+        " ptwt_tpu_torch.ops._boundary_long, ptwt_tpu_torch.ops._matmul, ptwt_tpu_torch.ops._conv,"
+        " ptwt_tpu_torch.utils._deprecation,"
         " ptwt_tpu_torch.packets, ptwt_tpu_torch.continuous_transform,"
         " ptwt_tpu_torch.wavelets_learnable, ptwt_tpu_torch.parallel,"
         " ptwt_tpu_torch.parallel._ring, ptwt_tpu_torch.parallel._padded_axis,"
