@@ -269,6 +269,23 @@ Phases, each raising (non-zero exit) on failure:
    ``analysis_conv``/``synthesis_conv`` at the headline's level 1 against
    float64 at each level, ``"highest"`` within 2e-5 with cuDNN's TF32 flag
    left on by the caller.
+20. ``torch.compile``, ``torch.func.grad`` and ``torch.func.vmap``
+   (``chip_smoke.py --compile-times``, a process of its own): every kernel
+   launch is a custom op of ``torch.ops.ptwt_tpu_torch``; each
+   ``COMPILE_ROWS`` row at full width (the headline in ``periodic``,
+   ``reflect`` and ``periodization``, d1, d3, fs2, swt, cwt, mat1d, mat2d)
+   compiled (``fullgraph=True``, static shapes; inductor for the periodic
+   headline, ``aot_eager`` for the others: the same graph of ops) against
+   eager within 1e-5 of ``max(1, |leaf|)`` with eager's launches per
+   kernel; ``torch.func.grad`` of the squared coefficients plus the
+   weighted round trip against autograd, and ``torch.func.vmap`` over the
+   batch split in two against the batched call, within 1e-5 of the
+   largest entry, with equal launches; the learnable headline step (K3,
+   K4, KT) compiled, under ``torch.func.grad`` with respect to the filters
+   and its forward vmapped; then the headline eager, compiled and under
+   ``mode="reduce-overhead"`` (no cudagraph skip, asserted): compile
+   seconds, the profiler's device busy ms (the window holding every launch,
+   asserted but for the CUDA graph's replay), CUDA-event ms and wall ms.
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -316,7 +333,7 @@ prints what each rank got: ok, the error's text, or its exit code.
 
 The last lines are phase 16's ``{"packets_cwt": ...}`` line, phase 17's
 ``{"learnable": ...}`` line, phase 18's ``{"tiled": ...}`` line, phase 19's
-``{"precision": ...}`` line, a
+``{"precision": ...}`` line, phase 20's ``{"compile": ...}`` line, a
 ``{"kernels": [...]}`` JSON line (fifteen kernels: KT, the taps'
 gradient, last; K3, K4, K7a and K7b with phase 18's ``tiled_launches``,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
@@ -5092,6 +5109,282 @@ def prec_conv() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: torch.compile, torch.func.grad and torch.func.vmap
+# ---------------------------------------------------------------------------
+
+#: Phase 20's rows at full width, the main path first: (name, shape,
+#: seed); :func:`compile_funcs` gives each row's transform and inverse.
+COMPILE_ROWS = (
+    ("2d periodic", SHAPE, SEED),
+    ("2d reflect", SHAPE, SEED + 1),
+    ("2d periodization", SHAPE, SEED + 2),
+    ("d1", D1_SHAPE, SEED + 3),
+    ("d3", ND_FULL[0][2], SEED + 4),
+    ("fs2", ND_FULL[1][2], SEED + 5),
+    ("swt", MAT_FULL[2][1], SEED + 6),
+    ("cwt", PKT_CWT[1], SEED + 7),
+    ("mat1d", MAT_FULL[0][1], SEED + 8),
+    ("mat2d", MAT_FULL[1][1], SEED + 9),
+)
+#: The rows that launch no hand-written kernel (plain torch ops, cuFFT and
+#: cuBLAS): the ops' composition shows in the others.
+COMPILE_NO_KERNEL = ("swt", "cwt", "mat2d")
+#: The learnable headline step (phase 17 (b), periodic): KT's path.
+COMPILE_LEARN = ("learnable 2d periodic", SHAPE, SEED + 10)
+#: The row compiled with inductor (and timed, :func:`compile_headline`); the
+#: others compile with ``aot_eager``, which traces the same graph of ops
+#: with no code generation: inductor's cold compiles of every row took
+#: some 200 s of the script's limit (the card tests compile each row with
+#: inductor at small sizes).
+COMPILE_INDUCTOR = ("2d periodic",)
+#: Compiled against eager over ``max(1, |leaf|)``; ``torch.func`` against
+#: autograd and the batched call over the largest entry.
+COMPILE_TOL = 1e-5
+#: The ops of the kernels (``torch.ops.ptwt_tpu_torch``), by kernel: a
+#: kernel's VJP launch goes through its twin's op.
+KERNEL_OPS = {
+    "K1": "dwt2_level", "K2": "idwt2_level", "K3": "analysis_axis", "K4": "synthesis_axis",
+    "K5a": "wavedec2d_run", "K5b": "waverec2d_run", "K6a": "wavedec1d_run", "K6b": "waverec1d_run",
+    "K7a": "lane_analysis", "K7b": "lane_synthesis", "K8a": "lane_analysis, long_analysis_run",
+    "K8b": "lane_synthesis, long_synthesis_run", "K9a": "dwt2_level", "K9b": "idwt2_level", "KT": "tap_grad",
+}
+
+
+def compile_funcs(name: str):
+    """Row ``name``'s transform and inverse (``None`` for ``cwt``), at
+    the shapes and banks of phases 4-16."""
+    if name.startswith("2d"):
+        mode = name.split()[1]
+        return (lambda x: ptwt.wavedec2(x, WAVELET, mode=mode, level=LEVEL),
+                lambda c: ptwt.waverec2(c, WAVELET, mode=mode))
+    if name == "d1":
+        return (lambda x: ptwt.wavedec(x, WAVELET_1D, mode="reflect", level=LEVEL_1D),
+                lambda c: ptwt.waverec(c, WAVELET_1D))
+    if name in ("d3", "fs2"):
+        _, kind, _, wavelet, mode, level = next(r for r in ND_FULL if r[0] == name)
+        fwd, inv = (getattr(ptwt, f) for f in ND_FUNCS[kind])
+        return (lambda x: fwd(x, wavelet, mode=mode, level=level)), (lambda c: inv(c, wavelet))
+    if name == "cwt":
+        _, _, wavelet, scales, period = PKT_CWT
+        return (lambda x: ptwt.cwt(x, scales, wavelet, sampling_period=period)[0]), None
+    _, _, wavelet, level = next(r for r in MAT_FULL if r[0] == name)
+    if name == "swt":
+        return (lambda x: ptwt.swt(x, wavelet, level)), (lambda c: ptwt.iswt(c, wavelet))
+    fwd, inv = (ptwt.MatrixWavedec, ptwt.MatrixWaverec) if name == "mat1d" else (
+        ptwt.MatrixWavedec2, ptwt.MatrixWaverec2)
+    return fwd(wavelet, level), inv(wavelet)
+
+
+def compile_leaves(out) -> list:
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+
+
+def compile_err(got, want) -> float:
+    """The largest of ``|got - want| / max(1, |want|)`` over the leaves."""
+    return max(
+        float((g - w).abs().max()) / max(1.0, float(w.abs().max())) if w.numel() else 0.0
+        for g, w in zip(compile_leaves(got), compile_leaves(want))
+    )
+
+
+def compile_rel(got, want) -> float:
+    """``|got - want|`` over ``want``'s largest entry, the largest over the leaves."""
+    return max(
+        float((g - w).abs().max()) / float(w.abs().max()) if w.numel() and float(w.abs().max()) else 0.0
+        for g, w in zip(compile_leaves(got), compile_leaves(want))
+    )
+
+
+def compile_loss(fwd, inv, weight):
+    """The squares of every coefficient, plus the round trip weighted by
+    ``weight``: a backward through both directions."""
+
+    def loss(x):
+        coeffs = fwd(x)
+        out = sum((c.abs() ** 2).sum() for c in compile_leaves(coeffs))
+        if inv is not None:
+            out = out + (inv(coeffs) * weight).sum()
+        return out
+
+    return loss
+
+
+def counted(run, *args):
+    """``run(*args)`` with the launch counts set to 0 just before it and
+    read just after: ``(out, launches)``."""
+    _kernels.reset_launch_counts()
+    out = run(*args)
+    return out, pkt_counts()
+
+
+def compile_check(name: str, fwd, inv, x: torch.Tensor, grads_of=None) -> dict:
+    """Eager, compiled (``torch.compile(fullgraph=True)``, static shapes,
+    the backend of :data:`COMPILE_INDUCTOR`), ``torch.func.grad`` and
+    ``torch.func.vmap`` of one row at full width: values within
+    :data:`COMPILE_TOL`, launches equal."""
+    fn = fwd if inv is None else (lambda t: inv(fwd(t)))
+    if name.startswith("mat"):
+        fn(x)  # the operators, built eagerly as tests/test_jit.py builds them
+    want, eager = counted(fn, x)
+    backend = "inductor" if name in COMPILE_INDUCTOR else "aot_eager"
+    compiled = torch.compile(fn, fullgraph=True, dynamic=False, backend=backend)
+    t0 = time.perf_counter()
+    compiled(x)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    got, launches = counted(compiled, x)
+    err = compile_err(got, want)
+    log(f"  {name}: {backend} compile {compile_s!r} s, launches {launches} (eager {eager}), err {err!r}")
+    if launches != eager or not eager and name not in COMPILE_NO_KERNEL:
+        raise AssertionError(f"{name}: compiled launches {launches}, eager {eager}")
+    if err > COMPILE_TOL:
+        raise AssertionError(f"{name}: compiled against eager {err!r} > {COMPILE_TOL}")
+    del got, want
+    weight = randn(fn(x).shape, torch.float32, SEED + 50) if inv is not None else None
+    loss = compile_loss(fwd, inv, weight)
+    g_func, func_launches = counted(torch.func.grad(loss), x)
+    xr = x.detach().requires_grad_()
+    (g_auto,), auto_launches = counted(lambda t: torch.autograd.grad(loss(t), t), xr)
+    grad_err = compile_rel(g_func, g_auto)
+    log(f"  {name}: torch.func.grad launches {func_launches} (autograd {auto_launches}), err {grad_err!r}")
+    if func_launches != auto_launches or grad_err > COMPILE_TOL:
+        raise AssertionError(f"{name}: torch.func.grad against autograd: {grad_err!r}, {func_launches}")
+    del g_func, g_auto, xr
+    xs = x.reshape(2, x.shape[0] // 2, *x.shape[1:])
+    v, vmap_launches = counted(torch.func.vmap(fn), xs)
+    b, batched_launches = counted(fn, x)
+    if name == "cwt":  # [scales, batch, time]
+        b = b.reshape(b.shape[0], 2, -1, b.shape[-1]).movedim(1, 0)
+    vmap_err = compile_rel(v, b.reshape(v.shape))
+    log(f"  {name}: torch.func.vmap launches {vmap_launches} (batched {batched_launches}), err {vmap_err!r}")
+    if vmap_launches != batched_launches or vmap_err > COMPILE_TOL:
+        raise AssertionError(f"{name}: torch.func.vmap against the batched call: {vmap_err!r}, {vmap_launches}")
+    torch._dynamo.reset()
+    torch.cuda.empty_cache()
+    return {"backend": backend, "compile_s": compile_s, "launches": launches, "err": err, "grad_err": grad_err,
+            "grad_launches": func_launches, "vmap_err": vmap_err, "vmap_launches": vmap_launches}
+
+
+def compile_learnable() -> dict:
+    """The learnable headline step (K3/K4 per axis, KT backward): compiled
+    loss and backward against eager, ``torch.func.grad`` with respect to
+    the filters against autograd, the forward vmapped over the data."""
+    name, shape, seed = COMPILE_LEARN
+    x = randn(shape, torch.float32, seed)
+    filters = [f.detach() for f in learn_bank(WAVELET, torch.float32, DEVICE).filter_bank]
+
+    def loss(filt, t):
+        details, rec = learn_run("2d", t, tuple(filt), "periodic", LEVEL)
+        return 0.1 * sum(d.abs().mean() for d in details) + 100.0 * ((rec - t) ** 2).mean()
+
+    def step(run, filt):
+        params = [f.clone().requires_grad_() for f in filt]
+        return torch.autograd.grad(run(params, x), params)
+
+    want, eager = counted(step, loss, filters)
+    compiled = torch.compile(loss, fullgraph=True, dynamic=False, backend="aot_eager")
+    t0 = time.perf_counter()
+    step(compiled, filters)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    got, launches = counted(step, compiled, filters)
+    err = compile_rel(got, want)
+    g_func, func_launches = counted(torch.func.grad(loss), filters, x)
+    grad_err = compile_rel(g_func, want)
+    xs = x.reshape(2, shape[0] // 2, *shape[1:])
+    fwd = lambda t: learn_run("2d", t, tuple(filters), "periodic", LEVEL)[1]  # noqa: E731
+    v, vmap_launches = counted(torch.func.vmap(fwd), xs)
+    b, batched_launches = counted(fwd, x)
+    vmap_err = compile_rel(v, b.reshape(v.shape))
+    log(f"  {name}: compile {compile_s!r} s, launches {launches} (eager {eager}), err {err!r}; "
+        f"torch.func.grad {func_launches}, err {grad_err!r}; vmap {vmap_launches} (batched {batched_launches}), "
+        f"err {vmap_err!r}")
+    if launches != eager or eager.get("KT", 0) < 1 or err > COMPILE_TOL:
+        raise AssertionError(f"{name}: compiled step {launches} against eager {eager}, {err!r}")
+    if func_launches != eager or grad_err > COMPILE_TOL:
+        raise AssertionError(f"{name}: torch.func.grad {func_launches}, {grad_err!r}")
+    if vmap_launches != batched_launches or vmap_err > COMPILE_TOL:
+        raise AssertionError(f"{name}: torch.func.vmap {vmap_launches}, {vmap_err!r}")
+    torch._dynamo.reset()
+    return {"backend": "aot_eager", "compile_s": compile_s, "launches": launches, "err": err,
+            "grad_err": grad_err, "grad_launches": func_launches, "vmap_err": vmap_err,
+            "vmap_launches": vmap_launches}
+
+
+def compile_timing(run, label: str, launches: int, complete: bool = True) -> dict:
+    """Device ms (the profiler's busy ms; CUDA events), wall ms and busy
+    share of one call, from a profiler window that must hold every one of
+    its ``launches`` hand-written kernel launches where ``complete``."""
+    rows = profile(run, label, top=6)
+    busy = sum(r[0] for r in rows)
+    seen = sum(count for _, count, key in rows if any(s in key for s in PREC_HAND))
+    log(f"  {label}: the profile holds {seen} of {launches} kernel launches")
+    if complete and seen != launches:
+        raise AssertionError(f"{label}: the profile holds {seen} of {launches} kernel launches")
+    wall = wall_ms(run)
+    return {"device_ms": busy, "events_ms": time_ms(run), "wall_ms": wall, "busy_share": busy / wall,
+            "profiled_launches": seen, "top": [[ms, count, key[:90]] for ms, count, key in rows[:4]]}
+
+
+def compile_headline() -> dict:
+    """The headline round trip eager, compiled (inductor's default mode)
+    and compiled with ``mode="reduce-overhead"`` (a CUDA graph): output,
+    launches, cudagraph skips (none), compile seconds and times."""
+    from torch._dynamo.utils import counters
+
+    name, shape, seed = COMPILE_ROWS[0]
+    x = randn(shape, torch.float32, seed)
+    fwd, inv = compile_funcs(name)
+
+    def fn(t):
+        return inv(fwd(t))
+
+    want, eager = counted(fn, x)
+    total = sum(eager.values())
+    out = {"eager": compile_timing(lambda: fn(x), "eager", total)}
+    for mode in ("default", "reduce-overhead"):
+        torch._dynamo.reset()
+        counters.clear()
+        compiled = torch.compile(fn, fullgraph=True, dynamic=False, mode=None if mode == "default" else mode)
+        t0 = time.perf_counter()
+        compiled(x)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        for _ in range(2):  # cudagraph trees record on a later call
+            got = compiled(x)
+        torch.cuda.synchronize()
+        err = compile_err(got, want)
+        skips = dict(counters["inductor"]).get("cudagraph_skips", 0)
+        log(f"  headline {mode}: compile {compile_s!r} s, err {err!r}, cudagraph_skips {skips}")
+        if err > COMPILE_TOL:
+            raise AssertionError(f"headline {mode}: {err!r} against eager")
+        if mode == "reduce-overhead" and skips:
+            raise AssertionError(f"headline reduce-overhead: {skips} cudagraph skips: {dict(counters['inductor'])}")
+        del got
+        # a CUDA graph's replay runs no python: the counts stay with the
+        # recording, and the profile may show the graph's kernels or not
+        timing = compile_timing(lambda: compiled(x), mode, total, complete=mode == "default")
+        out[mode] = {"compile_s": compile_s, "err": err, "cudagraph_skips": skips, **timing}
+    torch._dynamo.reset()
+    return {"launches": eager, **out}
+
+
+def compile_times() -> dict:
+    """``--compile-times`` (phase 20, a process of its own): every row of
+    :data:`COMPILE_ROWS` and the learnable headline step compiled, under
+    ``torch.func.grad`` and under ``torch.func.vmap`` at full width, then
+    the headline's times eager, compiled and under reduce-overhead."""
+    rows = {}
+    for name, shape, seed in COMPILE_ROWS:
+        fwd, inv = compile_funcs(name)
+        rows[name] = compile_check(name, fwd, inv, randn(shape, torch.float32, seed))
+    rows[COMPILE_LEARN[0]] = compile_learnable()
+    return {"rows": rows, "headline": compile_headline()}
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -5322,6 +5615,10 @@ def main() -> int:
     log('phase 19: the reduced-precision mode ("high", "default"): the dense-operator route')
     precision = {name: times_process("--prec-times", name) for name in (*(r[0] for r in PREC_ROWS), "conv")}
     print(json.dumps({"precision": precision}))
+
+    log("phase 20: torch.compile, torch.func.grad and torch.func.vmap through the ops of the kernels")
+    compiled = times_process("--compile-times", timeout=900)
+    print(json.dumps({"compile": compiled}))
 
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
@@ -5603,6 +5900,8 @@ def main() -> int:
         "example_launches_per_step": learn["example"]["launches_per_step"],
         "steps": {k: v for k, v in kt.items() if not k.startswith("KT")},
     })
+    for entry in kernels:  # the custom op (torch.ops.ptwt_tpu_torch) each launch goes through
+        entry["op"] = KERNEL_OPS[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(
@@ -5644,7 +5943,7 @@ if __name__ == "__main__":
                         ("--k9-times", k9_times), ("--nd-times", nd_times_all), ("--mat-times", mat_times),
                         ("--pkt-times", pkt_times), ("--learn-times", learn_times), ("--tiled-times", tiled_times),
                         ("--dist-probe", dist_probe), ("--kt-times", kt_times), ("--kt-sass", kt_sass),
-                        ("--prec-times", prec_times),
+                        ("--prec-times", prec_times), ("--compile-times", compile_times),
                         ("--kt-turns", lambda: kt_turns(Path(_arg("--kt-turns")).resolve()))):
         if flag in sys.argv:
             if not torch.cuda.is_available():

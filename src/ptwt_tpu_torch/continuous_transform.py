@@ -21,7 +21,10 @@ from typing import Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils._pytree import tree_map
 
+from .ops._library import constant_tensor
+from .ops._matmul import _BytesLRU
 from .utils import as_device_tensor
 from .wavelets import ContinuousWavelet, DiscreteContinuousWavelet, Wavelet, scale2frequency
 
@@ -57,6 +60,94 @@ def _integrate_wavelet(wavelet, precision: int):
     return int_psi, x
 
 
+def _scale_values(scales) -> tuple[float, ...]:
+    """The scales as python floats.  They fix the resampled wavelets'
+    lengths, so a compiled transform specializes on them: scales given as
+    python numbers are constants that ``torch.compile`` guards, and an
+    array or tensor of scales is read to the host at a graph break
+    (``fullgraph=True`` refuses it, as ``jax.jit`` refuses traced scales).
+    """
+    if isinstance(scales, (int, float)):
+        return (float(scales),)
+    if isinstance(scales, (list, tuple, range)) and all(isinstance(v, (int, float)) for v in scales):
+        return tuple(float(v) for v in scales)
+    return tuple(float(v) for v in np.atleast_1d(np.asarray(scales)).ravel())
+
+
+def _plan(wavelet, scales: tuple[float, ...], n_time: int, precision: int, device, dtype: torch.dtype):
+    """The resampling plan of :func:`cwt` for data of ``dtype`` on
+    ``device``: ``(complex_cwt, groups)``, one group per padded FFT size,
+    ``(size, rows, entries)``: ``rows`` the scales' flipped resampled
+    integrated wavelets zero-padded to ``size`` (``[S_g, size]`` on
+    ``device``, complex for a complex wavelet; autograd carries a
+    differentiable wavelet's), ``entries`` per row ``(scale index,
+    -sqrt(scale), crop start, crop stop)``.
+
+    Raises:
+        ValueError: If a scale is too small for the input signal.
+    """
+    int_psi, x = _integrate_wavelet(wavelet, precision=precision)
+    complex_cwt = bool(getattr(wavelet, "complex_cwt", False))
+    int_psi = torch.as_tensor(int_psi)
+    if complex_cwt:
+        int_psi = torch.conj(int_psi)
+    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    step = x[1] - x[0]
+    plans: dict[int, list] = {}
+    for si, scale in enumerate(scales):
+        j = np.floor(np.arange(scale * (x[-1] - x[0]) + 1) / (scale * step))
+        j = j[j < int_psi.shape[0]].astype(int)
+        len_s = int(j.shape[0])
+        if len_s - 2 < 0 or (n_time + len_s - 2) - n_time < 0:
+            raise ValueError(f"Selected scale of {scale} too small.")
+        # the center-crop of the n_time + len_s - 2 outputs to n_time
+        d = (len_s - 2) / 2.0
+        start, stop = int(np.floor(d)), n_time + len_s - 2 - int(np.ceil(d))
+        entry = (si, -float(np.sqrt(scale)), start, stop)
+        plans.setdefault(_next_fast_len(n_time + len_s - 1), []).append((j[::-1].copy(), entry))
+    if complex_cwt:
+        dtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    groups = []
+    for size, group in plans.items():
+        rows = int_psi.new_zeros((len(group), size))
+        for gi, (j, _) in enumerate(group):
+            rows[gi, : len(j)] = int_psi[torch.as_tensor(j)]
+        groups.append((size, rows.to(device=device, dtype=dtype), tuple(entry for _, entry in group)))
+    return complex_cwt, tuple(groups)
+
+
+@torch.compiler.assume_constant_result
+def _frequencies(wavelet, scales: tuple[float, ...], precision: int) -> tuple[float, ...]:
+    """The scales' normalized frequencies (host work, a constant of a
+    compiled transform)."""
+    return tuple(float(v) for v in np.atleast_1d(scale2frequency(wavelet, np.asarray(scales), precision)))
+
+
+#: The named wavelets' plans, capped by their rows' bytes as the operator
+#: caches are (a plan's rows are on the data's device).
+_PLANS = _BytesLRU(size=lambda plan: sum(rows.nbytes for _, rows, _ in plan[1]))
+
+
+@torch.compiler.disable  # host work, never traced (also past a graph break)
+def _cached_plan(*key):
+    name, scales, n_time, precision, device, dtype = key
+
+    def build():
+        plan = _plan(DiscreteContinuousWavelet(name), scales, n_time, precision, torch.device(device), dtype)
+        return tree_map(constant_tensor, plan)
+
+    return _PLANS.get(key, build)
+
+
+@torch.compiler.assume_constant_result
+def _named_plan(name: str, scales: tuple[float, ...], n_time: int, precision: int, device: str, dtype: torch.dtype):
+    """:func:`_plan` of a named wavelet, made once per name, scales,
+    length, precision, device and dtype: host work, which
+    ``torch.compile`` takes as constants as ``jax.jit`` takes the JAX
+    package's plan."""
+    return _cached_plan(name, scales, n_time, precision, device, dtype)
+
+
 def cwt(
     data,
     scales,
@@ -70,8 +161,10 @@ def cwt(
         data: Input of shape ``[..., time]``; the last axis is transformed.
             The transform runs on the tensor's device; anything that is not
             a tensor is moved to the CUDA device.
-        scales: Wavelet scales (a host-side sequence; they fix the lengths
-            of the resampled wavelets).
+        scales: Wavelet scales (host values; they fix the lengths of the
+            resampled wavelets).  Under ``torch.compile`` pass python
+            numbers (a tuple, list or range), which it guards: an array or
+            tensor of scales is read at a graph break.
         wavelet: Continuous wavelet object or name, or a differentiable
             wavelet module (discrete wavelets are accepted and sampled via
             the cascade, as in pywt).
@@ -109,73 +202,42 @@ def cwt(
     data = as_device_tensor(data)
     if not data.is_floating_point():
         data = data.to(torch.get_default_dtype())
-    real_dtype = data.dtype
-    complex_dtype = torch.complex128 if real_dtype == torch.float64 else torch.complex64
-    if not isinstance(wavelet, (ContinuousWavelet, Wavelet, _DifferentiableContinuousWavelet)):
-        wavelet = DiscreteContinuousWavelet(wavelet)
-    scales_arr = np.atleast_1d(np.asarray(scales))
-
-    int_psi, x = _integrate_wavelet(wavelet, precision=precision)
-    complex_cwt = bool(getattr(wavelet, "complex_cwt", False))
-    int_psi = torch.as_tensor(int_psi)
-    if complex_cwt:
-        int_psi = torch.conj(int_psi)
-    # the samples follow the data: autograd carries the copy, so parameters
-    # on the CPU still drive a transform on the card
-    int_psi = int_psi.to(device=data.device, dtype=complex_dtype if complex_cwt else real_dtype)
-    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
     n_time = data.shape[-1]
-    step = x[1] - x[0]
+    if isinstance(wavelet, str):
+        # a named wavelet's samples and plan are constants, made once
+        complex_cwt, groups = _named_plan(
+            wavelet, _scale_values(scales), n_time, precision, str(data.device), data.dtype
+        )
+    else:
+        if not isinstance(wavelet, (ContinuousWavelet, Wavelet, _DifferentiableContinuousWavelet)):
+            wavelet = DiscreteContinuousWavelet(wavelet)
+        complex_cwt, groups = _plan(wavelet, _scale_values(scales), n_time, precision, data.device, data.dtype)
 
-    # host-side resampling plan, then the scales batched by FFT size: the
-    # scales sharing a padded size run as one data FFT, one stacked wavelet
-    # FFT and one batched inverse FFT
-    plans: list[tuple[int, np.ndarray, int, int]] = []
-    for si, scale in enumerate(scales_arr):
-        j = np.floor(np.arange(scale * (x[-1] - x[0]) + 1) / (scale * step))
-        j = j[j < int_psi.shape[0]].astype(int)
-        len_s = int(j.shape[0])
-        if len_s - 2 < 0 or (n_time + len_s - 2) - n_time < 0:
-            raise ValueError(f"Selected scale of {scale} too small.")
-        plans.append((si, j, len_s, _next_fast_len(n_time + len_s - 1)))
-
-    groups: dict[int, list[tuple[int, np.ndarray, int, int]]] = {}
-    for plan in plans:
-        groups.setdefault(plan[3], []).append(plan)
-
-    out_slots: list = [None] * len(plans)
-    for size_scale, group in groups.items():
-        # each row the flipped resampled wavelet, zero-padded to the size
-        rows = int_psi.new_zeros((len(group), size_scale))
-        for gi, (_, j, len_s, _) in enumerate(group):
-            rows[gi, :len_s] = int_psi[torch.as_tensor(j[::-1].copy(), device=data.device)]
+    # the scales batched by FFT size: the scales sharing a padded size run
+    # as one data FFT, one stacked wavelet FFT and one batched inverse FFT
+    out_slots: list = [None] * sum(len(group[2]) for group in groups)
+    for size_scale, rows, entries in groups:
         fft_wav = torch.fft.fft(rows, dim=-1)
         # broadcast scales over the data batch: [S_g, ...ones..., size]
-        fft_wav = fft_wav.reshape((len(group),) + (1,) * (data.ndim - 1) + (size_scale,))
+        fft_wav = fft_wav.reshape((len(entries),) + (1,) * (data.ndim - 1) + (size_scale,))
         if data.numel():
             conv = torch.fft.ifft(fft_wav * torch.fft.fft(data, n=size_scale, dim=-1)[None], dim=-1)
         else:  # an empty batch: MKL and cuFFT refuse a plan of no transforms
-            conv = fft_wav.new_zeros((len(group), *data.shape[:-1], size_scale))
+            conv = fft_wav.new_zeros((len(entries), *data.shape[:-1], size_scale))
         diff_full = torch.diff(conv, dim=-1)
         if not complex_cwt:
             diff_full = diff_full.real
-        for gi, (si, _, len_s, _) in enumerate(group):
-            coef = -float(np.sqrt(scales_arr[si])) * diff_full[gi, ..., : n_time + len_s - 2]
-            # center-crop to the input length
-            d = (coef.shape[-1] - n_time) / 2.0
-            if d > 0:
-                coef = coef[..., int(np.floor(d)) : coef.shape[-1] - int(np.ceil(d))]
-            out_slots[si] = coef
+        for gi, (si, factor, start, stop) in enumerate(entries):
+            # the scaling, and the center-crop to the input length
+            out_slots[si] = factor * diff_full[gi, ..., start:stop]
 
     out = torch.stack(out_slots)
     if isinstance(wavelet, _DifferentiableContinuousWavelet):
         # keep the frequencies differentiable (the center is a parameter)
         center = wavelet.center
-        frequencies = center / torch.as_tensor(scales_arr, dtype=center.dtype, device=center.device) / sampling_period
+        frequencies = center / torch.as_tensor(_scale_values(scales), dtype=center.dtype, device=center.device) / sampling_period
     else:
-        frequencies = np.atleast_1d(np.asarray(scale2frequency(wavelet, scales_arr, precision)))
-        frequencies = frequencies / sampling_period
+        frequencies = np.asarray(_frequencies(wavelet, _scale_values(scales), precision)) / sampling_period
     return out, frequencies
 
 

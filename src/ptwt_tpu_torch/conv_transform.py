@@ -36,7 +36,7 @@ from .ops._pallas1d_multi import (
 )
 from .utils import (
     as_device_tensor,
-    get_filter_arrays,
+    filter_taps,
     infer_periodization,
     postprocess_coeffs,
     postprocess_tensor,
@@ -111,7 +111,7 @@ def wavedec(
     data = as_device_tensor(data)
     _check_dtype(data.dtype)
     data, ds = preprocess_tensor(data, ndim=1, axes=axis)
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     filt_len = len(dec_lo)
 
     if level is None:
@@ -185,7 +185,7 @@ def waverec(
     coeffs, ds = preprocess_coeffs(coeffs, ndim=1, axes=axis)
     dtype = coeffs[0].dtype
     _check_dtype(dtype)
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=False, dtype=dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=False, dtype=dtype)
     filt_len = len(rec_lo)
     if mode is None:
         inferred = infer_periodization([c.shape[-1] for c in coeffs[1:]], filt_len)

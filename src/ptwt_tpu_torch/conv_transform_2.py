@@ -30,7 +30,7 @@ from .ops._pallas import fused_wavedec2d_applicable, fused_wavedec2d_per, fused_
 from .utils import (
     as_device_tensor,
     coeff_tree_map,
-    get_filter_arrays,
+    filter_taps,
     infer_periodization,
     invalid_coeffs_message,
     postprocess_coeffs,
@@ -96,7 +96,7 @@ def wavedec2(
     data = as_device_tensor(data)
     _check_dtype(data.dtype)
     data, ds = preprocess_tensor(data, ndim=2, axes=axes)
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     filt_len = len(dec_lo)
 
     if level is None:
@@ -167,7 +167,7 @@ def waverec2(
     coeffs, ds = preprocess_coeffs(coeffs, ndim=2, axes=axes)
     dtype = coeffs[0].dtype
     _check_dtype(dtype)
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=False, dtype=dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=False, dtype=dtype)
     filt_len = len(rec_lo)
     if mode is None:
         inferred = all(

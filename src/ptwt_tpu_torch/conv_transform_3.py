@@ -23,7 +23,7 @@ from .utils import (
     SUBBAND_ORDERS,
     as_device_tensor,
     coeff_tree_map,
-    get_filter_arrays,
+    filter_taps,
     infer_periodization,
     invalid_coeffs_message,
     postprocess_coeffs,
@@ -79,7 +79,7 @@ def wavedec3(
     data = as_device_tensor(data)
     _check_dtype(data.dtype)
     data, ds = preprocess_tensor(data, ndim=3, axes=axes)
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     filt_len = len(dec_lo)
 
     if level is None:
@@ -139,7 +139,7 @@ def waverec3(
     coeffs, ds = preprocess_coeffs(coeffs, ndim=3, axes=axes)
     dtype = coeffs[0].dtype
     _check_dtype(dtype)
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=False, dtype=dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=False, dtype=dtype)
     filt_len = len(rec_lo)
     if mode is None:
         inferred = all(

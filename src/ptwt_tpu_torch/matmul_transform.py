@@ -42,6 +42,7 @@ from .ops._boundary_long import (
     long_syn_run_depth,
 )
 from .ops._conv import axis_matmul
+from .ops._library import constant_tensor
 from .sparse_math import DeviceArg, _tensor
 from .utils import (
     as_device_tensor,
@@ -143,8 +144,25 @@ def _plan_levels(length: int, level: Optional[int], filt_len: int) -> tuple[int,
 
 
 def _operator(matrix: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A host operator on ``like``'s device and dtype."""
-    return torch.as_tensor(matrix, dtype=like.dtype, device=like.device)
+    """A host operator on ``like``'s device and dtype, kept by the caller."""
+    return constant_tensor(torch.as_tensor(matrix, dtype=like.dtype, device=like.device))
+
+
+@torch.compiler.assume_constant_result
+def _dense_operator(wavelet, length: int, method: str, synthesis: bool) -> np.ndarray:
+    """A boundary operator built on the host in float64 from the wavelet's
+    own filters: a compiled transform takes it as a constant (guarded on
+    the wavelet object's identity), as ``jax.jit`` takes the JAX
+    package's numpy operators.  The transform objects keep what it
+    returns, so it is not cached here."""
+    build = boundary_synthesis_matrix if synthesis else boundary_analysis_matrix
+    return build(wavelet, length, method)
+
+
+def _boundary_operator(wavelet, length: int, method: str, synthesis: bool, like: torch.Tensor) -> torch.Tensor:
+    """The ``length`` boundary analysis (synthesis) operator of ``wavelet``
+    on ``like``'s device and dtype."""
+    return _operator(_dense_operator(wavelet, length, method, synthesis), like)
 
 
 def _host64(matrix) -> np.ndarray:
@@ -234,7 +252,7 @@ class MatrixWavedec(BaseMatrixWaveDec):
         self.fwt_matrix_list = [
             LongAnalysisOp(self.wavelet, lvl_len, self.orthogonalization)
             if lvl_len > cutoff and long_supported(self.wavelet, lvl_len, self.orthogonalization)
-            else _operator(boundary_analysis_matrix(self.wavelet, lvl_len, self.orthogonalization), like)
+            else _boundary_operator(self.wavelet, lvl_len, self.orthogonalization, False, like)
             for lvl_len in lengths
         ]
         # fuse maximal runs of consecutive long levels (exactly halving
@@ -365,7 +383,7 @@ class MatrixWaverec:
         self.ifwt_matrix_list = [
             LongSynthesisOp(self.wavelet, length, self.orthogonalization)
             if length > cutoff and long_supported(self.wavelet, length, self.orthogonalization)
-            else _operator(boundary_synthesis_matrix(self.wavelet, length, self.orthogonalization), like)
+            else _boundary_operator(self.wavelet, length, self.orthogonalization, True, like)
             for length in lengths
         ]
         self._built_lengths = lengths

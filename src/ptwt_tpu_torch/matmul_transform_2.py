@@ -36,6 +36,7 @@ from .conv_transform import _check_dtype
 from .matmul_transform import (
     BaseMatrixWaveDec,
     _as_wavelet_obj,
+    _boundary_operator,
     _check_orthogonal,
     _host64,
     _operator,
@@ -267,7 +268,7 @@ class MatrixWavedec2(BaseMatrixWaveDec):
         def axis_op(length):
             if self._factored and length > cutoff and long_supported(self.wavelet, length, self.orthogonalization):
                 return LongAnalysisOp(self.wavelet, length, self.orthogonalization)
-            return _operator(boundary_analysis_matrix(self.wavelet, length, self.orthogonalization), like)
+            return _boundary_operator(self.wavelet, length, self.orthogonalization, False, like)
 
         self.fwt_matrix_list = [
             (axis_op(lengths_h[lvl]), axis_op(lengths_w[lvl]))
@@ -405,7 +406,7 @@ class MatrixWaverec2:
         def axis_op(length):
             if self._factored and length > cutoff and long_supported(self.wavelet, length, self.orthogonalization):
                 return LongSynthesisOp(self.wavelet, length, self.orthogonalization)
-            return _operator(boundary_synthesis_matrix(self.wavelet, length, self.orthogonalization), like)
+            return _boundary_operator(self.wavelet, length, self.orthogonalization, True, like)
 
         self.ifwt_matrix_list = [
             (axis_op(height), axis_op(width))

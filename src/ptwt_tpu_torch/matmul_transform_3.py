@@ -21,12 +21,11 @@ from .conv_transform import _check_dtype
 from .matmul_transform import (
     BaseMatrixWaveDec,
     _as_wavelet_obj,
+    _boundary_operator,
     _check_orthogonal,
-    _operator,
     _plan_levels,
 )
 from .matmul_transform_2 import _apply_axis, _pad_odd_axes
-from .ops._boundary import boundary_analysis_matrix, boundary_synthesis_matrix
 from .ops._boundary_long import LongAnalysisOp, LongSynthesisOp, long_boundary_cutoff, long_supported
 from .utils import (
     SUBBAND_ORDERS,
@@ -101,7 +100,7 @@ class MatrixWavedec3(BaseMatrixWaveDec):
         def axis_op(length):
             if length > cutoff and long_supported(self.wavelet, length, self.orthogonalization):
                 return LongAnalysisOp(self.wavelet, length, self.orthogonalization)
-            return _operator(boundary_analysis_matrix(self.wavelet, length, self.orthogonalization), like)
+            return _boundary_operator(self.wavelet, length, self.orthogonalization, False, like)
 
         self.fwt_matrix_list = [tuple(axis_op(plans[ax][1][lvl]) for ax in range(3)) for lvl in range(level)]
 
@@ -174,7 +173,7 @@ class MatrixWaverec3:
         def axis_op(length):
             if length > cutoff and long_supported(self.wavelet, length, self.orthogonalization):
                 return LongSynthesisOp(self.wavelet, length, self.orthogonalization)
-            return _operator(boundary_synthesis_matrix(self.wavelet, length, self.orthogonalization), like)
+            return _boundary_operator(self.wavelet, length, self.orthogonalization, True, like)
 
         self.ifwt_matrix_list = [tuple(axis_op(axis_len) for axis_len in shape) for shape in shapes]
         self._built_shapes = shapes

@@ -34,9 +34,10 @@ differs from the true band.
 
 Gradients: the per-level ops are autograd-transparent (K3 <-> K4 on the
 card, the products' transposes at the same precision).  On the CPU a run
-is plain torch ops; on the card it is a :class:`torch.autograd.Function`
-whose backward is the VJP of the per-level op chain, as in the JAX
-package (the map is linear).
+is plain torch ops; on the card it is a custom op (``long_analysis_run``,
+``long_synthesis_run``; a run reaches it by the id of :func:`_run_id`)
+whose backward is the VJP of the per-level op chain (``torch.func.vjp``),
+as in the JAX package (the map is linear).
 """
 
 from __future__ import annotations
@@ -48,12 +49,13 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from . import _pallas1d_multi as _multi
 from ._boundary import boundary_analysis_matrix, boundary_synthesis_matrix, strided_conv_matrix
 from ._conv import axis_matmul
 from ._dispatch import dwt_axis_packed, idwt_axis_pairs
+from ._library import NAMESPACE, autograd, call, constant_tensor, flatten_batch, flatten_list, split_batch
+from ..utils._preprocess import constant_taps
 
 __all__ = [
     "LongAnalysisOp",
@@ -100,13 +102,17 @@ def _proxy_length(filt_len: int) -> int:
 
 
 def _wavelet_key(wavelet):
+    """The cache key of a wavelet's edge constructions: its name, or for a
+    wavelet object its name and filter values (two banks may share a name)."""
     if isinstance(wavelet, str):
         return wavelet
-    name = getattr(wavelet, "name", None)
-    if name is not None:
-        return name
-    bank = getattr(wavelet, "filter_bank", None)
-    return tuple(tuple(float(v) for v in np.asarray(f).ravel()) for f in bank)
+
+    def values(f):
+        # a list's python floats as they are: no numpy under a trace
+        return f if isinstance(f, (list, tuple)) else np.asarray(f, dtype=np.float64).ravel().tolist()
+
+    bank = tuple(tuple(float(v) for v in values(f)) for f in wavelet.filter_bank)
+    return getattr(wavelet, "name", None), bank
 
 
 def _filters(wavelet):
@@ -162,7 +168,8 @@ def _analysis_edge_structure(key, method: str, phase: int = 0):
     cb = n0 - int(np.min(np.nonzero(np.abs(a0[rows_bot]).max(axis=0) > tol)[0]))
     e_top = a0[rows_top][:, :ct].copy()
     e_bot = a0[rows_bot][:, n0 - cb :].copy()
-    return dt, ct, db, cb, e_top, e_bot
+    # python ints: a compiled transform takes the geometry as constants
+    return int(dt), int(ct), int(db), int(cb), e_top, e_bot
 
 
 @functools.lru_cache(maxsize=128)
@@ -201,7 +208,7 @@ def _synthesis_edge_structure(key, method: str, phase: int = 0):
     sel_bot = np.concatenate([half - ib + np.arange(ib), n0 - ib + np.arange(ib)])
     e_top = s0[:st][:, sel_top].copy()
     e_bot = s0[n0 - sb :][:, sel_bot].copy()
-    return st, it, sb, ib, e_top, e_bot
+    return int(st), int(it), int(sb), int(ib), e_top, e_bot
 
 
 #: the proxy construction needs the wavelet object back from its cache key
@@ -237,7 +244,7 @@ class _Constants:
         key = (name, like.device, like.dtype)
         t = self._tensors.get(key)
         if t is None:
-            t = torch.as_tensor(getattr(self, name), dtype=like.dtype, device=like.device)
+            t = constant_tensor(torch.as_tensor(getattr(self, name), dtype=like.dtype, device=like.device))
             self._tensors[key] = t
         return t
 
@@ -246,8 +253,9 @@ def _neg(axis: int, ndim: int) -> int:
     return axis - ndim if axis >= 0 else axis
 
 
-def _taps(filt: np.ndarray, like: torch.Tensor) -> np.ndarray:
-    return filt.astype(torch.empty((), dtype=like.dtype).numpy().dtype)
+def _taps(filt: tuple[float, ...], like: torch.Tensor) -> tuple[float, ...]:
+    """A filter's taps at ``like``'s precision, as the routes take them."""
+    return constant_taps(filt, False, like.dtype)
 
 
 class LongAnalysisOp(_Constants):
@@ -264,6 +272,7 @@ class LongAnalysisOp(_Constants):
         # the interior runs the correlation with the flipped filters
         self._f_lo = dec_lo[::-1].copy()
         self._f_hi = dec_hi[::-1].copy()
+        self._taps = (tuple(self._f_lo.tolist()), tuple(self._f_hi.tolist()))
         self._dt, self._ct, self._db, self._cb, self._e_top, self._e_bot = _analysis_edge_structure(
             key, method, length % 4
         )
@@ -285,7 +294,7 @@ class LongAnalysisOp(_Constants):
         # rows touching the pad are replaced by the edge products
         pads = [0, 0] * (-axis - 1) + [a, self.filt_len - 2 - a]
         packed = dwt_axis_packed(
-            F.pad(x, pads), axis, _taps(self._f_lo, x), _taps(self._f_hi, x), "valid"
+            F.pad(x, pads), axis, _taps(self._taps[0], x), _taps(self._taps[1], x), "valid"
         )
         lo, hi = packed.unbind(0)
         top = axis_matmul(x.narrow(axis, 0, self._ct), self._const("_e_top", x), axis)
@@ -317,6 +326,7 @@ class LongSynthesisOp(_Constants):
         self.filt_len = rec_lo.shape[0]
         self._rec_lo = rec_lo
         self._rec_hi = rec_hi
+        self._taps = (tuple(rec_lo.tolist()), tuple(rec_hi.tolist()))
         self._st, self._it, self._sb, self._ib, self._e_top, self._e_bot = _synthesis_edge_structure(
             key, method, length % 4
         )
@@ -342,7 +352,7 @@ class LongSynthesisOp(_Constants):
         # the full transposed convolution has 2(m-1)+L outputs; the
         # operator's rows are its [a, a+n) window
         out = idwt_axis_pairs(
-            (lo,), (hi,), axis, _taps(self._rec_lo, lo), _taps(self._rec_hi, lo),
+            (lo,), (hi,), axis, _taps(self._taps[0], lo), _taps(self._taps[1], lo),
             a, self.filt_len - 2 - a, "zero",
         )[0]
         it, ib = self._it, self._ib
@@ -370,8 +380,10 @@ def long_run_depth(wavelet, lengths: Sequence[int], method: str, dtype: torch.dt
     ``2**16``), an exactly halving chain of even lengths, each level
     :func:`long_supported`, depth 2 to 4, and a plan the kernel holds.
     """
+    if not lengths or lengths[0] <= _multi.FLAT_MIN_LANES:  # no host work below the kernels' floor
+        return 0
     filt_len = _filters(wavelet)[0].shape[0]
-    if not lengths or not _multi._long_lane(lengths[0], filt_len):
+    if not _multi._long_lane(lengths[0], filt_len):
         return 0
     depth = 0
     for i, n_l in enumerate(lengths[: _multi.MAX_FUSED_DEPTH]):
@@ -399,8 +411,10 @@ def long_syn_run_depth(wavelet, lengths: Sequence[int], method: str, dtype: torc
     kernels take, an exactly doubling suffix of even, supported lengths,
     depth 2 to 4, and a plan the kernel holds.
     """
+    if not lengths or lengths[-1] <= _multi.FLAT_MIN_LANES:  # no host work below the kernels' floor
+        return 0
     filt_len = _filters(wavelet)[0].shape[0]
-    if not lengths or not _multi._long_lane(lengths[-1], filt_len):
+    if not _multi._long_lane(lengths[-1], filt_len):
         return 0
     a = _conv_offset(filt_len)
     for d in range(min(_multi.MAX_FUSED_DEPTH, len(lengths)), 1, -1):
@@ -458,8 +472,8 @@ class LongAnalysisRun(_Constants):
 
     def __init__(self, wavelet, lengths: Sequence[int], method: str = "qr"):
         super().__init__()
-        key = _register(wavelet)
-        self._wavelet = _KEY_TO_WAVELET[key]
+        self._key = _register(wavelet)
+        self._wavelet = _KEY_TO_WAVELET[self._key]
         self._method = method
         self.lengths = tuple(int(n) for n in lengths)
         self.depth = len(self.lengths)
@@ -471,9 +485,10 @@ class LongAnalysisRun(_Constants):
         self.filt_len = len(dec_lo)
         self._f_lo = dec_lo[::-1].copy()
         self._f_hi = dec_hi[::-1].copy()
+        self._taps = (tuple(self._f_lo.tolist()), tuple(self._f_hi.tolist()))
         self._a = _conv_offset(self.filt_len)
         self._ops = None
-        self._geom = [_analysis_edge_structure(key, method, n_l % 4) for n_l in self.lengths]
+        self._geom = [_analysis_edge_structure(self._key, method, n_l % 4) for n_l in self.lengths]
         self._spans = self._edge_spans()
         self._build_maps()
 
@@ -556,7 +571,7 @@ class LongAnalysisRun(_Constants):
         sameshift instance, or its plain version) with the spans stitched in."""
         n = self.lengths[0]
         lo_int, his_int = _multi.sameshift_analysis(
-            x2, _taps(self._f_lo, x2), _taps(self._f_hi, x2), self._a, self.depth
+            x2, _taps(self._taps[0], x2), _taps(self._taps[1], x2), self._a, self.depth
         )
         head = axis_matmul(x2[:, : self._head_map.shape[1]], self._const("_head_map", x2), -1)
         tail = axis_matmul(x2[:, n - self._tail_map.shape[1] :], self._const("_tail_map", x2), -1)
@@ -588,29 +603,8 @@ class LongAnalysisRun(_Constants):
         if _multi._on_cpu(x2):
             lo, his = self._forward(x2)
         else:
-            lo, *his = _AnalysisRun.apply(x2, self)
+            lo, *his = call(long_analysis_run, x2.contiguous(), _run_id(self))
         return lo.reshape(*lead, lo.shape[-1]), [h.reshape(*lead, h.shape[-1]) for h in his]
-
-
-class _AnalysisRun(torch.autograd.Function):
-    """A fused analysis run on the card; backward: the VJP of the per-level
-    op chain (K3 <-> K4 and the edge products' transposes)."""
-
-    @staticmethod
-    def forward(ctx, x2, run):
-        ctx.run = run
-        ctx.shape = x2.shape
-        lo, his = run._forward(x2)
-        return (lo, *his)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, *cts):
-        with torch.enable_grad():
-            z = cts[0].new_zeros(ctx.shape, requires_grad=True)
-            lo, his = ctx.run._reference(z)
-            (grad,) = torch.autograd.grad([lo, *his], z, cts)
-        return grad, None
 
 
 class LongSynthesisRun(_Constants):
@@ -625,8 +619,8 @@ class LongSynthesisRun(_Constants):
 
     def __init__(self, wavelet, lengths: Sequence[int], method: str = "qr"):
         super().__init__()
-        key = _register(wavelet)
-        self._wavelet = _KEY_TO_WAVELET[key]
+        self._key = _register(wavelet)
+        self._wavelet = _KEY_TO_WAVELET[self._key]
         self._method = method
         self.lengths = tuple(int(n) for n in lengths)  # coarse -> fine
         self.depth = len(self.lengths)
@@ -638,9 +632,10 @@ class LongSynthesisRun(_Constants):
         self.filt_len = len(rec_lo)
         self._rec_lo = rec_lo
         self._rec_hi = rec_hi
+        self._taps = (tuple(rec_lo.tolist()), tuple(rec_hi.tolist()))
         self._a = _conv_offset(self.filt_len)
         self._ops = None
-        self._geom = [_synthesis_edge_structure(key, method, n_l % 4) for n_l in self.lengths]
+        self._geom = [_synthesis_edge_structure(self._key, method, n_l % 4) for n_l in self.lengths]
         self._spans = self._edge_spans()
         self._build_maps()
 
@@ -718,7 +713,7 @@ class LongSynthesisRun(_Constants):
         spans stitched in."""
         n = self.lengths[-1]
         interior = _multi.flat_waverec_lane_multi(
-            [lo2, *his2], _taps(self._rec_lo, lo2), _taps(self._rec_hi, lo2),
+            [lo2, *his2], _taps(self._taps[0], lo2), _taps(self._taps[1], lo2),
             (self._a,) * self.depth, self.lengths[::-1],
         )
         bands = [lo2, *his2]
@@ -749,25 +744,95 @@ class LongSynthesisRun(_Constants):
         if _multi._on_cpu(lo2):
             out = self._forward(lo2, his2)
         else:
-            out = _SynthesisRun.apply(self, lo2, *his2)
+            out = call(long_synthesis_run, [b.contiguous() for b in (lo2, *his2)], _run_id(self))
         return out.reshape(*lead, out.shape[-1])
 
 
-class _SynthesisRun(torch.autograd.Function):
-    """A fused synthesis run on the card; backward: the VJP of the
-    per-step op chain."""
+# ---------------------------------------------------------------------------
+# the fused runs as custom ops
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, run, lo2, *his2):
-        ctx.run = run
-        ctx.shapes = [lo2.shape, *(h.shape for h in his2)]
-        return run._forward(lo2, his2)
+#: Every fused run an op has named, by its id (the ops take the id: a run
+#: is no argument type of an op).  One run per wavelet, chain and method.
+_RUNS: list = []
+_RUN_IDS: dict = {}
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        with torch.enable_grad():
-            zeros = [ct.new_zeros(shape, requires_grad=True) for shape in ctx.shapes]
-            out = ctx.run._reference(zeros[0], zeros[1:])
-            grads = torch.autograd.grad(out, zeros, ct)
-        return (None, *grads)
+
+def _run_id(run) -> int:
+    """The id under which the ops find ``run`` (or an equal one)."""
+    key = (type(run).__name__, run._key, run.lengths, run._method)
+    run_id = _RUN_IDS.get(key)
+    if run_id is None:
+        run_id = _RUN_IDS[key] = len(_RUNS)
+        _RUNS.append(run)
+    return run_id
+
+
+@torch.library.custom_op(f"{NAMESPACE}::long_analysis_run", mutates_args=())
+def long_analysis_run(x2: torch.Tensor, run: int) -> list[torch.Tensor]:
+    """A fused analysis run on ``[rows, n]`` (one launch of K8a's sameshift
+    instance and the spans' products): ``[lo_D, hi_1, ..., hi_D]``."""
+    lo, his = _RUNS[run]._forward(x2)
+    return [lo, *his]
+
+
+@long_analysis_run.register_fake
+def _(x2, run):
+    lengths = _RUNS[run].lengths
+    rows = x2.shape[0]
+    return [x2.new_empty(rows, lengths[-1] // 2)] + [x2.new_empty(rows, n // 2) for n in lengths]
+
+
+def _long_analysis_setup(ctx, inputs, output):
+    ctx.shape, ctx.run = tuple(inputs[0].shape), inputs[1]
+
+
+def _long_analysis_backward(ctx, cts):
+    """The VJP of the per-level op chain the run stands in for (K3 <-> K4
+    and the edge products' transposes); the map is linear."""
+    lo_ct, *his_cts = cts
+    _, pullback = torch.func.vjp(_RUNS[ctx.run]._reference, lo_ct.new_zeros(ctx.shape))
+    (grad,) = pullback((lo_ct, his_cts))
+    return grad, None
+
+
+@long_analysis_run.register_vmap
+def _(info, in_dims, x2, run):
+    size = info.batch_size
+    outs = long_analysis_run(flatten_batch(x2, in_dims[0], size), run)
+    return [split_batch(t, size) for t in outs], [0] * len(outs)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::long_synthesis_run", mutates_args=())
+def long_synthesis_run(bands: list[torch.Tensor], run: int) -> torch.Tensor:
+    """A fused synthesis run on ``[lo, hi_1, ..., hi_D]`` (coarse to fine,
+    each ``[rows, m]``; one launch of K8b's sameshift instance and the
+    spans' products) -> ``[rows, n_fine]``."""
+    return _RUNS[run]._forward(bands[0], bands[1:])
+
+
+@long_synthesis_run.register_fake
+def _(bands, run):
+    return bands[0].new_empty(bands[0].shape[0], _RUNS[run].lengths[-1])
+
+
+def _long_synthesis_setup(ctx, inputs, output):
+    ctx.shapes, ctx.run = [tuple(b.shape) for b in inputs[0]], inputs[1]
+
+
+def _long_synthesis_backward(ctx, ct):
+    """The VJP of the per-step op chain the run stands in for."""
+    zeros = [ct.new_zeros(shape) for shape in ctx.shapes]
+    _, pullback = torch.func.vjp(_RUNS[ctx.run]._reference, zeros[0], zeros[1:])
+    lo_grad, his_grads = pullback(ct)
+    return [lo_grad, *his_grads], None
+
+
+@long_synthesis_run.register_vmap
+def _(info, in_dims, bands, run):
+    size = info.batch_size
+    return split_batch(long_synthesis_run(flatten_list(bands, in_dims[0], size), run), size), 0
+
+
+autograd(long_analysis_run, _long_analysis_setup, _long_analysis_backward)
+autograd(long_synthesis_run, _long_synthesis_setup, _long_synthesis_backward)

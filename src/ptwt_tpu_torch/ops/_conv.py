@@ -30,9 +30,12 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ._library import NAMESPACE, autograd, batch_first, call, no_batched
 
 __all__ = [
     "analysis_conv",
@@ -200,21 +203,39 @@ def _product(x, matrix, aligned, axis: int, transposed: bool) -> torch.Tensor:
         return (x.movedim(axis, -1) @ op.mT).movedim(-1, axis)
 
 
-class _AxisMatmul(torch.autograd.Function):
-    """``matrix`` applied along ``axis`` (from ``aligned`` where given);
-    the backward applies its transpose from the same operands."""
+@torch.library.custom_op(f"{NAMESPACE}::axis_matmul", mutates_args=())
+def _axis_matmul(
+    x: torch.Tensor, matrix: torch.Tensor, aligned: Optional[torch.Tensor], axis: int, transposed: bool
+) -> torch.Tensor:
+    """``matrix`` (its transpose) applied along the negative ``axis`` of
+    ``x``, from ``aligned`` where given (:func:`_product`)."""
+    return _product(x, matrix, aligned, axis, transposed)
 
-    @staticmethod
-    def forward(ctx, x, matrix, axis, transposed, aligned):
-        ctx.save_for_backward(matrix, aligned)
-        ctx.axis = axis
-        ctx.transposed = transposed
-        return _product(x, matrix, aligned, axis, transposed)
 
-    @staticmethod
-    def backward(ctx, ct):
-        matrix, aligned = ctx.saved_tensors
-        return _AxisMatmul.apply(ct, matrix, ctx.axis, not ctx.transposed, aligned), None, None, None, None
+# the same torch ops on fake tensors give the product's shape and strides
+_axis_matmul.register_fake(_product)
+
+
+def _axis_matmul_setup(ctx, inputs, output):
+    x, matrix, aligned, axis, transposed = inputs
+    ctx.save_for_backward(matrix, aligned)
+    ctx.axis, ctx.transposed = axis, transposed
+
+
+def _axis_matmul_backward(ctx, ct):
+    """The transpose, from the forward's operands."""
+    matrix, aligned = ctx.saved_tensors
+    return call(_axis_matmul, ct, matrix, aligned, ctx.axis, not ctx.transposed), None, None, None, None
+
+
+@_axis_matmul.register_vmap
+def _(info, in_dims, x, matrix, aligned, axis, transposed):
+    no_batched("axis_matmul", in_dims, 1, 2)
+    x = batch_first(x, in_dims[0], info.batch_size)
+    return _axis_matmul(x, matrix, aligned, axis, transposed), 0
+
+
+autograd(_axis_matmul, _axis_matmul_setup, _axis_matmul_backward)
 
 
 def axis_matmul(
@@ -232,7 +253,7 @@ def axis_matmul(
         aligned = None
     elif aligned is None or aligned.dtype != dtype:
         aligned = aligned_operator(matrix, dtype)
-    return _AxisMatmul.apply(x, matrix.detach() if matrix.requires_grad else matrix, axis, False, aligned)
+    return call(_axis_matmul, x, matrix, aligned, axis % x.ndim - x.ndim, False)
 
 
 _CONVS = {1: (F.conv1d, F.conv_transpose1d), 2: (F.conv2d, F.conv_transpose2d),

@@ -277,12 +277,14 @@ def host_taps(filt) -> list[float]:
         if kept is not None:
             return kept
         return filt.detach().double().cpu().tolist()
+    if isinstance(filt, (tuple, list)):  # the transforms' constant banks
+        return [float(v) for v in filt]
     return [float(v) for v in np.asarray(filt).ravel()]
 
 
 def static_taps(filt) -> list[float]:
-    """:func:`host_taps` for a fused kernel, whose autograd Function takes
-    the taps as constants.
+    """:func:`host_taps` for a fused kernel, whose op takes the taps as
+    constants.
 
     Raises ``NotImplementedError`` for a filter tensor that autograd would
     have to differentiate.

@@ -27,6 +27,7 @@ import torch
 
 from ._conv import aligned_operator, operand_dtype
 from ._kernels import host_taps
+from ._library import constant_tensor
 
 __all__ = [
     "analysis_matrix",
@@ -93,22 +94,24 @@ def _source_index(p: np.ndarray, n: int, mode: str) -> np.ndarray:
 
 
 class _BytesLRU:
-    """LRU cache of arrays or tensors, capped by their total bytes."""
+    """LRU cache of arrays or tensors (or of values that ``size`` measures),
+    capped by their total bytes."""
 
-    def __init__(self) -> None:
+    def __init__(self, size: Callable[[object], int] = lambda v: v.nbytes) -> None:
         self._store: OrderedDict[Hashable, object] = OrderedDict()
+        self._size = size
 
     def get(self, key: Hashable, build: Callable[[], object]):
         hit = self._store.get(key)
         if hit is not None:
             self._store.move_to_end(key)
             return hit
-        val = build()
+        val = constant_tensor(build())
         self._store[key] = val
-        total = sum(v.nbytes for v in self._store.values())
+        total = sum(self._size(v) for v in self._store.values())
         while total > OPERATOR_CACHE_BYTES and len(self._store) > 1:
             _, evicted = self._store.popitem(last=False)
-            total -= evicted.nbytes
+            total -= self._size(evicted)
         return val
 
     def clear(self) -> None:

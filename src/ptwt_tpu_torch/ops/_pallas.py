@@ -39,10 +39,12 @@ size).
 
 Gradients: the analysis and synthesis of a run are each other's VJP with
 the same taps and the same run plan, as the JAX package's ``custom_vjp``s
-make them: one :class:`torch.autograd.Function` per launch, whose
-backward is one launch of the opposite kernel (counted under it).  A
+make them: each launch is one custom op (``wavedec1d_run``,
+``waverec1d_run``, ``wavedec2d_run``, ``waverec2d_run`` in
+``torch.ops.ptwt_tpu_torch``, :mod:`._library`), whose backward is the
+opposite op, one launch of the opposite kernel (counted under it).  A
 filter tensor that requires grad raises on the card, and so does a
-double backward.
+second backward.
 
 The plain versions run the levels one by one through
 :func:`~._pallas2d.dwt2_level_plain` / :func:`~._pallas2d.idwt2_level_plain`
@@ -57,9 +59,9 @@ import functools
 from typing import Sequence
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import _kernels
+from ._library import NAMESPACE, autograd, call, flatten_batch, flatten_list, split_batch
 from ._pallas1d_multi import MAX_FUSED_DEPTH, MAX_TAPS, analysis_pyramid, synthesis_pyramid
 from ._pallas2 import _on_cpu, dwt_axis_plain, idwt_axis_plain
 from ._pallas2d import dwt2_level_plain, idwt2_level_plain
@@ -123,42 +125,76 @@ def waverec1d_per_plain(coeffs, rec_lo, rec_hi) -> torch.Tensor:
     return cur
 
 
-class _Wavedec1dRun(torch.autograd.Function):
-    """K6a forward on ``[rows, n]``, one run of ``depth`` levels; backward:
-    one K6b launch with the same (flipped dec) taps and offsets."""
-
-    @staticmethod
-    def forward(ctx, x2, lo, hi, depth):
-        ctx.plan = (lo, hi, depth, x2.shape[-1])
-        lo_band, his = analysis_pyramid("K6a", x2, lo, hi, depth, "periodization")
-        return (lo_band, *his)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct_lo, *ct_his):
-        lo, hi, depth, n = ctx.plan
-        bands = [c.contiguous() for c in (ct_lo, *ct_his[::-1])]
-        grad = synthesis_pyramid("K6b", bands, lo, hi, [len(lo) // 2 - 1] * depth, n, True)
-        return grad, None, None, None
+# K6a / K6b: one run of at most four levels of the 1d pyramid, each the
+# other's VJP with the same taps
 
 
-class _Waverec1dRun(torch.autograd.Function):
-    """K6b forward on ``[lo_D, hi_D, ..., hi_1]``; backward: one K6a launch
-    with the same (rec) taps."""
+@torch.library.custom_op(f"{NAMESPACE}::wavedec1d_run", mutates_args=())
+def wavedec1d_run(x2: torch.Tensor, lo: list[float], hi: list[float], depth: int) -> list[torch.Tensor]:
+    """K6a on ``[rows, n]``, one run of ``depth`` levels: ``[lo_D, hi_1,
+    ..., hi_D]``."""
+    lo_band, his = analysis_pyramid("K6a", x2, lo, hi, depth, "periodization")
+    return [lo_band, *his]
 
-    @staticmethod
-    def forward(ctx, lo, hi, *bands):
-        depth = len(bands) - 1
-        ctx.plan = (lo, hi, depth)
-        offs = [len(lo) // 2 - 1] * depth
-        return synthesis_pyramid("K6b", bands, lo, hi, offs, 2 * bands[-1].shape[-1], True)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        lo, hi, depth = ctx.plan
-        lo_band, his = analysis_pyramid("K6a", ct.contiguous(), lo, hi, depth, "periodization")
-        return (None, None, lo_band, *his[::-1])
+@wavedec1d_run.register_fake
+def _(x2, lo, hi, depth):
+    rows, n = x2.shape
+    return [x2.new_empty(rows, n >> depth)] + [x2.new_empty(rows, n >> lvl) for lvl in range(1, depth + 1)]
+
+
+def _taps_setup(ctx, inputs, output):
+    ctx.plan = tuple(inputs[1:3])
+
+
+def _wavedec1d_backward(ctx, cts):
+    """One K6b launch with the same (flipped dec) taps and offsets."""
+    lo, hi = ctx.plan
+    ct_lo, *ct_his = cts
+    bands = [c.contiguous() for c in (ct_lo, *ct_his[::-1])]
+    return call(waverec1d_run, bands, lo, hi), None, None, None
+
+
+@wavedec1d_run.register_vmap
+def _(info, in_dims, x2, lo, hi, depth):
+    size = info.batch_size
+    outs = wavedec1d_run(flatten_batch(x2, in_dims[0], size), lo, hi, depth)
+    return [split_batch(t, size) for t in outs], [0] * len(outs)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::waverec1d_run", mutates_args=())
+def waverec1d_run(bands: list[torch.Tensor], lo: list[float], hi: list[float]) -> torch.Tensor:
+    """K6b on ``[lo_D, hi_D, ..., hi_1]``, each ``[rows, m_l]`` -> ``[rows,
+    2 m_1]``."""
+    offs = [len(lo) // 2 - 1] * (len(bands) - 1)
+    return synthesis_pyramid("K6b", bands, lo, hi, offs, 2 * bands[-1].shape[-1], True)
+
+
+@waverec1d_run.register_fake
+def _(bands, lo, hi):
+    return bands[0].new_empty(bands[0].shape[0], 2 * bands[-1].shape[-1])
+
+
+def _waverec1d_setup(ctx, inputs, output):
+    bands, lo, hi = inputs
+    ctx.plan = (lo, hi, len(bands) - 1)
+
+
+def _waverec1d_backward(ctx, ct):
+    """One K6a launch with the same (rec) taps."""
+    lo, hi, depth = ctx.plan
+    lo_band, *his = call(wavedec1d_run, ct.contiguous(), lo, hi, depth)
+    return [lo_band, *his[::-1]], None, None
+
+
+@waverec1d_run.register_vmap
+def _(info, in_dims, bands, lo, hi):
+    size = info.batch_size
+    return split_batch(waverec1d_run(flatten_list(bands, in_dims[0], size), lo, hi), size), 0
+
+
+autograd(wavedec1d_run, _taps_setup, _wavedec1d_backward)
+autograd(waverec1d_run, _waverec1d_setup, _waverec1d_backward)
 
 
 def fused_wavedec1d_per(data: torch.Tensor, dec_lo, dec_hi, level: int) -> list[torch.Tensor]:
@@ -176,7 +212,7 @@ def fused_wavedec1d_per(data: torch.Tensor, dec_lo, dec_hi, level: int) -> list[
     cur = data.contiguous()
     his: list[torch.Tensor] = []
     for depth in _runs(level):
-        cur, *run = _Wavedec1dRun.apply(cur, lo, hi, depth)
+        cur, *run = call(wavedec1d_run, cur, lo, hi, depth)
         his.extend(run)
     return [cur, *his[::-1]]
 
@@ -194,7 +230,7 @@ def fused_waverec1d_per(coeffs, rec_lo, rec_hi) -> torch.Tensor:
     done = 0
     for depth in _runs(len(coeffs) - 1)[::-1]:  # coarse to fine
         his = [c.contiguous() for c in coeffs[1 + done : 1 + done + depth]]
-        cur = _Waverec1dRun.apply(lo, hi, cur, *his)
+        cur = call(waverec1d_run, [cur, *his], lo, hi)
         done += depth
     return cur
 
@@ -534,39 +570,71 @@ def _synthesis_run(kernel: str, ll: torch.Tensor, details: Sequence[torch.Tensor
     return out
 
 
-class _Wavedec2dRun(torch.autograd.Function):
-    """K5a forward on ``[B, h, w]``, one run of ``depth`` levels; backward:
-    one K5b launch with the same (flipped dec) taps and run plan."""
-
-    @staticmethod
-    def forward(ctx, x3, lo, hi, depth):
-        ctx.plan = (lo, hi)
-        ll, details = _analysis_run("K5a", x3, lo, hi, depth)
-        return (ll, *details)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct_ll, *ct_details):
-        lo, hi = ctx.plan
-        bands = [c.contiguous() for c in ct_details]
-        return _synthesis_run("K5b", ct_ll.contiguous(), bands, lo, hi), None, None, None
+# K5a / K5b: one run of the 2d pyramid, each the other's VJP with the same
+# taps and run plan
 
 
-class _Waverec2dRun(torch.autograd.Function):
-    """K5b forward on ``ll_D`` and the run's details; backward: one K5a
-    launch with the same (rec) taps and run plan."""
+@torch.library.custom_op(f"{NAMESPACE}::wavedec2d_run", mutates_args=())
+def wavedec2d_run(x3: torch.Tensor, lo: list[float], hi: list[float], depth: int) -> list[torch.Tensor]:
+    """K5a on ``[B, h, w]``, one run of ``depth`` levels: ``[ll_D, lh_1,
+    hl_1, hh_1, ..., hh_D]``."""
+    ll, details = _analysis_run("K5a", x3, lo, hi, depth)
+    return [ll, *details]
 
-    @staticmethod
-    def forward(ctx, lo, hi, ll, *details):
-        ctx.plan = (lo, hi, len(details) // 3)
-        return _synthesis_run("K5b", ll, details, lo, hi)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        lo, hi, depth = ctx.plan
-        ll, details = _analysis_run("K5a", ct.contiguous(), lo, hi, depth)
-        return (None, None, ll, *details)
+@wavedec2d_run.register_fake
+def _(x3, lo, hi, depth):
+    b, h, w = x3.shape
+    return [x3.new_empty(b, h >> depth, w >> depth)] + [
+        x3.new_empty(b, h >> lvl, w >> lvl) for lvl in range(1, depth + 1) for _ in range(3)
+    ]
+
+
+def _wavedec2d_backward(ctx, cts):
+    """One K5b launch with the same (flipped dec) taps and run plan."""
+    lo, hi = ctx.plan
+    return call(waverec2d_run, [c.contiguous() for c in cts], lo, hi), None, None, None
+
+
+@wavedec2d_run.register_vmap
+def _(info, in_dims, x3, lo, hi, depth):
+    size = info.batch_size
+    outs = wavedec2d_run(flatten_batch(x3, in_dims[0], size), lo, hi, depth)
+    return [split_batch(t, size) for t in outs], [0] * len(outs)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::waverec2d_run", mutates_args=())
+def waverec2d_run(bands: list[torch.Tensor], lo: list[float], hi: list[float]) -> torch.Tensor:
+    """K5b on ``[ll_D, lh_1, hl_1, hh_1, ..., hh_D]`` -> ``[B, h, w]``."""
+    return _synthesis_run("K5b", bands[0], bands[1:], lo, hi)
+
+
+@waverec2d_run.register_fake
+def _(bands, lo, hi):
+    b, mh, mw = bands[0].shape
+    depth = (len(bands) - 1) // 3
+    return bands[0].new_empty(b, mh << depth, mw << depth)
+
+
+def _waverec2d_setup(ctx, inputs, output):
+    bands, lo, hi = inputs
+    ctx.plan = (lo, hi, (len(bands) - 1) // 3)
+
+
+def _waverec2d_backward(ctx, ct):
+    """One K5a launch with the same (rec) taps and run plan."""
+    lo, hi, depth = ctx.plan
+    return call(wavedec2d_run, ct.contiguous(), lo, hi, depth), None, None
+
+
+@waverec2d_run.register_vmap
+def _(info, in_dims, bands, lo, hi):
+    size = info.batch_size
+    return split_batch(waverec2d_run(flatten_list(bands, in_dims[0], size), lo, hi), size), 0
+
+
+autograd(wavedec2d_run, _taps_setup, _wavedec2d_backward)
+autograd(waverec2d_run, _waverec2d_setup, _waverec2d_backward)
 
 
 def _plan_runs(h: int, w: int, filt_len: int, level: int, dtype) -> tuple:
@@ -597,7 +665,7 @@ def fused_wavedec2d_per(data: torch.Tensor, dec_lo, dec_hi, level: int) -> list:
     cur = data.reshape(-1, h, w).contiguous()
     levels: list = []
     for depth in _plan_runs(h, w, len(lo), level, data.dtype):
-        cur, *details = _Wavedec2dRun.apply(cur, lo, hi, depth)
+        cur, *details = call(wavedec2d_run, cur, lo, hi, depth)
         levels.extend(tuple(details[3 * i : 3 * i + 3]) for i in range(depth))
 
     def unflat(t):
@@ -631,5 +699,5 @@ def fused_waverec2d_per(coeffs, rec_lo, rec_hi) -> torch.Tensor:
     for depth in runs[::-1]:  # coarse to fine
         start -= depth
         details = [flat(t) for trip in fine[start : start + depth] for t in trip]
-        cur = _Waverec2dRun.apply(lo, hi, cur, *details)
+        cur = call(waverec2d_run, [cur, *details], lo, hi)
     return cur.reshape(*lead, h, w)

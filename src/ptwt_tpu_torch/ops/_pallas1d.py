@@ -16,14 +16,15 @@ as K7a or K7b:
 
 The gate keeps the JAX package's semantics without its Mosaic limits: a
 last axis longer than :data:`~._pallas1d_multi.FLAT_MIN_LANES` (``2**16``,
-the TPU's threshold, to be set from the card by the port's bench),
+the TPU's threshold, to be set from the card by the port's bench,
+ROADMAP Queue 1b item 1),
 float32 and float64 alike, filters of up to 128 taps.  The plain versions
 are one level of :func:`~._pallas2.dwt_axis_plain` /
 :func:`~._pallas2.idwt_axis_plain` on the last axis; the wrappers take them
 for CPU tensors only.
 
-Gradients: each launch is the depth-1 case of the K8 autograd Functions
-of :mod:`._pallas1d_multi`, so K7a's VJP is one launch of the synthesis
+Gradients: each launch is the depth-1 case of the K8 custom ops of
+:mod:`._pallas1d_multi`, so K7a's VJP is one launch of the synthesis
 pyramid kernel with the transpose of the padding gather folded into its
 edge block (counted as K7b), and K7b's one launch of the analysis pyramid
 kernel (counted as K7a): the transposed single level of the JAX
@@ -37,7 +38,8 @@ import math
 import torch
 
 from . import _kernels
-from ._pallas1d_multi import PADDED_MODES, _LaneAnalysis, _LaneSynthesis, _long_lane
+from ._library import call
+from ._pallas1d_multi import PADDED_MODES, _long_lane, lane_analysis, lane_synthesis
 from ._pallas2 import _on_cpu, dwt_axis_plain, idwt_axis_plain
 
 __all__ = [
@@ -64,7 +66,7 @@ def dwt_lane_packed(x: torch.Tensor, dec_lo, dec_hi, mode: str) -> torch.Tensor:
     hi = _kernels.static_taps(dec_hi)
     lead = x.shape[:-1]
     x2 = x.reshape(math.prod(lead), x.shape[-1]).contiguous()
-    (packed,) = _LaneAnalysis.apply(x2, "K7a", lo, hi, 1, mode)
+    (packed,) = call(lane_analysis, x2, "K7a", lo, hi, 1, mode)
     return packed.reshape(2, *lead, packed.shape[-1])
 
 
@@ -99,5 +101,5 @@ def flat_idwt_lane(
     m = lo_band.shape[-1]
     out_len = max(2 * (m - 1) + len(lo) - padl - padr, 0)
     bands = [b.reshape(math.prod(lead), m).contiguous() for b in (lo_band, hi_band)]
-    out = _LaneSynthesis.apply("K7b", lo, hi, (padl,), out_len, *bands)
+    out = call(lane_synthesis, bands, "K7b", lo, hi, [padl], out_len, None)
     return out.reshape(*lead, out_len)

@@ -39,7 +39,7 @@ artifacts and have no counterpart.
 Routing thresholds: :data:`FLAT_MIN_LANES` (a last axis longer than
 ``2**16`` samples) and :data:`MAX_FUSED_DEPTH` (runs of at most 4 levels)
 are the TPU's thresholds, kept as they are; the port's bench (ROADMAP
-Queue 1 item 5) will set them from the card.  Dropped, as Mosaic-only:
+Queue 1b item 1) will set them from the card.  Dropped, as Mosaic-only:
 the float32-only gate (float32 and float64 both run), the window plan's
 feasibility, and the environment knobs.  The kernels decline only what
 they cannot hold: filters of more than 128 taps (the kernel-parameter
@@ -53,9 +53,10 @@ Each kernel's plain version (:func:`multi_analysis_plain`,
 sits here; the wrappers take it for CPU tensors only.  A CUDA tensor
 launches the kernel or raises.
 
-Gradients: one :class:`torch.autograd.Function` per launch, whose
-backward is one launch of the other pyramid kernel, as K6a and K6b are
-each other's VJP:
+Gradients: one custom op per launch (``lane_analysis``,
+``lane_synthesis``, and ``lane_adjoint`` for K8b's VJP, in
+``torch.ops.ptwt_tpu_torch``, :mod:`._library`), whose backward is one
+launch of the other pyramid kernel, as K6a and K6b are each other's VJP:
 
 * K8a (K7a) -- the synthesis pyramid kernel with the same (dec) taps and
   crops ``padl``, run as a gather; for the padded modes an edge block per
@@ -66,7 +67,7 @@ each other's VJP:
   counts as K8a (K7a).
 
 Only the geometry is saved (the maps are linear).  A filter tensor that
-requires grad raises on the card, and so does a double backward.
+requires grad raises on the card, and so does a second backward.
 """
 
 from __future__ import annotations
@@ -75,9 +76,9 @@ import math
 from typing import Optional, Sequence
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import _kernels
+from ._library import NAMESPACE, autograd, call, flatten_batch, flatten_list, split_batch
 from ._pallas2 import _on_cpu, dwt_axis_plain, idwt_axis_plain
 
 __all__ = [
@@ -465,58 +466,138 @@ def synthesis_pyramid(
 _VJP_KERNEL = {"K8a": "K8b", "K7a": "K7b", "K8b": "K8a", "K7b": "K7a"}
 
 
-class _LaneAnalysis(torch.autograd.Function):
-    """K8a (K7a at depth 1) forward on ``[rows, n]``; backward: one launch
-    of the synthesis pyramid kernel with the same (flipped dec) taps,
-    crops ``padl`` and the mode's extension folded back (counted as K8b,
-    K7b at depth 1).
-
-    Returns ``(packed_D, hi_1, ..., hi_{D-1})`` with ``packed_D = [2, rows,
-    m_D]`` holding (lo_D, hi_D).
-    """
-
-    @staticmethod
-    def forward(ctx, x2, kernel, lo, hi, depth, mode):
-        rows, n = x2.shape
-        ms = _band_lengths(n, len(lo), depth, mode)
-        ctx.plan = (kernel, n, lo, hi, mode)
-        packed = x2.new_empty(2, rows, max(ms[depth], 0))
-        his = [x2.new_empty(rows, m) for m in ms[1:depth]]
-        analysis_pyramid(kernel, x2, lo, hi, depth, mode, out=(packed[0], *his, packed[1]))
-        return (packed, *his)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct, *ct_his):
-        kernel, n, lo, hi, mode = ctx.plan
-        ct = ct.contiguous()
-        bands = [ct[0], ct[1], *(c.contiguous() for c in ct_his[::-1])]
-        pad = 0 if mode == "valid" else _std_pad(len(lo))
-        fold = mode if mode in PADDED_MODES else None
-        grad = synthesis_pyramid(_VJP_KERNEL[kernel], bands, lo, hi, [pad] * (len(ct_his) + 1), n, False, fold)
-        return (grad,) + (None,) * 5
+# K8a (K7a at depth 1): a fused run of analysis levels on [rows, n]
 
 
-class _LaneSynthesis(torch.autograd.Function):
-    """K8b (K7b at depth 1) forward; backward: one launch of the analysis
-    pyramid kernel with the same (rec) taps, each level offset by its
-    step's crop and zero outside its band (counted as K8a, K7a at depth
-    1)."""
+@torch.library.custom_op(f"{NAMESPACE}::lane_analysis", mutates_args=())
+def lane_analysis(
+    x2: torch.Tensor, kernel: str, lo: list[float], hi: list[float], depth: int, mode: str
+) -> list[torch.Tensor]:
+    """K8a (``kernel`` K7a at depth 1) on ``[rows, n]``: ``[packed_D, hi_1,
+    ..., hi_{D-1}]`` with ``packed_D = [2, rows, m_D]`` holding (lo_D,
+    hi_D)."""
+    rows, n = x2.shape
+    ms = _band_lengths(n, len(lo), depth, mode)
+    packed = x2.new_empty(2, rows, max(ms[depth], 0))
+    his = [x2.new_empty(rows, m) for m in ms[1:depth]]
+    analysis_pyramid(kernel, x2, lo, hi, depth, mode, out=(packed[0], *his, packed[1]))
+    return [packed, *his]
 
-    @staticmethod
-    def forward(ctx, kernel, lo, hi, offs, out_len, *bands):
-        depth = len(bands) - 1
-        ctx.plan = (kernel, lo, hi, offs, [bands[depth + 1 - lvl].shape[-1] for lvl in range(1, depth + 1)])
-        return synthesis_pyramid(kernel, bands, lo, hi, offs, out_len, False)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        kernel, lo, hi, offs, lens = ctx.plan
-        ct = ct.contiguous()
-        ints, smem = _adjoint_plan(len(lo), ct.shape[-1], lens, offs, ct.element_size())
-        lo_band, his = _launch_analysis(_VJP_KERNEL[kernel], ct, lo, hi, ints, smem, False, None)
-        return (None,) * 5 + (lo_band, *his[::-1])
+@lane_analysis.register_fake
+def _(x2, kernel, lo, hi, depth, mode):
+    rows, n = x2.shape
+    ms = _band_lengths(n, len(lo), depth, mode)
+    return [x2.new_empty(2, rows, max(ms[depth], 0))] + [x2.new_empty(rows, m) for m in ms[1:depth]]
+
+
+def _lane_analysis_setup(ctx, inputs, output):
+    x2, kernel, lo, hi, depth, mode = inputs
+    ctx.plan = (kernel, x2.shape[-1], lo, hi, mode)
+
+
+def _lane_analysis_backward(ctx, cts):
+    """One launch of the synthesis pyramid kernel with the same (flipped
+    dec) taps, crops ``padl`` and the mode's extension folded back
+    (counted as K8b, K7b at depth 1)."""
+    kernel, n, lo, hi, mode = ctx.plan
+    ct, *ct_his = cts
+    ct = ct.contiguous()
+    bands = [ct[0], ct[1], *(c.contiguous() for c in ct_his[::-1])]
+    pad = 0 if mode == "valid" else _std_pad(len(lo))
+    fold = mode if mode in PADDED_MODES else None
+    grad = call(lane_synthesis, bands, _VJP_KERNEL[kernel], lo, hi, [pad] * (len(ct_his) + 1), n, fold)
+    return (grad,) + (None,) * 5
+
+
+@lane_analysis.register_vmap
+def _(info, in_dims, x2, kernel, lo, hi, depth, mode):
+    size = info.batch_size
+    packed, *his = lane_analysis(flatten_batch(x2, in_dims[0], size), kernel, lo, hi, depth, mode)
+    return [split_batch(packed, size, 1)] + [split_batch(h, size) for h in his], [1] + [0] * len(his)
+
+
+# K8b (K7b at depth 1): a fused run of synthesis steps (also K8a's VJP, the
+# fold instance)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::lane_synthesis", mutates_args=())
+def lane_synthesis(
+    bands: list[torch.Tensor],
+    kernel: str,
+    lo: list[float],
+    hi: list[float],
+    offs: list[int],
+    out_len: int,
+    fold: Optional[str],
+) -> torch.Tensor:
+    """K8b (``kernel`` K7b at depth 1) on ``[lo_D, hi_D, ..., hi_1]`` ->
+    ``[rows, out_len]`` (:func:`synthesis_pyramid`; ``fold`` makes it K8a's
+    VJP)."""
+    return synthesis_pyramid(kernel, bands, lo, hi, offs, out_len, False, fold)
+
+
+@lane_synthesis.register_fake
+def _(bands, kernel, lo, hi, offs, out_len, fold):
+    return bands[0].new_empty(bands[0].shape[0], out_len)
+
+
+def _lane_synthesis_setup(ctx, inputs, output):
+    bands, kernel, lo, hi, offs, out_len, fold = inputs
+    depth = len(bands) - 1
+    lens = [bands[depth + 1 - lvl].shape[-1] for lvl in range(1, depth + 1)]
+    ctx.plan = (kernel, lo, hi, offs, lens, fold)
+
+
+def _lane_synthesis_backward(ctx, ct):
+    """One launch of the analysis pyramid kernel with the same (rec) taps,
+    each level offset by its step's crop and zero outside its band
+    (counted as K8a, K7a at depth 1)."""
+    kernel, lo, hi, offs, lens, fold = ctx.plan
+    if fold is not None:
+        raise NotImplementedError("a second backward through K8a's VJP is not ported")
+    lo_band, *his = call(lane_adjoint, ct.contiguous(), _VJP_KERNEL[kernel], lo, hi, offs, lens)
+    return ([lo_band, *his[::-1]],) + (None,) * 6
+
+
+@lane_synthesis.register_vmap
+def _(info, in_dims, bands, kernel, lo, hi, offs, out_len, fold):
+    size = info.batch_size
+    out = lane_synthesis(flatten_list(bands, in_dims[0], size), kernel, lo, hi, offs, out_len, fold)
+    return split_batch(out, size), 0
+
+
+# K8b's VJP: the analysis pyramid kernel on the adjoint plan
+
+
+@torch.library.custom_op(f"{NAMESPACE}::lane_adjoint", mutates_args=())
+def lane_adjoint(
+    ct: torch.Tensor, kernel: str, lo: list[float], hi: list[float], offs: list[int], lens: list[int]
+) -> list[torch.Tensor]:
+    """The analysis pyramid kernel on ``[rows, n]`` with per-level offsets
+    ``offs``, zero outside each band of ``lens`` (:func:`_adjoint_plan`):
+    ``[lo_D, hi_1, ..., hi_D]``."""
+    ints, smem = _adjoint_plan(len(lo), ct.shape[-1], lens, offs, ct.element_size())
+    lo_band, his = _launch_analysis(kernel, ct, lo, hi, ints, smem, False, None)
+    return [lo_band, *his]
+
+
+@lane_adjoint.register_fake
+def _(ct, kernel, lo, hi, offs, lens):
+    rows = ct.shape[0]
+    return [ct.new_empty(rows, lens[-1])] + [ct.new_empty(rows, m) for m in lens]
+
+
+@lane_adjoint.register_vmap
+def _(info, in_dims, ct, kernel, lo, hi, offs, lens):
+    size = info.batch_size
+    outs = lane_adjoint(flatten_batch(ct, in_dims[0], size), kernel, lo, hi, offs, lens)
+    return [split_batch(t, size) for t in outs], [0] * len(outs)
+
+
+autograd(lane_analysis, _lane_analysis_setup, _lane_analysis_backward)
+autograd(lane_synthesis, _lane_synthesis_setup, _lane_synthesis_backward)
+autograd(lane_adjoint)
 
 
 # ---------------------------------------------------------------------------
@@ -618,7 +699,7 @@ def flat_wavedec_lane_multi(
     lead = x.shape[:-1]
     x2 = x.reshape(math.prod(lead), x.shape[-1]).contiguous()
     kernel = "K8a" if depth > 1 else "K7a"
-    packed, *his = _LaneAnalysis.apply(x2, kernel, lo, hi, depth, mode)
+    packed, *his = call(lane_analysis, x2, kernel, lo, hi, depth, mode)
     lo_band, hi_band = packed.unbind(0)
     # explicit lengths: an empty batch leaves no -1 to infer
     return lo_band.reshape(*lead, lo_band.shape[-1]), [h.reshape(*lead, h.shape[-1]) for h in (*his, hi_band)]
@@ -631,7 +712,7 @@ def sameshift_analysis(
     ``(lo_depth, [hi_1, ..., hi_depth])`` as :func:`sameshift_analysis_plain`
     computes them.  ``dec_lo``/``dec_hi`` are flipped.  A CPU tensor runs
     the plain version; a CUDA tensor one launch of K8a's sameshift
-    instance (:func:`_adjoint_plan`).  No autograd Function: the run that
+    instance (:func:`_adjoint_plan`).  No op of its own: the run that
     calls it differentiates its whole map
     (:class:`~._boundary_long.LongAnalysisRun`)."""
     if _on_cpu(x2):
@@ -669,5 +750,5 @@ def flat_waverec_lane_multi(coeffs, rec_lo, rec_hi, pads, lens) -> torch.Tensor:
     rows = math.prod(lead)
     bands = [c.reshape(rows, c.shape[-1]).contiguous() for c in coeffs]
     kernel = "K8b" if depth > 1 else "K7b"
-    out = _LaneSynthesis.apply(kernel, lo, hi, tuple(pads)[:depth], lens[0], *bands)
+    out = call(lane_synthesis, bands, kernel, lo, hi, list(pads)[:depth], lens[0], None)
     return out.reshape(*lead, lens[0])

@@ -18,8 +18,9 @@ source:
   circular for ``periodization``.  Up to two (lo, hi) pairs of one shape
   go through one launch, so a 2d level needs no stacking copy.
 
-Gradients: one :class:`torch.autograd.Function` per direction wraps each
-launch, and K3 and K4 are each other's VJP, as K1 and K2 are
+Gradients: each launch is a custom op (``analysis_axis``,
+``synthesis_axis``, and ``tap_grad`` for KT, in ``torch.ops.ptwt_tpu_torch``,
+:mod:`._library`), and K3 and K4 are each other's VJP, as K1 and K2 are
 (``csrc/axis.cu``), so no atomics and one summation order:
 
 * K3's VJP (the contract of ``_analysis_transpose_kernel``) is K4 with
@@ -45,7 +46,7 @@ instead), one launch per Function for both filters:
   cotangent in the uncropped frame (zero outside it; modulo ``2m`` for
   ``periodization``), summed over the launch's (lo, hi) pairs.
 
-Double backward raises.
+A second backward raises.
 
 Each kernel has a plain torch version here (:func:`dwt_axis_plain`,
 :func:`idwt_axis_plain`, and for the VJPs :func:`dwt_axis_vjp_plain`,
@@ -58,14 +59,14 @@ tensors only; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from ..utils._padding import fwt_pad, get_pad
 from . import _kernels
+from ._library import NAMESPACE, autograd, batch_first, call, no_batched
 from ._conv import periodization_wrap
 from ._slices import analysis_slices_lastaxis, synthesis_slices_lastaxis
 
@@ -394,89 +395,216 @@ def _tap_grad_kernel(
     return out
 
 
-def _filter_meta(*filts) -> tuple:
-    return tuple(None if f is None else (f.device, f.dtype, f.shape) for f in filts)
+def _op_taps(filt: Optional[torch.Tensor], taps: Optional[list[float]]) -> list[float]:
+    """An op's taps: the constants it was given, or its filter tensor's
+    taps read to the host (one copy; :func:`~._kernels.keep_host_taps`
+    may have kept them already)."""
+    return taps if filt is None else _kernels.host_taps(filt)
 
 
-def _as_grads(taps: torch.Tensor, metas, needs) -> tuple:
-    """KT's ``[2, L]`` float64 result as the gradients of the filter
-    tensors described by ``metas`` (``None`` where autograd asks for
-    none)."""
-    return tuple(
-        taps[i].to(device=meta[0], dtype=meta[1]).reshape(meta[2]) if need else None
-        for i, (meta, need) in enumerate(zip(metas, needs))
+def _as_grad(taps: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    """One row of KT's ``[2, L]`` float64 result as ``filt``'s gradient."""
+    return taps.to(device=filt.device, dtype=filt.dtype).reshape(filt.shape)
+
+
+# K3: one analysis level along one axis (also K4's VJP, zero-bounded)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::analysis_axis", mutates_args=())
+def analysis_axis(
+    x: torch.Tensor,
+    lo_t: Optional[torch.Tensor],
+    hi_t: Optional[torch.Tensor],
+    lo: Optional[list[float]],
+    hi: Optional[list[float]],
+    ax: int,
+    m: int,
+    period: int,
+    pad: int,
+    code: int,
+) -> torch.Tensor:
+    """K3 on ``x``: ``[2, ..., m, ...]`` along ``ax`` (:func:`_analysis_kernel`).
+    The taps are ``lo``/``hi``, or where given those of the filter tensors
+    ``lo_t``/``hi_t`` (a learnable bank, whose gradient is KT's)."""
+    return _analysis_kernel(x, ax, _op_taps(lo_t, lo), _op_taps(hi_t, hi), m, period, pad, code)
+
+
+@analysis_axis.register_fake
+def _(x, lo_t, hi_t, lo, hi, ax, m, period, pad, code):
+    shape = list(x.shape)
+    shape[ax] = m
+    return x.new_empty([2, *shape])
+
+
+def _analysis_setup(ctx, inputs, output):
+    x, lo_t, hi_t, lo, hi, ax, m, period, pad, code = inputs
+    ctx.plan = (lo, hi, ax, x.shape[ax], period, pad, code)
+    # the map is linear in x: it is kept only for the filters' gradient
+    ctx.save_for_backward(None if lo_t is None and hi_t is None else x, lo_t, hi_t)
+
+
+def _analysis_backward(ctx, ct):
+    """K3's VJP: K4's fold instance for the input, KT for the filters."""
+    lo, hi, ax, n, period, pad, code = ctx.plan
+    x, lo_t, hi_t = ctx.saved_tensors
+    ct = ct.contiguous()
+    grad = None
+    if ctx.needs_input_grad[0]:
+        grad = call(
+            synthesis_axis, [ct[0]], [ct[1]], lo_t, hi_t, lo, hi, ax, n, pad, False, code, period
+        )[0]
+    g_lo = g_hi = None
+    if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+        taps = call(tap_grad, x, [ct[0]], [ct[1]], ax, _filter_len(lo_t, lo), period, pad, code)
+        g_lo = _as_grad(taps[0], lo_t) if ctx.needs_input_grad[1] else None
+        g_hi = _as_grad(taps[1], hi_t) if ctx.needs_input_grad[2] else None
+    return (grad, g_lo, g_hi) + (None,) * 7
+
+
+@analysis_axis.register_vmap
+def _(info, in_dims, x, lo_t, hi_t, lo, hi, ax, m, period, pad, code):
+    no_batched("analysis_axis", in_dims, 1, 2)
+    x = batch_first(x, in_dims[0], info.batch_size).contiguous()
+    return analysis_axis(x, lo_t, hi_t, lo, hi, ax + 1, m, period, pad, code), 1
+
+
+# K4: one synthesis level along one axis for up to two (lo, hi) pairs
+# (also K3's VJP, the fold instance)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::synthesis_axis", mutates_args=())
+def synthesis_axis(
+    los: list[torch.Tensor],
+    his: list[torch.Tensor],
+    lo_t: Optional[torch.Tensor],
+    hi_t: Optional[torch.Tensor],
+    lo: Optional[list[float]],
+    hi: Optional[list[float]],
+    ax: int,
+    out_len: int,
+    off: int,
+    circular: bool,
+    fold: int,
+    period: int,
+) -> torch.Tensor:
+    """K4 on the pairs: ``[G, ..., out_len, ...]`` (:func:`_synthesis_kernel`;
+    ``fold``/``period`` make it K3's VJP).  Taps as :func:`analysis_axis`'s."""
+    return _synthesis_kernel(
+        los, his, ax, _op_taps(lo_t, lo), _op_taps(hi_t, hi), out_len, off, circular, fold, period
     )
 
 
-class _AnalysisAxis(torch.autograd.Function):
-    """K3 forward; backward K4's fold instance for the input and KT for the
-    filter tensors ``lo_t``/``hi_t`` (``None`` for constant banks).  The
-    input is saved only where a filter needs its gradient: the map is
-    linear in it."""
-
-    @staticmethod
-    def forward(ctx, x, lo_t, hi_t, ax, lo, hi, m, period, pad, code):
-        ctx.plan = (ax, x.shape[ax], lo, hi, period, pad, code)
-        ctx.filters = _filter_meta(lo_t, hi_t)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            ctx.save_for_backward(x)
-        return _analysis_kernel(x, ax, lo, hi, m, period, pad, code)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        ct = ct.contiguous()
-        grad = _analysis_transpose_kernel(ct, *ctx.plan) if ctx.needs_input_grad[0] else None
-        filter_grads = (None, None)
-        needs = ctx.needs_input_grad[1:3]
-        if any(needs):
-            (x,) = ctx.saved_tensors
-            ax, _, lo, _, period, pad, code = ctx.plan
-            taps = _tap_grad_kernel(x, ax, [ct[0]], [ct[1]], len(lo), period, pad, code)
-            filter_grads = _as_grads(taps, ctx.filters, needs)
-        return (grad, *filter_grads) + (None,) * 7
+@synthesis_axis.register_fake
+def _(los, his, lo_t, hi_t, lo, hi, ax, out_len, off, circular, fold, period):
+    shape = list(los[0].shape)
+    shape[ax] = out_len
+    return los[0].new_empty([len(los), *shape])
 
 
-class _SynthesisAxis(torch.autograd.Function):
-    """K4 forward on ``G`` (lo, hi) pairs; backward K3 (zero-bounded) for
-    the bands and KT for the filter tensors, summed over the pairs."""
+def _synthesis_setup(ctx, inputs, output):
+    los, his, lo_t, hi_t, lo, hi, ax, out_len, off, circular, fold, period = inputs
+    ctx.plan = (lo, hi, ax, los[0].shape[ax], off, circular, fold, period)
+    ctx.groups = len(los)
+    bands = (*los, *his) if lo_t is not None or hi_t is not None else ()
+    ctx.save_for_backward(lo_t, hi_t, *bands)
 
-    @staticmethod
-    def forward(ctx, lo_t, hi_t, ax, lo, hi, out_len, off, circular, *bands):
-        groups = len(bands) // 2
-        ctx.plan = (ax, bands[0].shape[ax], lo, hi, off, circular)
-        ctx.groups = groups
-        ctx.filters = _filter_meta(lo_t, hi_t)
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            ctx.save_for_backward(*bands)
-        return _synthesis_kernel(
-            bands[:groups], bands[groups:], ax, lo, hi, out_len, off, circular
+
+def _synthesis_backward(ctx, ct):
+    """K4's VJP: K3 for the bands (the rec taps, ``pad = off``, the
+    cotangent read zero outside its length, modulo ``2m`` for
+    ``periodization``), KT for the filters, summed over the pairs.  The
+    fold instance's VJP is K3 itself, with its mode and period."""
+    lo, hi, ax, m, off, circular, fold, period = ctx.plan
+    lo_t, hi_t, *bands = ctx.saved_tensors
+    g = ctx.groups
+    ct = ct.contiguous()
+    if fold != _ZERO:
+        code = fold
+    elif circular:
+        period, code = 2 * m, _WRAP_ZERO
+    else:
+        period, code = ct.shape[ax + 1], _ZERO
+    band_grads = ([None] * g, [None] * g)
+    if any(ctx.needs_input_grad[0]) or any(ctx.needs_input_grad[1]):
+        if fold != _ZERO:
+            grads = call(analysis_axis, ct[0], lo_t, hi_t, lo, hi, ax, m, period, off, code).unsqueeze(1)
+        else:
+            grads = call(analysis_axis, ct, lo_t, hi_t, lo, hi, ax + 1, m, period, off, code)
+        band_grads = (list(grads[0].unbind(0)), list(grads[1].unbind(0)))
+    g_lo = g_hi = None
+    if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+        if fold != _ZERO:
+            raise NotImplementedError(
+                "the filters' gradient of K3's VJP (a filter gradient of a gradient) is not ported"
+            )
+        taps = call(
+            tap_grad, ct, bands[:g], bands[g:], ax + 1, _filter_len(lo_t, lo), period, off, code
         )
+        g_lo = _as_grad(taps[0], lo_t) if ctx.needs_input_grad[2] else None
+        g_hi = _as_grad(taps[1], hi_t) if ctx.needs_input_grad[3] else None
+    return (*band_grads, g_lo, g_hi) + (None,) * 8
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        ct = ct.contiguous()
-        band_grads = (None,) * (2 * ctx.groups)
-        if any(ctx.needs_input_grad[8:]):
-            grads = _synthesis_transpose_kernel(ct, *ctx.plan)
-            band_grads = tuple(grads[0]) + tuple(grads[1])
-        filter_grads = (None, None)
-        needs = ctx.needs_input_grad[:2]
-        if any(needs):
-            bands = ctx.saved_tensors
-            ax, m, lo, _, off, circular = ctx.plan
-            period, code = (2 * m, _WRAP_ZERO) if circular else (ct.shape[ax + 1], _ZERO)
-            g = ctx.groups
-            taps = _tap_grad_kernel(ct, ax + 1, bands[:g], bands[g:], len(lo), period, off, code)
-            filter_grads = _as_grads(taps, ctx.filters, needs)
-        return (*filter_grads,) + (None,) * 6 + band_grads
+
+@synthesis_axis.register_vmap
+def _(info, in_dims, los, his, lo_t, hi_t, lo, hi, ax, out_len, off, circular, fold, period):
+    no_batched("synthesis_axis", in_dims, 2, 3)
+    size = info.batch_size
+    los = [batch_first(t, d, size).contiguous() for t, d in zip(los, in_dims[0] or [None] * len(los))]
+    his = [batch_first(t, d, size).contiguous() for t, d in zip(his, in_dims[1] or [None] * len(his))]
+    out = synthesis_axis(los, his, lo_t, hi_t, lo, hi, ax + 1, out_len, off, circular, fold, period)
+    return out, 1
+
+
+# KT: the taps' gradient of a K3 or K4 launch
+
+
+@torch.library.custom_op(f"{NAMESPACE}::tap_grad", mutates_args=())
+def tap_grad(
+    ext: torch.Tensor,
+    los: list[torch.Tensor],
+    his: list[torch.Tensor],
+    ax: int,
+    n_taps: int,
+    period: int,
+    pad: int,
+    code: int,
+) -> torch.Tensor:
+    """KT: the ``[2, n_taps]`` float64 gradient of the lo and hi taps
+    (:func:`_tap_grad_kernel`)."""
+    return _tap_grad_kernel(ext, ax, los, his, n_taps, period, pad, code)
+
+
+@tap_grad.register_fake
+def _(ext, los, his, ax, n_taps, period, pad, code):
+    return ext.new_empty([2, n_taps], dtype=torch.float64)
+
+
+@tap_grad.register_vmap
+def _(info, in_dims, ext, los, his, ax, n_taps, period, pad, code):
+    # KT sums over every row; per-sample filter gradients are no one launch
+    no_batched("tap_grad", in_dims, 0, 1, 2)
+    return tap_grad(ext, los, his, ax, n_taps, period, pad, code), None
+
+
+def _filter_len(filt: Optional[torch.Tensor], taps: Optional[list[float]]) -> int:
+    return len(taps) if filt is None else filt.shape[-1]
+
+
+autograd(analysis_axis, _analysis_setup, _analysis_backward)
+autograd(synthesis_axis, _synthesis_setup, _synthesis_backward)
+autograd(tap_grad)
 
 
 def _filter_input(filt):
-    """A filter as an input of the Functions: the tensor, or ``None`` for a
-    constant bank (numpy, lists)."""
+    """A filter as an op's input: the tensor, or ``None`` for a constant
+    bank (tuples, numpy), whose taps the op takes as floats."""
     return filt if isinstance(filt, torch.Tensor) else None
+
+
+def _constant_taps(filt) -> Optional[list[float]]:
+    """A constant bank's taps as floats; None for a filter tensor, whose
+    taps the op reads itself."""
+    return None if isinstance(filt, torch.Tensor) else _kernels.host_taps(filt)
 
 
 def pallas_dwt_axis(
@@ -492,12 +620,11 @@ def pallas_dwt_axis(
     """
     if _on_cpu(x):
         return torch.stack(dwt_axis_plain(x, axis, dec_lo, dec_hi, mode))
-    lo = _kernels.host_taps(dec_lo)
-    hi = _kernels.host_taps(dec_hi)
     ax = axis % x.ndim
-    m, period, pad, code = _analysis_plan(x.shape[ax], len(lo), mode)
-    return _AnalysisAxis.apply(
-        x.contiguous(), _filter_input(dec_lo), _filter_input(dec_hi), ax, lo, hi, m, period, pad, code
+    m, period, pad, code = _analysis_plan(x.shape[ax], len(dec_lo), mode)
+    return call(
+        analysis_axis, x.contiguous(), _filter_input(dec_lo), _filter_input(dec_hi),
+        _constant_taps(dec_lo), _constant_taps(dec_hi), ax, m, period, pad, code,
     )
 
 
@@ -526,9 +653,7 @@ def pallas_idwt_axis(
                 for a, b in zip(los, his)
             ]
         )
-    lo = _kernels.host_taps(rec_lo)
-    hi = _kernels.host_taps(rec_hi)
-    filt_len = len(lo)
+    filt_len = len(rec_lo)
     ax = axis % los[0].ndim
     m = los[0].shape[ax]
     los = [b.contiguous() for b in los]
@@ -539,7 +664,8 @@ def pallas_idwt_axis(
     else:
         off = padl
         out_len = 2 * (m - 1) + filt_len - padl - padr
-    return _SynthesisAxis.apply(
-        _filter_input(rec_lo), _filter_input(rec_hi),
-        ax, lo, hi, max(out_len, 0), off, mode == "periodization", *los, *his,
+    return call(
+        synthesis_axis, los, his, _filter_input(rec_lo), _filter_input(rec_hi),
+        _constant_taps(rec_lo), _constant_taps(rec_hi),
+        ax, max(out_len, 0), off, mode == "periodization", _ZERO, 0,
     )

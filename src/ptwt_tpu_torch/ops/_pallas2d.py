@@ -19,13 +19,14 @@ once (``csrc/dwt2.cu``):
   are needed.
 
 Gradients: K1 and K2 are each other's VJP with the same taps and pad, as
-in the JAX package's ``_level_calls``, each launch wrapped in a
-:class:`torch.autograd.Function`.  K1's VJP is K2's circular synthesis
+in the JAX package's ``_level_calls``, each launch a custom op
+(``dwt2_level``, ``idwt2_level`` in ``torch.ops.ptwt_tpu_torch``,
+:mod:`._library`).  K1's VJP is K2's circular synthesis
 folding the band rows past half the period (the wrap entries of
 ``periodic``) and the clamped last sample of odd ``periodization`` axes;
 K2's VJP is K1's read, zero-bounded for the cropped ``periodic``
 synthesis.  Data gradients run on the card; a filter tensor that requires
-grad raises there, and so does a double backward.
+grad raises there, and so does a second backward.
 
 The tensor-core variant: with the opt-in ``PTWT_TPU_MXU2D=1``, a float32
 level whose full-resolution image passes K9's gate
@@ -50,9 +51,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import _kernels
+from ._library import NAMESPACE, autograd, call, flatten_batch, flatten_list, split_batch
 from ._mxu2d import mxu2_dwt_call, mxu2_dwt_plain, mxu2_idwt_call, mxu2_idwt_plain, mxu2_level_ok
 from ._pallas2 import _on_cpu, _std_pad, dwt_axis_plain, idwt_axis_plain
 
@@ -262,40 +263,102 @@ def _idwt2_kernel(
     return out
 
 
-class _Dwt2Level(torch.autograd.Function):
-    """K1 (or K9a) forward; backward: K2 (or K9b) with the same taps,
-    ``off = pad``, folding modulo half the period.  Only the geometry is
-    saved."""
-
-    @staticmethod
-    def forward(ctx, x, lo, hi, per_h, per_w, m_h, m_w, pad):
-        _, h, w = x.shape
-        ctx.plan = (lo, hi, h, w, pad, (per_h // 2, per_w // 2, per_h, per_w))
-        return _dwt2_kernel(x, lo, hi, per_h, per_w, m_h, m_w, pad)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        lo, hi, h, w, pad, fold = ctx.plan
-        grad = _idwt2_kernel(ct.contiguous().unbind(0), lo, hi, h, w, pad, True, fold)
-        return (grad,) + (None,) * 7
+# K1 (or K9a): one circular 2d analysis level (also K2's VJP, zero-bounded)
 
 
-class _Idwt2Level(torch.autograd.Function):
-    """K2 (or K9b) forward; backward: K1 (or K9a) with the same taps and
-    ``pad = off``, circular with the output as its period or zero-bounded."""
+@torch.library.custom_op(f"{NAMESPACE}::dwt2_level", mutates_args=())
+def dwt2_level(
+    x: torch.Tensor,
+    lo: list[float],
+    hi: list[float],
+    per_h: int,
+    per_w: int,
+    m_h: int,
+    m_w: int,
+    pad: int,
+    circular: bool,
+) -> torch.Tensor:
+    """K1 (K9a where its gate takes the image) on ``[B, h, w]`` -> ``[4, B,
+    m_h, m_w]`` (:func:`_dwt2_kernel`)."""
+    return _dwt2_kernel(x, lo, hi, per_h, per_w, m_h, m_w, pad, circular)
 
-    @staticmethod
-    def forward(ctx, lo, hi, out_h, out_w, off, circular, *bands):
-        ctx.plan = (lo, hi, out_h, out_w, *bands[0].shape[-2:], off, circular)
-        return _idwt2_kernel(bands, lo, hi, out_h, out_w, off, circular)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        lo, hi, out_h, out_w, m_h, m_w, off, circular = ctx.plan
-        grads = _dwt2_kernel(ct.contiguous(), lo, hi, out_h, out_w, m_h, m_w, off, circular)
-        return (None,) * 6 + tuple(grads)
+@dwt2_level.register_fake
+def _(x, lo, hi, per_h, per_w, m_h, m_w, pad, circular):
+    return x.new_empty((4, x.shape[0], m_h, m_w))
+
+
+def _dwt2_setup(ctx, inputs, output):
+    x, lo, hi, per_h, per_w, m_h, m_w, pad, circular = inputs
+    _, h, w = x.shape
+    fold = (per_h // 2, per_w // 2, per_h, per_w) if circular else (m_h, m_w, h, w)
+    ctx.plan = (lo, hi, h, w, pad, circular, fold)
+
+
+def _dwt2_backward(ctx, ct):
+    """K1's VJP: K2 (or K9b) with the same taps, ``off = pad``, folding
+    modulo half the period (the zero-bounded instance's: the plain crop)."""
+    lo, hi, h, w, pad, circular, fold = ctx.plan
+    grad = call(idwt2_level, list(ct.contiguous().unbind(0)), lo, hi, h, w, pad, circular, list(fold))
+    return (grad,) + (None,) * 8
+
+
+@dwt2_level.register_vmap
+def _(info, in_dims, x, lo, hi, per_h, per_w, m_h, m_w, pad, circular):
+    size = info.batch_size
+    out = dwt2_level(flatten_batch(x, in_dims[0], size), lo, hi, per_h, per_w, m_h, m_w, pad, circular)
+    return split_batch(out, size, 1), 1
+
+
+# K2 (or K9b): one circular 2d synthesis level of the standard crop (also
+# K1's VJP, the fold instance)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::idwt2_level", mutates_args=())
+def idwt2_level(
+    bands: list[torch.Tensor],
+    lo: list[float],
+    hi: list[float],
+    out_h: int,
+    out_w: int,
+    off: int,
+    circular: bool,
+    fold: list[int],
+) -> torch.Tensor:
+    """K2 (K9b where its gate takes the image) on four ``[B, m_h, m_w]``
+    bands -> ``[B, out_h, out_w]`` (:func:`_idwt2_kernel`; ``fold`` as its,
+    ``(m_h, m_w, out_h, out_w)`` for the plain synthesis)."""
+    return _idwt2_kernel(bands, lo, hi, out_h, out_w, off, circular, tuple(fold))
+
+
+@idwt2_level.register_fake
+def _(bands, lo, hi, out_h, out_w, off, circular, fold):
+    return bands[0].new_empty((bands[0].shape[0], out_h, out_w))
+
+
+def _idwt2_setup(ctx, inputs, output):
+    bands, lo, hi, out_h, out_w, off, circular, fold = inputs
+    ctx.plan = (lo, hi, *bands[0].shape[-2:], off, circular, fold)
+
+
+def _idwt2_backward(ctx, ct):
+    """K2's VJP: K1 (or K9a) with the same taps and ``pad = off``, reading
+    modulo the fold's period (the output for the plain synthesis) or zero
+    outside the output."""
+    lo, hi, m_h, m_w, off, circular, fold = ctx.plan
+    grads = call(dwt2_level, ct.contiguous(), lo, hi, fold[2], fold[3], m_h, m_w, off, circular)
+    return (list(grads.unbind(0)),) + (None,) * 7
+
+
+@idwt2_level.register_vmap
+def _(info, in_dims, bands, lo, hi, out_h, out_w, off, circular, fold):
+    size = info.batch_size
+    out = idwt2_level(flatten_list(bands, in_dims[0], size), lo, hi, out_h, out_w, off, circular, fold)
+    return split_batch(out, size), 0
+
+
+autograd(dwt2_level, _dwt2_setup, _dwt2_backward)
+autograd(idwt2_level, _idwt2_setup, _idwt2_backward)
 
 
 def fused2_dwt_level(
@@ -328,7 +391,7 @@ def fused2_dwt_level(
     if on_cpu:
         bands = mxu2_dwt_plain(flat, lo, hi, per_h, per_w, m_h, m_w, pad)
     else:
-        bands = _Dwt2Level.apply(flat.contiguous(), lo, hi, per_h, per_w, m_h, m_w, pad)
+        bands = call(dwt2_level, flat.contiguous(), lo, hi, per_h, per_w, m_h, m_w, pad, True)
     return tuple(band.reshape(*lead, m_h, m_w) for band in bands.unbind(0))
 
 
@@ -358,5 +421,5 @@ def fused2_idwt_level(
         out = mxu2_idwt_plain(flat, lo, hi, out_h, out_w, pad, circular)
     else:
         flat = [b.contiguous() for b in flat]
-        out = _Idwt2Level.apply(lo, hi, out_h, out_w, pad, circular, *flat)
+        out = call(idwt2_level, flat, lo, hi, out_h, out_w, pad, circular, [m_h, m_w, out_h, out_w])
     return out.reshape(*lead, out_h, out_w)

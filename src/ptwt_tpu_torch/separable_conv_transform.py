@@ -38,7 +38,7 @@ from .ops._dispatch import dwt_axis_packed, idwt_axis_pairs
 from .utils import (
     as_device_tensor,
     coeff_tree_map,
-    get_filter_arrays,
+    filter_taps,
     postprocess_coeffs,
     postprocess_tensor,
     preprocess_coeffs,
@@ -116,7 +116,7 @@ def _fswavedecn(
     data = as_device_tensor(data)
     _check_dtype(data.dtype)
     data, ds = preprocess_tensor(data, ndim=ndim, axes=axes)
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     if level is None:
         wlen = len(dec_lo)
         level = int(min(math.log2(axis_len / (wlen - 1)) for axis_len in data.shape[1:]))
@@ -139,7 +139,7 @@ def _fswaverecn(coeffs: WaveletCoeffNd, wavelet, ndim: int, axes) -> torch.Tenso
     coeffs = coeff_tree_map(as_device_tensor, coeffs)
     coeffs, ds = preprocess_coeffs(coeffs, ndim=ndim, axes=axes)
     _check_dtype(coeffs[0].dtype)
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=False, dtype=coeffs[0].dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=False, dtype=coeffs[0].dtype)
     approx = coeffs[0]
     for level_dict in coeffs[1:]:
         level_dict = dict(level_dict)

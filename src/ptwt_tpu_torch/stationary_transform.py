@@ -26,7 +26,7 @@ from .conv_transform import _check_dtype
 from .ops._slices import _taps
 from .utils import (
     as_device_tensor,
-    get_filter_arrays,
+    filter_taps,
     postprocess_coeffs,
     postprocess_tensor,
     preprocess_coeffs,
@@ -95,7 +95,7 @@ def swt(
     data = as_device_tensor(data)
     _check_dtype(data.dtype)
     data, ds = preprocess_tensor(data, ndim=1, axes=axis)
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     dec_lo, dec_hi = _taps(dec_lo, data), _taps(dec_hi, data)
     filt_len = len(dec_lo)
 
@@ -131,7 +131,7 @@ def iswt(
     _check_dtype(coeffs[0].dtype)
     coeffs, ds = preprocess_coeffs(coeffs, ndim=1, axes=axis)
     # the transposed convolution is a correlation with the flipped filters
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=True, dtype=coeffs[0].dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=True, dtype=coeffs[0].dtype)
     rec_lo, rec_hi = _taps(rec_lo, coeffs[0]), _taps(rec_hi, coeffs[0])
     filt_len = len(rec_lo)
 

@@ -11,6 +11,7 @@ from ._preprocess import (
     coeffs_from_numpy,
     coeffs_to_numpy,
     construct_nd_filter,
+    filter_taps,
     get_filter_arrays,
     infer_periodization,
     invalid_coeffs_message,

@@ -7,15 +7,43 @@ so the level ops always see ``[batch, *spatial]``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Sequence, Union
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from ..constants import Wavelet, WaveletDetailTuple2d, WaveletTensorTuple
 
 AxesArg = Union[int, Sequence[int], None]
+
+
+def host_constant(maxsize: int) -> Callable:
+    """Decorator: cache a function's results (the last ``maxsize``
+    argument tuples), and have ``torch.compile`` take each as a constant
+    of the program.  The function runs on the host, once per arguments,
+    as the JAX package's numpy work runs once at ``jax.jit``'s trace."""
+
+    def decorate(fn: Callable) -> Callable:
+        def kept(*args):
+            from ..ops._library import constant_tensor
+
+            # a tensor it makes is kept past the transform that may be running
+            return tree_map(constant_tensor, fn(*args))
+
+        # host work is never traced, also where a caller resumes past a graph break
+        cached = torch.compiler.disable(functools.lru_cache(maxsize=maxsize)(kept))
+
+        @torch.compiler.assume_constant_result
+        @functools.wraps(fn)
+        def constant(*args):
+            return cached(*args)
+
+        return constant
+
+    return decorate
 
 
 def check_axes_argument(axes: Sequence[int]) -> None:
@@ -41,6 +69,12 @@ def _transpose_order(axes: Sequence[int], ndim: int) -> list[int]:
     return [a for a in range(ndim) if a not in axes] + list(axes)
 
 
+@host_constant(maxsize=256)
+def _inverse_order(axes: tuple[int, ...], ndim: int) -> tuple[int, ...]:
+    """The permutation that undoes :func:`swap_axes` (host work, cached)."""
+    return tuple(np.argsort(_transpose_order(axes, ndim)).tolist())
+
+
 def swap_axes(data: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
     """Move the transform axes to the end (keeping their given order)."""
     check_axes_argument(axes)
@@ -50,8 +84,7 @@ def swap_axes(data: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
 def undo_swap_axes(data: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
     """Invert :func:`swap_axes`."""
     check_axes_argument(axes)
-    order = _transpose_order(axes, data.ndim)
-    return data.permute(np.argsort(order).tolist())
+    return data.permute(_inverse_order(tuple(axes), data.ndim))
 
 
 def _is_default_axes(axes: Sequence[int], ndim: int) -> bool:
@@ -151,6 +184,82 @@ def postprocess_coeffs(coeffs, ndim: int, ds: tuple[int, ...], axes: AxesArg):
     return coeff_tree_map(_one, coeffs)
 
 
+#: The numpy dtype of each torch dtype a filter bank is cast to.
+_NUMPY_DTYPES = {torch.float16: np.float16, torch.float32: np.float32, torch.float64: np.float64}
+
+
+def numpy_dtype(dtype: torch.dtype) -> type:
+    """The numpy dtype of a floating torch ``dtype`` (read from a fixed
+    map: a tensor made to ask would have no storage under ``torch.func``)."""
+    try:
+        return _NUMPY_DTYPES[dtype]
+    except KeyError:
+        raise TypeError(f"filter banks take float16, float32 or float64, got {dtype}") from None
+
+
+@host_constant(maxsize=1024)
+def constant_taps(taps: tuple, flip: bool, dtype: torch.dtype) -> tuple[float, ...]:
+    """A constant filter's taps as python floats of ``dtype``'s precision,
+    flipped where asked, made once per filter and cached.
+
+    Host work: ``torch.compile`` takes the result as a constant, as
+    ``jax.jit`` takes the JAX package's numpy banks."""
+    arr = np.asarray(taps, dtype=numpy_dtype(dtype))
+    return tuple(float(v) for v in (arr[::-1] if flip else arr))
+
+
+@host_constant(maxsize=256)
+def _named_bank(name: str, flip: bool, dtype: torch.dtype) -> tuple[tuple[float, ...], ...]:
+    """The four filters of a named wavelet as :func:`constant_taps` makes
+    them, built once per name (the registry's numpy work stays out of a
+    traced program)."""
+    from ..wavelets import Wavelet
+
+    return tuple(constant_taps(tuple(f), flip, dtype) for f in Wavelet(name).filter_bank)
+
+
+def filter_taps(
+    wavelet: Union[Wavelet, str, WaveletTensorTuple, tuple],
+    flip: bool,
+    dtype: torch.dtype = torch.float32,
+) -> tuple:
+    """``(dec_lo, dec_hi, rec_lo, rec_hi)`` as the transforms take them.
+
+    Constant filters (a wavelet name, a pywt-style wavelet, sequences of
+    numbers) come back as tuples of python floats rounded to ``dtype``,
+    cached: the kernels take them as host constants, and
+    ``torch.compile`` as constants of the program.  Filters given as
+    tensors stay tensors (cast to ``dtype``), keeping a gradient path into
+    filters that require grad; each is a tensor of this call's own, and
+    in eager mode the taps of those on the card are read to the host once,
+    in one copy, for the kernels' launches (compiled, each op reads them).
+    Analysis filters come flipped (correlation order) with ``flip=True``.
+    """
+    from ..ops._kernels import keep_host_taps
+
+    if isinstance(wavelet, str):
+        return _named_bank(wavelet, flip, dtype)
+    if isinstance(wavelet, tuple) and len(wavelet) == 4:
+        bank = wavelet
+    else:
+        bank = wavelet.filter_bank
+
+    def _conv(filt):
+        if isinstance(filt, torch.Tensor):
+            arr = filt.to(dtype)
+            if flip:
+                return arr.flip(-1)
+            return arr.view_as(arr) if arr is filt else arr
+        if isinstance(filt, np.ndarray):
+            filt = filt.ravel().tolist()
+        return constant_taps(tuple(filt), flip, dtype)
+
+    filters = tuple(_conv(f) for f in bank)
+    if not torch.compiler.is_compiling():
+        keep_host_taps(filters)
+    return filters
+
+
 def get_filter_arrays(
     wavelet: Union[Wavelet, str, WaveletTensorTuple, tuple],
     flip: bool,
@@ -160,36 +269,16 @@ def get_filter_arrays(
 
     Accepts a wavelet name, any object with ``.filter_bank`` (a pywt-style
     wavelet), or a tuple of four filter arrays.  Static banks come back as
-    **numpy** arrays of ``dtype``, so the kernel wrappers read them as
-    host constants.  Filters given as tensors stay tensors (cast to
-    ``dtype``), keeping a gradient path into filters that require grad;
-    each is a tensor of this call's own, and the taps of those on the card
-    are read to the host once, in one copy, for the kernels' launches.
-    Analysis filters come flipped (correlation order) with ``flip=True``.
+    **numpy** arrays of ``dtype`` (the values of :func:`filter_taps`).
+    Filters given as tensors stay tensors, as :func:`filter_taps` returns
+    them.  Analysis filters come flipped (correlation order) with
+    ``flip=True``.
     """
-    from ..ops._kernels import keep_host_taps
-    from ..wavelets import Wavelet as _Wavelet
-
-    if isinstance(wavelet, str):
-        wavelet = _Wavelet(wavelet)
-    if isinstance(wavelet, tuple) and len(wavelet) == 4:
-        bank = wavelet
-    else:
-        bank = wavelet.filter_bank
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-
-    def _conv(filt):
-        if isinstance(filt, torch.Tensor):
-            arr = filt.to(dtype)
-            if flip:
-                return arr.flip(-1)
-            return arr.view_as(arr) if arr is filt else arr
-        arr = np.asarray(filt, dtype=np_dtype)
-        return arr[::-1].copy() if flip else arr
-
-    filters = tuple(_conv(f) for f in bank)
-    keep_host_taps(filters)
-    return filters
+    np_dtype = numpy_dtype(dtype)
+    return tuple(
+        f if isinstance(f, torch.Tensor) else np.asarray(f, dtype=np_dtype)
+        for f in filter_taps(wavelet, flip, dtype)
+    )
 
 
 #: Per-axis hi(1)/lo(0) selection for each 2d output channel: the order

@@ -106,6 +106,9 @@ class Wavelet:
         else:
             bank = _filter_bank_for(name)
         self._dec_lo, self._dec_hi, self._rec_lo, self._rec_hi = bank
+        # the taps as python floats: reading them runs no numpy, so a
+        # compiled transform takes them as constants
+        self._taps = tuple(tuple(float(v) for v in f) for f in bank)
         family = re.match(r"^([a-z]+)", name)
         self.family_name = family.group(1) if family else name
         self.short_family_name = self.family_name
@@ -124,32 +127,32 @@ class Wavelet:
     @property
     def dec_lo(self) -> list:
         """Decomposition low-pass filter."""
-        return self._dec_lo.tolist()
+        return list(self._taps[0])
 
     @property
     def dec_hi(self) -> list:
         """Decomposition high-pass filter."""
-        return self._dec_hi.tolist()
+        return list(self._taps[1])
 
     @property
     def rec_lo(self) -> list:
         """Reconstruction low-pass filter."""
-        return self._rec_lo.tolist()
+        return list(self._taps[2])
 
     @property
     def rec_hi(self) -> list:
         """Reconstruction high-pass filter."""
-        return self._rec_hi.tolist()
+        return list(self._taps[3])
 
     @property
     def dec_len(self) -> int:
         """Length of the decomposition filters."""
-        return int(self._dec_lo.size)
+        return len(self._taps[0])
 
     @property
     def rec_len(self) -> int:
         """Length of the reconstruction filters."""
-        return int(self._rec_lo.size)
+        return len(self._taps[2])
 
     @property
     def filter_bank(self) -> tuple:

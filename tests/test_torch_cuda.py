@@ -1636,3 +1636,86 @@ def test_cuda_convs_at_highest_ignore_tf32(cuda_device, ndim):
         assert torch.backends.cudnn.allow_tf32 is True
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+# ---------------------------------------------------------------------------
+# the ops of the kernels under torch.compile, torch.func.grad and
+# torch.func.vmap (small sizes; chip_smoke.py's phase 20 runs full width)
+# ---------------------------------------------------------------------------
+
+FUNC_ROWS = {
+    "2d periodic": ((4, 96, 128), lambda t: tptwt.waverec2(tptwt.wavedec2(t, "db4", mode="periodic", level=3),
+                                                          "db4", mode="periodic")),
+    "2d reflect": ((4, 96, 128), lambda t: tptwt.waverec2(tptwt.wavedec2(t, "db4", mode="reflect", level=3), "db4")),
+    "2d periodization": ((4, 96, 128), lambda t: tptwt.waverec2(
+        tptwt.wavedec2(t, "db4", mode="periodization", level=3), "db4", mode="periodization")),
+    "d1": ((4, 70000), lambda t: tptwt.waverec(tptwt.wavedec(t, "db5", mode="reflect", level=6), "db5")),
+    "d1 periodization": ((4, 4096), lambda t: tptwt.waverec(
+        tptwt.wavedec(t, "db5", mode="periodization", level=5), "db5", mode="periodization")),
+    "d3": ((2, 20, 24, 28), lambda t: tptwt.waverec3(tptwt.wavedec3(t, "db3", mode="reflect", level=2), "db3")),
+    "cwt": ((4, 1000), lambda t: tptwt.cwt(t, [1.0, 2.0, 5.0, 9.0], "shan0.1-0.4")[0]),
+}
+
+
+def _counted(fn, *args):
+    _kernels.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _kernels.LAUNCHES.items() if v}
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FUNC_ROWS))
+def test_cuda_compile_grad_vmap_through_the_ops(cuda_device, name):
+    """Compiled (inductor, one graph): eager's values within 1e-5 of
+    ``max(1, |out|)`` and eager's launches; ``torch.func.grad`` against
+    autograd and ``torch.func.vmap`` against the batched call within 1e-5
+    of the largest entry, with the same launches."""
+    shape, fn = FUNC_ROWS[name]
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    want, eager = _counted(fn, x)
+    torch._dynamo.reset()
+    compiled = torch.compile(fn, fullgraph=True, dynamic=False)
+    compiled(x)
+    got, launches = _counted(compiled, x)
+    assert launches == eager and (eager or name == "cwt")
+    assert _rel(got, want) <= 1e-5
+
+    def loss(t):
+        return (fn(t).abs() ** 2).sum()
+
+    g, func_launches = _counted(torch.func.grad(loss), x)
+    xr = x.clone().requires_grad_()
+    (ref,), auto_launches = _counted(lambda t: torch.autograd.grad(loss(t), t), xr)
+    assert func_launches == auto_launches
+    assert float((g - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    xs = x.reshape(2, shape[0] // 2, *shape[1:])
+    v, vmap_launches = _counted(torch.func.vmap(fn), xs)
+    b, batched_launches = _counted(fn, x)
+    if name == "cwt":
+        b = b.reshape(b.shape[0], 2, -1, b.shape[-1]).movedim(1, 0)
+    assert vmap_launches == batched_launches
+    assert float((v - b.reshape(v.shape)).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_reduce_overhead_headline_has_no_cudagraph_skip(cuda_device):
+    """The periodic round trip under ``mode="reduce-overhead"``: one CUDA
+    graph (no skip), eager's output."""
+    from torch._dynamo.utils import counters
+
+    fn = FUNC_ROWS["2d periodic"][1]
+    x = torch.randn(4, 96, 128, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    want = fn(x)
+    torch._dynamo.reset()
+    counters.clear()
+    compiled = torch.compile(fn, fullgraph=True, dynamic=False, mode="reduce-overhead")
+    for _ in range(3):
+        got = compiled(x)
+    torch.cuda.synchronize()
+    assert counters["inductor"].get("cudagraph_skips", 0) == 0
+    assert _rel(got, want) <= 1e-5
