@@ -286,6 +286,20 @@ Phases, each raising (non-zero exit) on failure:
    ``mode="reduce-overhead"`` (no cudagraph skip, asserted): compile
    seconds, the profiler's device busy ms (the window holding every launch,
    asserted but for the CUDA graph's replay), CUDA-event ms and wall ms.
+21. second derivatives (``chip_smoke.py --second-order-times``, a process
+   of its own): with ``L`` the sum of the cubed coefficients, the step
+   ``x.grad`` of ``|dL/dx|^2`` under eager autograd (``create_graph=True``)
+   and under ``torch.func.grad`` of ``torch.func.grad`` at the headline in
+   ``periodic``, ``reflect`` and ``periodization`` and d1, float32 against
+   the same step on the plain path in float64 (1e-4 of the largest entry;
+   the periodic headline also in float64, 1e-10), autograd against
+   ``torch.func``, each direction's launches asserted (the second backward
+   runs one VJP launch per launch of the forward and of the first); the
+   learnable headline's hypergradient ``d|dL/dx|^2 / dfilters`` (K4's fold
+   instance's filter gradient on KT) and ``d|dL/dfilters|^2 / dfilters``
+   (KT's VJP on K3/K4, its launches read by hooks on KT's nodes); each
+   step's profiler busy ms, CUDA-event ms and wall ms; then KT's VJP alone
+   against autograd through KT's plain version, its time and bound.
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -4930,8 +4944,8 @@ def prec_gemms(rows: list) -> list:
             if any(s in key.lower() for s in ("gemm", "nvjet", "xmma", "cutlass"))]
 
 
-#: Substrings of the hand-written kernels' names in a profile
-PREC_HAND = ("axis_kernel", "tile_kernel", "pyramid", "mxu2d")
+#: Substrings of the hand-written kernels' names in a profile (KT: its sums' kernel)
+PREC_HAND = ("axis_kernel", "tile_kernel", "pyramid", "mxu2d", "tap_grad_kernel")
 
 
 def prec_timing(run, label: str, launches: int) -> dict:
@@ -5385,6 +5399,312 @@ def compile_times() -> dict:
     return {"rows": rows, "headline": compile_headline()}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: second derivatives
+# ---------------------------------------------------------------------------
+
+#: Phase 21's rows at full width: (name, kind, shape, wavelet, level, mode,
+#: seed).  The loss is the sum of every cubed coefficient, so that its
+#: Hessian depends on x; the step is x.grad of the squared input gradient.
+SECOND_ROWS = (
+    ("2d periodic", "2d", SHAPE, WAVELET, LEVEL, "periodic", SEED + 2100),
+    ("2d reflect", "2d", SHAPE, WAVELET, LEVEL, "reflect", SEED + 2101),
+    ("2d periodization", "2d", SHAPE, WAVELET, LEVEL, "periodization", SEED + 2102),
+    ("d1", "1d", D1_SHAPE, WAVELET_1D, LEVEL_1D, "reflect", SEED + 2103),
+)
+#: The row also run in float64, against float64 at 1e-10.
+SECOND_F64 = "2d periodic"
+#: (e): phase 17's "2d periodic" learnable bank on the headline.
+SECOND_LEARN = ("learnable 2d periodic", SHAPE, WAVELET, LEVEL, "periodic", SEED + 2104)
+#: Against the plain path in float64 (and autograd against ``torch.func``),
+#: over the result's largest entry: ``PERF.md`` §2's gradient limit.
+SECOND_TOL = {torch.float32: TRAIN_GRAD_TOL, torch.float64: 1e-10}
+#: Each row's kernels by direction: forward, first backward, second backward.
+SECOND_KERNELS = {
+    "2d periodic": ({"K1", "K3"}, {"K2", "K4"}, {"K1", "K2", "K3", "K4"}),
+    "2d reflect": ({"K3"}, {"K4"}, {"K3", "K4"}),
+    "2d periodization": ({"K5a"}, {"K5b"}, {"K5a", "K5b"}),
+    "d1": ({"K8a", "K3"}, {"K8b", "K4"}, {"K8a", "K8b", "K3", "K4"}),
+    "learnable": ({"K3"}, {"K4", "KT"}, {"K3", "K4", "KT"}),
+}
+
+
+def cubed(coeffs) -> torch.Tensor:
+    return sum((c**3).sum() for c in compile_leaves(coeffs))
+
+
+def second_loss(kind: str, wavelet: str, level: int, mode: str):
+    """``L(x)``: the sum of the cubed coefficients of the row's transform."""
+    fwd = ptwt.wavedec2 if kind == "2d" else ptwt.wavedec
+    return lambda t: cubed(fwd(t, wavelet, mode=mode, level=level))
+
+
+def directions(run_forward, run_first, run_second) -> tuple:
+    """The three results and each direction's launches (the counts set to 0
+    just before it and read just after)."""
+    out, launches = [], []
+    for run in (run_forward, run_first, run_second):
+        _kernels.reset_launch_counts()
+        out.append(run(*out[-1:]))
+        launches.append(pkt_counts())
+    return out, launches
+
+
+def penalty_eager(loss, x: torch.Tensor) -> tuple:
+    """``x.grad`` of ``P = |dL/dx|^2`` under eager autograd: the first
+    backward with ``create_graph=True``, then the second; ``(result,
+    [forward, first, second launches])``."""
+    xr = leaf(x)
+    (_, _, (h,)), launches = directions(
+        lambda: loss(xr),
+        lambda value: torch.autograd.grad(value, xr, create_graph=True)[0],
+        lambda g: torch.autograd.grad((g**2).sum(), xr),
+    )
+    return h, launches
+
+
+def penalty_func(loss, x: torch.Tensor) -> tuple:
+    """The same under ``torch.func.grad`` of ``torch.func.grad``;
+    ``(result, launches)``."""
+    return counted(torch.func.grad(lambda t: (torch.func.grad(loss)(t) ** 2).sum()), x)
+
+
+def second_check(name: str, what: str, err: float, dtype) -> float:
+    log(f"  {name}: {what} {err!r} (limit {SECOND_TOL[dtype]!r})")
+    if not err <= SECOND_TOL[dtype]:
+        raise AssertionError(f"{name}: {what} {err!r} > {SECOND_TOL[dtype]!r}")
+    return err
+
+
+def second_launches(name: str, launches: list, kernels: tuple, exact: bool) -> None:
+    """Each direction launches exactly the hand-written kernels of the row
+    (every one at least once); with ``exact`` the second backward runs one
+    VJP launch per launch of the forward and of the first backward."""
+    for direction, got, want in zip(("forward", "first backward", "second backward"), launches, kernels):
+        if set(got) != want:
+            raise AssertionError(f"{name}: {direction} launched {got}, expected the kernels {sorted(want)}")
+    if exact:
+        twice = {k: launches[0].get(k, 0) + launches[1].get(k, 0) for k in launches[2]}
+        if launches[2] != twice:
+            raise AssertionError(f"{name}: second backward {launches[2]}, expected {twice}")
+
+
+def second_row(name: str, kind: str, shape, wavelet: str, level: int, mode: str, seed: int, dtype) -> dict:
+    """One row: the penalty step under autograd and under ``torch.func``
+    on the kernel path, against each other and against the same step on
+    the plain path in float64, the launches of each direction, and the
+    step's times."""
+    x = randn(shape, dtype, seed)
+    loss = second_loss(kind, wavelet, level, mode)
+    got, launches = penalty_eager(loss, x)
+    second_launches(name, launches, SECOND_KERNELS[name], exact=True)
+    func, func_launches = penalty_func(loss, x)
+    total = {k: sum(c.get(k, 0) for c in launches) for k in launches[2]}
+    if func_launches != total:
+        raise AssertionError(f"{name}: torch.func launched {func_launches}, autograd {total}")
+    out = {"dtype": str(dtype)[6:], "launches": dict(zip(("forward", "first_backward", "second_backward"),
+                                                          launches)),
+           "func_launches": func_launches,
+           "func_vs_autograd": second_check(name, "torch.func vs autograd", compile_rel(func, got), dtype)}
+    del func
+    with plain_versions():
+        want, _ = penalty_eager(loss, x.double())
+    out["err"] = second_check(name, f"{out['dtype']} kernels vs the float64 plain path", compile_rel(got, want), dtype)
+    del got, want
+    torch.cuda.empty_cache()
+    out.update(compile_timing(lambda: penalty_eager(loss, x), f"{name} {out['dtype']} penalty step",
+                              sum(total.values())))
+    log(f"  {name}: launches {out['launches']}, device {out['device_ms']!r} ms, events {out['events_ms']!r} ms, "
+        f"wall {out['wall_ms']!r} ms")
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def node_launches(outputs, key: str) -> dict:
+    """Hooks on every node of ``outputs``' autograd graph whose name holds
+    ``key``: the returned dict collects the launches made inside those
+    nodes' backwards (the counts read before and after each one)."""
+    seen, stack, nodes = set(), [t.grad_fn for t in outputs if t.grad_fn is not None], []
+    while stack:
+        node = stack.pop()
+        if node in seen:
+            continue
+        seen.add(node)
+        if key in type(node).__name__:
+            nodes.append(node)
+        stack.extend(n for n, _ in node.next_functions if n is not None)
+    inside, before = {}, {}
+
+    def pre(node):
+        before[node] = dict(_kernels.LAUNCHES)
+
+    def post(node):
+        for k, v in _kernels.LAUNCHES.items():
+            if v > before[node].get(k, 0):
+                inside[k] = inside.get(k, 0) + v - before[node].get(k, 0)
+
+    for node in nodes:
+        node.register_prehook(lambda grads, node=node: pre(node))
+        node.register_hook(lambda grads_in, grads_out, node=node: post(node))
+    return inside
+
+
+def learn_loss_cubed(filters, level: int, mode: str):
+    """(e)'s loss as a function of the bank's analysis filters (the two
+    that ``wavedec2`` reads) and the data."""
+    return lambda fs, t: cubed(ptwt.wavedec2(t, (*fs, *filters[2:]), mode=mode, level=level))
+
+
+def learn_mixed(x: torch.Tensor, filters, level: int, mode: str) -> tuple:
+    """The hypergradient ``d|dL/dx|^2 / dfilters`` under eager autograd
+    (the mixed term: the fold instance's filter gradient on KT), with each
+    direction's launches."""
+    loss = learn_loss_cubed(filters, level, mode)
+    fs, xr = [leaf(f) for f in filters[:2]], leaf(x)
+    (_, _, mixed), launches = directions(
+        lambda: loss(fs, xr),
+        lambda value: torch.autograd.grad(value, xr, create_graph=True)[0],
+        lambda g: torch.autograd.grad((g**2).sum(), fs),
+    )
+    return mixed, launches
+
+
+def learn_pure(x: torch.Tensor, filters, level: int, mode: str) -> tuple:
+    """``d|dL/dfilters|^2 / dfilters`` under eager autograd (the pure term:
+    KT's VJP on K3/K4), with each direction's launches and those made
+    inside KT's VJP."""
+    loss = learn_loss_cubed(filters, level, mode)
+    fs = [leaf(f) for f in filters[:2]]
+    vjp = {}
+
+    def first(value):
+        grads = torch.autograd.grad(value, fs, create_graph=True)
+        vjp["launches"] = node_launches(grads, "tap_grad")  # filled in by the second backward
+        return grads
+
+    (_, _, pure), launches = directions(
+        lambda: loss(fs, x), first, lambda gs: torch.autograd.grad(sum((g**2).sum() for g in gs), fs)
+    )
+    return pure, launches, vjp["launches"]
+
+
+def learn_func(x: torch.Tensor, filters, level: int, mode: str) -> dict:
+    """Both terms under ``torch.func.grad`` of ``torch.func.grad``."""
+    loss, grad = learn_loss_cubed(filters, level, mode), torch.func.grad
+    return {
+        "mixed": counted(grad(lambda fs: (grad(loss, argnums=1)(fs, x) ** 2).sum()), list(filters[:2])),
+        "pure": counted(grad(lambda fs: sum((g**2).sum() for g in grad(loss)(fs, x))), list(filters[:2])),
+    }
+
+
+def second_learnable() -> dict:
+    """(e): the learnable headline, float32 on the kernel path against the
+    float64 plain path with the same taps, autograd against ``torch.func``;
+    the hypergradient step's times."""
+    name, shape, wavelet, level, mode, seed = SECOND_LEARN
+    x = randn(shape, torch.float32, seed)
+    filters = [f.detach() for f in learn_bank(wavelet, torch.float32, DEVICE).filter_bank]
+    terms = {"mixed": learn_mixed, "pure": learn_pure}
+    func = learn_func(x, filters, level, mode)
+    out = {}
+    for term, run in terms.items():
+        got = run(x, filters, level, mode)
+        with plain_versions():
+            want = run(x.double(), [f.double() for f in filters], level, mode)
+        second_launches(f"{name} {term}", got[1], SECOND_KERNELS["learnable"], exact=False)
+        row = {"launches": dict(zip(("forward", "first_backward", "second_backward"), got[1])),
+               "func_launches": func[term][1],
+               "func_vs_autograd": second_check(f"{name} {term}", "torch.func vs autograd",
+                                                compile_rel(func[term][0], got[0]), torch.float32),
+               "err": second_check(f"{name} {term}", "float32 kernels vs the float64 plain path",
+                                   compile_rel(got[0], want[0]), torch.float32)}
+        if term == "pure":
+            row["kt_vjp_launches"] = got[2]
+            if set(got[2]) != {"K3", "K4"}:
+                raise AssertionError(f"{name}: KT's VJP launched {got[2]}, expected K3 and K4")
+        log(f"  {name} {term}: {row}")
+        out[term] = row
+        del got, want
+    del func
+    torch.cuda.empty_cache()
+    launches = out["mixed"]["launches"]
+    total = {k: sum(c.get(k, 0) for c in launches.values()) for k in ("K3", "K4", "KT")}
+    out.update(compile_timing(lambda: learn_mixed(x, filters, level, mode), f"{name} hypergradient step",
+                              sum(total.values())))
+    log(f"  {name}: hypergradient step device {out['device_ms']!r} ms, events {out['events_ms']!r} ms, "
+        f"wall {out['wall_ms']!r} ms")
+    return out
+
+
+def kt_vjp() -> dict:
+    """KT's VJP alone (one K3 and one K4 launch) at KT's ``KT_MAIN`` row
+    (the headline's level 1 along -2, periodic, 8 taps, float32) against
+    autograd through KT's plain version; its two launches' time (``ms``,
+    the taps already on the host), the VJP through autograd (events and
+    wall, the host read of the cotangent's taps included), its bound and
+    that host read alone."""
+    name, shape, axis, mode, taps, dtype, _ = KT_MAIN[0]
+    x, ct, _ = kt_inputs(shape, axis, mode, taps, dtype)
+    ax = axis % x.ndim
+    _, period, pad, code = _pallas2._analysis_plan(x.shape[ax], taps, mode)
+    c = randn([2, taps], torch.float64, SEED + 2105)
+    xl, ctl = leaf(x), leaf(ct)
+    out = _pallas2.tap_grad(xl, [ctl[0]], [ctl[1]], ax, taps, period, pad, code)
+
+    def vjp():
+        return torch.autograd.grad(out, (xl, ctl), c, retain_graph=True)
+
+    dl, dh = (leaf(randn([taps], dtype, SEED + 2106 + i)) for i in range(2))
+    lo, hi = _pallas2.dwt_axis_plain(xl, axis, dl, dh, mode)
+    plain_out = torch.autograd.grad((lo * ctl[0]).sum() + (hi * ctl[1]).sum(), (dl, dh), create_graph=True)
+
+    def plain_vjp():
+        return torch.autograd.grad(plain_out, (xl, ctl), (c[0].to(dtype), c[1].to(dtype)), retain_graph=True)
+
+    _kernels.reset_launch_counts()
+    got = vjp()
+    launches = pkt_counts()
+    if launches != {"K3": 1, "K4": 1}:
+        raise AssertionError(f"KT's VJP launched {launches}, expected one K3 and one K4")
+    want = plain_vjp()
+    err = max_abs(got, want)
+    # over max(1, the largest entry), as the other VJP rows of float32
+    check("KT's VJP vs plain", err / max(1.0, max(float(w.abs().max()) for w in want)), TOL[torch.float32])
+    nbytes = 2 * (x.numel() + ct.numel()) * x.element_size()
+    bound_ms, bound_by = bound(nbytes, 2.0 * taps * (x.numel() + ct.numel()))
+    lo_c, hi_c = _kernels.host_taps(c[0]), _kernels.host_taps(c[1])
+
+    def two_launches():  # what the VJP launches, its taps on the host
+        _pallas2._analysis_kernel(x, ax, lo_c, hi_c, ct.shape[ax + 1], period, pad, code)
+        _pallas2._synthesis_kernel([ct[0]], [ct[1]], ax, lo_c, hi_c, x.shape[ax], pad, False, code, period)
+
+    row = {"shape": list(shape), "launches": launches, "max_abs_err": err, "ms": time_ms(two_launches),
+           "plain_ms": time_ms(plain_vjp), "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "library_note": "no single call: a convolution and a transposed one",
+           "autograd_events_ms": time_ms(vjp), "wall_ms": wall_ms(vjp),
+           "host_taps_wall_ms": wall_ms(lambda: _kernels.host_taps(c))}
+    log(f"  KT's VJP at {name}: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    return row
+
+
+def second_order_times() -> dict:
+    """``--second-order-times`` (phase 21, a process of its own): rows
+    (a)-(d) in float32 (and :data:`SECOND_F64` in float64), (e) the
+    learnable headline, then KT's VJP alone."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    for name, kind, shape, wavelet, level, mode, seed in SECOND_ROWS:
+        log(f"  {name}: {list(shape)}, {wavelet}, level {level}, {mode}")
+        rows[name] = second_row(name, kind, shape, wavelet, level, mode, seed, torch.float32)
+        if name == SECOND_F64:
+            rows[f"{name} float64"] = second_row(name, kind, shape, wavelet, level, mode, seed, torch.float64)
+    log(f"  {SECOND_LEARN[0]}: {list(SECOND_LEARN[1])}, {SECOND_LEARN[2]}, level {SECOND_LEARN[3]}")
+    rows[SECOND_LEARN[0]] = second_learnable()
+    return {"rows": rows, "kt_vjp": kt_vjp()}
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -5619,6 +5939,10 @@ def main() -> int:
     log("phase 20: torch.compile, torch.func.grad and torch.func.vmap through the ops of the kernels")
     compiled = times_process("--compile-times", timeout=900)
     print(json.dumps({"compile": compiled}))
+
+    log("phase 21: second derivatives under eager autograd and torch.func at full width")
+    second = times_process("--second-order-times")
+    print(json.dumps({"second_order": second}))
 
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
@@ -5899,6 +6223,16 @@ def main() -> int:
         "launches_per_step": {name: learn[name]["launches_per_step"] for name, *_ in LEARN_FULL},
         "example_launches_per_step": learn["example"]["launches_per_step"],
         "steps": {k: v for k, v in kt.items() if not k.startswith("KT")},
+        # phase 21: KT's VJP, one K3 and one K4 launch (at KT_MAIN's first
+        # row); its launches per pure second backward of (e)
+        "vjp_kernels": ["K3", "K4"],
+        "vjp_launches": second["rows"][SECOND_LEARN[0]]["pure"]["kt_vjp_launches"],
+        "vjp_max_abs_err": second["kt_vjp"]["max_abs_err"],
+        "vjp_ms": second["kt_vjp"]["ms"],
+        "vjp_plain_ms": second["kt_vjp"]["plain_ms"],
+        "vjp_bound_ms": second["kt_vjp"]["bound_ms"],
+        "vjp_library_ms": None,
+        "vjp_host_taps_wall_ms": second["kt_vjp"]["host_taps_wall_ms"],
     })
     for entry in kernels:  # the custom op (torch.ops.ptwt_tpu_torch) each launch goes through
         entry["op"] = KERNEL_OPS[entry["name"]]
@@ -5944,6 +6278,7 @@ if __name__ == "__main__":
                         ("--pkt-times", pkt_times), ("--learn-times", learn_times), ("--tiled-times", tiled_times),
                         ("--dist-probe", dist_probe), ("--kt-times", kt_times), ("--kt-sass", kt_sass),
                         ("--prec-times", prec_times), ("--compile-times", compile_times),
+                        ("--second-order-times", second_order_times),
                         ("--kt-turns", lambda: kt_turns(Path(_arg("--kt-turns")).resolve()))):
         if flag in sys.argv:
             if not torch.cuda.is_available():

@@ -42,6 +42,7 @@ from .ops._boundary_long import (
     long_syn_run_depth,
 )
 from .ops._conv import axis_matmul
+from .ops._kernels import grad_tracked
 from .ops._library import constant_tensor
 from .sparse_math import DeviceArg, _tensor
 from .utils import (
@@ -100,7 +101,7 @@ def construct_boundary_s(
 def _as_wavelet_obj(wavelet) -> Wavelet:
     if isinstance(wavelet, str):
         return RegistryWavelet(wavelet)
-    if any(isinstance(f, torch.Tensor) and f.requires_grad for f in getattr(wavelet, "filter_bank", ())):
+    if any(grad_tracked(f) for f in getattr(wavelet, "filter_bank", ())):
         # ptwt_tpu builds these operators with np.asarray too, and refuses a
         # traced bank there (TracerArrayConversionError, a TypeError)
         raise TypeError(

@@ -34,6 +34,7 @@ __all__ = [
     "build",
     "check_tensor",
     "filters_need_grad",
+    "grad_tracked",
     "host_taps",
     "keep_host_taps",
     "launch",
@@ -236,6 +237,21 @@ _NO_FILTER_GRAD = (
 _HOST_TAPS = "_ptwt_host_taps"
 
 
+def grad_tracked(t) -> bool:
+    """Is ``t`` a tensor that autograd or a ``torch.func`` transform
+    differentiates?  Inside a nested ``torch.func.grad`` a tensor of an
+    outer level reports no ``requires_grad``, but its level tracks it."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    if t.requires_grad:
+        return True
+    return (
+        not torch.compiler.is_dynamo_compiling()
+        and torch._C._are_functorch_transforms_active()
+        and torch._C._functorch.is_gradtrackingtensor(t)
+    )
+
+
 def filters_need_grad(*filts) -> bool:
     """Would autograd differentiate with respect to one of ``filts``?
 
@@ -243,9 +259,7 @@ def filters_need_grad(*filts) -> bool:
     it holds, every fused route declines and the level runs per axis on
     K3/K4.
     """
-    return torch.is_grad_enabled() and any(
-        isinstance(f, torch.Tensor) and f.requires_grad for f in filts
-    )
+    return torch.is_grad_enabled() and any(grad_tracked(f) for f in filts)
 
 
 def keep_host_taps(filts: Sequence[torch.Tensor]) -> None:

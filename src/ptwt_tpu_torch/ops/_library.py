@@ -24,21 +24,21 @@ has an old-style ``forward(ctx, *args)`` and no ``setup_context``, which
 ``torch.autograd.Function`` from the same two functions, and :func:`call`
 takes it while a ``torch.func`` transform is active.  Both paths stay
 until ``torch.func`` takes ``register_autograd`` ops; then the Function
-and :func:`call` go.  The once-differentiable marking of
-:func:`_once_differentiable` follows
-``torch.autograd.function.once_differentiable`` through PyTorch's private
-``torch._C._functions.DelayedError``, as that decorator does.
-``tests/test_torch_second_order.py`` pins both paths: a second backward
-raises under autograd, and under ``torch.func`` a gradient of a gradient
-meets ``jax.grad`` of ``jax.grad``, or raises at a VJP op that has no
-formula.  There is no fallback: an op that a transform cannot take
-raises.
+and :func:`call` go.
+
+Every op is linear in its tensors (bilinear for ``tap_grad``, the taps'
+gradient), and every backward is a formula of ops, each with its own
+formula: so on both paths a backward that runs with grad enabled
+(``create_graph=True``, or an outer ``torch.func.grad``) records its
+launches, and a gradient differentiates again to any order.
+``tests/test_torch_second_order.py`` holds a gradient of a gradient
+against ``jax.grad`` of ``jax.grad`` on both paths.  There is no
+fallback: an op that a transform cannot take raises.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 from torch.utils import _pytree
@@ -79,33 +79,6 @@ def _optional_tensor_list(tree) -> bool:
     return True
 
 
-def _once_differentiable(backward: Callable) -> Callable:
-    """``backward`` run with grad disabled, its gradients marked so that
-    differentiating them raises (``torch.autograd.function.
-    once_differentiable``, for gradients that may come in lists)."""
-
-    @functools.wraps(backward)
-    def wrapper(ctx, *cts):
-        with torch.no_grad():
-            grads = backward(ctx, *cts)
-        if not torch.is_grad_enabled() or not any(
-            isinstance(c, torch.Tensor) and c.requires_grad for c in _pytree.tree_leaves(cts)
-        ):
-            return grads
-        flat, spec = _pytree.tree_flatten(grads)
-        tensors = [i for i, g in enumerate(flat) if isinstance(g, torch.Tensor)]
-        if tensors:
-            error = torch._C._functions.DelayedError(
-                b"a second backward through a kernel's VJP is not ported", len(tensors)
-            )
-            marked = error(*(flat[i].detach().requires_grad_() for i in tensors))
-            for i, g in zip(tensors, marked if isinstance(marked, tuple) else (marked,)):
-                flat[i] = g
-        return _pytree.tree_unflatten(flat, spec)
-
-    return wrapper
-
-
 class _Spec:
     """How an op's arguments were flattened into a Function's inputs."""
 
@@ -114,21 +87,11 @@ class _Spec:
         self.output_list = False
 
 
-def _no_context(ctx, inputs, output) -> None:
-    pass
-
-
-def autograd(op, setup_context: Callable = _no_context, backward: Optional[Callable] = None) -> None:
+def autograd(op, setup_context: Callable, backward: Callable) -> None:
     """Register ``backward`` as ``op``'s autograd formula, and build the
     ``torch.autograd.Function`` that runs ``op`` with it under
-    ``torch.func`` (see :func:`call`).  With no ``backward`` (a VJP's op,
-    whose own VJP is not ported) differentiating ``op`` raises.  Under
-    autograd the backward is differentiable once: a second backward
-    raises, as it did when each kernel had its own
-    ``once_differentiable`` Function.  Under
-    ``torch.func`` the Function runs ``backward`` as it is, so a second
-    derivative runs the paired ops' formulas in turn, or raises at a VJP
-    that has none.
+    ``torch.func`` (see :func:`call`).  Both run ``backward`` as it is, so
+    a second derivative runs the paired ops' formulas in turn.
 
     ``setup_context(ctx, inputs, output)`` and ``backward(ctx, ct)`` take
     ``register_autograd``'s conventions: ``inputs`` are the op's
@@ -136,12 +99,7 @@ def autograd(op, setup_context: Callable = _no_context, backward: Optional[Calla
     ``backward`` returns one gradient per argument (a list for a list of
     tensors).
     """
-    if backward is None:
-
-        def backward(ctx, *cts):
-            raise NotImplementedError(f"a second backward through {NAMESPACE}::{op._name} is not ported")
-
-    op.register_autograd(_once_differentiable(backward), setup_context=setup_context)
+    op.register_autograd(backward, setup_context=setup_context)
 
     class Function(torch.autograd.Function):
         generate_vmap_rule = True

@@ -42,9 +42,9 @@ the same taps and the same run plan, as the JAX package's ``custom_vjp``s
 make them: each launch is one custom op (``wavedec1d_run``,
 ``waverec1d_run``, ``wavedec2d_run``, ``waverec2d_run`` in
 ``torch.ops.ptwt_tpu_torch``, :mod:`._library`), whose backward is the
-opposite op, one launch of the opposite kernel (counted under it).  A
-filter tensor that requires grad raises on the card, and so does a
-second backward.
+opposite op, one launch of the opposite kernel (counted under it), so a
+second backward runs the pair again.  A filter tensor that requires grad
+raises on the card.
 
 The plain versions run the levels one by one through
 :func:`~._pallas2d.dwt2_level_plain` / :func:`~._pallas2d.idwt2_level_plain`

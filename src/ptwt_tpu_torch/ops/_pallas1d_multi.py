@@ -66,8 +66,10 @@ launch of the other pyramid kernel, as K6a and K6b are each other's VJP:
   level offset by its step's crop and read zero outside its band.  It
   counts as K8a (K7a).
 
-Only the geometry is saved (the maps are linear).  A filter tensor that
-requires grad raises on the card, and so does a second backward.
+Only the geometry is saved (the maps are linear).  The three ops are each
+other's transposes, so every backward differentiates again: K8b's VJP
+(``lane_adjoint``) has K8b as its VJP, and K8a's VJP (K8b's fold
+instance) has K8a.  A filter tensor that requires grad raises on the card.
 """
 
 from __future__ import annotations
@@ -550,13 +552,17 @@ def _lane_synthesis_setup(ctx, inputs, output):
 
 
 def _lane_synthesis_backward(ctx, ct):
-    """One launch of the analysis pyramid kernel with the same (rec) taps,
-    each level offset by its step's crop and zero outside its band
-    (counted as K8a, K7a at depth 1)."""
+    """One launch of the analysis pyramid kernel with the same taps
+    (counted as K8a, K7a at depth 1): for K8b, each level offset by its
+    step's crop and zero outside its band (``lane_adjoint``); for the fold
+    instance (K8a's VJP, the flipped dec taps), K8a itself with the mode
+    it folded."""
     kernel, lo, hi, offs, lens, fold = ctx.plan
+    ct = ct.contiguous()
     if fold is not None:
-        raise NotImplementedError("a second backward through K8a's VJP is not ported")
-    lo_band, *his = call(lane_adjoint, ct.contiguous(), _VJP_KERNEL[kernel], lo, hi, offs, lens)
+        packed, *his = call(lane_analysis, ct, _VJP_KERNEL[kernel], lo, hi, len(lens), fold)
+        return ([packed[0], packed[1], *his[::-1]],) + (None,) * 6
+    lo_band, *his = call(lane_adjoint, ct, _VJP_KERNEL[kernel], lo, hi, offs, lens)
     return ([lo_band, *his[::-1]],) + (None,) * 6
 
 
@@ -595,9 +601,24 @@ def _(info, in_dims, ct, kernel, lo, hi, offs, lens):
     return [split_batch(t, size) for t in outs], [0] * len(outs)
 
 
+def _lane_adjoint_setup(ctx, inputs, output):
+    ct, kernel, lo, hi, offs, lens = inputs
+    ctx.plan = (kernel, lo, hi, offs, ct.shape[-1])
+
+
+def _lane_adjoint_backward(ctx, cts):
+    """K8b itself (K7b at depth 1): the synthesis pyramid on the same
+    offsets with no fold, of which this op is the transpose."""
+    kernel, lo, hi, offs, n = ctx.plan
+    lo_ct, *his_cts = cts
+    bands = [lo_ct.contiguous(), *(c.contiguous() for c in his_cts[::-1])]
+    grad = call(lane_synthesis, bands, _VJP_KERNEL[kernel], lo, hi, offs, n, None)
+    return (grad,) + (None,) * 5
+
+
 autograd(lane_analysis, _lane_analysis_setup, _lane_analysis_backward)
 autograd(lane_synthesis, _lane_synthesis_setup, _lane_synthesis_backward)
-autograd(lane_adjoint)
+autograd(lane_adjoint, _lane_adjoint_setup, _lane_adjoint_backward)
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,13 @@ instead), one launch per Function for both filters:
   cotangent in the uncropped frame (zero outside it; modulo ``2m`` for
   ``periodization``), summed over the launch's (lo, hi) pairs.
 
-A second backward raises.
+Second derivatives: every op's backward is ops again, so a gradient
+differentiates to any order.  KT is bilinear; its VJP for the ``[2, L]``
+cotangent ``c`` of the taps is one K3 launch (the bands' cotangents: the
+analysis of ``ext`` with the taps ``c``) and one K4 launch (``ext``'s
+cotangent: the transpose of that analysis on the bands), the filter
+tensors being ``c`` itself.  The filter gradient of K3's VJP (K4's fold
+instance) is one KT launch on its output cotangent.
 
 Each kernel has a plain torch version here (:func:`dwt_axis_plain`,
 :func:`idwt_axis_plain`, and for the VJPs :func:`dwt_axis_vjp_plain`,
@@ -513,7 +519,10 @@ def _synthesis_backward(ctx, ct):
     """K4's VJP: K3 for the bands (the rec taps, ``pad = off``, the
     cotangent read zero outside its length, modulo ``2m`` for
     ``periodization``), KT for the filters, summed over the pairs.  The
-    fold instance's VJP is K3 itself, with its mode and period."""
+    fold instance's VJP is K3 itself with its mode and period, and its
+    filters' gradient (a mixed second derivative, ``d/dtaps`` of an input
+    gradient) KT on the output cotangent with K3's geometry (``pad =
+    off``, the mode ``fold``)."""
     lo, hi, ax, m, off, circular, fold, period = ctx.plan
     lo_t, hi_t, *bands = ctx.saved_tensors
     g = ctx.groups
@@ -524,21 +533,19 @@ def _synthesis_backward(ctx, ct):
         period, code = 2 * m, _WRAP_ZERO
     else:
         period, code = ct.shape[ax + 1], _ZERO
+    # the fold instance's cotangent is shaped like K3's input: one group,
+    # along ax itself
+    ext, ext_ax = (ct[0], ax) if fold != _ZERO else (ct, ax + 1)
     band_grads = ([None] * g, [None] * g)
     if any(ctx.needs_input_grad[0]) or any(ctx.needs_input_grad[1]):
+        grads = call(analysis_axis, ext, lo_t, hi_t, lo, hi, ext_ax, m, period, off, code)
         if fold != _ZERO:
-            grads = call(analysis_axis, ct[0], lo_t, hi_t, lo, hi, ax, m, period, off, code).unsqueeze(1)
-        else:
-            grads = call(analysis_axis, ct, lo_t, hi_t, lo, hi, ax + 1, m, period, off, code)
+            grads = grads.unsqueeze(1)
         band_grads = (list(grads[0].unbind(0)), list(grads[1].unbind(0)))
     g_lo = g_hi = None
     if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
-        if fold != _ZERO:
-            raise NotImplementedError(
-                "the filters' gradient of K3's VJP (a filter gradient of a gradient) is not ported"
-            )
         taps = call(
-            tap_grad, ct, bands[:g], bands[g:], ax + 1, _filter_len(lo_t, lo), period, off, code
+            tap_grad, ext, bands[:g], bands[g:], ext_ax, _filter_len(lo_t, lo), period, off, code
         )
         g_lo = _as_grad(taps[0], lo_t) if ctx.needs_input_grad[2] else None
         g_hi = _as_grad(taps[1], hi_t) if ctx.needs_input_grad[3] else None
@@ -590,9 +597,58 @@ def _filter_len(filt: Optional[torch.Tensor], taps: Optional[list[float]]) -> in
     return len(taps) if filt is None else filt.shape[-1]
 
 
+def _tap_grad_setup(ctx, inputs, output):
+    ext, los, his, ax, n_taps, period, pad, code = inputs
+    ctx.plan = (ax, ext.shape[ax], period, pad, code)
+    ctx.groups = len(los)
+    ctx.save_for_backward(ext, *los, *his)
+
+
+def _tap_grad_backward(ctx, c):
+    """KT's VJP for the ``[2, n_taps]`` cotangent ``c`` of the taps
+    (``g_f[k] = sum band_f[j] ext[src(2j + k - pad)]`` is bilinear): the
+    bands' cotangents are K3 on ``ext`` with the taps ``c`` (one launch
+    for every group), ``ext``'s is that analysis transposed on the bands,
+    one K4 launch: the zero-bounded instance for the zero mode, the
+    circular one for ``periodization``'s cotangent (modulo ``2m``), the
+    fold instance for K3's other modes.  ``c`` goes in as the ops' filter
+    tensors, read to the host once."""
+    ax, n, period, pad, code = ctx.plan
+    ext, *bands = ctx.saved_tensors
+    g = ctx.groups
+    los, his = bands[:g], bands[g:]
+    grouped = ext.ndim > los[0].ndim
+    m = los[0].shape[ax - grouped]
+    c_lo, c_hi = c.unbind(0)
+    _kernels.keep_host_taps([c_lo, c_hi])
+    band_grads = ([None] * g, [None] * g)
+    if any(ctx.needs_input_grad[1]) or any(ctx.needs_input_grad[2]):
+        grads = call(analysis_axis, ext.contiguous(), c_lo, c_hi, None, None, ax, m, period, pad, code)
+        if not grouped:
+            grads = grads.unsqueeze(1)
+        band_grads = (list(grads[0].unbind(0)), list(grads[1].unbind(0)))
+    grad = None
+    if ctx.needs_input_grad[0]:
+        band_ax = ax - grouped
+        if code == _ZERO or (code == _WRAP_ZERO and period == 2 * m):
+            grad = call(
+                synthesis_axis, los, his, c_lo, c_hi, None, None,
+                band_ax, n, pad, code == _WRAP_ZERO, _ZERO, 0,
+            )
+        elif g == 1:
+            grad = call(synthesis_axis, los, his, c_lo, c_hi, None, None, band_ax, n, pad, False, code, period)
+        else:
+            raise NotImplementedError(
+                f"KT's VJP: K4's fold instance takes one (lo, hi) pair, this launch had {g}"
+            )
+        if not grouped:
+            grad = grad[0]
+    return grad, *band_grads, None, None, None, None, None
+
+
 autograd(analysis_axis, _analysis_setup, _analysis_backward)
 autograd(synthesis_axis, _synthesis_setup, _synthesis_backward)
-autograd(tap_grad)
+autograd(tap_grad, _tap_grad_setup, _tap_grad_backward)
 
 
 def _filter_input(filt):

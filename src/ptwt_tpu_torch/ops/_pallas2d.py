@@ -25,8 +25,8 @@ in the JAX package's ``_level_calls``, each launch a custom op
 folding the band rows past half the period (the wrap entries of
 ``periodic``) and the clamped last sample of odd ``periodization`` axes;
 K2's VJP is K1's read, zero-bounded for the cropped ``periodic``
-synthesis.  Data gradients run on the card; a filter tensor that requires
-grad raises there, and so does a second backward.
+synthesis.  Data gradients run on the card, to any order (each VJP's
+VJP is its twin again); a filter tensor that requires grad raises there.
 
 The tensor-core variant: with the opt-in ``PTWT_TPU_MXU2D=1``, a float32
 level whose full-resolution image passes K9's gate
@@ -188,7 +188,7 @@ def _mxu2_plain(h: int, w: int, dtype, *filters) -> bool:
     """On the CPU: run K9's plain version for this level?  Where K9 would
     take it on the card and the filters are constants (the GEMM form's
     band matrices carry no filter gradient)."""
-    if any(isinstance(f, torch.Tensor) and f.requires_grad for f in filters):
+    if any(_kernels.grad_tracked(f) for f in filters):
         return False
     return mxu2_level_ok(h, w, len(filters[0]), dtype)
 

@@ -7,13 +7,14 @@ process group of one axis of a
 
 * :func:`ring_shift` / :func:`exchange`: ring steps through
   ``dist.batch_isend_irecv`` (one ``isend`` and one ``irecv`` per slab),
-  differentiable: the backward of a ring step is the opposite ring step,
-  as the VJP of ``ppermute`` is ``ppermute`` by the inverse permutation.
+  differentiable to any order: the backward of a ring step is the
+  opposite ring step, itself differentiable, as the VJP of ``ppermute`` is
+  ``ppermute`` by the inverse permutation.
   :func:`start_exchange` posts the steps and returns at once, so that a
   caller can launch work that needs no halo before it waits
   (:meth:`Pending.wait`).
 * :func:`edge_sum`: the edge-slab sum (``psum``), an all-reduce whose
-  backward is the all-reduce of the cotangents.
+  backward is the (differentiable) all-reduce of the cotangents.
 
 On an axis of size 1 every one of them is the identity and makes no call
 at all (``ppermute`` on an axis of size 1 is the identity too; gloo also
@@ -171,10 +172,11 @@ class _Post(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _token):
         ex = ctx.ex
+        cts, ex.cts = ex.cts, None
+        # through the Functions again, so that a second derivative runs
+        # the steps back once more
         back = ex.reversed()
-        back.post(ex.cts)
-        ex.cts = None
-        return (None, *back.finish())
+        return (None, *_Finish.apply(back, _Post.apply(back, *cts)))
 
 
 class _Finish(torch.autograd.Function):
@@ -251,7 +253,7 @@ class _AllReduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        return _all_reduce(ct, ctx.group), None
+        return _AllReduce.apply(ct, ctx.group), None
 
 
 def edge_sum(t: torch.Tensor, axis_name: str, mesh) -> torch.Tensor:

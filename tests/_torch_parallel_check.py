@@ -56,6 +56,18 @@ def serial_grad(spec) -> np.ndarray:
     return np.asarray(jax.grad(loss)(jnp.asarray(worker.data(spec))))
 
 
+def serial_grad2(spec) -> np.ndarray:
+    """``jax.grad`` of the squared ``jax.grad`` of the sum of the cubed
+    serial coefficients."""
+    fwd, _ = _SERIAL[spec["kind"]]
+
+    def loss(z):
+        coeffs = fwd(z, spec["wavelet"], mode=spec["mode"], level=spec["level"])
+        return sum(jnp.sum(c**3) for c in jax.tree_util.tree_leaves(coeffs))
+
+    return np.asarray(jax.grad(lambda z: jnp.sum(jax.grad(loss)(z) ** 2))(jnp.asarray(worker.data(spec))))
+
+
 def bands(results: dict, name: str) -> list:
     meta = results[name]
     return [results["arrays"][f"{name}/band{i}"] for i in range(meta["bands"])]
@@ -81,3 +93,8 @@ def check_case(results: dict, name: str, spec) -> None:
 def check_grad(results: dict, name: str, spec) -> None:
     got = results["arrays"][f"{name}/grad"]
     np.testing.assert_allclose(got, serial_grad(spec), atol=GRAD_ATOL, rtol=0)
+
+
+def check_grad2(results: dict, name: str, spec) -> None:
+    got = results["arrays"][f"{name}/grad2"]
+    np.testing.assert_allclose(got, serial_grad2(spec), atol=GRAD_ATOL, rtol=0)

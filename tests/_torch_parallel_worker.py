@@ -38,7 +38,9 @@ def case(kind, mesh, shape, wavelet, level, mode="periodization", seed=0, **extr
     n_spatial)`` (``extra["mesh_kw"]``: ``n_hosts``, ``n_spatial_w``).
 
     Extras: ``dtype`` ("float64"), ``grad`` (the gradient of the sum of the
-    squared coefficients), ``schedules`` (both ring schedules), ``data_in``
+    squared coefficients), ``grad2`` (the gradient of the squared gradient
+    of the sum of the cubed coefficients: a second backward through the
+    ring steps and edge sums), ``schedules`` (both ring schedules), ``data_in``
     ("whole", "shard" or "replicate": the input as the whole tensor or a
     ``DTensor``), ``coeffs_in`` ("dtensor" or "whole": what goes into the
     inverse), ``error`` (the call must raise ``ValueError``)."""
@@ -66,6 +68,7 @@ SUITES = {
         "overlap": case("2d", (2, 2), (4, 128, 64), "db3", 2, seed=11, schedules=True, grad=True),
         "overlap-1d": case("1d", (1, 4), (2, 256), "db4", 3, seed=12, schedules=True, grad=True),
         "f32": case("2d", (1, 4), (4, 64, 72), "db3", 2, "reflect", seed=13, dtype="float32"),
+        "2d-grad2-reflect": case("2d", (1, 4), (2, 64, 32), "db2", 2, "reflect", seed=14, grad2=True),
         "err-divisible": case("2d", (1, 4), (2, 100, 64), "db4", 2, error=True),
         "err-halo": case("2d", (1, 4), (2, 64, 64), "db8", 3, error=True),
         "err-halo-1d": case("1d", (1, 4), (2, 64), "db4", 4, error=True),
@@ -182,7 +185,7 @@ def _run_case(name, spec, mesh, torch, dist, par, arrays, meta):
     for schedule in runs:
         os.environ["PTWT_TPU_NO_OVERLAP"] = schedule
         tag = name + ("/no-overlap" if schedule else "")
-        xin = x.clone().requires_grad_(bool(spec.get("grad")))
+        xin = x.clone().requires_grad_(bool(spec.get("grad") or spec.get("grad2")))
         if spec.get("data_in") == "shard":
             from ptwt_tpu_torch.parallel.tiledn import _layout, _placements
 
@@ -202,24 +205,33 @@ def _run_case(name, spec, mesh, torch, dist, par, arrays, meta):
                     for c in coeffs
                 )
             rec = inv(coeffs, spec["wavelet"], mesh=mesh, mode=spec["mode"])
-            grad = None
+            grad = grad2 = None
             if spec.get("grad"):
                 # every rank's share of the loss: its own bands
                 loss = sum((band.to_local() ** 2).sum() for band in bands)
                 loss.backward()
                 grad = xin.grad.clone()
+            if spec.get("grad2"):
+                # each rank's share of the gradient is its own chunk's, so
+                # the squared gradient is the sum of the shares' squares
+                loss = sum((band.to_local() ** 3).sum() for band in bands)
+                (share,) = torch.autograd.grad(loss, xin, create_graph=True)
+                (grad2,) = torch.autograd.grad((share**2).sum(), xin)
         finally:
             dist.batch_isend_irecv = real
         full = [band.full_tensor() for band in bands]
         rec = rec.full_tensor()
-        if grad is not None:
-            # each element's gradient lives on the one rank that holds it
-            dist.all_reduce(grad)
+        # each element's gradient lives on the one rank that holds it
+        for g in (grad, grad2):
+            if g is not None:
+                dist.all_reduce(g)
         for i, band in enumerate(full):
             arrays[f"{tag}/band{i}"] = band.detach().numpy()
         arrays[f"{tag}/rec"] = rec.detach().numpy()
         if grad is not None:
             arrays[f"{tag}/grad"] = grad.numpy()
+        if grad2 is not None:
+            arrays[f"{tag}/grad2"] = grad2.numpy()
         meta[tag] = {"bands": len(full), "p2p_batches": len(calls), "placements": [str(p) for p in bands[0].placements]}
 
 

@@ -188,18 +188,34 @@ def test_k8_vjps_match_plain(model_kernels, depth):  # noqa: F811
     assert _used(model_kernels) == {"K8a": 1}
 
 
-def test_filter_grad_and_double_backward_raise(model_kernels):  # noqa: F811
+def _grad_of_grad(run, x: torch.Tensor) -> torch.Tensor:
+    """``d/dx`` of the squared gradient of the cubed outputs."""
+    x = x.detach().requires_grad_()
+    (grad,) = torch.autograd.grad((run(x) ** 3).sum(), x, create_graph=True)
+    return torch.autograd.grad((grad**2).sum(), x)[0]
+
+
+def test_filter_grad_and_double_backward_raise(model_kernels, monkeypatch):  # noqa: F811
+    """The fused 1d kernels refuse a filter gradient (by design); a second
+    backward through their VJPs runs and meets the plain path's."""
     dl, dh, rl, rh = _banks("db2", np.float64)
     x = torch.randn(1, 70001, dtype=torch.float64, requires_grad=True)
     with pytest.raises(NotImplementedError, match="filter gradient"):
         t8.flat_wavedec_lane_multi(x, torch.tensor(dl, requires_grad=True), dh, "reflect", 2)
     with pytest.raises(NotImplementedError, match="filter gradient"):
         t6.fused_wavedec1d_per(x[:, :4096], torch.tensor(dl, requires_grad=True), dh, 3)
-    for run in (
-        lambda: t8.flat_wavedec_lane_multi(x, dl, dh, "reflect", 2)[0],
-        lambda: t7.flat_dwt_lane(x, dl, dh, "zero")[1],
-        lambda: t6.fused_wavedec1d_per(x[:, :4096], dl, dh, 3)[0],
+    for run, kernels in (
+        (lambda t: t8.flat_wavedec_lane_multi(t, dl, dh, "reflect", 2)[0], {"K8a": 2, "K8b": 2}),
+        (lambda t: t7.flat_dwt_lane(t, dl, dh, "zero")[1], {"K7a": 2, "K7b": 2}),
+        (lambda t: t6.fused_wavedec1d_per(t[:, :4096], dl, dh, 3)[0], {"K6a": 2, "K6b": 2}),
     ):
-        (grad,) = torch.autograd.grad((run() ** 2).sum(), x, create_graph=True)
-        with pytest.raises(RuntimeError):
-            torch.autograd.grad(grad.sum(), x)
+        _kernels.reset_launch_counts()
+        got = _grad_of_grad(run, x)
+        # forward, its VJP, the VJP's VJP (the forward's kernel) and the
+        # forward's VJP again
+        assert _used(model_kernels) == kernels
+        with monkeypatch.context() as plain:
+            for module in (t6, t7, t8):
+                plain.setattr(module, "_on_cpu", lambda t: True)
+            want = _grad_of_grad(run, x)
+        _close(got, want.numpy(), 1e-10 * float(want.abs().max()))

@@ -253,10 +253,24 @@ def test_cuda_public_gradients_match_cpu(cuda_device, mode, shape):
     assert float((got.cpu() - grad_on("cpu")).abs().max()) <= 1e-11
 
 
+def _second_order(run, x: torch.Tensor, filt: torch.Tensor = None):
+    """``d/d(x, filt)`` of the squared ``x`` gradient of the cubed outputs
+    of ``run(x, filt)``: a second backward through every VJP of the run."""
+    x = x.detach().requires_grad_()
+    leaves = [x] if filt is None else [x, filt.detach().requires_grad_()]
+    (grad,) = torch.autograd.grad((run(*leaves) ** 3).sum(), x, create_graph=True)
+    return torch.autograd.grad((grad**2).sum(), leaves)
+
+
+def _close_f64(got, want) -> None:
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-10 * float(w.abs().max())
+
+
 @pytest.mark.cuda
 def test_cuda_filter_grad_and_double_backward_raise(cuda_device):
-    """K3's filter gradient (one KT launch) matches the CPU's; double
-    backward raises."""
+    """K3's filter gradient (one KT launch) matches the CPU's, and so does
+    a second backward through K3, K4's fold instance and KT (float64)."""
     x = torch.randn(1, 32, 32, dtype=torch.float64, device=cuda_device, requires_grad=True)
     dl, dh, _, _ = _banks("db2")
 
@@ -271,10 +285,16 @@ def test_cuda_filter_grad_and_double_backward_raise(cuda_device):
     assert _kernels.LAUNCHES["KT"] == 1 and _kernels.LAUNCHES["K3"] == 1
     want = filter_grad("cpu")
     assert float((got.cpu() - want).abs().max()) <= 1e-10 * float(want.abs().max())
-    out = t2.pallas_dwt_axis(x, -1, dl, dh, "reflect")
-    (grad,) = torch.autograd.grad((out**2).sum(), x, create_graph=True)
-    with pytest.raises(RuntimeError):
-        torch.autograd.grad(grad.sum(), x)
+
+    def run(t, learn):
+        return t2.pallas_dwt_axis(t, -1, learn, dh, "reflect")
+
+    learn = torch.tensor(dl, dtype=torch.float64)
+    _kernels.reset_launch_counts()
+    got = _second_order(run, x, learn.to(cuda_device))
+    torch.cuda.synchronize()
+    assert {k for k, v in _kernels.LAUNCHES.items() if v} == {"K3", "K4", "KT"}
+    _close_f64(got, _second_order(run, x.cpu(), learn))
 
 
 # ---------------------------------------------------------------------------
@@ -378,18 +398,63 @@ def test_cuda_wavedec_matches_cpu(cuda_device, mode, n, level, used):
 
 @pytest.mark.cuda
 def test_cuda_1d_kernels_refuse_grad(cuda_device):
-    """Only filter gradients and double backward are refused on the 1d
-    kernel routes; data gradients run on the VJP launches."""
+    """Only filter gradients are refused on the 1d kernel routes (by
+    design); data gradients run on the VJP launches, and a second backward
+    through them (K8a's VJP on K8a, K8b's on K8b, K7 and K6 alike) matches
+    the CPU's (float64)."""
     dl, dh, _, _ = _banks("db2")
     x = torch.randn(1, 70001, dtype=torch.float64, device=cuda_device, requires_grad=True)
     with pytest.raises(NotImplementedError, match="filter gradient"):
         t8.flat_wavedec_lane_multi(x, torch.tensor(dl, requires_grad=True), dh, "reflect", 4)
-    for n, mode, level in ((70001, "reflect", 4), (70001, "reflect", 1), (4096, "periodization", 3)):
-        out = tptwt.wavedec(x[:, :n], "db2", mode=mode, level=level)[0]
-        (grad,) = torch.autograd.grad((out**2).sum(), x, create_graph=True)
-        assert grad.shape == x.shape
-        with pytest.raises(RuntimeError):
-            torch.autograd.grad(grad.sum(), x)
+    for n, mode, level, used in ((70001, "reflect", 4, {"K8a", "K8b"}), (70001, "reflect", 1, {"K7a", "K7b"}),
+                                 (4096, "periodization", 3, {"K6a", "K6b"})):
+
+        def run(t):
+            coeffs = tptwt.wavedec(t[:, :n], "db2", mode=mode, level=level)
+            rec = tptwt.waverec(coeffs, "db2", mode=mode if mode == "periodization" else None)
+            return torch.cat([coeffs[0], rec], -1)
+
+        _kernels.reset_launch_counts()
+        got = _second_order(run, x)
+        torch.cuda.synchronize()
+        assert {k for k, v in _kernels.LAUNCHES.items() if v} == used
+        _close_f64(got, _second_order(run, x.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kt_vjp_matches_plain(cuda_device, dtype):
+    """KT's VJP (one K3 launch for the bands, one K4 launch for the input)
+    against autograd through KT's plain version, K3's taps in every mode,
+    along both axes."""
+    tol = 2e-5 if dtype == torch.float32 else 1e-10
+    gen = torch.Generator().manual_seed(19)
+    for mode in AXIS_MODES:
+        for axis in (-1, -2):
+            x = torch.randn(2, 37, 40, dtype=dtype, generator=gen).to(cuda_device)
+            dl, dh = (torch.randn(6, dtype=dtype, generator=gen).to(cuda_device) for _ in range(2))
+            c = torch.randn(2, 6, dtype=torch.float64, generator=gen).to(cuda_device)
+            bands = t2.dwt_axis_plain(x, axis, dl, dh, mode)
+
+            # the plain taps' gradient, differentiable in the input and the bands
+            def plain_taps(t, b0, b1):
+                lo, hi = (f.detach().requires_grad_() for f in (dl, dh))
+                with torch.enable_grad():
+                    a0, a1 = t2.dwt_axis_plain(t, axis, lo, hi, mode)
+                    return torch.autograd.grad((a0 * b0).sum() + (a1 * b1).sum(), (lo, hi), create_graph=True)
+
+            ax = axis % x.ndim
+            m, period, pad, code = t2._analysis_plan(x.shape[ax], 6, mode)
+            leaves = [x.detach().requires_grad_(), *(b.detach().contiguous().requires_grad_() for b in bands)]
+            _kernels.reset_launch_counts()
+            out = t2.tap_grad(leaves[0], [leaves[1]], [leaves[2]], ax, 6, period, pad, code)
+            got = torch.autograd.grad(out, leaves, c)
+            torch.cuda.synchronize()
+            assert _kernels.LAUNCHES["K3"] == 1 and _kernels.LAUNCHES["K4"] == 1
+            plain_leaves = [t.detach().requires_grad_() for t in leaves]
+            want = torch.autograd.grad(plain_taps(*plain_leaves), plain_leaves, (c[0].to(dtype), c[1].to(dtype)))
+            for g, w in zip(got, want):
+                assert float((g - w).abs().max()) <= tol * max(1.0, float(w.abs().max())), (mode, axis)
 
 
 def _vjp_err(got, want) -> float:

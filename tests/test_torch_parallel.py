@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import _torch_parallel_worker as worker
-from _torch_parallel_check import GRAD_ATOL, check_case, check_grad, bands
+from _torch_parallel_check import GRAD_ATOL, check_case, check_grad, check_grad2, bands
 from ptwt_tpu_torch.parallel._padded_axis import sharded_idwt_level
 from _torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -44,6 +44,15 @@ def test_tiled_matches_serial(world, name):
 @pytest.mark.parametrize("name", [n for n in CASES if SUITE[n].get("grad") and n != "2d-grad"])
 def test_tiled_grad_matches_jax_grad(world, name):
     check_grad(world, name, SUITE[name])
+
+
+@pytest.mark.parametrize("name", [n for n in CASES if SUITE[n].get("grad2")])
+def test_tiled_grad_of_grad_matches_jax(world, name):
+    """A second derivative through the tiled transform: the first backward
+    (``create_graph=True``) runs the ring steps back and the edge sums'
+    all-reduce as differentiable Functions, so the second sums the terms
+    that ``jax.grad`` of ``jax.grad`` over ``ppermute``/``psum`` does."""
+    check_grad2(world, name, SUITE[name])
 
 
 def test_tiled_grad_flows(world):

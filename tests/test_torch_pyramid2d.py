@@ -236,15 +236,27 @@ def test_gradcheck_k5_path(model_kernels):  # noqa: F811
     assert model_kernels["K5a"] and model_kernels["K5b"]
 
 
-def test_k5_refuses_filter_grad_and_double_backward(model_kernels):  # noqa: F811
+def test_k5_refuses_filter_grad_and_double_backward(model_kernels, monkeypatch):  # noqa: F811
+    """K5 refuses a filter gradient (by design); a second backward through
+    its VJP (K5b, whose own VJP is K5a) meets the plain path's."""
     dl, dh, _, _ = _banks("db2", np.float64)
     x = torch.randn(1, 32, 32, dtype=torch.float64, requires_grad=True)
     with pytest.raises(NotImplementedError, match="filter gradient"):
         t5.fused_wavedec2d_per(x, torch.tensor(dl, requires_grad=True), dh, 2)
-    coeffs = t5.fused_wavedec2d_per(x, dl, dh, 2)
-    (grad,) = torch.autograd.grad((coeffs[0] ** 2).sum(), x, create_graph=True)
-    with pytest.raises(RuntimeError):
-        torch.autograd.grad(grad.sum(), x)
+
+    def grad_of_grad():
+        xr = x.detach().requires_grad_()
+        coeffs = t5.fused_wavedec2d_per(xr, dl, dh, 2)
+        (grad,) = torch.autograd.grad(sum((c**3).sum() for c in _flat(coeffs)), xr, create_graph=True)
+        return torch.autograd.grad((grad**2).sum(), xr)[0]
+
+    _kernels.reset_launch_counts()
+    got = grad_of_grad()
+    assert model_kernels["K5a"] == 2 and model_kernels["K5b"] == 2
+    with monkeypatch.context() as plain:
+        plain.setattr(t5, "_on_cpu", lambda t: True)
+        want = grad_of_grad()
+    _close(got, want.numpy(), 1e-10 * float(want.abs().max()))
 
 
 def test_plain_k5_carries_filter_gradients():

@@ -298,13 +298,26 @@ def test_empty_batch_gives_zero_filter_grads(model_kernels, kind, shape):  # noq
     assert "KT" not in launched and "K3" not in launched
 
 
-def test_double_backward_raises(model_kernels):  # noqa: F811
+def test_double_backward_raises(model_kernels, monkeypatch):  # noqa: F811
+    """A second backward through K3/K4 and KT (KT's VJP on K3/K4, the fold
+    instance's filter gradient on KT) meets the plain path's."""
     bank, _ = _banks("db2+")
     x = torch.randn(1, 24, dtype=torch.float64, requires_grad=True)
-    loss = _weighted(_run_1d(tptwt, x, bank.filter_bank, "reflect", 2), torch)
-    grads = torch.autograd.grad(loss, [x, bank.dec_lo], create_graph=True)
-    with pytest.raises(RuntimeError):
-        torch.autograd.grad(grads[1].sum(), bank.dec_lo)
+    params = [x, *bank.parameters()]
+
+    def second():
+        loss = _weighted(_run_1d(tptwt, x, bank.filter_bank, "reflect", 2), torch)
+        grads = torch.autograd.grad(loss, [x, bank.dec_lo], create_graph=True)
+        return torch.autograd.grad((grads[0] ** 2).sum() + grads[1].sum(), params)
+
+    _kernels.reset_launch_counts()
+    got = second()
+    assert {k for k, v in model_kernels.items() if v} == {"K3", "K4", "KT"}
+    with monkeypatch.context() as plain:
+        for module in (t2, t2d, t6, t7, t8):
+            plain.setattr(module, "_on_cpu", lambda t: True)
+        want = second()
+    _check_grads(got, [w.detach().numpy() for w in want], np.float64)
 
 
 def test_matrix_transforms_refuse_learnable_banks():
