@@ -9,7 +9,9 @@ Phases, each raising (non-zero exit) on failure:
 1. the card: CUDA must be available; prints ``nvidia-smi`` name and power
    limit;
 2. build: compiles the CUDA kernels of ``src/ptwt_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and prints the seconds;
+   ``nvcc`` per source, all started together; ``pyramid2d.cu``, the
+   longest, finishes behind phases 3-8, which launch none of its kernels)
+   and prints the seconds;
 3. kernels against their plain torch versions at the main path's shapes
    (db4; K1/K2 on ``[16, 1024, 1024]``, K3/K4 along both axes on the odd
    level-2 size ``[16, 515, 515]``), every boundary mode, float32 within
@@ -17,7 +19,7 @@ Phases, each raising (non-zero exit) on failure:
    1 (``reflect``: K3 along H on ``[16, 1024, 1024]`` and along W on the
    packed ``[2, 16, 515, 1024]``, K4 back with two pairs along W and one
    along H) and with coif17 on 37 samples in every mode (float64); plus
-   the repo's frozen 2d goldens;
+   the repo's frozen 2d goldens (run after phase 8: periodization runs K5);
 3b. the VJP kernels against their plain versions (autograd through the
    plain versions) at the main path's shapes: K1's VJP (K2 with the fold)
    and K2's VJP (K1, zero-bounded for periodic) on ``[16, 1024, 1024]``
@@ -231,7 +233,7 @@ Phases, each raising (non-zero exit) on failure:
    path (1e-4 of the largest entry; K4 fold and zero-bounded K3 launches),
    float64 at smaller shapes (1e-10); (b) four processes sharing the card
    (``chip_smoke.py --tiled-rank R --world 4 --store FILE --out DIR``), a
-   gloo group whose halo slabs go through pinned host memory: every row on
+   gloo group whose halo slabs go through host memory: every row on
    ``(1, 4)`` (the grid on ``(1, 2)`` with ``n_spatial_w=2``), rank 0
    holding the gathered bands against the serial port with (a)'s limits
    and every rank's launches against the prediction (the overlapped ring:
@@ -300,6 +302,22 @@ Phases, each raising (non-zero exit) on failure:
    (KT's VJP on K3/K4, its launches read by hooks on KT's nodes); each
    step's profiler busy ms, CUDA-event ms and wall ms; then KT's VJP alone
    against autograd through KT's plain version, its time and bound.
+22. the tiled transforms under ``torch.compile`` (``chip_smoke.py
+   --tiled-compile-times``, a process of its own): each of phase 18's rows
+   at full width, its round trip plus the loss (the sum of the rank's
+   squared bands), eager and compiled (``fullgraph=True``, static shapes,
+   ``aot_eager``; t2d ``periodization`` also with inductor and, its round
+   trip alone, ``mode="reduce-overhead"`` with no cudagraph skip), (a) on
+   one NCCL rank with no collective call and (b) on four gloo ranks
+   sharing the card (``--tiled-compile-rank R``; the ring steps and edge
+   sums functional collectives in the graph): graph breaks 0 and one graph
+   (dynamo's counters), launches compiled = eager = ``TILED_LAUNCHES``
+   per rank, compiled against eager within 1e-5 of ``max(1, |leaf|)``,
+   the round trip within 1e-4, the compiled loss's gradient within 1e-4
+   of eager's largest entry, each rank's profiler busy ms, CUDA-event ms,
+   wall ms, busy share, host ms inside the collectives and top device
+   work, compile seconds; then one float64 row per kind on one rank at
+   ``TILED_F64``'s shapes against the serial plain path (1e-10).
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -337,7 +355,8 @@ and spills and the SASS counts of its KT instances (``--kt-sass``:
 and over each innermost loop that holds a ``DFMA``, the tap loop).
 
 ``python3 chip_smoke.py --tiled-nccl 4`` (not part of the smoke test; four
-cards) runs phase 18 (b) on NCCL, rank R on card R, with no host staging.
+cards) runs phases 18 (b) and 22 (b) on NCCL, rank R on card R, with no
+host staging.
 
 ``python3 chip_smoke.py --dist-probe`` (not part of the smoke test) runs,
 each in a world of its own on the one card, an all-reduce on two NCCL
@@ -347,7 +366,9 @@ prints what each rank got: ok, the error's text, or its exit code.
 
 The last lines are phase 16's ``{"packets_cwt": ...}`` line, phase 17's
 ``{"learnable": ...}`` line, phase 18's ``{"tiled": ...}`` line, phase 19's
-``{"precision": ...}`` line, phase 20's ``{"compile": ...}`` line, a
+``{"precision": ...}`` line, phase 20's ``{"compile": ...}`` line, phase
+21's ``{"second_order": ...}`` line, phase 22's ``{"tiled_compile": ...}``
+line, a
 ``{"kernels": [...]}`` JSON line (fifteen kernels: KT, the taps'
 gradient, last; K3, K4, K7a and K7b with phase 18's ``tiled_launches``,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
@@ -360,6 +381,7 @@ launches; K7a and K7b wp1d's; K8a and K8b a ``sameshift`` row from phase
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import json
@@ -4400,18 +4422,18 @@ def tiled_store(tag: str) -> Path:
 
 @contextlib.contextmanager
 def no_p2p():
-    """Any P2P call raises (a mesh of one rank must make none)."""
-    import torch.distributed as dist
+    """Any ring step or edge sum raises (a mesh of one rank must make none)."""
+    from ptwt_tpu_torch.parallel import _ring
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a ring of one rank made a P2P call")
+        raise AssertionError("a ring of one rank made a collective call")
 
-    real = dist.batch_isend_irecv
-    dist.batch_isend_irecv = refuse
+    real = _ring._all_to_all, _ring._all_reduce
+    _ring._all_to_all = _ring._all_reduce = refuse
     try:
         yield
     finally:
-        dist.batch_isend_irecv = real
+        _ring._all_to_all, _ring._all_reduce = real
 
 
 def tiled_run(kind: str, x, wavelet: str, level: int, mode: str, mesh) -> tuple:
@@ -4529,7 +4551,7 @@ def host_full(t, cpu_mesh) -> torch.Tensor:
 
 def tiled_rank(rank: int, world: int, store: Path, outdir: Path, backend: str = "gloo") -> None:
     """``--tiled-rank R``: one of phase 18 (b)'s ranks.  With gloo every
-    rank shares card 0 (the halo slabs go through pinned host memory);
+    rank shares card 0 (the halo slabs go through host memory);
     with NCCL (``--tiled-nccl``) rank R runs on card R.  Rank 0 holds the
     gathered bands against the serial port on its card and the ranks'
     launch counts against ``TILED_LAUNCHES``; every rank runs one backward
@@ -4662,8 +4684,8 @@ def tiled_schedules(meshes: dict, world: int, rank: int) -> dict:
 def tiled_rank_times(meshes: dict, world: int, rank: int, backend: str) -> dict:
     """t2d periodization's round trip on this rank: wall ms (median of
     ``TILED_REPS`` after 3 warm-ups, every rank starting together), and the
-    host ms spent posting and waiting for the ring steps (the pinned
-    copies, the stream synchronise and gloo's transfer) in one round trip."""
+    host ms spent posting and waiting for the ring steps (the copies
+    through host memory and gloo's transfer) in one round trip."""
     import torch.distributed as dist
 
     from ptwt_tpu_torch.parallel import _ring
@@ -4673,7 +4695,7 @@ def tiled_rank_times(meshes: dict, world: int, rank: int, backend: str) -> dict:
     fwd, inv, _, _ = tiled_funcs(kind)
     x = randn(shape, torch.float32, SEED + 1800)
     spent = [0.0]
-    post, finish = _ring.Exchange.post, _ring.Exchange.finish
+    post, finish = _ring._start, _ring.Pending.wait
 
     def timed(fn):
         def wrapper(*args):
@@ -4688,7 +4710,7 @@ def tiled_rank_times(meshes: dict, world: int, rank: int, backend: str) -> dict:
         return inv(fwd(x, wavelet, level=level, mesh=mesh, mode=mode), wavelet, mesh=mesh, mode=mode)
 
     walls, ring = [], []
-    _ring.Exchange.post, _ring.Exchange.finish = timed(post), timed(finish)
+    _ring._start, _ring.Pending.wait = timed(post), timed(finish)
     try:
         for rep in range(3 + TILED_REPS):
             dist.barrier()
@@ -4701,7 +4723,7 @@ def tiled_rank_times(meshes: dict, world: int, rank: int, backend: str) -> dict:
                 walls.append((time.perf_counter() - t0) * 1e3)
                 ring.append(spent[0] * 1e3)
     finally:
-        _ring.Exchange.post, _ring.Exchange.finish = post, finish
+        _ring._start, _ring.Pending.wait = post, finish
     row = {"wall_ms": statistics.median(walls), "ring_host_ms": statistics.median(ring)}
     row["ring_host_share"] = row["ring_host_ms"] / row["wall_ms"]
     rows = [None] * world
@@ -4714,18 +4736,29 @@ def tiled_rank_times(meshes: dict, world: int, rank: int, backend: str) -> dict:
     return {"per_rank": rows, "note": note}
 
 
-def tiled_ranks(world: int = 4, backend: str = "gloo") -> dict:
-    """Phase 18 (b): ``world`` rank processes (gloo: all on card 0; NCCL:
-    one card each), each with a deadline; any rank that fails fails the
-    phase."""
+def tiled_ranks(world: int = 4, backend: str = "gloo", flag: str = "--tiled-rank") -> dict:
+    """Phase 18 (b) (phase 22 (b) with ``--tiled-compile-rank``): ``world``
+    rank processes (gloo: all on card 0; NCCL: one card each), each with a
+    deadline; any rank that fails fails the phase."""
+    return tiled_collect(*tiled_spawn(world, backend, flag))
+
+
+def tiled_spawn(world: int, backend: str, flag: str, *extra: str) -> tuple:
+    """Start ``world`` rank processes of ``chip_smoke.py flag R``; returns
+    what :func:`tiled_collect` takes."""
     store = tiled_store(backend)
     outdir = store.with_name(store.name + "-out")
     outdir.mkdir()
     cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--world", str(world), "--store", str(store),
-           "--out", str(outdir), "--backend", backend]
-    procs = [subprocess.Popen([*cmd, "--tiled-rank", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+           "--out", str(outdir), "--backend", backend, *extra]
+    procs = [subprocess.Popen([*cmd, flag, str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for r in range(world)]
-    deadline = time.monotonic() + TILED_RANKS_S
+    return procs, outdir, time.monotonic() + TILED_RANKS_S
+
+
+def tiled_collect(procs: list, outdir: Path, deadline: float) -> dict:
+    """Wait for the rank processes, log rank 0's lines and return its
+    JSON; any rank that fails or outlasts ``deadline`` fails the phase."""
     logs = []
     try:
         for p in procs:
@@ -4738,7 +4771,7 @@ def tiled_ranks(world: int = 4, backend: str = "gloo") -> dict:
     log("\n".join(line for line in logs[0].splitlines() if line.strip()))
     for r, (p, text) in enumerate(zip(procs, logs)):
         if p.returncode:
-            raise RuntimeError(f"tiled rank {r} of {world} failed (exit {p.returncode}):\n{text[-4000:]}")
+            raise RuntimeError(f"tiled rank {r} of {len(procs)} failed (exit {p.returncode}):\n{text[-4000:]}")
     return json.loads((outdir / "rank0.json").read_text())
 
 
@@ -4852,7 +4885,7 @@ def check_tiled() -> dict:
     """Phase 18: (a) one NCCL rank, (b) four gloo ranks on the one card,
     (c) the one-rank times in a process of their own (``--tiled-times``)."""
     tiled = {"one_rank": tiled_one_rank()}
-    log("  (b) four ranks sharing the card, gloo, halo slabs through pinned host memory")
+    log("  (b) four ranks sharing the card, gloo, halo slabs through host memory")
     tiled["four_ranks"] = tiled_ranks()
     tiled["times"] = times_process("--tiled-times")
     return tiled
@@ -5705,6 +5738,304 @@ def second_order_times() -> dict:
     return {"rows": rows, "kt_vjp": kt_vjp()}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the tiled transforms under torch.compile
+# ---------------------------------------------------------------------------
+
+#: The row compiled on one rank with inductor besides ``aot_eager``, and
+#: under ``mode="reduce-overhead"`` (one rank: no collective runs).
+TILED_COMPILE_INDUCTOR = "t2d periodization"
+#: One float64 row per kind on one rank, at ``TILED_F64``'s shapes, against
+#: the serial float64 plain path.
+TILED_COMPILE_F64 = ("t2d reflect", "td1", "td3")
+#: Timed calls of each row (after one warm-up: the checks ran it already).
+TILED_COMPILE_REPS = 5
+
+
+def tiled_step(kind: str, wavelet: str, level: int, mode: str, mesh):
+    """A row's round trip and the loss, the sum of this rank's squared
+    bands: ``(local bands, reconstruction, loss)``, the first two detached
+    (the backward runs from the loss alone)."""
+    fwd, inv, _, _ = tiled_funcs(kind)
+
+    def step(t):
+        coeffs = fwd(t, wavelet, level=level, mesh=mesh, mode=mode)
+        rec = inv(coeffs, wavelet, mesh=mesh, mode=mode)
+        bands = tiled_leaves(coeffs)
+        loss = sum((b.to_local() ** 2).sum() for b in bands)
+        return [b.to_local().detach() for b in bands], rec.detach(), loss
+
+    return step
+
+
+def tiled_timing(run, label: str) -> dict:
+    """Device ms (the profiler's busy ms, NCCL's kernels apart: they run on
+    their own stream and spin while they wait for the peers), CUDA-event
+    ms, wall ms and busy share of one call, NCCL's kernels' ms, and the
+    host ms inside the ring's collectives and their waits (the profiler's
+    CPU time of ``_c10d_functional`` ops)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    run()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ring = 0.0
+    device = []
+    for evt in prof.key_averages():
+        if evt.key.startswith("nccl:"):
+            continue  # NCCL's annotation of its own kernel's span, not a second kernel
+        if str(evt.device_type).endswith("CUDA"):
+            dev = getattr(evt, "self_device_time_total", None)
+            device.append(((evt.self_cuda_time_total if dev is None else dev) / 1e3, evt.count, evt.key[:80]))
+        elif evt.key.startswith("_c10d_functional::"):
+            ring += evt.self_cpu_time_total / 1e3
+    device.sort(reverse=True)
+    nccl = sum(ms for ms, _, key in device if "nccl" in key.lower())
+    busy = sum(ms for ms, _, _ in device) - nccl
+    wall = wall_ms(run, warmup=1, reps=TILED_COMPILE_REPS)
+    row = {"device_ms": busy, "events_ms": time_ms(run, warmup=1, reps=TILED_COMPILE_REPS), "wall_ms": wall,
+           "busy_share": busy / wall, "nccl_ms": nccl, "ring_host_ms": ring}
+    log(f"  {label}: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    row["top"] = device[:4]
+    log("    top device work: " + "; ".join(f"{ms:.4f} ms x{count} {key}" for ms, count, key in device[:4]))
+    return row
+
+
+def tiled_compile_row(label: str, step, x: torch.Tensor, backend: str, rec_full) -> tuple:
+    """One row on this rank, eager and compiled (``fullgraph=True``, static
+    shapes, ``backend``): graph breaks and graphs, launches by kernel of the
+    round trip, compiled against eager (bands and reconstruction over
+    ``max(1, |leaf|)``; the gradient of the loss: its error and this rank's
+    largest entry, for the caller to divide), the round trip against ``x``
+    (``rec_full`` gathers the reconstruction) and compile seconds.  Returns
+    the row and a function that adds its times, eager and compiled, for
+    the caller to run once the host is quiet.  Every rank of a mesh calls
+    both in step, so that the collectives meet."""
+    from torch._dynamo.utils import counters
+
+    xr = leaf(x)
+    want_bands, want_rec, want_loss = step(xr)
+    (want_grad,) = torch.autograd.grad(want_loss, xr)
+    _, eager = counted(step, xr)
+    counters.clear()
+    compiled = torch.compile(step, fullgraph=True, dynamic=False, backend=backend)
+    t0 = time.perf_counter()
+    compiled(xr)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    breaks = sum(counters["graph_break"].values())
+    graphs = counters["stats"]["unique_graphs"]
+    xr = leaf(x)
+    (bands, rec, loss), launches = counted(compiled, xr)
+    (grad,) = torch.autograd.grad(loss, xr)
+    err = compile_err([*bands, rec.to_local()], [*want_bands, want_rec.to_local()])
+    full = rec_full(rec).to(x.device)
+    round_trip = max_abs(full[tuple(map(slice, x.shape))], x)
+    row = {"backend": backend, "graph_breaks": breaks, "graphs": graphs, "compile_s": compile_s,
+           "launches": launches, "eager_launches": eager, "err": err, "round_trip_err": round_trip,
+           "grad_err": max_abs(grad, want_grad), "grad_scale": float(want_grad.abs().max())}
+    log(f"  {label}: {backend} compile {compile_s!r} s, graph breaks {breaks}, graphs {graphs}, launches "
+        f"{launches} (eager {eager}), err {err!r}, round trip {round_trip!r}, gradient {row['grad_err']!r} of "
+        f"{row['grad_scale']!r}")
+    if breaks or graphs != 1 or launches != eager or not eager:
+        raise AssertionError(f"{label}: {breaks} graph breaks, {graphs} graphs, launches {launches} (eager {eager})")
+    check(f"{label} compiled vs eager (relative)", err, COMPILE_TOL)
+    check(f"{label} compiled round trip vs input", round_trip,
+          ROUND_TRIP_TOL if x.dtype == torch.float32 else TOL[x.dtype])
+    del want_bands, want_rec, want_grad, bands, rec, grad, full
+
+    def times() -> None:
+        row["eager"] = tiled_timing(lambda: step(xr), f"{label} eager")
+        row["compiled"] = tiled_timing(lambda: compiled(xr), f"{label} compiled ({backend})")
+
+    return row, times
+
+
+def tiled_round_trip_launches(name: str, world: int) -> dict:
+    """``TILED_LAUNCHES``' forward and inverse of a row, summed: one rank's
+    launches in one round trip."""
+    fwd, inv = TILED_LAUNCHES[name][world]
+    return {k: fwd.get(k, 0) + inv.get(k, 0) for k in {*fwd, *inv}}
+
+
+def tiled_compile_grad(label: str, rows: list) -> float:
+    """The compiled gradient against eager's over its largest entry, from
+    every rank's ``(grad_err, grad_scale)``."""
+    return check(f"{label} compiled gradient vs eager (of the largest entry)",
+                 max(r["grad_err"] for r in rows) / max(r["grad_scale"] for r in rows), TRAIN_GRAD_TOL)
+
+
+def tiled_reduce_overhead(step, x: torch.Tensor, want) -> tuple:
+    """The one-rank round trip (no collective, no grad) compiled with
+    inductor's ``mode="reduce-overhead"``: no cudagraph skip, the output
+    against eager, compile seconds; and a function that adds its times."""
+    from torch._dynamo.utils import counters
+
+    counters.clear()
+    compiled = torch.compile(lambda t: step(t)[1].to_local(), fullgraph=True, dynamic=False, mode="reduce-overhead")
+    t0 = time.perf_counter()
+    compiled(x)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):  # cudagraph trees record on a later call
+        got = compiled(x)
+    torch.cuda.synchronize()
+    err = compile_err(got, want)
+    skips = dict(counters["inductor"]).get("cudagraph_skips", 0)
+    log(f"  {TILED_COMPILE_INDUCTOR} reduce-overhead: compile {compile_s!r} s, err {err!r}, cudagraph_skips {skips}")
+    if skips:
+        raise AssertionError(f"reduce-overhead: {skips} cudagraph skips: {dict(counters['inductor'])}")
+    check(f"{TILED_COMPILE_INDUCTOR} reduce-overhead vs eager (relative)", err, COMPILE_TOL)
+    row = {"compile_s": compile_s, "err": err, "cudagraph_skips": skips}
+
+    def times() -> None:
+        row.update(tiled_timing(lambda: compiled(x), f"{TILED_COMPILE_INDUCTOR} reduce-overhead"))
+
+    return row, times
+
+
+def tiled_compile_one_rank(ready: "Path | None" = None, go: "Path | None" = None) -> dict:
+    """Phase 22 (a): every ``TILED_FULL`` row on one NCCL rank, no
+    collective, ``aot_eager`` (t2d periodization also inductor and
+    reduce-overhead); one float64 row per kind against the serial float64
+    plain path; then the rows' times, after the file ``ready`` appears (the
+    four ranks of (b) compile meanwhile and wait), and ``go`` written
+    after them (the ranks then time theirs)."""
+    out, times = {}, []
+    with tiled_world("nccl", 0, 1, tiled_store("compile")), no_p2p():
+        for i, (name, kind, shape, wavelet, level, mode, kw) in enumerate(TILED_FULL):
+            mesh = tiled_mesh(1, kw)
+            x = randn(shape, torch.float32, SEED + 2200 + i)
+            step = tiled_step(kind, wavelet, level, mode, mesh)
+            backends = ("aot_eager", "inductor") if name == TILED_COMPILE_INDUCTOR else ("aot_eager",)
+            for backend in backends:
+                label = f"(a) {name} one rank"
+                row, row_times = tiled_compile_row(label, step, x, backend, lambda r: r.full_tensor())
+                only(row["launches"], tiled_round_trip_launches(name, 1), f"{label} compiled round trip")
+                row["grad_rel_err"] = tiled_compile_grad(label, [row])
+                out[f"{name} {backend}"] = row
+                times.append(row_times)
+            if name == TILED_COMPILE_INDUCTOR:
+                with torch.no_grad():
+                    want = step(x)[1].to_local()
+                out[f"{name} reduce-overhead"], row_times = tiled_reduce_overhead(step, x, want)
+                times.append(row_times)
+        for i, (name, kind, shape, wavelet, level, mode) in enumerate(TILED_F64):
+            if name not in TILED_COMPILE_F64:
+                continue
+            mesh = tiled_mesh(1, {"n_data": 1, "n_spatial": 1})
+            x = randn(shape, torch.float64, SEED + 2230 + i)
+            compiled = torch.compile(tiled_step(kind, wavelet, level, mode, mesh), fullgraph=True, dynamic=False,
+                                     backend="aot_eager")
+            bands, rec, _ = compiled(x)
+            with plain_versions():
+                want, want_rec = tiled_serial(kind, x, wavelet, level, mode)
+            out[f"{name} float64"] = {
+                "band_err": check(f"(a) {name} float64 {list(shape)} compiled vs the serial plain path", max_abs(bands, want),
+                                  TOL[torch.float64]),
+                "rec_err": check(f"(a) {name} float64 compiled reconstruction vs the serial plain path",
+                                 max_abs(rec.full_tensor(), want_rec), TOL[torch.float64]),
+            }
+            del x, bands, rec, want, want_rec
+        if ready is not None:
+            tiled_wait(ready)
+        log("  (a) times, one rank (the four ranks of (b) wait)")
+        for row_times in times:
+            row_times()
+    if go is not None:
+        go.touch()
+    torch._dynamo.reset()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tiled_wait(path: Path) -> None:
+    """Wait for another process to write ``path``, within the ranks' deadline."""
+    deadline = time.monotonic() + TILED_RANKS_S
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear within {TILED_RANKS_S} s")
+        time.sleep(0.2)
+
+
+def tiled_compile_rank(rank: int, world: int, store: Path, outdir: Path, backend: str = "gloo",
+                       handshake: bool = False) -> None:
+    """``--tiled-compile-rank R``: one of phase 22 (b)'s ranks (gloo: every
+    rank on card 0, the ring's slabs through host memory; NCCL: rank R on
+    card R).  Every ``TILED_FULL`` row on the four-rank mesh, eager and
+    compiled with ``aot_eager``; rank 0 gathers every rank's row and checks
+    the launches against ``TILED_LAUNCHES`` and the gradient.  Then the
+    rows' times; with ``handshake`` (``--handshake``) rank 0 first writes
+    ``OUT/ready`` and every rank waits for ``OUT/go``, so that phase 22 (a)
+    compiles beside these ranks but times alone, and they after it."""
+    global DEVICE
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    if backend == "nccl":
+        DEVICE = torch.device("cuda", rank)
+    # every row's compiled step is kept until its times (one code object)
+    torch._dynamo.config.recompile_limit = 64
+    out, times = {}, []
+    with tiled_world(backend, rank, world, store):
+        meshes = {}
+        for i, (name, kind, shape, wavelet, level, mode, kw) in enumerate(TILED_FULL):
+            key = json.dumps(kw, sort_keys=True)
+            if key not in meshes:
+                mesh = tiled_mesh(world, kw)
+                groups = [mesh.get_group(n) for n in mesh.mesh_dim_names]
+                meshes[key] = (mesh, DeviceMesh.from_group(groups, "cpu", mesh=mesh.mesh,
+                                                           mesh_dim_names=mesh.mesh_dim_names)
+                               if backend == "gloo" else None)
+            mesh, cpu_mesh = meshes[key]
+            x = randn(shape, torch.float32, SEED + 2200 + i)  # the whole tensor, on every rank
+            label = f"(b) {name} rank {rank} of {world} {backend}"
+            row, row_times = tiled_compile_row(label, tiled_step(kind, wavelet, level, mode, mesh), x, "aot_eager",
+                                               lambda r, cpu_mesh=cpu_mesh: full_of(r, cpu_mesh))
+            rows = [None] * world
+            dist.all_gather_object(rows, row)
+            if rank == 0:
+                for r, each in enumerate(rows):
+                    only(each["launches"], tiled_round_trip_launches(name, world), f"{name} rank {r} compiled round trip")
+                out[name] = {"grad_rel_err": tiled_compile_grad(f"(b) {name} {world} {backend} ranks", rows)}
+            times.append((name, row, row_times))
+        if handshake:
+            dist.barrier()
+            if rank == 0:
+                (outdir / "ready").touch()
+            tiled_wait(outdir / "go")
+        dist.barrier()
+        for name, row, row_times in times:
+            row_times()
+            rows = [None] * world
+            dist.all_gather_object(rows, row)
+            if rank == 0:
+                out[name]["per_rank"] = rows
+    (outdir / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def tiled_compile_times() -> dict:
+    """``--tiled-compile-times`` (phase 22, a process of its own): (a) one
+    NCCL rank in this process and (b) four gloo ranks sharing the card,
+    compiling side by side; (a) times its rows while (b)'s ranks wait,
+    then (b) times its rows."""
+    torch._dynamo.config.recompile_limit = 64  # every row's step is kept until its times
+    log("  (b) four ranks sharing the card, gloo, the ring's slabs through host memory: started beside (a)")
+    procs, outdir, deadline = tiled_spawn(4, "gloo", "--tiled-compile-rank", "--handshake")
+    try:
+        out = {"one_rank": tiled_compile_one_rank(outdir / "ready", outdir / "go")}
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    out["four_ranks"] = tiled_collect(procs, outdir, deadline)
+    return out
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -5713,7 +6044,18 @@ def copy_bandwidth() -> float:
     return 2 * src.numel() * 4 / (ms * 1e-3) / 1e9
 
 
+#: When ``main`` started, for :func:`phase`.
+_T0 = time.perf_counter()
+
+
+def phase(msg: str) -> None:
+    """Log a phase's heading with the seconds since ``main`` started."""
+    log(f"{msg} [{time.perf_counter() - _T0:.0f} s]")
+
+
 def main() -> int:
+    global _T0
+    _T0 = time.perf_counter()
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script needs one GPU")
         return 1
@@ -5729,23 +6071,22 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    seconds = _kernels.build()
-    log(f"build: {seconds} (wall {time.perf_counter() - t0:.1f} s)")
-    for log_file in sorted(_kernels.BUILD_DIR.glob("*.log")):
-        log(f"ptxas {log_file.name}: " + " | ".join(
-            line.strip() for line in log_file.read_text().splitlines() if "registers" in line or "spill" in line
-        ))
+    # pyramid2d.cu (K5, 36 instances) builds longest: it builds behind
+    # phases 3-8, which launch none of its kernels
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    late = pool.submit(_kernels.build, ("pyramid2d",))
+    seconds = _kernels.build(tuple(s for s in _kernels.SOURCES if s != "pyramid2d"))
+    log(f"build: {seconds} (wall {time.perf_counter() - t0:.1f} s); pyramid2d builds behind phases 3-8")
 
-    log("phase 3: kernels against their plain versions")
+    phase("phase 3: kernels against their plain versions")
     errors = {k: {} for k in (*REPLACES, *VJP_ROWS)}
     check_kernels(errors)
-    check_goldens()
-    log("phase 3b: VJP kernels against their plain versions")
+    phase("phase 3b: VJP kernels against their plain versions")
     check_vjps(errors)
-    log("phase 3b: K1/K2 tiles at level 4, haar and coif17 (float64), an odd periodization image")
+    phase("phase 3b: K1/K2 tiles at level 4, haar and coif17 (float64), an odd periodization image")
     check_tiles(errors)
 
-    log("phase 4: main path")
+    phase("phase 4: main path")
     x = randn(SHAPE, torch.float32, SEED)
     results = {mode: main_path(x, mode) for mode in ("periodic", "reflect")}
     per = results["periodic"]["counts"]
@@ -5756,7 +6097,7 @@ def main() -> int:
         if results["reflect"]["counts"][name] < 1:
             raise AssertionError(f"{name} was not launched by the reflect round trip")
 
-    log("phase 5: times")
+    phase("phase 5: times")
     gbps = copy_bandwidth()
     log(f"  device copy: {gbps!r} GB/s")
     rows, rows4 = time_kernels(gbps)
@@ -5775,7 +6116,7 @@ def main() -> int:
         "periodic round trip",
     )
     del x
-    log(f"phase 5: each K3/K4 launch and VJP at the {REFLECT_1} level 1 and the periodic level 2")
+    phase(f"phase 5: each K3/K4 launch and VJP at the {REFLECT_1} level 1 and the periodic level 2")
     axis_rows = axis_times(full=True)
     for name, row in axis_rows.items():
         log(f"  {name}: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
@@ -5785,11 +6126,11 @@ def main() -> int:
         raise AssertionError(f"gather or scatter kernels on the {REFLECT_1} path: {reflect_dev}")
     axis_turns = {}
     if _arg("--parent"):
-        log(f"phase 5: the K3/K4 rows and the {REFLECT_1} device times in turns with {_arg('--parent')}")
+        phase(f"phase 5: the K3/K4 rows and the {REFLECT_1} device times in turns with {_arg('--parent')}")
         torch.cuda.empty_cache()
         axis_turns = turns(Path(_arg("--parent")).resolve(), "--axis-times")
 
-    log("phase 6: training at full width")
+    phase("phase 6: training at full width")
     y = randn(SHAPE, torch.float32, SEED + 41)
     train = {mode: check_training(mode, y) for mode in ("periodic", "reflect")}
     for mode in ("periodic", "reflect"):
@@ -5801,15 +6142,15 @@ def main() -> int:
         raise AssertionError(f"gather or scatter kernels in the reflect step: {gathers}")
     log("  reflect training step: no index_select / index_add kernels")
 
-    log("phase 7: 1d kernels against their plain versions")
+    phase("phase 7: 1d kernels against their plain versions")
     errors_1d = {name: {} for name in (*KERNELS_1D, *(f"{k} VJP" for k in KERNELS_1D))}
     check_kernels_1d(errors_1d)
-    log("phase 7: the K7/K8 VJP instances against their plain versions")
+    phase("phase 7: the K7/K8 VJP instances against their plain versions")
     check_vjps_1d(errors_1d)
-    log("phase 7: an odd-length bank leaves K6-K8 for the per-level route")
+    phase("phase 7: an odd-length bank leaves K6-K8 for the per-level route")
     check_odd_bank(ODD_BANK_1D, (*KERNELS_1D,), "1d")
 
-    log("phase 8: 1d main path")
+    phase("phase 8: 1d main path")
     main_1d = {
         name: main_path_1d(name, shape, mode, level, must, SEED + 70 + i)
         for i, (name, shape, mode, level, must) in enumerate(MAIN_1D)
@@ -5823,28 +6164,38 @@ def main() -> int:
         "K7b": main_1d["K7 reflect level 1"]["counts"]["K7b"],
     }
 
-    log("phase 5, 1d: times")
+    phase("phase 5, 1d: times")
     rows_1d = time_kernels_1d()
     round_trips_1d()
     turns_1d = {}
     if _arg("--parent"):
-        log(f"phase 5, 1d: every fwt1d.cu instance and the 1d VJPs in turns with {_arg('--parent')}")
+        phase(f"phase 5, 1d: every fwt1d.cu instance and the 1d VJPs in turns with {_arg('--parent')}")
         torch.cuda.empty_cache()
         turns_1d = fwt1d_turns(Path(_arg("--parent")).resolve())
 
-    log("phase 9: K5a/K5b and their VJPs against their plain versions")
+    seconds.update(late.result())
+    pool.shutdown()
+    log(f"build: {seconds} (pyramid2d done at {time.perf_counter() - t0:.1f} s)")
+    for log_file in sorted(_kernels.BUILD_DIR.glob("*.log")):
+        log(f"ptxas {log_file.name}: " + " | ".join(
+            line.strip() for line in log_file.read_text().splitlines() if "registers" in line or "spill" in line
+        ))
+    phase("phase 3: the repo's frozen 2d goldens (periodization among them runs K5)")
+    check_goldens()
+
+    phase("phase 9: K5a/K5b and their VJPs against their plain versions")
     errors_k5 = {name: {} for name in (*KERNELS_K5, "K5a VJP", "K5b VJP")}
     check_k5(errors_k5)
-    log("phase 9: an odd-length bank leaves K5 (and K1/K2) for the per-axis route")
+    phase("phase 9: an odd-length bank leaves K5 (and K1/K2) for the per-axis route")
     check_odd_bank(ODD_BANK_2D, (*KERNELS_K5, "K1", "K2"), "2d")
 
-    log("phase 10: 2d periodization main path")
+    phase("phase 10: 2d periodization main path")
     main_per = {
         name: main_path_per(name, shape, level, SEED + 200 + i)
         for i, (name, shape, level) in enumerate(PER_2D)
     }
 
-    log("phase 11: training through the 2d periodization and 1d configurations")
+    phase("phase 11: training through the 2d periodization and 1d configurations")
     train_per = {}
     for i, (name, shape, level) in enumerate(PER_2D):
         target = y if shape == SHAPE else randn(shape, torch.float32, SEED + 43 + i)
@@ -5869,21 +6220,21 @@ def main() -> int:
         train_1d[name] = res
         del target
 
-    log("phase 5, 2d periodization and the pyramid VJPs: times")
+    phase("phase 5, 2d periodization and the pyramid VJPs: times")
     rows_k5 = time_k5()
     round_trips_per()
     turns_k5 = {}
     if _arg("--parent"):
-        log(f"phase 5: K5, its VJPs, the per-level route and the periodization device times in turns with {_arg('--parent')}")
+        phase(f"phase 5: K5, its VJPs, the per-level route and the periodization device times in turns with {_arg('--parent')}")
         torch.cuda.empty_cache()
         turns_k5 = turns(Path(_arg("--parent")).resolve(), "--k5-times")
     vjp_1d = time_vjps_1d()
 
-    log(f"phase 12: the tensor-core level K9a/K9b ({MXU2D_ENV}=1 inside this phase only)")
+    phase(f"phase 12: the tensor-core level K9a/K9b ({MXU2D_ENV}=1 inside this phase only)")
     errors_k9 = {name: {} for name in (*KERNELS_K9, "K9a VJP", "K9b VJP")}
     with mxu2d_opt_in():
         check_k9(errors_k9)
-        log(f"phase 12: each K9 instance at {[list(c[0]) + [c[1], c[2]] for c in K9_EXTRA]}")
+        phase(f"phase 12: each K9 instance at {[list(c[0]) + [c[1], c[2]] for c in K9_EXTRA]}")
         check_k9_launches(errors_k9)
         x = randn(SHAPE, torch.float32, SEED)
         main_k9 = main_path(x, "periodic")
@@ -5895,54 +6246,58 @@ def main() -> int:
         train_k9 = check_training("periodic opt-in", y, make=lambda: GainModel("periodic"), with_profile=False)
         del y
         check_backward("periodic opt-in", train_k9["backward"], ("K1", "K2", "K3", "K4", "K9a", "K9b"))
-        log("phase 5, K9: times")
+        phase("phase 5, K9: times")
         rows_k9 = time_k9()
         tf32_one_pass = one_pass_tf32()
-    log(f"phase 5, K9: K9 and the K1/K2 route at {[name for name, _ in K9_SHAPES]}, the round trips")
+    phase(f"phase 5, K9: K9 and the K1/K2 route at {[name for name, _ in K9_SHAPES]}, the round trips")
     k9_rows = k9_times()
     for name, value in k9_rows.items():
         log(f"  {name}: {value!r}")
     turns_k9 = {}
     if _arg("--parent"):
-        log(f"phase 5: K9, its VJPs, the K1/K2 route and the opt-in round trip in turns with {_arg('--parent')}")
+        phase(f"phase 5: K9, its VJPs, the K1/K2 route and the opt-in round trip in turns with {_arg('--parent')}")
         torch.cuda.empty_cache()
         turns_k9 = turns(Path(_arg("--parent")).resolve(), "--k9-times")
     if os.environ.get(MXU2D_ENV) == "1":
         raise AssertionError(f"{MXU2D_ENV} leaked out of phase 12")
 
-    log(f"phase 13: launches past 2^31 outputs, {list(BIG)} float32")
+    phase(f"phase 13: launches past 2^31 outputs, {list(BIG)} float32")
     check_past_2_31()
 
-    log("phase 14: the 3d and separable main paths (bench.py's d3 and fs2 rows)")
+    phase("phase 14: the 3d and separable main paths (bench.py's d3 and fs2 rows)")
     nd = check_nd()
 
-    log("phase 15: the stationary and matrix transforms (bench.py's mat1d, mat2d and swt rows)")
+    phase("phase 15: the stationary and matrix transforms (bench.py's mat1d, mat2d and swt rows)")
     errors_ss = {}
     mat = check_mat(errors_ss)
 
-    log("phase 16: the wavelet packet trees and the continuous transform (bench.py's wp2d and cwt rows)")
+    phase("phase 16: the wavelet packet trees and the continuous transform (bench.py's wp2d and cwt rows)")
     pkt = check_pkt()
     print(json.dumps({"packets_cwt": pkt}))
 
-    log("phase 17: learnable filter banks (K3/K4 per axis, the taps' gradient on KT)")
+    phase("phase 17: learnable filter banks (K3/K4 per axis, the taps' gradient on KT)")
     learn = check_learn()
     print(json.dumps({"learnable": {k: v for k, v in learn.items() if k != "errors"}}))
 
-    log("phase 18: the tiled multi-device transforms (ptwt_tpu_torch.parallel), K3/K4 and K7 per rank")
+    phase("phase 18: the tiled multi-device transforms (ptwt_tpu_torch.parallel), K3/K4 and K7 per rank")
     tiled = check_tiled()
     print(json.dumps({"tiled": tiled}))
 
-    log('phase 19: the reduced-precision mode ("high", "default"): the dense-operator route')
+    phase('phase 19: the reduced-precision mode ("high", "default"): the dense-operator route')
     precision = {name: times_process("--prec-times", name) for name in (*(r[0] for r in PREC_ROWS), "conv")}
     print(json.dumps({"precision": precision}))
 
-    log("phase 20: torch.compile, torch.func.grad and torch.func.vmap through the ops of the kernels")
+    phase("phase 20: torch.compile, torch.func.grad and torch.func.vmap through the ops of the kernels")
     compiled = times_process("--compile-times", timeout=900)
     print(json.dumps({"compile": compiled}))
 
-    log("phase 21: second derivatives under eager autograd and torch.func at full width")
+    phase("phase 21: second derivatives under eager autograd and torch.func at full width")
     second = times_process("--second-order-times")
     print(json.dumps({"second_order": second}))
+
+    phase("phase 22: the tiled transforms under torch.compile (ring steps and edge sums as functional collectives)")
+    tiled_compile = times_process("--tiled-compile-times", timeout=900)
+    print(json.dumps({"tiled_compile": tiled_compile}))
 
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
@@ -6265,13 +6620,20 @@ if __name__ == "__main__":
         tiled_rank(int(_arg("--tiled-rank")), int(_arg("--world")), Path(_arg("--store")), Path(_arg("--out")),
                    _arg("--backend") or "gloo")
         sys.exit(0)
+    if "--tiled-compile-rank" in sys.argv:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: CUDA is not available")
+        tiled_compile_rank(int(_arg("--tiled-compile-rank")), int(_arg("--world")), Path(_arg("--store")),
+                           Path(_arg("--out")), _arg("--backend") or "gloo", "--handshake" in sys.argv)
+        sys.exit(0)
     if "--tiled-nccl" in sys.argv:
-        # phase 18 (b) on NCCL, one rank per card: needs that many cards
+        # phases 18 (b) and 22 (b) on NCCL, one rank per card: needs that many cards
         world = int(_arg("--tiled-nccl"))
         if torch.cuda.device_count() < world:
             sys.exit(f"chip_smoke: --tiled-nccl {world} needs {world} cards")
         log(f"card: {smi()}; build: {_kernels.build()}")
-        print(json.dumps({"tiled_nccl": tiled_ranks(world, "nccl")}))
+        print(json.dumps({"tiled_nccl": tiled_ranks(world, "nccl"),
+                          "tiled_compile_nccl": tiled_ranks(world, "nccl", "--tiled-compile-rank")}))
         sys.exit(0)
     for flag, times in (("--fwt1d-times", fwt1d_times), ("--axis-times", axis_times), ("--k5-times", k5_times),
                         ("--k9-times", k9_times), ("--nd-times", nd_times_all), ("--mat-times", mat_times),
@@ -6279,6 +6641,7 @@ if __name__ == "__main__":
                         ("--dist-probe", dist_probe), ("--kt-times", kt_times), ("--kt-sass", kt_sass),
                         ("--prec-times", prec_times), ("--compile-times", compile_times),
                         ("--second-order-times", second_order_times),
+                        ("--tiled-compile-times", tiled_compile_times),
                         ("--kt-turns", lambda: kt_turns(Path(_arg("--kt-turns")).resolve()))):
         if flag in sys.argv:
             if not torch.cuda.is_available():

@@ -23,11 +23,14 @@ geometry:
 
 Where the JAX package reads the rank's coordinate inside ``shard_map``
 (``lax.axis_index``), this module reads it on the host
-(``mesh.get_local_rank``): every offset is a Python int, every
-``dynamic_slice`` a plain slice, the mode map an index built once on the
-host and moved to the input's device, and a rank whose window lies inside
-the signal makes no gather at all.  An axis of one rank runs the serial
-level (its window is the whole extended signal).  Each local level goes
+(``mesh.get_local_rank``): every offset is a Python int and every
+``dynamic_slice`` a plain slice.  The geometry, the choice of edge slabs
+and the mode map are host constants (:func:`~..utils._preprocess.host_constant`:
+python ints and numpy arrays, made once per geometry and rank and cached),
+so no branch reads a tensor and ``torch.compile`` takes them as constants
+of the program, as ``jax.jit`` takes the JAX package's numpy geometry.  An
+axis of one rank runs the serial level (its window is the whole extended
+signal).  Each local level goes
 through :func:`~ptwt_tpu_torch.ops._dispatch.dwt_axis_packed` (``valid``) and
 :func:`~ptwt_tpu_torch.ops._dispatch.idwt_axis_pairs` (uncropped): K3/K4 on the card, K7a/K7b
 on a local last axis longer than ``2**16`` samples.
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ..ops._dispatch import dwt_axis_packed, idwt_axis_pairs
+from ..utils._preprocess import host_constant
 from ._ring import BWD, FWD, edge_sum, exchange
 
 __all__ = [
@@ -53,8 +57,10 @@ __all__ = [
 _PADDED_MODES = ("reflect", "zero", "periodic", "symmetric", "constant")
 
 
+@host_constant(maxsize=1024)
 def padded_level_geometry(n_g: int, filt_len: int, s: int) -> dict:
-    """Static per-level geometry for a padded-mode sharded axis.
+    """Static per-level geometry for a padded-mode sharded axis (host
+    work, cached; the caller must not change the dict).
 
     Args:
         n_g: Global valid input length at this level.
@@ -116,26 +122,53 @@ def _with_zeros(t: torch.Tensor, ax: int, before: int, after: int) -> torch.Tens
     return torch.cat([zeros[0], t, zeros[1]], dim=ax)
 
 
-def _window_start(d: int, geo: dict) -> int:
-    return 2 * d * geo["cap_out"] - geo["p"]
+def _window_start(d: int, cap_out: int, p: int) -> int:
+    return 2 * d * cap_out - p
 
 
-def _edges_needed(geo: dict, mode: str, e: int) -> tuple[bool, bool]:
+@host_constant(maxsize=1024)
+def _edges_needed(n_g: int, w_in: int, cap_out: int, p: int, s: int, mode: str, e: int) -> tuple[bool, bool]:
     """Whether any rank's window reads the global head / tail edge slab
     (the same answer on every rank, so all of them take part in the sum).
     ``zero`` reads neither: its out-of-range positions are zeros."""
-    n_g, w_in = geo["n_g"], geo["w_in"]
     head = tail = False
     if mode == "zero":
         return head, tail
-    for d in range(geo["s"]):
-        pos = _window_start(d, geo) + np.arange(w_in)
+    for d in range(s):
+        pos = _window_start(d, cap_out, p) + np.arange(w_in)
         out = (pos < 0) | (pos >= n_g)
         if out.any():
             mapped = _mode_index_map(pos[out], n_g, mode)
             head |= bool((mapped < e).any())
             tail |= bool(((mapped >= n_g - e) & (mapped >= e)).any())
     return head, tail
+
+
+@host_constant(maxsize=4096)
+def _window_source(s_d: int, w_in: int, n_g: int, mode: str, e: int, want_head: bool, want_tail: bool):
+    """Where each position of a rank's window (global start ``s_d``) reads
+    from: for ``zero`` the mask of positions outside the signal (None where
+    there is none); otherwise, where an edge slab is summed, the index into
+    ``[window, head slab, tail slab]`` (the identity where the window lies
+    inside the signal: every rank gathers, so the graphs stay alike and
+    the sum's backward runs on every rank in one order), else None."""
+    pos = s_d + np.arange(w_in)
+    needs_map = (pos < 0) | (pos >= n_g)
+    if mode == "zero":
+        return needs_map if needs_map.any() else None
+    if not (want_head or want_tail):
+        return None
+    mapped = _mode_index_map(pos, n_g, mode)
+    index = np.arange(w_in)
+    head_at = w_in
+    tail_at = w_in + (e if want_head else 0)
+    if want_tail:
+        in_tail = needs_map & (mapped >= n_g - e)
+        index = np.where(in_tail, tail_at + np.clip(mapped - (n_g - e), 0, e - 1), index)
+    if want_head:
+        in_head = needs_map & (mapped < e)
+        index = np.where(in_head, head_at + np.clip(mapped, 0, e - 1), index)
+    return index
 
 
 def sharded_dwt_level(
@@ -179,7 +212,7 @@ def sharded_dwt_level(
         parts.append(received[-1])
     buf = torch.cat(parts, dim=ax) if len(parts) > 1 else cur
     # global start of this rank's window, and its offset inside buf
-    s_d = _window_start(d, geo)
+    s_d = _window_start(d, geo["cap_out"], p)
     win = buf.narrow(ax, s_d - d * cap_in + hl, w_in)
 
     # Boundary-mode extension: out-of-range positions map to sources that
@@ -189,7 +222,7 @@ def sharded_dwt_level(
     # out-of-range reads resolve against them.
     filt_len = len(dec_lo)
     e = min(n_g, 2 * filt_len)
-    want_head, want_tail = _edges_needed(geo, mode, e)
+    want_head, want_tail = _edges_needed(n_g, w_in, geo["cap_out"], p, s, mode, e)
     edges = []
     for wanted, start_g in ((want_head, 0), (want_tail, n_g - e)):
         if wanted:
@@ -200,40 +233,22 @@ def sharded_dwt_level(
             hi = max(lo, min(start_g + e, (d + 1) * cap_in))
             own = cur.narrow(ax, min(max(lo - d * cap_in, 0), cap_in), hi - lo)
             edges.append(_with_zeros(own, ax, lo - start_g, start_g + e - hi))
-    if edges:
-        summed = edge_sum(torch.cat(edges, dim=ax), axis_name, mesh)
 
-    pos = s_d + np.arange(w_in)
-    needs_map = (pos < 0) | (pos >= n_g)
-    if mode == "zero" and needs_map.any():
+    source = _window_source(s_d, w_in, n_g, mode, e, want_head, want_tail)
+    if mode == "zero" and source is not None:
         shape = [1] * win.ndim
         shape[ax] = w_in
-        outside = torch.as_tensor(needs_map, device=cur.device).reshape(shape)
-        win = win.masked_fill(outside, 0)
+        win = win.masked_fill(torch.as_tensor(source, device=cur.device).reshape(shape), 0)
     elif edges:
-        # every rank gathers (an identity index where its window lies inside
-        # the signal): the graphs stay alike, so the sum's backward runs on
-        # every rank in one order
-        mapped = _mode_index_map(pos, n_g, mode)
-        index = np.arange(w_in)
-        # the concatenated source: [window, head slab, tail slab]
-        head_at = w_in
-        tail_at = w_in + (e if want_head else 0)
-        if want_tail:
-            in_tail = needs_map & (mapped >= n_g - e)
-            index = np.where(in_tail, tail_at + np.clip(mapped - (n_g - e), 0, e - 1), index)
-        if want_head:
-            in_head = needs_map & (mapped < e)
-            index = np.where(in_head, head_at + np.clip(mapped, 0, e - 1), index)
-        source = torch.cat([win, summed], dim=ax)
-        win = torch.index_select(source, ax, torch.as_tensor(index, device=cur.device))
+        summed = edge_sum(torch.cat(edges, dim=ax), axis_name, mesh)
+        win = torch.index_select(torch.cat([win, summed], dim=ax), ax, torch.as_tensor(source, device=cur.device))
     return dwt_axis_packed(win, ax, dec_lo, dec_hi, "valid")
 
 
-def _synthesis_margins(geo: dict, n_out: int, filt_len: int) -> tuple[int, int, int]:
+@host_constant(maxsize=1024)
+def _synthesis_margins(p: int, cap_out: int, s: int, n_out: int, filt_len: int) -> tuple[int, int, int]:
     """``(cap_fin, margin_l, margin_r)`` of a synthesis level; raises where
     the overlap exceeds one chunk."""
-    p, cap_out, s = geo["p"], geo["cap_out"], geo["s"]
     cap_fin = -(-n_out // s)
     f_len = 2 * (cap_out - 1) + filt_len
     # rank d's contribution covers x coords [2*d*cap_out - p, ... + f_len)
@@ -273,7 +288,7 @@ def sharded_idwt_level(
     ax = axis % los[0].ndim
     filt_len = len(rec_lo)
     p, cap_out = geo["p"], geo["cap_out"]
-    cap_fin, margin_l, margin_r = _synthesis_margins(geo, n_out, filt_len)
+    cap_fin, margin_l, margin_r = _synthesis_margins(p, cap_out, geo["s"], n_out, filt_len)
     f_len = 2 * (cap_out - 1) + filt_len
     if geo["s"] == 1:  # the serial level: crop p on the left, keep n_out
         return idwt_axis_pairs(los, his, ax, rec_lo, rec_hi, p, f_len - p - n_out, "zero")

@@ -1,39 +1,52 @@
 """All the communication of :mod:`ptwt_tpu_torch.parallel`.
 
 The JAX package moves its halo slabs with ``lax.ppermute`` and sums its
-edge slabs with ``lax.psum`` inside ``shard_map``; here both run on the
-process group of one axis of a
-:class:`~torch.distributed.device_mesh.DeviceMesh`:
+edge slabs with ``lax.psum`` inside ``shard_map``; here both are
+functional collectives (``torch.ops._c10d_functional``) on the process
+group of one axis of a :class:`~torch.distributed.device_mesh.DeviceMesh`,
+which ``torch.compile`` traces into its graph as ``jax.jit`` traces
+``ppermute`` and ``psum``:
 
-* :func:`ring_shift` / :func:`exchange`: ring steps through
-  ``dist.batch_isend_irecv`` (one ``isend`` and one ``irecv`` per slab),
-  differentiable to any order: the backward of a ring step is the
-  opposite ring step, itself differentiable, as the VJP of ``ppermute`` is
+* :func:`ring_shift` / :func:`exchange`: ring steps, a permutation of the
+  axis's ranks as ``ppermute`` is.  The slabs of one exchange are packed
+  into one buffer and go in one ``all_to_all_single``, each slab's part
+  of the buffer addressed to its neighbour (the split sizes are the
+  slabs' element counts, python ints on every rank).  The backward of a
+  ring step is the opposite ring step, itself differentiable, so ring
+  steps differentiate to any order, as the VJP of ``ppermute`` is
   ``ppermute`` by the inverse permutation.
-  :func:`start_exchange` posts the steps and returns at once, so that a
-  caller can launch work that needs no halo before it waits
-  (:meth:`Pending.wait`).
+  :func:`start_exchange` posts the steps and returns at once (the
+  collective's output, not yet waited for), so that a caller can launch
+  work that needs no halo before it waits (:meth:`Pending.wait`, the
+  collective's ``wait_tensor``).  Compiled, the wait is the graph's
+  ``wait_tensor`` node, in the same place.
 * :func:`edge_sum`: the edge-slab sum (``psum``), an all-reduce whose
   backward is the (differentiable) all-reduce of the cotangents.
 
+Both are ``torch.autograd.Function`` s whose state is the group's name and
+the split sizes, python constants, so eager autograd and
+``torch.compile`` (forward and backward) run the same code.
+
 On an axis of size 1 every one of them is the identity and makes no call
-at all (``ppermute`` on an axis of size 1 is the identity too; gloo also
-refuses a send to oneself).
+at all (``ppermute`` on an axis of size 1 is the identity too).
 
 The transport follows ``dist.get_backend(group)``, never a caught error:
 
 * ``nccl`` carries CUDA tensors as they are;
-* ``gloo`` with a CUDA tensor: gloo's send and receive take CPU tensors
-  only (a CUDA tensor fails in the transport, "writev ... Bad address",
-  and takes the process down), so a slab is copied to a pinned host
-  buffer (the stream is synchronised once before the sends), received
-  into a pinned host buffer and copied back to the card after the wait;
-  gloo's all-reduce takes CUDA tensors as they are;
+* ``gloo`` with a CUDA tensor: gloo's transfers take CPU tensors only (a
+  CUDA tensor in a send fails in the transport, "writev ... Bad address",
+  and takes the process down), so the packed slabs are copied to host
+  memory (``.cpu()``) before the step and the received buffer back to the
+  card (``.to(device)``) after the wait, compiled too; gloo's all-reduce
+  takes CUDA tensors as they are;
 * ``gloo`` with a CPU tensor sends it as it is.
 
 A failed exchange raises.  :data:`EXCHANGE_LOG`, when set to a list,
 records the bytes this process sends, for the measurements of
-``chip_smoke.py``.
+``chip_smoke.py``: every exchange and edge sum of every call, eager or
+compiled (``torch.compile`` records the appends when it traces and replays
+them after each call of the graph; setting the log to a list or back to
+None makes a compiled transform recompile).
 """
 
 from __future__ import annotations
@@ -47,7 +60,7 @@ __all__ = [
     "BWD",
     "FWD",
     "EXCHANGE_LOG",
-    "Exchange",
+    "Pending",
     "axis_size",
     "edge_sum",
     "exchange",
@@ -65,6 +78,8 @@ BWD = -1
 #: [(direction, bytes sent), ...])`` to it (one entry per ring level), and
 #: each edge sum ``(axis name, [(0, bytes summed)])``.
 EXCHANGE_LOG: Optional[list] = None
+
+_C10D = torch.ops._c10d_functional
 
 
 def axis_size(mesh, axis_name: str) -> int:
@@ -90,123 +105,97 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-class Exchange:
-    """Ring steps of one mesh axis in flight: one slab per direction entry.
-
-    :meth:`post` issues every ``isend``/``irecv`` at once and returns;
-    :meth:`finish` waits for them and returns the received slabs, on the
-    slabs' device.
-    """
-
-    def __init__(self, group, size: int, index: int, directions: Sequence[int], axis_name: str = ""):
-        self.group, self.size, self.index, self.axis_name = group, size, index, axis_name
-        self.directions = tuple(directions)
-        self.works: list = []
-        self.sends: list[torch.Tensor] = []
-        self.received: list[torch.Tensor] = []
-        self.staged = False
-        self.device = None
-        self.cts = None
-
-    @classmethod
-    def on_axis(cls, mesh, axis_name: str, directions: Sequence[int]) -> "Exchange":
-        """The ring steps of ``mesh``'s axis ``axis_name`` for this rank."""
-        return cls(mesh.get_group(axis_name), axis_size(mesh, axis_name),
-                   mesh.get_local_rank(axis_name), directions, axis_name)
-
-    def reversed(self) -> "Exchange":
-        """The opposite ring steps on the same group."""
-        return Exchange(self.group, self.size, self.index, [-d for d in self.directions], self.axis_name)
-
-    def _peer(self, step: int) -> int:
-        return dist.get_global_rank(self.group, (self.index + step) % self.size)
-
-    def post(self, slabs: Sequence[torch.Tensor]) -> None:
-        """Issue one ``isend`` and one ``irecv`` per slab and return."""
-        self.device = slabs[0].device
-        staged = _staged(self.group, slabs[0])
-        if staged:
-            sends = []
-            for s in slabs:
-                host = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
-                host.copy_(s, non_blocking=True)
-                sends.append(host)
-            torch.cuda.current_stream(self.device).synchronize()
-            self.received = [torch.empty(s.shape, dtype=s.dtype, pin_memory=True) for s in slabs]
-        else:
-            sends = [s.contiguous() for s in slabs]
-            self.received = [torch.empty_like(s) for s in sends]
-        self.staged = staged
-        self.sends = sends  # alive until the wait
-        ops = []
-        # one tag per slab, and every rank lists the slabs in one order, so
-        # two slabs between the same two ranks (an axis of size 2) match
-        for tag, (send, recv, step) in enumerate(zip(sends, self.received, self.directions)):
-            ops.append(dist.P2POp(dist.isend, send, self._peer(step), self.group, tag))
-            ops.append(dist.P2POp(dist.irecv, recv, self._peer(-step), self.group, tag))
-        if EXCHANGE_LOG is not None:
-            EXCHANGE_LOG.append((self.axis_name, [(step, _nbytes(send)) for send, step in zip(sends, self.directions)]))
-        self.works = dist.batch_isend_irecv(ops)
-
-    def finish(self) -> list[torch.Tensor]:
-        """Wait for the steps; the received slabs, on the slabs' device."""
-        for work in self.works:
-            work.wait()
-        self.works, self.sends = [], []
-        if self.staged:
-            return [r.to(self.device, non_blocking=True) for r in self.received]
-        return self.received
+def _log(axis_name: str, entries: list) -> None:
+    if EXCHANGE_LOG is not None:
+        EXCHANGE_LOG.append((axis_name, entries))
 
 
-class _Post(torch.autograd.Function):
-    """Posts the ring steps; its output is an empty token that orders
-    :class:`_Finish` after it.  Backward: the opposite ring steps of the
-    received slabs' cotangents, which :class:`_Finish` left behind."""
+def _all_to_all(flat: torch.Tensor, out_splits: list, in_splits: list, group_name: str) -> torch.Tensor:
+    """Post one ring step's ``all_to_all_single``; its output is valid only
+    after :class:`_Wait`."""
+    return _C10D.all_to_all_single(flat, out_splits, in_splits, group_name)
+
+
+def _all_reduce(t: torch.Tensor, group_name: str) -> torch.Tensor:
+    """The sum of ``t`` over the group, waited for."""
+    return _C10D.wait_tensor(_C10D.all_reduce(t.contiguous(), "sum", group_name))
+
+
+class _Wait(torch.autograd.Function):
+    """The wait for a posted collective; the identity to autograd."""
 
     @staticmethod
-    def forward(ctx, ex: Exchange, *slabs):
-        ex.post(slabs)
-        ctx.ex = ex
-        return slabs[0].new_empty(0)
+    def forward(ctx, t):
+        return _C10D.wait_tensor(t)
 
     @staticmethod
-    def backward(ctx, _token):
-        ex = ctx.ex
-        cts, ex.cts = ex.cts, None
-        # through the Functions again, so that a second derivative runs
-        # the steps back once more
-        back = ex.reversed()
-        return (None, *_Finish.apply(back, _Post.apply(back, *cts)))
+    def backward(ctx, ct):
+        return ct
 
 
-class _Finish(torch.autograd.Function):
-    """Waits for the ring steps and returns the received slabs."""
+class _AllToAll(torch.autograd.Function):
+    """Posts a packed ring step (the output is waited for by
+    :class:`_Wait`).  Backward: the opposite step, the split sizes swapped,
+    posted and waited for through the Functions again, so that a second
+    derivative runs the steps back once more."""
 
     @staticmethod
-    def forward(ctx, ex: Exchange, token):
-        ctx.ex = ex
-        ctx.token = (token.dtype, token.device)
-        return tuple(ex.finish())
+    def forward(ctx, flat, out_splits: list, in_splits: list, group_name: str):
+        ctx.back = (in_splits, out_splits, group_name)
+        return _all_to_all(flat, out_splits, in_splits, group_name)
 
     @staticmethod
-    def backward(ctx, *cts):
-        ctx.ex.cts = cts
-        dtype, device = ctx.token
-        return None, torch.zeros(0, dtype=dtype, device=device)
+    def backward(ctx, ct):
+        return _Wait.apply(_AllToAll.apply(ct.contiguous(), *ctx.back)), None, None, None
 
 
 class Pending:
     """Ring steps posted by :func:`start_exchange`; :meth:`wait` returns
     the received slabs (differentiable)."""
 
-    def __init__(self, ex, token, slabs):
-        self._ex, self._token, self._slabs = ex, token, slabs
+    def __init__(self, received, shapes=(), order=(), device=None):
+        # an axis of size 1: ``received`` are the slabs themselves;
+        # otherwise the posted buffer, the slabs' shapes, the order in
+        # which they arrive in it, and the card to copy it back to (gloo)
+        self._received, self._shapes, self._order, self._device = received, shapes, order, device
 
     def wait(self) -> list[torch.Tensor]:
         """The received slabs, one per posted slab."""
-        if self._ex is None:  # an axis of size 1
-            return list(self._slabs)
-        return list(_Finish.apply(self._ex, self._token))
+        if not self._order:
+            return list(self._received)
+        flat = _Wait.apply(self._received)
+        if self._device is not None:
+            flat = flat.to(self._device)
+        parts = flat.split([self._shapes[k].numel() for k in self._order])
+        slabs = [None] * len(self._order)
+        for k, part in zip(self._order, parts):
+            slabs[k] = part.view(self._shapes[k])
+        return slabs
+
+
+def _start(slabs: Sequence[torch.Tensor], directions: Sequence[int], axis_name: str, mesh) -> Pending:
+    """Pack the slabs by destination and post their ring steps."""
+    size = axis_size(mesh, axis_name)
+    group = mesh.get_group(axis_name)
+    index = mesh.get_local_rank(axis_name)
+    staged = _staged(group, slabs[0])
+    # every rank lists the slabs in one order and the slab shapes agree, so
+    # the slabs from one source arrive in the order that source packed
+    # them (two slabs between the same two ranks on an axis of size 2)
+    send = sorted(range(len(slabs)), key=lambda k: ((index + directions[k]) % size, k))
+    recv = sorted(range(len(slabs)), key=lambda k: ((index - directions[k]) % size, k))
+    in_splits, out_splits = [0] * size, [0] * size
+    for s, step in zip(slabs, directions):
+        in_splits[(index + step) % size] += s.numel()
+        out_splits[(index - step) % size] += s.numel()
+    flat = torch.cat([slabs[k].reshape(-1) for k in send])
+    device = None
+    if staged:
+        device = flat.device
+        flat = flat.cpu()
+    _log(axis_name, [(step, _nbytes(s)) for s, step in zip(slabs, directions)])
+    posted = _AllToAll.apply(flat, out_splits, in_splits, group.group_name)
+    return Pending(posted, [s.shape for s in slabs], recv, device)
 
 
 def start_exchange(slabs: Sequence[torch.Tensor], directions: Sequence[int], axis_name: str, mesh) -> Pending:
@@ -214,14 +203,13 @@ def start_exchange(slabs: Sequence[torch.Tensor], directions: Sequence[int], axi
     group and return without waiting.  On an axis of size 1 nothing is
     posted and the wait returns the slabs themselves."""
     if axis_size(mesh, axis_name) == 1:
-        return Pending(None, None, slabs)
-    ex = Exchange.on_axis(mesh, axis_name, directions)
-    return Pending(ex, _Post.apply(ex, *slabs), slabs)
+        return Pending(slabs)
+    return _start(slabs, directions, axis_name, mesh)
 
 
 def exchange(slabs: Sequence[torch.Tensor], directions: Sequence[int], axis_name: str, mesh) -> list[torch.Tensor]:
-    """One ring step per slab on ``axis_name``, all in one batch; returns
-    the received slabs.  Differentiable."""
+    """One ring step per slab on ``axis_name``, all in one collective;
+    returns the received slabs.  Differentiable."""
     return start_exchange(slabs, directions, axis_name, mesh).wait()
 
 
@@ -233,27 +221,17 @@ def ring_shift(t: torch.Tensor, axis_name: str, mesh, direction: int) -> torch.T
     return exchange([t], [direction], axis_name, mesh)[0]
 
 
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``t`` over ``group`` in a new tensor."""
-    _staged(group, t)  # checks the backend and the device
-    out = t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
-    return out
-
-
 class _AllReduce(torch.autograd.Function):
-    """The sum over the group; backward: the sum of the cotangents (what
-    ``torch.distributed.nn.functional.all_reduce``, deprecated since torch
-    2.13, computes)."""
+    """The sum over the group; backward: the sum of the cotangents."""
 
     @staticmethod
-    def forward(ctx, t: torch.Tensor, group):
-        ctx.group = group
-        return _all_reduce(t, group)
+    def forward(ctx, t: torch.Tensor, group_name: str):
+        ctx.group_name = group_name
+        return _all_reduce(t, group_name)
 
     @staticmethod
     def backward(ctx, ct):
-        return _AllReduce.apply(ct, ctx.group), None
+        return _AllReduce.apply(ct, ctx.group_name), None
 
 
 def edge_sum(t: torch.Tensor, axis_name: str, mesh) -> torch.Tensor:
@@ -261,6 +239,7 @@ def edge_sum(t: torch.Tensor, axis_name: str, mesh) -> torch.Tensor:
     differentiable; the identity on an axis of size 1."""
     if axis_size(mesh, axis_name) == 1:
         return t
-    if EXCHANGE_LOG is not None:
-        EXCHANGE_LOG.append((axis_name, [(0, _nbytes(t))]))
-    return _AllReduce.apply(t, mesh.get_group(axis_name))
+    group = mesh.get_group(axis_name)
+    _staged(group, t)  # checks the backend and the device
+    _log(axis_name, [(0, _nbytes(t))])
+    return _AllReduce.apply(t, group.group_name)

@@ -36,7 +36,7 @@ from torch.distributed.tensor import DTensor
 from ..constants import Wavelet, WaveletCoeff2d, WaveletDetailTuple2d
 from ..conv_transform import _adjust_padding_at_reconstruction
 from ..ops._dispatch import dwt_axis_packed, idwt_axis_pairs
-from ..utils import get_filter_arrays
+from ..utils import filter_taps
 from ._padded_axis import padded_level_geometry, sharded_dwt_level, sharded_idwt_level
 from ._ring import axis_size
 from .tiledn import (
@@ -156,7 +156,7 @@ def _padded_wavedec2(data: torch.Tensor, wavelet, level: int, mesh, mode: str):
     too: both axes run the capacity-chunked levels of :mod:`._padded_axis`,
     composed per level over the 2d chip grid.
     """
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     filt_len = len(dec_lo)
     s = axis_size(mesh, "spatial")
     geos = _padded_length_chain(data.shape[-2], filt_len, level, s)
@@ -195,7 +195,7 @@ def _padded_wavedec2(data: torch.Tensor, wavelet, level: int, mesh, mode: str):
 def _padded_waverec2(coeffs, wavelet, mesh, mode: str) -> DTensor:
     """Invert :func:`_padded_wavedec2`."""
     coeffs = [_as_input(coeffs[0]), *(WaveletDetailTuple2d(*(_as_input(c) for c in t)) for t in coeffs[1:])]
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=False, dtype=coeffs[0].dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=False, dtype=coeffs[0].dtype)
     filt_len = len(rec_lo)
     s = axis_size(mesh, "spatial")
     w_axis = _w_axis(mesh)
@@ -282,7 +282,7 @@ def tiled_wavedec2(
     data = _as_input(data)
     if mode != "periodization":
         return _padded_wavedec2(data, wavelet, level, mesh, mode)
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     n_spatial = axis_size(mesh, "spatial")
     _check_tileable(data.shape, level, len(dec_lo), n_spatial)
     w_axis = _w_axis(mesh)
@@ -318,7 +318,7 @@ def tiled_waverec2(
     if mode != "periodization":
         return _padded_waverec2(coeffs, wavelet, mesh, mode)
     approx = _as_input(coeffs[0])
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=False, dtype=approx.dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=False, dtype=approx.dtype)
     w_axis = _w_axis(mesh)
     sharded = {-2: "spatial"}
     if w_axis is not None:

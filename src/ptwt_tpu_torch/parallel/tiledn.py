@@ -27,13 +27,20 @@ range, where the JAX package wrap-pads and crops with copies; an axis
 whose mesh axis holds one rank is local too (its ring would be the
 identity).
 
-The overlapped ring level (:func:`_dwt_axis_ring`) posts the halo P2P
-(:func:`~._ring.start_exchange`), launches the interior windows, which
-need no halo, then waits and runs the two thin edge strips;
+The overlapped ring level (:func:`_dwt_axis_ring`) posts the halo ring
+steps (:func:`~._ring.start_exchange`), launches the interior windows,
+which need no halo, then waits and runs the two thin edge strips;
 ``PTWT_TPU_NO_OVERLAP=1`` selects the pad-then-compute schedule.  Both
-give the same numbers, and gradients flow through both: the posting and
-the wait are two autograd Functions whose backward is the opposite ring
-step, and the levels between them are the ordinary K3/K4 Functions.
+give the same numbers, and gradients flow through both: the posting is a
+functional collective whose backward is the opposite ring step, the wait
+its ``wait_tensor``, and the levels between them the ordinary K3/K4 ops.
+
+Every entry point runs under ``torch.compile(fullgraph=True)`` as one
+graph, as the JAX package's runs under ``jax.jit``: the ring steps and
+edge sums are functional collectives in the graph (the wait where the
+eager schedule waits), the banks host constants
+(:func:`~ptwt_tpu_torch.utils._preprocess.filter_taps`), and the
+geometry python ints and cached host arrays, so no branch reads a tensor.
 """
 
 from __future__ import annotations
@@ -48,7 +55,8 @@ from ..constants import Wavelet, WaveletCoeff1d, WaveletCoeffNd
 from ..conv_transform import _adjust_padding_at_reconstruction, _check_dtype
 from ..conv_transform_3 import _DETAIL_KEYS
 from ..ops._dispatch import dwt_axis_packed, idwt_axis_pairs
-from ..utils import SUBBAND_ORDERS, get_filter_arrays
+from ..utils import SUBBAND_ORDERS, filter_taps
+from ..utils._preprocess import host_constant
 from ._padded_axis import (
     _with_zeros,
     padded_level_geometry,
@@ -155,8 +163,11 @@ def _spatial_lengths(local: torch.Tensor, mesh, dims: dict[str, int]) -> dict[in
 # ---------------------------------------------------------------------------
 
 
+@torch.compiler.assume_constant_result
 def _overlap_enabled() -> bool:
-    """Halo-compute overlap kill switch (``PTWT_TPU_NO_OVERLAP=1``)."""
+    """Halo-compute overlap kill switch (``PTWT_TPU_NO_OVERLAP=1``): read
+    at every eager call, and once, at trace time, by ``torch.compile``
+    (a compiled transform keeps the schedule it was traced with)."""
     return not os.environ.get("PTWT_TPU_NO_OVERLAP")
 
 
@@ -363,7 +374,8 @@ def _check_tileable(shard_len: int, level: int, filt_len: int, n_spatial: int, t
         )
 
 
-def _padded_length_chain(n: int, filt_len: int, level: int, s: int) -> list[dict]:
+@host_constant(maxsize=1024)
+def _padded_length_chain(n: int, filt_len: int, level: int, s: int) -> tuple[dict, ...]:
     """Host-side geometry per level for the padded tiled transforms."""
     geos = []
     cur = n
@@ -371,7 +383,7 @@ def _padded_length_chain(n: int, filt_len: int, level: int, s: int) -> list[dict
         geo = padded_level_geometry(cur, filt_len, s)
         geos.append(geo)
         cur = geo["m_g"]
-    return geos
+    return tuple(geos)
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +410,7 @@ def tiled_wavedec(
     ``DTensor``s.
     """
     data = _as_input(data)
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     n_spatial = axis_size(mesh, "spatial")
     dims = _layout(mesh, ("spatial", 1))
     batch, n = data.shape[0], data.shape[-1]
@@ -428,7 +440,7 @@ def tiled_waverec(
 ) -> DTensor:
     """Invert :func:`tiled_wavedec`; a ``DTensor`` laid out as its input."""
     coeffs = [_as_input(c) for c in coeffs]
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=False, dtype=coeffs[0].dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=False, dtype=coeffs[0].dtype)
     n_spatial = axis_size(mesh, "spatial")
     dims = _layout(mesh, ("spatial", 1))
     batch = coeffs[0].shape[0]
@@ -485,7 +497,7 @@ def _padded_wavedec3(data: torch.Tensor, wavelet, level: int, mesh, mode: str):
     D shards over ``spatial``; with a ``spatial_w`` mesh axis H shards
     too (W stays local): a 2d chip grid over the volume's outer axes.
     """
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     filt_len = len(dec_lo)
     s = axis_size(mesh, "spatial")
     geos = _padded_length_chain(data.shape[-3], filt_len, level, s)
@@ -526,7 +538,7 @@ def _padded_wavedec3(data: torch.Tensor, wavelet, level: int, mesh, mode: str):
 def _padded_waverec3(coeffs, wavelet, mesh, mode: str) -> DTensor:
     """Invert :func:`_padded_wavedec3`."""
     coeffs = [_as_input(coeffs[0]), *({k: _as_input(v) for k, v in c.items()} for c in coeffs[1:])]
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=False, dtype=coeffs[0].dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=False, dtype=coeffs[0].dtype)
     filt_len = len(rec_lo)
     s = axis_size(mesh, "spatial")
     p = (2 * filt_len - 3) // 2
@@ -610,7 +622,7 @@ def tiled_wavedec3(
     data = _as_input(data)
     if mode != "periodization":
         return _padded_wavedec3(data, wavelet, level, mesh, mode)
-    dec_lo, dec_hi, _, _ = get_filter_arrays(wavelet, flip=True, dtype=data.dtype)
+    dec_lo, dec_hi, _, _ = filter_taps(wavelet, flip=True, dtype=data.dtype)
     n_spatial = axis_size(mesh, "spatial")
     _check_tileable(data.shape[-3] // n_spatial, level, len(dec_lo), n_spatial, data.shape[-3])
     halo = len(dec_lo) // 2 - 1
@@ -644,7 +656,7 @@ def tiled_waverec3(
     if mode != "periodization":
         return _padded_waverec3(coeffs, wavelet, mesh, mode)
     approx = _as_input(coeffs[0])
-    _, _, rec_lo, rec_hi = get_filter_arrays(wavelet, flip=False, dtype=approx.dtype)
+    _, _, rec_lo, rec_hi = filter_taps(wavelet, flip=False, dtype=approx.dtype)
     dims = _layout(mesh, ("spatial", 1))
     packed = (
         _local(approx, mesh, dims),

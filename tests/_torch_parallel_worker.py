@@ -1,11 +1,13 @@
 """One rank of a gloo world that runs ``ptwt_tpu_torch.parallel`` on the CPU.
 
-``tests/test_torch_parallel.py`` and ``tests/test_torch_parallel_padded.py``
-start one world per module (:func:`launch`): ``world`` processes of
-``python tests/_torch_parallel_worker.py --rank R --world W --store FILE
---suite NAME --out DIR``, which meet through a ``file://`` store, compute
-every case of :data:`SUITES` ``[NAME]`` in float64 (one in float32), and
-leave rank 0's results in ``DIR/results.npz`` and ``DIR/results.json``.
+``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_padded.py``
+and ``tests/test_torch_parallel_compile.py`` start one world per module
+(:func:`launch`): ``world`` processes of ``python
+tests/_torch_parallel_worker.py --rank R --world W --store FILE --suite
+NAME --out DIR``, which meet through a ``file://`` store, compute every
+case of :data:`SUITES` ``[NAME]`` in float64 (one in float32; the
+``compile`` suite eager and under ``torch.compile``), and leave rank 0's
+results in ``DIR/results.npz`` and ``DIR/results.json``.
 This module imports only ``torch`` and ``ptwt_tpu_torch``: a rank holds no
 JAX (each asserts it), and the parents compare the results with
 ``ptwt_tpu``.
@@ -101,6 +103,17 @@ SUITES = {
         "3d-grid-periodic": case("3d", (2, 2), (2, 24, 20, 16), "db2", 2, "periodic", seed=7,
                                  mesh_kw={"n_spatial_w": 2}),
     },
+    # the round trip and the gradient of the sum of the squared bands under
+    # torch.compile(fullgraph=True), eager beside it, on a world of 4 ranks
+    "compile": {
+        "t2d-periodization-1x4": case("2d", (1, 4), (2, 64, 32), "db4", 2, seed=20),
+        "t2d-periodization-2x2": case("2d", (2, 2), (4, 32, 16), "db4", 1, seed=21, data_in="shard"),
+        "t2d-reflect-1x4": case("2d", (1, 4), (2, 64, 36), "db2", 2, "reflect", seed=22),
+        "grid-periodization": case("2d", (1, 2), (2, 32, 32), "db3", 1, seed=23, mesh_kw={"n_spatial_w": 2}),
+        "host-reflect": case("2d", (1, 2), (2, 40, 32), "db2", 1, "reflect", seed=24, mesh_kw={"n_hosts": 2}),
+        "td1-reflect-1x4": case("1d", (1, 4), (2, 256), "db3", 2, "reflect", seed=25),
+        "td3-reflect-2x2": case("3d", (2, 2), (2, 24, 12, 10), "db2", 1, "reflect", seed=26),
+    },
 }
 
 
@@ -124,9 +137,10 @@ def leaves(coeffs) -> list:
     return out
 
 
-def launch(suite: str, world: int, out: Path) -> dict:
+def launch(suite: str, world: int, out: Path, timeout: float = WORLD_TIMEOUT) -> dict:
     """Run one world of ``suite`` and return rank 0's results (arrays and
-    metadata); raises with the ranks' output if any rank fails."""
+    metadata); raises with the ranks' output if any rank fails or the
+    world outlasts ``timeout`` seconds."""
     out.mkdir(parents=True, exist_ok=True)
     store = out / "store"
     cmd = [sys.executable, __file__, "--world", str(world), "--store", str(store), "--suite", suite,
@@ -140,7 +154,7 @@ def launch(suite: str, world: int, out: Path) -> dict:
     logs = []
     for p in procs:
         try:
-            logs.append(p.communicate(timeout=WORLD_TIMEOUT)[0].decode(errors="replace"))
+            logs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
@@ -174,12 +188,15 @@ def _run_case(name, spec, mesh, torch, dist, par, arrays, meta):
             return
         raise AssertionError(f"{name}: no ValueError")
 
-    calls = []
-    real = dist.batch_isend_irecv
+    from ptwt_tpu_torch.parallel import _ring
 
-    def counting(ops):
-        calls.append(len(ops))
-        return real(ops)
+    # every ring step posted, forward and backward: one collective each
+    calls = []
+    real = _ring._all_to_all
+
+    def counting(flat, *args):
+        calls.append(flat.numel())
+        return real(flat, *args)
 
     runs = ("", "1") if spec.get("schedules") else ("",)
     for schedule in runs:
@@ -195,7 +212,7 @@ def _run_case(name, spec, mesh, torch, dist, par, arrays, meta):
             src = distribute_tensor(xin, mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
         else:
             src = xin
-        dist.batch_isend_irecv = counting
+        _ring._all_to_all = counting
         try:
             coeffs = fwd(src, spec["wavelet"], **kw)
             bands = leaves(coeffs)
@@ -218,7 +235,7 @@ def _run_case(name, spec, mesh, torch, dist, par, arrays, meta):
                 (share,) = torch.autograd.grad(loss, xin, create_graph=True)
                 (grad2,) = torch.autograd.grad((share**2).sum(), xin)
         finally:
-            dist.batch_isend_irecv = real
+            _ring._all_to_all = real
         full = [band.full_tensor() for band in bands]
         rec = rec.full_tensor()
         # each element's gradient lives on the one rank that holds it
@@ -233,6 +250,60 @@ def _run_case(name, spec, mesh, torch, dist, par, arrays, meta):
         if grad2 is not None:
             arrays[f"{tag}/grad2"] = grad2.numpy()
         meta[tag] = {"bands": len(full), "p2p_batches": len(calls), "placements": [str(p) for p in bands[0].placements]}
+
+
+def _compile_case(name, spec, mesh, torch, dist, par, arrays, meta):
+    """The case's round trip and the gradient of the sum of its squared
+    bands, eager and compiled (``torch.compile(fullgraph=True,
+    backend="aot_eager", dynamic=False)``, one graph with the backward):
+    the whole bands, reconstruction and gradient of both, and dynamo's
+    graph and break counts."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    fwd = getattr(par, FUNCS[spec["kind"]][0])
+    inv = getattr(par, FUNCS[spec["kind"]][1])
+    x = torch.from_numpy(data(spec))
+
+    def step(t):
+        coeffs = fwd(t, spec["wavelet"], level=spec["level"], mesh=mesh, mode=spec["mode"])
+        rec = inv(coeffs, spec["wavelet"], mesh=mesh, mode=spec["mode"])
+        bands = leaves(coeffs)
+        # every rank's share of the loss: its own bands; the backward runs
+        # from the loss alone, so the other outputs leave the graph
+        loss = sum((band.to_local() ** 2).sum() for band in bands)
+        return [band.detach() for band in bands], rec.detach(), loss
+
+    def leaf():
+        """The input as a leaf that requires grad: the whole tensor, or
+        (``data_in="shard"``) a ``DTensor`` of the transform's layout."""
+        if spec.get("data_in") != "shard":
+            return x.clone().requires_grad_()
+        from ptwt_tpu_torch.parallel.tiledn import _layout, _placements
+
+        placements = _placements(mesh, _layout(mesh, ("spatial", 1)))
+        return distribute_tensor(x, mesh, placements, src_data_rank=None).requires_grad_()
+
+    torch._dynamo.reset()
+    explained = torch._dynamo.explain(step)(leaf())
+    meta[name] = {"graph_breaks": explained.graph_break_count, "graphs": explained.graph_count,
+                  "break_reasons": [b.reason[:300] for b in explained.break_reasons]}
+    torch._dynamo.reset()
+    compiled = torch.compile(step, fullgraph=True, backend="aot_eager", dynamic=False)
+    for tag, fn in (("eager", step), ("compiled", compiled)):
+        xin = leaf()
+        bands, rec, loss = fn(xin)
+        (grad,) = torch.autograd.grad(loss, xin)
+        if isinstance(grad, DTensor):
+            grad = grad.full_tensor()
+        else:  # each element's gradient lives on the one rank that holds it
+            dist.all_reduce(grad)
+        for i, band in enumerate(bands):
+            arrays[f"{name}/{tag}/band{i}"] = band.full_tensor().numpy()
+        arrays[f"{name}/{tag}/rec"] = rec.full_tensor().numpy()
+        arrays[f"{name}/{tag}/grad"] = grad.numpy()
+        meta[name]["bands"] = len(bands)
+        meta[name]["placements"] = [str(p) for p in bands[0].placements]
+    torch._dynamo.reset()
 
 
 def main() -> None:
@@ -267,7 +338,8 @@ def main() -> None:
         if isinstance(mesh, ValueError):
             meta[name] = {"error": str(mesh)}
             continue
-        _run_case(name, spec, mesh, torch, dist, par, arrays, meta)
+        run = _compile_case if args.suite == "compile" else _run_case
+        run(name, spec, mesh, torch, dist, par, arrays, meta)
     assert "jax" not in sys.modules and "ptwt_tpu" not in sys.modules, "a rank imported JAX"
     meta["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ptwt_tpu", "ptwt_tpu_torch"))
     if args.rank == 0:

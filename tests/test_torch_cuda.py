@@ -1599,6 +1599,34 @@ def test_cuda_tiled_backward_one_nccl_rank(nccl_mesh, cuda_device):
     assert float((xt.grad - xs.grad).abs().max()) <= 1e-4 * float(xs.grad.abs().max())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["periodization", "reflect"])
+def test_cuda_tiled_compile_one_nccl_rank(nccl_mesh, cuda_device, mode):
+    """The t2d round trip under ``torch.compile(fullgraph=True)`` on one NCCL
+    rank: no graph break, eager's launches, eager's bands and
+    reconstruction bit for bit (``aot_eager`` runs the same ops)."""
+    from ptwt_tpu_torch.parallel import tiled_wavedec2, tiled_waverec2
+
+    x = torch.randn(2, 128, 96, generator=torch.Generator().manual_seed(5)).to(cuda_device)
+
+    def round_trip(t):
+        coeffs = tiled_wavedec2(t, "db4", level=3, mesh=nccl_mesh, mode=mode)
+        rec = tiled_waverec2(coeffs, "db4", mesh=nccl_mesh, mode=mode)
+        return [c.to_local() for c in _tiled_leaves(coeffs)], rec.to_local()
+
+    want, eager = _counted(round_trip, x)
+    torch._dynamo.reset()
+    explained = torch._dynamo.explain(round_trip)(x)
+    assert explained.graph_break_count == 0 and explained.graph_count == 1
+    torch._dynamo.reset()
+    compiled = torch.compile(round_trip, fullgraph=True, dynamic=False, backend="aot_eager")
+    compiled(x)
+    got, launches = _counted(compiled, x)
+    assert launches == eager and eager
+    for g, w in zip([*got[0], got[1]], [*want[0], want[1]]):
+        assert torch.equal(g, w)
+
+
 # ---------------------------------------------------------------------------
 # the reduced-precision mode: the dense-operator route
 # ---------------------------------------------------------------------------

@@ -216,6 +216,9 @@ def test_parallel_transport_follows_the_backend(tmp_path, monkeypatch):
 
         for name in ("batch_isend_irecv", "all_reduce", "isend", "irecv"):
             monkeypatch.setattr(dist, name, refuse)
+        # the ring's own transport: its ring step and its all-reduce
+        for name in ("_all_to_all", "_all_reduce"):
+            monkeypatch.setattr(_ring, name, refuse)
         mesh = make_wavelet_mesh(device_type="cpu", timeout=timeout)
         assert mesh.mesh_dim_names == ("data", "spatial") and tuple(mesh.shape) == (1, 1)
         t = torch.arange(6.0)
