@@ -318,6 +318,19 @@ Phases, each raising (non-zero exit) on failure:
    wall ms, busy share, host ms inside the collectives and top device
    work, compile seconds; then one float64 row per kind on one rank at
    ``TILED_F64``'s shapes against the serial plain path (1e-10).
+23. ``torch.compile`` over ``torch.func`` (``chip_smoke.py
+   --compiled-func-times``, a process of its own): float32 at full width, (a) ``torch.func.grad`` of
+   ``L`` (the cubed coefficients of the periodic headline), (d)
+   ``torch.func.vmap`` of it over the batch of 16 split into samples, (b)
+   grad of grad (phase 21's step ``x.grad`` of ``|dL/dx|^2``) at every
+   phase 21 row, and (c) the learnable headline's mixed and pure
+   hypergradients, each compiled (``fullgraph=True``, static shapes,
+   ``aot_eager``; the periodic (b) also inductor): one graph, no break,
+   eager ``torch.func``'s launches per kernel, within 1e-5 of its largest
+   entry, and within 1e-4 of the float64 plain path; compile seconds and
+   the profiler's busy ms, CUDA-event ms, wall ms and busy share, beside
+   phase 21's eager autograd step of the same row, or, for (a), (d) and
+   the pure term, eager ``torch.func``'s.
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -368,7 +381,7 @@ The last lines are phase 16's ``{"packets_cwt": ...}`` line, phase 17's
 ``{"learnable": ...}`` line, phase 18's ``{"tiled": ...}`` line, phase 19's
 ``{"precision": ...}`` line, phase 20's ``{"compile": ...}`` line, phase
 21's ``{"second_order": ...}`` line, phase 22's ``{"tiled_compile": ...}``
-line, a
+line, phase 23's ``{"compiled_func": ...}`` line, a
 ``{"kernels": [...]}`` JSON line (fifteen kernels: KT, the taps'
 gradient, last; K3, K4, K7a and K7b with phase 18's ``tiled_launches``,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
@@ -1360,18 +1373,25 @@ def index_kernel(key: str) -> bool:
 def profile(run, label: str, top: int = 14) -> list:
     """Device time by kernel and the device's busy share over one call of
     ``run``, from ``torch.profiler``; returns ``(ms, count, name)`` rows."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile, schedule
 
-    run()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # a warm-up call is traced and its records dropped: a window's first
+    # records went missing on an H100 (a compiled program's first K1/K3
+    # launches, an eager round trip's first three)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
     rows = []
     for evt in prof.key_averages():
-        if not str(evt.device_type).endswith("CUDA"):
+        # ProfilerStep*: the schedule's annotation of the step's span, not a kernel
+        if not str(evt.device_type).endswith("CUDA") or evt.key.startswith("ProfilerStep"):
             continue
         dev = getattr(evt, "self_device_time_total", None)
         if dev is None:
@@ -6036,6 +6056,128 @@ def tiled_compile_times() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: torch.compile over torch.func
+# ---------------------------------------------------------------------------
+
+#: Phase 23's row also compiled with inductor (the others: ``aot_eager``).
+FUNC_INDUCTOR = "2d periodic grad of grad"
+#: Compiled against eager ``torch.func`` on the card, over the result's
+#: largest entry; against the float64 plain path: phase 21's limit.
+FUNC_TOL = COMPILE_TOL
+#: Seconds phase 23's process may take (some 160 s alone on an H100; the
+#: script's limit is 1200).
+FUNC_TIMEOUT_S = 300
+#: Phase 23's rows whose step phase 21 times under eager autograd (for
+#: the learnable bank: the mixed term), by phase 21's name.
+FUNC_PHASE21 = {**{f"{r[0]} grad of grad": r[0] for r in SECOND_ROWS}, f"{SECOND_LEARN[0]} mixed": SECOND_LEARN[0]}
+
+
+def func_rows() -> list:
+    """Phase 23's rows over phase 21's: ``(name, program, args)``, each
+    program a ``torch.func`` composition of the kernel path, float32:
+    (a) ``torch.func.grad`` of the periodic headline's ``L`` (the cubed
+    coefficients), (d) ``torch.func.vmap`` of it over the headline's batch
+    split into samples, (b) grad of grad (phase 21's penalty step) at every
+    :data:`SECOND_ROWS` row, (c) the learnable headline's mixed and pure
+    hypergradients (:func:`learn_func`'s programs)."""
+    grad = torch.func.grad
+    name, kind, shape, wavelet, level, mode, seed = SECOND_ROWS[0]
+    loss = second_loss(kind, wavelet, level, mode)
+    rows = [(f"{name} grad", lambda: (grad(loss), (randn(shape, torch.float32, seed),))),
+            (f"{name} vmap of grad",
+             lambda: (torch.func.vmap(grad(loss)), (randn(shape, torch.float32, seed).unsqueeze(1),)))]
+    for name, kind, shape, wavelet, level, mode, seed in SECOND_ROWS:
+        def make(kind=kind, shape=shape, wavelet=wavelet, level=level, mode=mode, seed=seed):
+            lss = second_loss(kind, wavelet, level, mode)
+            return grad(lambda t: (grad(lss)(t) ** 2).sum()), (randn(shape, torch.float32, seed),)
+
+        rows.append((f"{name} grad of grad", make))
+    name, shape, wavelet, level, mode, seed = SECOND_LEARN
+    for term in ("mixed", "pure"):
+        def make(term=term):
+            x = randn(shape, torch.float32, seed)
+            filters = [f.detach() for f in learn_bank(wavelet, torch.float32, DEVICE).filter_bank]
+            loss = learn_loss_cubed(filters, level, mode)
+            if term == "mixed":
+                return grad(lambda fs: (grad(loss, argnums=1)(fs, x) ** 2).sum()), (list(filters[:2]),)
+            return grad(lambda fs: sum((g**2).sum() for g in grad(loss)(fs, x))), (list(filters[:2]),)
+
+        rows.append((f"{name} {term}", make))
+    return rows
+
+
+def func_double(args):
+    """A row's arguments in float64, for the plain path's reference."""
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda t: t.double() if isinstance(t, torch.Tensor) else t, args)
+
+
+def func_row(name: str, make, backend: str) -> dict:
+    """One row: the program eager (``torch.func`` on the kernel path) and
+    under ``torch.compile(fullgraph=True, backend=backend)``: one graph,
+    no break, the same launches per kernel, within :data:`FUNC_TOL` of
+    eager and of the float64 plain path; compile seconds and the compiled
+    program's times, and eager ``torch.func``'s where phase 21 times no
+    eager step of the row."""
+    from torch._dynamo.utils import counters
+
+    program, args = make()
+    want, eager = counted(program, *args)
+    torch._dynamo.reset()
+    counters.clear()
+    compiled = torch.compile(program, fullgraph=True, dynamic=False, backend=backend)
+    t0 = time.perf_counter()
+    compiled(*args)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    got, launches = counted(compiled, *args)
+    breaks, graphs = sum(counters["graph_break"].values()), counters["stats"]["unique_graphs"]
+    err = compile_rel(got, want)
+    log(f"  {name} ({backend}): compile {compile_s!r} s, {graphs} graph(s), {breaks} break(s), "
+        f"launches {launches} (eager torch.func {eager}), compiled vs eager {err!r}")
+    if breaks or graphs != 1:
+        raise AssertionError(f"{name}: {breaks} graph breaks, {graphs} graphs: {dict(counters['graph_break'])}")
+    if launches != eager or not eager:
+        raise AssertionError(f"{name}: compiled launches {launches}, eager torch.func {eager}")
+    if not err <= FUNC_TOL:
+        raise AssertionError(f"{name}: compiled against eager {err!r} > {FUNC_TOL!r}")
+    del want
+    with plain_versions():
+        ref = program(*func_double(args))
+    plain_err = second_check(name, "compiled float32 kernels vs the float64 plain path", compile_rel(got, ref),
+                             torch.float32)
+    del got, ref
+    torch.cuda.empty_cache()
+    total = sum(launches.values())
+    row = {"backend": backend, "compile_s": compile_s, "graphs": graphs, "graph_breaks": breaks,
+           "launches": launches, "err_vs_eager": err, "err_vs_plain_f64": plain_err,
+           "compiled": compile_timing(lambda: compiled(*args), f"{name} compiled ({backend})", total)}
+    if name not in FUNC_PHASE21:
+        row["eager_func"] = compile_timing(lambda: program(*args), f"{name} eager torch.func", total)
+    for tag in [t for t in ("compiled", "eager_func") if t in row]:
+        t = row[tag]
+        log(f"  {name} {tag}: device {t['device_ms']!r} ms, events {t['events_ms']!r} ms, wall {t['wall_ms']!r} ms, "
+            f"busy {t['busy_share']!r}")
+    del compiled, program, args
+    torch._dynamo.reset()
+    torch.cuda.empty_cache()
+    return row
+
+
+def compiled_func_times() -> dict:
+    """``--compiled-func-times`` (phase 23, a process of its own): every
+    :func:`func_rows` row compiled with ``aot_eager``, then
+    :data:`FUNC_INDUCTOR` with inductor."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = func_rows()
+    out = {name: func_row(name, make, "aot_eager") for name, make in rows}
+    out[f"{FUNC_INDUCTOR} inductor"] = func_row(FUNC_INDUCTOR, dict(rows)[FUNC_INDUCTOR], "inductor")
+    return {"rows": out}
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate in GB/s (bytes read + bytes written)."""
     src = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
@@ -6298,6 +6440,15 @@ def main() -> int:
     phase("phase 22: the tiled transforms under torch.compile (ring steps and edge sums as functional collectives)")
     tiled_compile = times_process("--tiled-compile-times", timeout=900)
     print(json.dumps({"tiled_compile": tiled_compile}))
+
+    phase("phase 23: torch.compile over torch.func (grad, grad of grad, vmap of grad) through the ops of the kernels")
+    func = times_process("--compiled-func-times", timeout=FUNC_TIMEOUT_S)
+    for name, row in func["rows"].items():
+        base = FUNC_PHASE21.get(name.removesuffix(" inductor"))
+        if base is not None:  # phase 21's eager autograd step of the same row
+            row["phase21_eager"] = {k: second["rows"][base][k] for k in ("device_ms", "events_ms", "wall_ms",
+                                                                         "busy_share")}
+    print(json.dumps({"compiled_func": func}))
 
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
@@ -6642,6 +6793,7 @@ if __name__ == "__main__":
                         ("--prec-times", prec_times), ("--compile-times", compile_times),
                         ("--second-order-times", second_order_times),
                         ("--tiled-compile-times", tiled_compile_times),
+                        ("--compiled-func-times", compiled_func_times),
                         ("--kt-turns", lambda: kt_turns(Path(_arg("--kt-turns")).resolve()))):
         if flag in sys.argv:
             if not torch.cuda.is_available():

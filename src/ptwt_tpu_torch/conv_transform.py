@@ -22,7 +22,7 @@ import torch
 
 from .constants import SUPPORTED_DTYPES, BoundaryMode, Wavelet, WaveletCoeff1d
 from .ops import analysis_nd, synthesis_nd
-from .ops._kernels import filters_need_grad
+from .ops._kernels import filters_traced
 from .ops._pallas import (
     fused_wavedec1d_per,
     fused_wavedec_applicable,
@@ -117,7 +117,7 @@ def wavedec(
     if level is None:
         level = dwt_max_level(data.shape[-1], filt_len)
 
-    learn = filters_need_grad(dec_lo, dec_hi)
+    learn = filters_traced(dec_lo, dec_hi)
     if mode == "periodization" and not learn and fused_wavedec_applicable(data.shape[-1], filt_len, level):
         # the whole level pyramid: one read of the signal, one write per band
         result = fused_wavedec1d_per(data, dec_lo, dec_hi, level)
@@ -191,7 +191,7 @@ def waverec(
         inferred = infer_periodization([c.shape[-1] for c in coeffs[1:]], filt_len)
         mode = "periodization" if inferred else "reflect"
     periodization = mode == "periodization"
-    learn = filters_need_grad(rec_lo, rec_hi)
+    learn = filters_traced(rec_lo, rec_hi)
 
     if (
         periodization

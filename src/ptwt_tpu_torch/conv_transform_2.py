@@ -25,7 +25,7 @@ from .constants import (
 )
 from .conv_transform import _adjust_padding_at_reconstruction
 from .ops import analysis_nd, synthesis_nd
-from .ops._kernels import filters_need_grad
+from .ops._kernels import filters_traced
 from .ops._pallas import fused_wavedec2d_applicable, fused_wavedec2d_per, fused_waverec2d_per
 from .utils import (
     as_device_tensor,
@@ -104,7 +104,7 @@ def wavedec2(
 
     if (
         mode == "periodization"
-        and not filters_need_grad(dec_lo, dec_hi)
+        and not filters_traced(dec_lo, dec_hi)
         and fused_wavedec2d_applicable(data.shape[-2], data.shape[-1], filt_len, level, data.dtype)
     ):
         # the whole 2d pyramid in runs of fused levels (ops._pallas, K5)
@@ -179,7 +179,7 @@ def waverec2(
 
     if (
         periodization
-        and not filters_need_grad(rec_lo, rec_hi)
+        and not filters_traced(rec_lo, rec_hi)
         and len(coeffs) >= 2
         and _halving_chain(coeffs)
         and fused_wavedec2d_applicable(

@@ -54,7 +54,7 @@ from . import _pallas1d_multi as _multi
 from ._boundary import boundary_analysis_matrix, boundary_synthesis_matrix, strided_conv_matrix
 from ._conv import axis_matmul
 from ._dispatch import dwt_axis_packed, idwt_axis_pairs
-from ._library import NAMESPACE, autograd, call, constant_tensor, flatten_batch, flatten_list, split_batch
+from ._library import NAMESPACE, autograd, call, constant_tensor, flatten_batch, flatten_list, split_batch, traced
 from ..utils._preprocess import constant_taps
 
 __all__ = [
@@ -241,6 +241,10 @@ class _Constants:
         self._tensors: dict = {}
 
     def _const(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        if not torch.compiler.is_dynamo_compiling() and traced(like):
+            # a backward formula run by a torch.compile tracer (the long
+            # runs' pullbacks): a constant of its trace, kept nowhere
+            return torch.as_tensor(getattr(self, name), dtype=like.dtype, device=like.device)
         key = (name, like.device, like.dtype)
         t = self._tensors.get(key)
         if t is None:

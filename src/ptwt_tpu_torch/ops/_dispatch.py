@@ -34,11 +34,12 @@ halving 1d chain to K6 and ``wavedec2``/``waverec2`` a 2d chain that the
 K5 plan holds to K5 (:mod:`._pallas`), before any level is routed here.
 Here a 2d periodization level runs K1/K2, a 1d one K3/K4.
 
-A filter bank that requires grad (:func:`~._kernels.filters_need_grad`,
-the counterpart of the JAX package's ``_is_concrete``) declines K7 and
-K1/K2 (so K9) here, as the entry points decline K5, K6 and K8 for it:
-every axis of every level runs K3/K4, whose backward gives the filters'
-gradient (KT).  Under ``torch.no_grad()`` the routes are the ones above.
+A filter bank that requires grad, or one of tensors while dynamo traces
+(:func:`~._kernels.filters_traced`, the counterpart of the JAX package's
+``_is_concrete``) declines K7 and K1/K2 (so K9) here, as the entry
+points decline K5, K6 and K8 for it: every axis of every level runs
+K3/K4, whose backward gives the filters' gradient (KT).  Under
+``torch.no_grad()`` an eager run takes the routes above.
 
 Under a reduced precision (:func:`~._conv.set_precision` below
 ``"highest"``), a float32 level whose bank autograd does not
@@ -72,7 +73,7 @@ import torch
 
 from ..utils._preprocess import SUBBAND_ORDERS
 from ._conv import axis_matmul, get_precision
-from ._kernels import filters_need_grad
+from ._kernels import filters_traced
 from ._matmul import analysis_operator, get_matmul_max_length, synthesis_operator
 from ._pallas1d import dwt_lane_packed, flat_idwt_lane, flat_lane_applicable
 from ._pallas2 import pallas_dwt_axis, pallas_idwt_axis
@@ -91,7 +92,7 @@ def _dense(dtype: torch.dtype, *filters) -> bool:
     reduced precision, for float32 and a bank that autograd does not
     differentiate (the JAX package's matmul route takes concrete banks
     only)."""
-    return get_precision() != "highest" and dtype == torch.float32 and not filters_need_grad(*filters)
+    return get_precision() != "highest" and dtype == torch.float32 and not filters_traced(*filters)
 
 
 def _synthesis_out_len(m: int, filt_len: int, padl: int, padr: int, periodization: bool) -> int:
@@ -140,7 +141,7 @@ def dwt_axis_packed(x: torch.Tensor, axis: int, dec_lo, dec_hi, mode: str) -> to
         )
     if (
         axis % x.ndim == x.ndim - 1
-        and not filters_need_grad(dec_lo, dec_hi)
+        and not filters_traced(dec_lo, dec_hi)
         and flat_lane_applicable(x.shape[-1], len(dec_lo), mode)
     ):
         return dwt_lane_packed(x, dec_lo, dec_hi, mode)
@@ -171,7 +172,7 @@ def idwt_axis_pairs(
     ndim = los[0].ndim
     periodization = mode == "periodization"
     out_len = _synthesis_out_len(los[0].shape[axis], len(rec_lo), padl, padr, periodization)
-    if axis % ndim == ndim - 1 and not periodization and not filters_need_grad(rec_lo, rec_hi):
+    if axis % ndim == ndim - 1 and not periodization and not filters_traced(rec_lo, rec_hi):
         if flat_lane_applicable(out_len, len(rec_lo), mode):
             outs = [flat_idwt_lane(a, b, rec_lo, rec_hi, padl, padr) for a, b in zip(los, his)]
             return outs[0].unsqueeze(0) if len(outs) == 1 else torch.stack(outs)
@@ -265,7 +266,7 @@ def analysis_nd(
         bands = packed.flatten(0, 2).unbind(0)
         return tuple(bands[4 * w + 2 * h + d] for d, h, w in SUBBAND_ORDERS[3])
     h, w = data.shape[-2:]
-    if not (dense or filters_need_grad(dec_lo, dec_hi)) and fused2_analysis_applicable(h, w, len(dec_lo), mode):
+    if not (dense or filters_traced(dec_lo, dec_hi)) and fused2_analysis_applicable(h, w, len(dec_lo), mode):
         return fused2_dwt_level(data, dec_lo, dec_hi, mode)
     rows = dwt_axis_packed(data, -2, dec_lo, dec_hi, mode)  # [2 (H bit), B, m_h, w]
     both = dwt_axis_packed(rows, -1, dec_lo, dec_hi, mode)  # [2 (W bit), 2, B, m_h, m_w]
@@ -321,7 +322,7 @@ def synthesis_nd(
     ll, lh, hl, hh = subbands
     if (
         len({b.shape for b in subbands}) == 1
-        and not (dense or filters_need_grad(rec_lo, rec_hi))
+        and not (dense or filters_traced(rec_lo, rec_hi))
         and fused2_synthesis_applicable(ll.shape[-2], ll.shape[-1], len(rec_lo), mode, pads)
     ):
         return fused2_idwt_level(subbands, rec_lo, rec_hi, mode)

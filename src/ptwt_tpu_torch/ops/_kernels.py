@@ -28,12 +28,15 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch._functorch.pyfunctorch import retrieve_current_functorch_interpreter
+
+from ._library import traced
 
 __all__ = [
     "LAUNCHES",
     "build",
     "check_tensor",
-    "filters_need_grad",
+    "filters_traced",
     "grad_tracked",
     "host_taps",
     "keep_host_taps",
@@ -228,8 +231,9 @@ def int_array(values: Sequence[int]):
 _NO_FILTER_GRAD = (
     "this fused kernel takes its filters as constants and gives no filter "
     "gradient. The public transforms route a filter bank that requires "
-    "grad to the per-axis kernels K3/K4, whose taps' gradient runs on the "
-    "card (KT); call them, or detach the filters."
+    "grad, and under torch.compile a bank given as tensors, to the per-axis "
+    "kernels K3/K4, whose taps' gradient runs on the card (KT); call them, or "
+    "pass constant filters."
 )
 
 #: The attribute under which :func:`keep_host_taps` keeps a filter tensor's
@@ -245,20 +249,28 @@ def grad_tracked(t) -> bool:
         return False
     if t.requires_grad:
         return True
-    return (
-        not torch.compiler.is_dynamo_compiling()
-        and torch._C._are_functorch_transforms_active()
-        and torch._C._functorch.is_gradtrackingtensor(t)
-    )
+    if not torch._C._are_functorch_transforms_active():
+        return False
+    # Is ``t`` a grad level's wrapper (``is_gradtrackingtensor``)?  Asked as
+    # whether one of the levels unwraps it, which dynamo traces too: a vmap
+    # level or a tensor no grad level wrapped (a constant bank closed over)
+    # unwraps to itself.
+    level = retrieve_current_functorch_interpreter().level()
+    return any(torch._C._functorch._unwrap_for_grad(t, lvl) is not t for lvl in range(1, level + 1))
 
 
-def filters_need_grad(*filts) -> bool:
-    """Would autograd differentiate with respect to one of ``filts``?
+def filters_traced(*filts) -> bool:
+    """Must the fused routes decline ``filts``?  Where autograd would
+    differentiate with respect to one of them, and while dynamo traces a
+    bank given as tensors: the fused kernels take their taps as constants
+    of the launch, and a trace cannot read a tensor's values.
 
     The counterpart of the JAX package's ``_is_concrete`` (negated): where
     it holds, every fused route declines and the level runs per axis on
-    K3/K4.
+    K3/K4, which take the filters as tensors.
     """
+    if torch.compiler.is_dynamo_compiling() and any(isinstance(f, torch.Tensor) for f in filts):
+        return True
     return torch.is_grad_enabled() and any(grad_tracked(f) for f in filts)
 
 
@@ -268,11 +280,13 @@ def keep_host_taps(filts: Sequence[torch.Tensor]) -> None:
     call cost one device sync between them.
 
     Call it on tensors made for this call only (the taps are not read
-    again if the tensor changes in place).
+    again if the tensor changes in place).  A trace's stand-in (a backward
+    formula run by ``torch.compile``'s tracers) holds no taps: the ops read
+    theirs when the compiled program runs.
     """
     todo = [
         f for f in filts
-        if isinstance(f, torch.Tensor) and f.device.type == "cuda" and not hasattr(f, _HOST_TAPS)
+        if isinstance(f, torch.Tensor) and f.device.type == "cuda" and not traced(f) and not hasattr(f, _HOST_TAPS)
     ]
     if not todo:
         return
@@ -301,9 +315,9 @@ def static_taps(filt) -> list[float]:
     constants.
 
     Raises ``NotImplementedError`` for a filter tensor that autograd would
-    have to differentiate.
+    have to differentiate, or that dynamo traces (:func:`filters_traced`).
     """
-    if filters_need_grad(filt):
+    if filters_traced(filt):
         raise NotImplementedError(_NO_FILTER_GRAD)
     return host_taps(filt)
 

@@ -22,9 +22,14 @@ PyTorch 2.13 (``torch/_library/autograd.py``) the function built from it
 has an old-style ``forward(ctx, *args)`` and no ``setup_context``, which
 ``torch.func`` refuses.  So :func:`autograd` also builds a
 ``torch.autograd.Function`` from the same two functions, and :func:`call`
-takes it while a ``torch.func`` transform is active.  Both paths stay
-until ``torch.func`` takes ``register_autograd`` ops; then the Function
-and :func:`call` go.
+takes it while a ``torch.func`` transform is active, eagerly and under
+``torch.compile`` alike.  The Function is ``allow_in_graph``: dynamo
+writes one call of it into its graph (its arguments flattened by a tuple
+of ints, a constant of the graph), and AOTAutograd traces that call with
+the transforms, down to the op, which stays opaque.  So ``torch.compile``
+of ``torch.func.grad``, of grad of grad and of ``vmap`` of grad launches
+what eager ``torch.func`` launches.  Both paths stay until ``torch.func``
+takes ``register_autograd`` ops; then the Function and :func:`call` go.
 
 Every op is linear in its tensors (bilinear for ``tap_grad``, the taps'
 gradient), and every backward is a formula of ops, each with its own
@@ -41,7 +46,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.utils import _pytree
+from torch._subclasses.fake_tensor import FakeTensor
+from torch._subclasses.functional_tensor import FunctionalTensor
 
 __all__ = [
     "NAMESPACE",
@@ -53,6 +59,7 @@ __all__ = [
     "flatten_list",
     "no_batched",
     "split_batch",
+    "traced",
 ]
 
 #: The namespace of the port's ops.
@@ -62,29 +69,34 @@ NAMESPACE = "ptwt_tpu_torch"
 _FUNCTIONS: dict = {}
 
 
-def _tensor_list(tree) -> bool:
-    """A pytree leaf: anything but a tuple or a list of tensors."""
-    if isinstance(tree, tuple):
-        return False
-    if isinstance(tree, list):
-        return not tree or any(not isinstance(t, torch.Tensor) for t in tree)
-    return True
+def _layout(args) -> tuple:
+    """How :func:`call` flattens an op's arguments into a Function's
+    inputs: for each argument the length of its list of tensors, or -1
+    where it is anything else (a tensor, None, a number, a list of
+    numbers).  A tuple of ints, so ``torch.compile`` keeps it as a
+    constant of the graph."""
+    return tuple(
+        len(a) if isinstance(a, list) and a and all(isinstance(t, torch.Tensor) for t in a) else -1
+        for a in args
+    )
 
 
-def _optional_tensor_list(tree) -> bool:
-    if isinstance(tree, tuple):
-        return False
-    if isinstance(tree, list):
-        return any(t is not None and not isinstance(t, torch.Tensor) for t in tree)
-    return True
+def _flatten(args, layout) -> list:
+    flat = []
+    for a, n in zip(args, layout):
+        if n < 0:
+            flat.append(a)
+        else:
+            flat.extend([None] * n if a is None else a)
+    return flat
 
 
-class _Spec:
-    """How an op's arguments were flattened into a Function's inputs."""
-
-    def __init__(self, input_spec):
-        self.input_spec = input_spec
-        self.output_list = False
+def _unflatten(flat, layout) -> list:
+    args, i = [], 0
+    for n in layout:
+        args.append(flat[i] if n < 0 else list(flat[i : i + n]))
+        i += 1 if n < 0 else n
+    return args
 
 
 def autograd(op, setup_context: Callable, backward: Callable) -> None:
@@ -100,53 +112,53 @@ def autograd(op, setup_context: Callable, backward: Callable) -> None:
     tensors).
     """
     op.register_autograd(backward, setup_context=setup_context)
+    output_list = isinstance(op._opoverload._schema.returns[0].type, torch.ListType)
 
     class Function(torch.autograd.Function):
         generate_vmap_rule = True
 
         @staticmethod
         def forward(*flat):
-            spec = flat[-1]
-            out = op(*_pytree.tree_unflatten(list(flat[:-1]), spec.input_spec))
-            spec.output_list = isinstance(out, list)
-            return tuple(out) if spec.output_list else out
+            out = op(*_unflatten(flat[:-1], flat[-1]))
+            return tuple(out) if output_list else out
 
         @staticmethod
         def setup_context(ctx, inputs, output):
-            spec = inputs[-1]
-            ctx.ptwt_spec = spec
-            args = _pytree.tree_unflatten(list(inputs[:-1]), spec.input_spec)
-            setup_context(ctx, args, list(output) if spec.output_list else output)
+            layout = inputs[-1]
+            ctx.ptwt_layout = layout
+            setup_context(ctx, _unflatten(inputs[:-1], layout), list(output) if output_list else output)
 
         @staticmethod
         def backward(ctx, *cts):
-            spec = ctx.ptwt_spec
+            layout = ctx.ptwt_layout
             needs = ctx.needs_input_grad
             try:
-                ctx.needs_input_grad = _pytree.tree_unflatten(list(needs[:-1]), spec.input_spec)
-                grads = backward(ctx, list(cts) if spec.output_list else cts[0])
+                ctx.needs_input_grad = _unflatten(needs[:-1], layout)
+                grads = backward(ctx, list(cts) if output_list else cts[0])
             finally:
                 ctx.needs_input_grad = needs
             if not isinstance(grads, tuple):
                 grads = (grads,)
-            flat, _ = _pytree.tree_flatten(grads, _optional_tensor_list)
-            return (*flat, None)
+            return (*_flatten(grads, layout), None)
 
     Function.__name__ = f"{op._name}_function"
+    # Under torch.compile of a torch.func transform, dynamo writes the
+    # Function into its graph as one call, and AOTAutograd traces it with
+    # the transforms: its forward reaches the op, which stays opaque.
+    torch._dynamo.allow_in_graph(Function)
     _FUNCTIONS[op] = Function
 
 
 def call(op, *args):
     """Run ``op`` on ``args``: the op itself (eager autograd and
     ``torch.compile`` take its registered formula and fake), or, while a
-    ``torch.func`` transform is active, the Function :func:`autograd`
-    built for it."""
-    if torch.compiler.is_dynamo_compiling() or not torch._C._are_functorch_transforms_active():
+    ``torch.func`` transform is active, eager or compiled, the Function
+    :func:`autograd` built for it."""
+    if not torch._C._are_functorch_transforms_active():
         return op(*args)
-    flat, input_spec = _pytree.tree_flatten(args, _tensor_list)
-    spec = _Spec(input_spec)
-    out = _FUNCTIONS[op].apply(*flat, spec)
-    return list(out) if spec.output_list else out
+    layout = _layout(args)
+    out = _FUNCTIONS[op].apply(*_flatten(args, layout), layout)
+    return list(out) if isinstance(out, tuple) else out
 
 
 def constant_tensor(t):
@@ -159,6 +171,16 @@ def constant_tensor(t):
     while torch._C._functorch.is_functorch_wrapped_tensor(t):
         t = torch._C._functorch.get_unwrapped(t)
     return t
+
+
+def traced(t) -> bool:
+    """Whether ``t`` stands in for data in a trace: a fake or functional
+    tensor (under any ``torch.func`` wrappers), as ``torch.compile``'s
+    tracers run a backward formula on them.  A tensor made for such a
+    call is a constant of that trace and goes into no cache."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return isinstance(t, (FakeTensor, FunctionalTensor))
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,7 @@ from typing import Sequence
 
 import torch
 
+from ..utils._preprocess import host_constant
 from . import _kernels
 from ._library import NAMESPACE, autograd, call, flatten_batch, flatten_list, split_batch
 from ._pallas1d_multi import MAX_FUSED_DEPTH, MAX_TAPS, analysis_pyramid, synthesis_pyramid
@@ -424,7 +425,7 @@ def _run_mode(h: int, w: int, filt_len: int, depth: int, itemsize: int):
     return None
 
 
-@functools.lru_cache(maxsize=256)
+@host_constant(maxsize=256)  # the gates call it under torch.compile: a constant of the program
 def _pyramid2d_runs(h: int, w: int, filt_len: int, level: int, itemsize: int):
     """Depths of the K5 launches of a ``level``-level pyramid of ``[h, w]``
     images, fine to coarse, or None where the plan does not hold it.

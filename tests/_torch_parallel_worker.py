@@ -114,7 +114,17 @@ SUITES = {
         "td1-reflect-1x4": case("1d", (1, 4), (2, 256), "db3", 2, "reflect", seed=25),
         "td3-reflect-2x2": case("3d", (2, 2), (2, 24, 12, 10), "db2", 1, "reflect", seed=26),
     },
+    # a loss of some of the returned bands (the approximation, one detail
+    # band, the reconstruction) under torch.compile(fullgraph=True): one
+    # case for a world of 1 rank, one for a world of 4
+    "partial": {
+        "t2d-partial-1x1": case("2d", (1, 1), (2, 32, 32), "db2", 2, seed=27),
+        "t2d-partial-1x4": case("2d", (1, 4), (2, 32, 32), "db2", 2, seed=27),
+    },
 }
+
+#: The partial losses: which of a 2d case's outputs each one squares.
+PARTS = ("approx", "detail", "rec")
 
 
 def data(spec) -> np.ndarray:
@@ -306,6 +316,57 @@ def _compile_case(name, spec, mesh, torch, dist, par, arrays, meta):
     torch._dynamo.reset()
 
 
+def _part(coeffs, rec, part: str):
+    """The output a partial loss takes: ``cA``, level 1's diagonal detail,
+    or the reconstruction."""
+    return {"approx": coeffs[0], "detail": coeffs[-1][2], "rec": rec}[part]
+
+
+def _partial_case(name, spec, mesh, torch, dist, par, arrays, meta):
+    """Each partial loss (:data:`PARTS`: this rank's share, the sum of the
+    squares of one output's local chunk) eager and compiled
+    (``fullgraph=True``, ``aot_eager``), its gradient summed over the
+    ranks, and dynamo's graph and break counts; every other output leaves
+    the compiled function detached.  Then the open fault of a compiled
+    forward whose bands leave it needing grad, the loss taken outside:
+    its error, or None."""
+    fwd, inv = (getattr(par, f) for f in FUNCS[spec["kind"]])
+    x = torch.from_numpy(data(spec))
+    kw = dict(mesh=mesh, mode=spec["mode"])
+    from torch._dynamo.utils import counters
+
+    meta[name] = {}
+    for part in PARTS:
+        def step(t, part=part):
+            coeffs = fwd(t, spec["wavelet"], level=spec["level"], **kw)
+            rec = inv(coeffs, spec["wavelet"], **kw)
+            loss = (_part(coeffs, rec, part).to_local() ** 2).sum()
+            return [b.detach() for b in leaves(coeffs)], rec.detach(), loss
+
+        torch._dynamo.reset()
+        counters.clear()
+        compiled = torch.compile(step, fullgraph=True, backend="aot_eager", dynamic=False)
+        for tag, fn in (("eager", step), ("compiled", compiled)):
+            xin = x.clone().requires_grad_()
+            _, _, loss = fn(xin)
+            loss.backward()
+            dist.all_reduce(xin.grad)  # each element's gradient lives on the rank that holds it
+            arrays[f"{name}/{part}/{tag}/grad"] = xin.grad.numpy()
+        meta[name][part] = {"graph_breaks": sum(counters["graph_break"].values()),
+                            "graphs": counters["stats"]["unique_graphs"]}
+    # the open fault: the compiled forward returns its bands needing grad
+    # and the loss of the approximation's local chunk is taken outside
+    torch._dynamo.reset()
+    compiled = torch.compile(lambda t: fwd(t, spec["wavelet"], level=spec["level"], **kw), fullgraph=True,
+                             backend="aot_eager", dynamic=False)
+    try:
+        compiled(x.clone().requires_grad_())[0].to_local().square().sum().backward()
+        meta[name]["outside"] = None
+    except Exception as exc:  # the fault's error, for the parent to pin
+        meta[name]["outside"] = f"{type(exc).__name__}: {exc}"
+    torch._dynamo.reset()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser()
     for flag in ("--rank", "--world"):
@@ -338,7 +399,7 @@ def main() -> None:
         if isinstance(mesh, ValueError):
             meta[name] = {"error": str(mesh)}
             continue
-        run = _compile_case if args.suite == "compile" else _run_case
+        run = {"compile": _compile_case, "partial": _partial_case}.get(args.suite, _run_case)
         run(name, spec, mesh, torch, dist, par, arrays, meta)
     assert "jax" not in sys.modules and "ptwt_tpu" not in sys.modules, "a rank imported JAX"
     meta["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ptwt_tpu", "ptwt_tpu_torch"))

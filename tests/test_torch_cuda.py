@@ -1812,3 +1812,78 @@ def test_cuda_reduce_overhead_headline_has_no_cudagraph_skip(cuda_device):
     torch.cuda.synchronize()
     assert counters["inductor"].get("cudagraph_skips", 0) == 0
     assert _rel(got, want) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# torch.compile over torch.func on the card: CUDA fake tensors in the trace
+# (chip_smoke.py's phase 23 runs full width)
+# ---------------------------------------------------------------------------
+
+
+def _cubed(coeffs) -> torch.Tensor:
+    from torch.utils._pytree import tree_leaves
+
+    return sum((c**3).sum() for c in tree_leaves(coeffs))
+
+
+def _compiled_like_eager(program, *args, backend="aot_eager"):
+    """``program`` eager and compiled (``fullgraph=True``, one graph, no
+    break): the compiled values, each leaf within 1e-12 of eager's largest
+    entry (float64), and the same launches."""
+    from torch._dynamo.utils import counters
+    from torch.utils._pytree import tree_leaves
+
+    want, eager = _counted(program, *args)
+    torch._dynamo.reset()
+    counters.clear()
+    got, launches = _counted(torch.compile(program, fullgraph=True, dynamic=False, backend=backend), *args)
+    assert not counters["graph_break"] and counters["stats"]["unique_graphs"] == 1
+    assert launches == eager and eager
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert float((g - w).abs().max()) <= 1e-12 * max(1.0, float(w.abs().max()))
+    return got, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["aot_eager", "inductor"])
+def test_cuda_compiled_grad_of_grad(cuda_device, backend):
+    """``torch.compile(torch.func.grad(|torch.func.grad(L)|^2))`` on the
+    periodic headline's route at a small size (K1-K4), float64: eager
+    ``torch.func``'s values and launches, and the CPU's."""
+    x = torch.randn(4, 96, 128, dtype=torch.float64, generator=torch.Generator().manual_seed(5))
+
+    def loss(t):
+        return _cubed(tptwt.wavedec2(t, "db4", mode="periodic", level=3))
+
+    program = torch.func.grad(lambda t: (torch.func.grad(loss)(t) ** 2).sum())
+    got, launches = _compiled_like_eager(program, x.to(cuda_device), backend=backend)
+    assert {"K1", "K2", "K3", "K4"} <= set(launches)
+    _close_f64([got], [program(x)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pure", "mixed"])
+def test_cuda_compiled_learnable_second_derivatives(cuda_device, kind):
+    """A learnable bank's hypergradient compiled on the card, float64:
+    KT, and KT's VJP on K3/K4 (``pure``), whose backward formula reads the
+    cotangent's taps only when the compiled program runs; eager
+    ``torch.func``'s values and launches, and the CPU's."""
+    x = torch.randn(2, 40, 36, dtype=torch.float64, generator=torch.Generator().manual_seed(6))
+    noise = torch.Generator().manual_seed(7)
+    bank = [torch.tensor(f) + 0.01 * torch.randn(len(f), dtype=torch.float64, generator=noise)
+            for f in get_filter_arrays("db3", flip=False, dtype=torch.float64)]
+
+    def loss(fs, t):
+        coeffs = tptwt.wavedec2(t, tuple(fs), mode="reflect", level=2)
+        return _cubed((coeffs, tptwt.waverec2(coeffs, tuple(fs), mode="reflect")))
+
+    grad = torch.func.grad
+
+    def program_of(t):
+        if kind == "pure":
+            return grad(lambda fs: sum((g**2).sum() for g in grad(loss)(fs, t)))
+        return grad(lambda fs: (grad(loss, argnums=1)(fs, t) ** 2).sum())
+
+    got, launches = _compiled_like_eager(program_of(x.to(cuda_device)), [f.to(cuda_device) for f in bank])
+    assert set(launches) == {"K3", "K4", "KT"}
+    _close_f64(got, program_of(x)(bank))

@@ -16,6 +16,17 @@ gradients against eager's at 1e-12, against ``jax.jit`` of the serial
 JAX package's tiled transforms), the gradients against ``jax.jit`` of
 ``jax.grad`` at 1e-10, and one case against ``jax.jit`` of
 ``ptwt_tpu.parallel`` itself on 4 of the 8 virtual CPU devices.
+
+Beside that world, two more (suite ``partial``: one rank on the mesh
+``(1, 1)``, four on ``(1, 4)``) take losses of some of the returned
+outputs, the approximation, one detail band or the reconstruction alone,
+eager and compiled, each against ``jax.grad`` of the same loss over
+``jax.jit`` of ``ptwt_tpu.parallel`` on that mesh shape (1e-10).  The
+compiled function returns the outputs the loss does not take detached:
+AOTAutograd (torch 2.13) cannot run a backward that leaves a returned
+``DTensor`` needing grad without a cotangent (``README.md``).  That open
+fault is pinned as it stands: the compiled forward returning its bands
+needing grad, the loss of the approximation taken outside, raises.
 """
 
 from __future__ import annotations
@@ -51,15 +62,30 @@ _SERIAL = {
 }
 
 
+#: The partial-loss cases by world size.
+PARTIAL = {1: "t2d-partial-1x1", 4: "t2d-partial-1x4"}
+
+
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    """Rank 0's results; the JAX references are computed while the ranks run."""
-    with ThreadPoolExecutor(1) as pool:
+def worlds(tmp_path_factory):
+    """Rank 0's results of the ``compile`` world and of both ``partial``
+    worlds (by world size); the JAX references are computed while the
+    ranks run."""
+    with ThreadPoolExecutor(3) as pool:
         ranks = pool.submit(worker.launch, "compile", 4, tmp_path_factory.mktemp("compile4"), WORLD_TIMEOUT)
+        partial = {n: pool.submit(worker.launch, "partial", n, tmp_path_factory.mktemp(f"partial{n}"), WORLD_TIMEOUT)
+                   for n in PARTIAL}
         for spec in SUITE.values():
             jitted(spec)
         jax_tiled()
-        return ranks.result()
+        for name in PARTIAL.values():
+            jax_partial(name)
+        return ranks.result(), {n: f.result() for n, f in partial.items()}
+
+
+@pytest.fixture(scope="module")
+def world(worlds):
+    return worlds[0]
 
 
 def _results(world, name: str, tag: str) -> tuple[list, np.ndarray, np.ndarray]:
@@ -178,3 +204,54 @@ def test_compiled_tiled_placements(world, name):
 
 def test_ranks_import_no_jax(world):
     assert world["modules"] and not [m for m in world["modules"] if not m.startswith("ptwt_tpu_torch")]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_partial(name: str) -> dict:
+    """``jax.jit(jax.grad(...))`` of each partial loss (the sum of one
+    output's squares) over ``ptwt_tpu.parallel``'s round trip, on the
+    case's mesh shape of the virtual CPU devices."""
+    spec = worker.SUITES["partial"][name]
+    mesh = make_wavelet_mesh(n_data=spec["mesh"][0], n_spatial=spec["mesh"][1])
+    kw = dict(mesh=mesh, mode=spec["mode"])
+
+    def loss(part):
+        def fn(z):
+            coeffs = tiled_wavedec2(z, spec["wavelet"], level=spec["level"], **kw)
+            rec = tiled_waverec2(coeffs, spec["wavelet"], **kw)
+            return jnp.sum(worker._part(coeffs, rec, part) ** 2)
+
+        return fn
+
+    x = jnp.asarray(worker.data(spec))
+    return {part: np.asarray(jax.jit(jax.grad(loss(part)))(x)) for part in worker.PARTS}
+
+
+@pytest.mark.parametrize("part", worker.PARTS)
+@pytest.mark.parametrize("ranks", list(PARTIAL))
+def test_compiled_tiled_partial_loss_matches_jax_grad(worlds, ranks, part):
+    """A loss of some of the outputs (the approximation, one detail band,
+    the reconstruction) on one and on four ranks: compiled in one graph
+    with no break, its gradient equal to eager's (1e-12) and to
+    ``jax.grad`` over ``jax.jit`` of ``ptwt_tpu.parallel`` (1e-10)."""
+    name = PARTIAL[ranks]
+    result = worlds[1][ranks]
+    assert result[name][part] == {"graph_breaks": 0, "graphs": 1}
+    got, eager = (result["arrays"][f"{name}/{part}/{tag}/grad"] for tag in ("compiled", "eager"))
+    np.testing.assert_allclose(got, eager, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, jax_partial(name)[part], atol=GRAD_ATOL, rtol=0)
+    assert np.abs(got).max() > 0
+
+
+@pytest.mark.parametrize("ranks", list(PARTIAL))
+def test_compiled_tiled_bands_needing_grad_fault_stands(worlds, ranks):
+    """The open fault, as it stands: ``tiled_wavedec2`` compiled
+    (``fullgraph=True``, ``aot_eager``) returns its bands needing grad, and
+    a backward from ``c[0].to_local().square().sum()`` taken outside the
+    compiled function raises in AOTAutograd, which gets a plain tensor
+    where a ``DTensor`` tangent belongs (torch 2.13).  When a torch release
+    mends it this test fails: then clear the fault in ``ROADMAP.md`` and
+    check this gradient against ``jax.grad`` as the partial losses do."""
+    name = PARTIAL[ranks]
+    error = worlds[1][ranks][name]["outside"]
+    assert error is not None and "Expected a DTensor tangent but got a plain Tensor" in error, error
