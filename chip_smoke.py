@@ -331,6 +331,36 @@ Phases, each raising (non-zero exit) on failure:
    the profiler's busy ms, CUDA-event ms, wall ms and busy share, beside
    phase 21's eager autograd step of the same row, or, for (a), (d) and
    the pure term, eager ``torch.func``'s.
+24. seeded draws across every kernel's routing gate (``chip_smoke.py --fuzz
+   N SEED``, a process of its own; ``main`` runs ``FUZZ_DRAWS`` draws of
+   ``FUZZ_SEED``, so every run draws the same ones): the entry points in
+   turn (``FUZZ_KINDS``: ``wavedec``, ``wavedec2`` with drawn ``axes``,
+   ``wavedec3``, ``fswavedec2``/``3``, ``swt``, ``MatrixWavedec`` past 2048
+   samples, a ``WaveletPacket`` expansion, and the tiled t2d, td1 and td3
+   on one rank against the serial port), a drawn bank from haar to coif17,
+   a user's odd 7-tap bank and a user's 130-tap bank past the kernels' tap
+   limit, every mode, float32 and float64, up to 2^24 samples a draw, most
+   axes at the port's gates (``FUZZ_EDGES``: 2048, 2^16 and twice each;
+   K1/K2's reach for the drawn bank; K5's switch from whole images to
+   tiles; K9's multiples of 128 and 256), levels up to the maximum, some
+   2d draws with the K9 opt-in, some with a learnable bank (KT): each
+   draw's kernel route against its plain route on the card, (a) every
+   band within 2e-5 of ``max(1, |band|)`` (float64 1e-10), (b) the round
+   trip within 1e-4 (float64 1e-10; the matrix transforms and packets
+   1e-8; the odd bank, which does not reconstruct, against the plain
+   route's), (c) the gradient of the sum of the squared coefficients, the
+   input's and a learnable bank's, within 1e-4 of its largest entry
+   (float64 1e-10), (d) the launches by kernel; one line per draw, and a
+   ``{"fuzz": ...}`` line with the seed, the count, the seconds, the worst
+   errors and the draws that launched each kernel.  Any draw over a limit
+   or raising, or one of K1-K9 and KT launched by no draw, fails it.
+
+Phases 23 and 24 start beside phase 22 (:class:`Beside`): phase 24's draws
+and phase 23's compiles and checks run while phase 22's ranks compile;
+phase 22 times its rows once phase 24 has ended and phase 23 holds, and
+phase 23 times its rows after phase 22 has ended, so that no device or
+wall time is taken while another process works (the compile seconds of
+phases 22 and 23 are taken side by side).
 
 Phase 5 also times K5a/K5b beside the per-level K1/K2 route at both 2d
 configurations (bound: the bytes of the plan's runs, each run's input read
@@ -381,7 +411,8 @@ The last lines are phase 16's ``{"packets_cwt": ...}`` line, phase 17's
 ``{"learnable": ...}`` line, phase 18's ``{"tiled": ...}`` line, phase 19's
 ``{"precision": ...}`` line, phase 20's ``{"compile": ...}`` line, phase
 21's ``{"second_order": ...}`` line, phase 22's ``{"tiled_compile": ...}``
-line, phase 23's ``{"compiled_func": ...}`` line, a
+line, phase 23's ``{"compiled_func": ...}`` line, phase 24's
+``{"fuzz": ...}`` line, a
 ``{"kernels": [...]}`` JSON line (fifteen kernels: KT, the taps'
 gradient, last; K3, K4, K7a and K7b with phase 18's ``tiled_launches``,
 each with ``vjp_*`` keys; K1 and K2 carry their level-4 times and the
@@ -404,7 +435,9 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1858,6 +1891,64 @@ def times_process(*args: str, timeout: int = 600) -> dict:
     *lines, last = proc.stdout.strip().splitlines()
     log("\n".join(lines))
     return json.loads(last)
+
+
+class Beside:
+    """``chip_smoke.py ARGS`` in a process of its own, started beside a later
+    phase's compiles: its output goes to files under the git-ignored
+    ``build/``, and its file ``held`` appears once it ends, or, given
+    ``hold``, once it waits (``--hold HELD GO``) for :meth:`result` to let
+    it time its rows alone.  A phase that times its own rows first waits
+    for ``held``."""
+
+    def __init__(self, *args: str, timeout: int, hold: bool = False):
+        self.flag = " ".join(args)
+        self.dir = tiled_store("beside")
+        self.dir.mkdir()
+        self.held, self.go = self.dir / "held", self.dir / "go"
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), *args]
+        if hold:
+            cmd += ["--hold", str(self.held), str(self.go)]
+        with open(self.dir / "out", "w") as out, open(self.dir / "err", "w") as err:
+            self.proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True)
+        self.timed_out = False
+        self.watch = threading.Thread(target=self._watch, args=(timeout,), daemon=True)
+        self.watch.start()
+
+    def _watch(self, timeout: int) -> None:
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.timed_out = True
+            self.stop()
+        self.held.touch()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self) -> dict:
+        """Let the process time its rows, wait for it, log its lines and
+        return its last line's JSON; raise if it failed."""
+        self.go.touch()
+        self.watch.join()
+        out, err = (self.dir / "out").read_text(), (self.dir / "err").read_text()
+        if self.proc.returncode != 0 or self.timed_out:
+            raise RuntimeError(f"{self.flag} failed (timed out: {self.timed_out}):\n{out[-2000:]}\n{err[-4000:]}")
+        *lines, last = out.strip().splitlines()
+        log("\n".join(lines))
+        return json.loads(last)
+
+
+def hold_here() -> None:
+    """Under ``--hold HELD GO``: write ``HELD`` and wait for ``GO``."""
+    if "--hold" not in sys.argv:
+        return
+    i = sys.argv.index("--hold")
+    held, go = Path(sys.argv[i + 1]), Path(sys.argv[i + 2])
+    held.touch()
+    tiled_wait(go)
 
 
 def turns(parent: Path, flag: str) -> dict:
@@ -5001,17 +5092,38 @@ def prec_gemms(rows: list) -> list:
 PREC_HAND = ("axis_kernel", "tile_kernel", "pyramid", "mxu2d", "tap_grad_kernel")
 
 
+#: Profiler windows :func:`complete_profile` takes before it fails: on an
+#: H100 a window now and then came back short of device records (phase 23
+#: once held 10 of an eager ``torch.func`` step's 12 launches, which the
+#: wrappers had counted and the step's output had shown all the same).
+PROFILE_TRIES = 3
+
+
+def complete_profile(run, label: str, launches: int, complete: bool = True) -> tuple:
+    """:func:`profile` of ``run`` and the hand-written kernel launches its
+    window holds, which must be all ``launches`` where ``complete``: a
+    window short of some is taken again, up to :data:`PROFILE_TRIES`
+    windows, and one that holds more fails at once (no lost record adds
+    one)."""
+    for _ in range(PROFILE_TRIES):
+        rows = profile(run, label, top=6)
+        seen = sum(count for _, count, key in rows if any(s in key for s in PREC_HAND))
+        log(f"  {label}: the profile holds {seen} of {launches} kernel launches")
+        if not complete or seen >= launches:
+            break
+    if complete and seen != launches:
+        raise AssertionError(f"{label}: the profile holds {seen} of {launches} kernel launches")
+    return rows, seen
+
+
 def prec_timing(run, label: str, launches: int) -> dict:
     """Device ms (CUDA events; the profiler's busy ms), wall ms, busy share
     and the GEMM kernels of one round trip, from a profiler window that
     must hold every one of its ``launches`` hand-written kernel launches."""
-    rows = profile(run, label, top=6)
+    rows, _ = complete_profile(run, label, launches)
     busy = sum(r[0] for r in rows)
     wall = wall_ms(run)
     gemms = prec_gemms(rows)
-    seen = sum(count for _, count, key in rows if any(s in key for s in PREC_HAND))
-    if seen != launches:
-        raise AssertionError(f"{label}: the profile holds {seen} of {launches} kernel launches")
     return {
         "events_ms": time_ms(run),
         "device_ms": busy,
@@ -5384,13 +5496,10 @@ def compile_learnable() -> dict:
 def compile_timing(run, label: str, launches: int, complete: bool = True) -> dict:
     """Device ms (the profiler's busy ms; CUDA events), wall ms and busy
     share of one call, from a profiler window that must hold every one of
-    its ``launches`` hand-written kernel launches where ``complete``."""
-    rows = profile(run, label, top=6)
+    its ``launches`` hand-written kernel launches where ``complete``
+    (:func:`complete_profile`)."""
+    rows, seen = complete_profile(run, label, launches, complete)
     busy = sum(r[0] for r in rows)
-    seen = sum(count for _, count, key in rows if any(s in key for s in PREC_HAND))
-    log(f"  {label}: the profile holds {seen} of {launches} kernel launches")
-    if complete and seen != launches:
-        raise AssertionError(f"{label}: the profile holds {seen} of {launches} kernel launches")
     wall = wall_ms(run)
     return {"device_ms": busy, "events_ms": time_ms(run), "wall_ms": wall, "busy_share": busy / wall,
             "profiled_launches": seen, "top": [[ms, count, key[:90]] for ms, count, key in rows[:4]]}
@@ -5916,13 +6025,14 @@ def tiled_reduce_overhead(step, x: torch.Tensor, want) -> tuple:
     return row, times
 
 
-def tiled_compile_one_rank(ready: "Path | None" = None, go: "Path | None" = None) -> dict:
+def tiled_compile_one_rank(ready: "Path | None" = None, go: "Path | None" = None, after: tuple = ()) -> dict:
     """Phase 22 (a): every ``TILED_FULL`` row on one NCCL rank, no
     collective, ``aot_eager`` (t2d periodization also inductor and
     reduce-overhead); one float64 row per kind against the serial float64
     plain path; then the rows' times, after the file ``ready`` appears (the
-    four ranks of (b) compile meanwhile and wait), and ``go`` written
-    after them (the ranks then time theirs)."""
+    four ranks of (b) compile meanwhile and wait) and each file of
+    ``after`` (the ``held`` of each :class:`Beside` process), and ``go``
+    written after them (the ranks then time theirs)."""
     out, times = {}, []
     with tiled_world("nccl", 0, 1, tiled_store("compile")), no_p2p():
         for i, (name, kind, shape, wavelet, level, mode, kw) in enumerate(TILED_FULL):
@@ -5959,8 +6069,8 @@ def tiled_compile_one_rank(ready: "Path | None" = None, go: "Path | None" = None
                                  max_abs(rec.full_tensor(), want_rec), TOL[torch.float64]),
             }
             del x, bands, rec, want, want_rec
-        if ready is not None:
-            tiled_wait(ready)
+        for path in (*([ready] if ready is not None else []), *after):
+            tiled_wait(path)
         log("  (a) times, one rank (the four ranks of (b) wait)")
         for row_times in times:
             row_times()
@@ -6038,15 +6148,19 @@ def tiled_compile_rank(rank: int, world: int, store: Path, outdir: Path, backend
 
 
 def tiled_compile_times() -> dict:
-    """``--tiled-compile-times`` (phase 22, a process of its own): (a) one
-    NCCL rank in this process and (b) four gloo ranks sharing the card,
-    compiling side by side; (a) times its rows while (b)'s ranks wait,
-    then (b) times its rows."""
+    """``--tiled-compile-times [--after HELD[:HELD...]]`` (phase 22, a
+    process of its own): (a) one NCCL rank in this process and (b) four
+    gloo ranks sharing the card, compiling side by side (in ``main`` beside
+    phases 23 and 24 too); (a) times its rows while (b)'s ranks wait, then
+    (b) times its rows."""
     torch._dynamo.config.recompile_limit = 64  # every row's step is kept until its times
     log("  (b) four ranks sharing the card, gloo, the ring's slabs through host memory: started beside (a)")
+    # --after HELD[:HELD...]: processes beside this one, which (a) lets end
+    # or hold before it times anything
+    after = tuple(Path(p) for p in (_arg("--after") or "").split(os.pathsep) if p)
     procs, outdir, deadline = tiled_spawn(4, "gloo", "--tiled-compile-rank", "--handshake")
     try:
-        out = {"one_rank": tiled_compile_one_rank(outdir / "ready", outdir / "go")}
+        out = {"one_rank": tiled_compile_one_rank(outdir / "ready", outdir / "go", after)}
     except BaseException:
         for p in procs:
             p.kill()
@@ -6065,9 +6179,10 @@ FUNC_INDUCTOR = "2d periodic grad of grad"
 #: Compiled against eager ``torch.func`` on the card, over the result's
 #: largest entry; against the float64 plain path: phase 21's limit.
 FUNC_TOL = COMPILE_TOL
-#: Seconds phase 23's process may take (some 160 s alone on an H100; the
-#: script's limit is 1200).
-FUNC_TIMEOUT_S = 300
+#: Seconds phase 23's process may take from its start beside phase 22 (some
+#: 160 s alone on an H100, phase 22 some 200-260 s; the script's limit is
+#: 1200).
+FUNC_TIMEOUT_S = 900
 #: Phase 23's rows whose step phase 21 times under eager autograd (for
 #: the learnable bank: the mixed term), by phase 21's name.
 FUNC_PHASE21 = {**{f"{r[0]} grad of grad": r[0] for r in SECOND_ROWS}, f"{SECOND_LEARN[0]} mixed": SECOND_LEARN[0]}
@@ -6114,20 +6229,32 @@ def func_double(args):
     return tree_map(lambda t: t.double() if isinstance(t, torch.Tensor) else t, args)
 
 
-def func_row(name: str, make, backend: str) -> dict:
+def own_code(fn, tag: str):
+    """``fn`` behind a function with a code object of its own (named after
+    ``tag``): dynamo keeps one cache per code object, and the rows'
+    programs share ``torch.func``'s wrappers, so that a row kept compiled
+    beside the others would have its guards checked after theirs."""
+    def run(*args):
+        return fn(*args)
+
+    code = run.__code__.replace(co_name=re.sub(r"\W", "_", tag))
+    return types.FunctionType(code, run.__globals__, code.co_name, None, run.__closure__)
+
+
+def func_row(name: str, make, backend: str):
     """One row: the program eager (``torch.func`` on the kernel path) and
     under ``torch.compile(fullgraph=True, backend=backend)``: one graph,
     no break, the same launches per kernel, within :data:`FUNC_TOL` of
-    eager and of the float64 plain path; compile seconds and the compiled
-    program's times, and eager ``torch.func``'s where phase 21 times no
-    eager step of the row."""
+    eager and of the float64 plain path, and compile seconds; returns the
+    row and a function that adds the compiled program's times to it, and
+    eager ``torch.func``'s where phase 21 times no eager step of the row
+    (the compiled program is kept until then)."""
     from torch._dynamo.utils import counters
 
     program, args = make()
     want, eager = counted(program, *args)
-    torch._dynamo.reset()
     counters.clear()
-    compiled = torch.compile(program, fullgraph=True, dynamic=False, backend=backend)
+    compiled = torch.compile(own_code(program, f"{name} {backend}"), fullgraph=True, dynamic=False, backend=backend)
     t0 = time.perf_counter()
     compiled(*args)
     torch.cuda.synchronize()
@@ -6152,30 +6279,375 @@ def func_row(name: str, make, backend: str) -> dict:
     torch.cuda.empty_cache()
     total = sum(launches.values())
     row = {"backend": backend, "compile_s": compile_s, "graphs": graphs, "graph_breaks": breaks,
-           "launches": launches, "err_vs_eager": err, "err_vs_plain_f64": plain_err,
-           "compiled": compile_timing(lambda: compiled(*args), f"{name} compiled ({backend})", total)}
-    if name not in FUNC_PHASE21:
-        row["eager_func"] = compile_timing(lambda: program(*args), f"{name} eager torch.func", total)
-    for tag in [t for t in ("compiled", "eager_func") if t in row]:
-        t = row[tag]
-        log(f"  {name} {tag}: device {t['device_ms']!r} ms, events {t['events_ms']!r} ms, wall {t['wall_ms']!r} ms, "
-            f"busy {t['busy_share']!r}")
-    del compiled, program, args
-    torch._dynamo.reset()
-    torch.cuda.empty_cache()
-    return row
+           "launches": launches, "err_vs_eager": err, "err_vs_plain_f64": plain_err}
+
+    def times() -> dict:
+        row["compiled"] = compile_timing(lambda: compiled(*args), f"{name} compiled ({backend})", total)
+        if name not in FUNC_PHASE21:
+            row["eager_func"] = compile_timing(lambda: program(*args), f"{name} eager torch.func", total)
+        for tag in [t for t in ("compiled", "eager_func") if t in row]:
+            t = row[tag]
+            log(f"  {name} {tag}: device {t['device_ms']!r} ms, events {t['events_ms']!r} ms, "
+                f"wall {t['wall_ms']!r} ms, busy {t['busy_share']!r}")
+        return row
+
+    return row, times
 
 
 def compiled_func_times() -> dict:
-    """``--compiled-func-times`` (phase 23, a process of its own): every
-    :func:`func_rows` row compiled with ``aot_eager``, then
-    :data:`FUNC_INDUCTOR` with inductor."""
+    """``--compiled-func-times [--hold HELD GO]`` (phase 23, a process of its
+    own): every :func:`func_rows` row compiled with ``aot_eager``, then
+    :data:`FUNC_INDUCTOR` with inductor, each checked; then (after ``GO``
+    under ``--hold``: ``main`` compiles them beside phase 22) their times,
+    with no compile among them."""
+    from torch._dynamo.utils import counters
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = func_rows()
-    out = {name: func_row(name, make, "aot_eager") for name, make in rows}
-    out[f"{FUNC_INDUCTOR} inductor"] = func_row(FUNC_INDUCTOR, dict(rows)[FUNC_INDUCTOR], "inductor")
+    todo = [(name, name, make, "aot_eager") for name, make in rows]
+    todo.append((f"{FUNC_INDUCTOR} inductor", FUNC_INDUCTOR, dict(rows)[FUNC_INDUCTOR], "inductor"))
+    prepared = {key: func_row(name, make, backend)[1] for key, name, make, backend in todo}
+    torch.cuda.empty_cache()
+    hold_here()
+    counters.clear()
+    out = {key: times() for key, times in prepared.items()}
+    compiles = counters["stats"]["unique_graphs"]
+    if compiles:
+        raise AssertionError(f"phase 23's times compiled {compiles} graph(s) again")
+    torch._dynamo.reset()
     return {"rows": out}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: seeded draws across every kernel's routing gate
+# ---------------------------------------------------------------------------
+
+#: The draws ``main`` runs and their seed, so every run draws the same ones.
+FUZZ_DRAWS = 250
+FUZZ_SEED = 24
+#: Most samples of one draw (the headline's 64 MB in float32).
+FUZZ_SAMPLES = 1 << 24
+#: Seconds the phase's process may take in ``main`` (beside phase 22).
+FUZZ_TIMEOUT_S = 400
+#: The entry points in turn: every 18 draws five 1d and four 2d draws,
+#: three tiled ones on one rank, and one each of the rest.
+FUZZ_KINDS = ("1d", "2d", "t2d", "1d", "2d", "3d", "td1", "1d", "2d", "fs2", "td3", "mat1d", "1d", "2d", "fs3",
+              "swt", "wp", "1d")
+#: The registry's banks from haar to coif17 (102 taps), a user's odd
+#: 7-tap bank and a user's 130-tap bank, past ``PTWT_MAX_TAPS``.
+FUZZ_WAVELETS = ("haar", "db2", "db5", "sym4", "coif2", "bior2.2", "rbio3.1", "db20", "coif17", "odd", "long")
+#: The matrix transforms' boundary wavelets need an orthogonal bank.
+FUZZ_ORTHOGONAL = ("haar", "db2", "db5", "sym4", "coif2")
+#: Axis lengths at the port's gates: the dense operators' and the
+#: boundary operators' 2048 (``MATMUL_MAX_LENGTH``, ``_LONG_CUTOFF``), the
+#: long lanes' ``FLAT_MIN_LANES`` = 2^16 and twice each, and 2^20 + 1,
+#: whose first fused run of four levels leaves a lane past 2^16.
+FUZZ_EDGES = (2047, 2048, 2049, 4095, 4096, 4098, 65535, 65536, 65537, 131071, 131072, 131074, 65552,
+              1048577, 2097152)
+#: The kinds a custom or a learnable bank goes through.
+FUZZ_BANK_KINDS = ("1d", "2d", "3d", "fs2", "fs3")
+#: The tiled transforms on one rank, and the serial transforms they are held to.
+TILED_KINDS = {"t2d": "2d", "td1": "1d", "td3": "3d"}
+
+
+def lattice_bank(taps: int, seed: int) -> tuple:
+    """A user's orthogonal bank of ``taps`` (even) taps, ``(dec_lo, dec_hi,
+    rec_lo, rec_hi)`` as numpy: the paraunitary lattice of ``taps / 2``
+    random rotations with delays between them, ``sum(rec_lo) = sqrt(2)``,
+    so that the round trip is exact in every mode."""
+    rs = np.random.RandomState(seed)
+    angles = rs.uniform(-np.pi, np.pi, taps // 2)
+    angles[-1] = np.pi / 4 - angles[:-1].sum()
+    c0, s0 = np.cos(angles[0]), np.sin(angles[0])
+    rows = [[np.array([c0]), np.array([s0])], [np.array([-s0]), np.array([c0])]]
+    for theta in angles[1:]:
+        c, s = np.cos(theta), np.sin(theta)
+        top = [np.append(p, 0.0) for p in rows[0]]
+        low = [np.insert(p, 0, 0.0) for p in rows[1]]
+        rows = [[c * a + s * b for a, b in zip(top, low)], [c * b - s * a for a, b in zip(top, low)]]
+    rec_lo = np.empty(taps)
+    rec_lo[0::2], rec_lo[1::2] = rows[0]
+    rec_hi = np.array([(-1) ** k * rec_lo[taps - 1 - k] for k in range(taps)])
+    return rec_lo[::-1].copy(), rec_hi[::-1].copy(), rec_lo, rec_hi
+
+
+def fuzz_bank(name: str):
+    """A drawn bank: a registry name, or a user's bank as numpy arrays."""
+    if name == "odd":
+        return odd_bank()
+    if name == "long":
+        return lattice_bank(130, SEED + 24)
+    return name
+
+
+def fuzz_taps(name: str) -> int:
+    bank = fuzz_bank(name)
+    return len(bank[0]) if isinstance(bank, tuple) else ptwt.RegistryWavelet(bank).dec_len
+
+
+def fuzz_k5_edges(filt_len: int, level: int, itemsize: int) -> list:
+    """The square sides, multiples of ``2^level``, on either side of K5's
+    switch from whole images to tiles (``_run_mode``) for this bank."""
+    if filt_len % 2 or filt_len > _kernels.MAX_TAPS:
+        return []
+    step = 1 << level
+    depth = min(level, _pallas.MAX_PYRAMID2D_DEPTH)
+    for k in range(1, 4096 // step + 1):
+        mode = _pallas._run_mode(k * step, k * step, filt_len, depth, itemsize)
+        if mode is None or not mode[0]:
+            return [max(step, (k - 1) * step), k * step]
+    return []
+
+
+def fuzz_spec(rng: np.random.RandomState, idx: int) -> dict:
+    """Draw one configuration: the entry points, bank, mode, dtype, shape
+    (about 70% of the axes from the gates' edges), level, the K9 opt-in and
+    a learnable bank."""
+    kind = FUZZ_KINDS[idx % len(FUZZ_KINDS)]
+    wavelet = FUZZ_WAVELETS[rng.randint(len(FUZZ_WAVELETS))]
+    if kind not in FUZZ_BANK_KINDS and wavelet in ("odd", "long"):
+        wavelet = FUZZ_WAVELETS[rng.randint(len(FUZZ_WAVELETS) - 2)]
+    if kind == "mat1d":
+        wavelet = FUZZ_ORTHOGONAL[rng.randint(len(FUZZ_ORTHOGONAL))]
+    # a third of the 1d and 2d draws in periodization, most on halving
+    # chains: the pyramids' gates (K5, K6)
+    mode = MODES[rng.randint(len(MODES))]
+    if kind in ("1d", "2d") and rng.rand() < 0.25:
+        mode = "periodization"
+    if kind in ("mat1d", "swt"):
+        mode = "zero"  # neither takes a mode
+    if kind in ("fs2", "fs3") and mode == "periodization":
+        mode = "reflect"  # fswaverec* take no mode: a periodization chain does not come back
+    dtype = torch.float64 if rng.rand() < 0.3 else torch.float32
+    filt_len = fuzz_taps(wavelet)
+    ndim = {"1d": 1, "td1": 1, "swt": 1, "mat1d": 1, "wp": 1, "3d": 3, "fs3": 3, "td3": 3}.get(kind, 2)
+    opt_in = kind == "2d" and dtype == torch.float32 and wavelet not in ("odd", "long") and rng.rand() < 0.3
+    halving = rng.rand() < (0.8 if mode == "periodization" else 0.4)
+    level = int(rng.randint(1, 13))
+    edges = list(FUZZ_EDGES)
+    if ndim > 1:  # K1/K2's reach for this bank, K5's switch to tiles, K9's multiples
+        reach = std_pad(filt_len) // 2 + 2
+        edges = [e for e in edges if e < 1 << 17] + [2 * reach, 2 * reach + 1, 2 * reach + 2, 127, 128, 129, 255,
+                                                     256, 257, 384, 512, 768]
+        edges += fuzz_k5_edges(filt_len, min(level, 4), 4 if dtype == torch.float32 else 8)
+    dims = []
+    for _ in range(ndim):
+        dims.append(edges[rng.randint(len(edges))] if rng.rand() < 0.7 else int(rng.randint(32, 3000)))
+    if opt_in:  # K9's images: h % 128 == 0, w % 256 == 0
+        mode = "periodic"
+        dims = [128 * int(rng.randint(1, 9)), 256 * int(rng.randint(1, 9))]
+    while math.prod(dims) > FUZZ_SAMPLES and max(dims) > 32:
+        big = int(np.argmax(dims))
+        dims[big] = max(32, dims[big] // 2)
+    if kind in ("swt", "mat1d"):
+        halving = True  # swt's levels, and the boundary operators' fused runs on halving chains
+    max_level = max(1, min(ptwt.dwt_max_level(n, filt_len) for n in dims))
+    level = min(level, max_level) if not (wavelet == "odd") else 1  # ptwt_tpu refuses longer odd chains
+    if kind == "wp":
+        level = min(level, 3)
+    if kind == "swt":
+        level = min(level, ptwt.swt_max_level(dims[0]) or 1, 6)
+    if halving or (wavelet == "odd" and mode == "periodization"):
+        dims = [max(n - n % (1 << level), 1 << level) for n in dims]
+    if kind == "mat1d":  # past the boundary operators' cutoff, halving
+        dims = [-(-max(dims[0], 2049) >> level) << level]
+    cap = FUZZ_SAMPLES // math.prod(dims)
+    batch = int(rng.randint(1, min(17, max(2, cap + 1))))
+    if kind in TILED_KINDS and mode == "periodization":
+        # the tiled periodization takes halving chains whose deepest band
+        # covers the halo
+        while level > 1 and min(dims) >> (level - 1) < filt_len // 2:
+            level -= 1
+        need = max(filt_len // 2 - 1, 1) << (level - 1)
+        dims = [-(-max(n, need) >> level) << level for n in dims]
+    axes = None
+    shape = [batch, *dims]
+    if kind == "2d" and not opt_in and rng.rand() < 0.5:
+        axes = (-1, -2) if rng.rand() < 0.5 else (1, 3)
+        if axes == (1, 3):
+            shape = [batch, dims[0], 2, dims[1]]
+    learn = kind in FUZZ_BANK_KINDS and wavelet not in ("odd",) and not opt_in and rng.rand() < 0.15
+    return {"kind": kind, "wavelet": wavelet, "mode": mode, "dtype": dtype, "shape": shape, "level": level,
+            "axes": axes, "opt_in": bool(opt_in), "learn": bool(learn), "seed": int(rng.randint(1 << 30))}
+
+
+def fuzz_leaves(tree) -> list:
+    """The tensors of a coefficient tree in order (dicts by sorted key), a
+    tiled transform's local ones (one rank holds the whole)."""
+    if isinstance(tree, dict):
+        return [t for key in sorted(tree) for t in fuzz_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in fuzz_leaves(item)]
+    return [tree.to_local() if hasattr(tree, "to_local") else tree]  # one rank holds the whole
+
+
+def fuzz_funcs(spec: dict, bank, serial: bool):
+    """``(forward, inverse)`` of a draw: ``forward(x)`` returns the
+    coefficients (a packet tree's leaves at its level), ``inverse`` the
+    reconstruction.  ``serial``: a tiled kind's serial transforms."""
+    kind, mode, level, axes = spec["kind"], spec["mode"], spec["level"], spec["axes"]
+    if kind in TILED_KINDS:
+        fwd, inv, sfwd, sinv = tiled_funcs(TILED_KINDS[kind])
+        if serial:
+            return (lambda x: sfwd(x, bank, mode=mode, level=level)), (lambda c: sinv(c, bank, mode=mode))
+        mesh = tiled_mesh(1, {"n_data": 1, "n_spatial": 1})
+        return (lambda x: fwd(x, bank, level=level, mesh=mesh, mode=mode)), (lambda c: inv(c, bank, mesh=mesh, mode=mode))
+    kw = {} if axes is None else {"axes": axes}
+    if kind in ("1d", "2d", "3d"):
+        # the mode goes to the inverse too: a periodic level comes back on K2
+        suffix = {"1d": "", "2d": "2", "3d": "3"}[kind]
+        dec, rec = getattr(ptwt, f"wavedec{suffix}"), getattr(ptwt, f"waverec{suffix}")
+        return (lambda x: dec(x, bank, mode=mode, level=level, **kw)), (lambda c: rec(c, bank, mode=mode, **kw))
+    if kind in ("fs2", "fs3"):
+        dec, rec = getattr(ptwt, f"fswavedec{kind[-1]}"), getattr(ptwt, f"fswaverec{kind[-1]}")
+        return (lambda x: dec(x, bank, mode=mode, level=level)), (lambda c: rec(c, bank))
+    if kind == "swt":
+        return (lambda x: ptwt.swt(x, bank, level=level)), (lambda c: ptwt.iswt(c, bank))
+    if kind == "mat1d":
+        dec, rec = ptwt.MatrixWavedec(bank, level), ptwt.MatrixWaverec(bank)
+        return dec, rec
+    if kind == "wp":
+        order = ptwt.WaveletPacket.get_level(level, "natural")
+        trees = []
+
+        def forward(x):
+            tree = ptwt.WaveletPacket(x, bank, mode=mode, maxlevel=level)
+            tree.initialize(order)
+            trees.append(tree)
+            return [tree[key] for key in order]
+
+        def inverse(_):
+            tree = trees.pop()
+            tree.reconstruct()
+            return tree[""]
+
+        return forward, inverse
+    raise ValueError(f"no such kind {kind!r}")
+
+
+def fuzz_run(spec: dict, x: torch.Tensor, plain: bool) -> dict:
+    """One route of a draw: the coefficients, the reconstruction and the
+    gradient of the sum of the squared coefficients (the input's, and a
+    learnable bank's), with the launches of all three.  The plain route of
+    a tiled kind is the serial transform's."""
+    bank = fuzz_bank(spec["wavelet"])
+    filters = []
+    if spec["learn"]:
+        arrays = ptwt.RegistryWavelet(bank).filter_bank if isinstance(bank, str) else bank
+        filters = [torch.tensor(np.asarray(f), dtype=x.dtype, device=x.device, requires_grad=True) for f in arrays]
+        bank = tuple(filters)
+    forward, inverse = fuzz_funcs(spec, bank, serial=plain)
+    route = plain_versions() if plain else contextlib.nullcontext()
+    opt_in = mxu2d_opt_in() if spec["opt_in"] else contextlib.nullcontext()
+    with route, opt_in:
+        xg = leaf(x)
+        _kernels.reset_launch_counts()
+        coeffs = forward(xg)
+        rec = inverse(coeffs)
+        bands = fuzz_leaves(coeffs)
+        loss = sum((b**2).sum() for b in bands)
+        # the analysis filters' gradients (the synthesis filters take no part)
+        grads = [g for g in torch.autograd.grad(loss, [xg, *filters], allow_unused=True) if g is not None]
+        torch.cuda.synchronize()
+    rec = fuzz_leaves([rec])[0]
+    return {"bands": [b.detach() for b in bands], "rec": rec.detach(), "grads": grads,
+            "counts": {k: v for k, v in _kernels.LAUNCHES.items() if v}}
+
+
+def fuzz_draw(rng: np.random.RandomState, idx: int) -> dict:
+    """Draw one configuration and hold the kernel route against the plain
+    route on the card: (a) every band, (b) the round trip, (c) the
+    gradients; (d) the launches.  Raises on a limit exceeded."""
+    spec = fuzz_spec(rng, idx)
+    dtype, shape = spec["dtype"], spec["shape"]
+    x = randn(tuple(shape), dtype, spec["seed"])
+    extra = [f"axes={spec['axes']}"] if spec["axes"] else []
+    extra += ["K9 opt-in"] if spec["opt_in"] else []
+    extra += ["learnable"] if spec["learn"] else []
+    label = " ".join([f"[{idx:03d}]", spec["kind"], spec["wavelet"], spec["mode"], f"L={spec['level']}",
+                      str(dtype).removeprefix("torch."), *extra])
+    got = fuzz_run(spec, x, plain=False)
+    want = fuzz_run(spec, x, plain=True)
+    tol = TOL[dtype]
+    errs = {}
+    if len(got["bands"]) != len(want["bands"]):
+        raise AssertionError(f"{label}: {len(got['bands'])} bands against {len(want['bands'])}")
+    errs["bands"] = (rel_err(got["bands"], want["bands"]), tol)
+    if spec["wavelet"] == "odd":  # the user's odd bank does not reconstruct: the plain route's output
+        errs["rec_vs_plain"] = (rel_err(got["rec"], want["rec"]), tol)
+    else:
+        crop = tuple(slice(0, n) for n in x.shape)
+        rt_tol = MAT_ROUND_TRIP_TOL[dtype] if spec["kind"] in ("mat1d", "wp") else (
+            ROUND_TRIP_TOL if dtype == torch.float32 else TOL[dtype])
+        if max_abs(want["rec"][crop], x) <= rt_tol:
+            errs["round_trip"] = (max_abs(got["rec"][crop], x), rt_tol)
+        else:
+            # float32 round-off of a bank that gains the bands' magnitude
+            # over many levels (rbio3.1) keeps every route from the limit,
+            # the plain one and ptwt_tpu's too: there the reconstruction is
+            # held to the plain route's within the bands' limit, over the
+            # scale that round-off takes, the largest band
+            scale = max(1.0, max(float(b.abs().max()) for b in want["bands"]))
+            errs["round_trip_vs_plain"] = (max_abs(got["rec"], want["rec"]) / scale, tol)
+    grad_tol = TRAIN_GRAD_TOL if dtype == torch.float32 else TOL[dtype]
+    errs["grads"] = (max(max_abs(g, w) / max(float(w.abs().max()), 1e-30)
+                         for g, w in zip(got["grads"], want["grads"])), grad_tol)
+    worst = max(errs.values(), key=lambda e: e[0] / e[1])
+    log(f"  {label} {shape}: worst {worst[0]!r} of {worst[1]!r}; "
+        + ", ".join(f"{k} {e!r} ({limit!r})" for k, (e, limit) in errs.items()) + f"; kernels {got['counts']}")
+    for what, (err, limit) in errs.items():
+        if not err <= limit:
+            raise AssertionError(f"{label} {shape}: {what} differ by {err!r}, over {limit!r}")
+    return {"spec": spec, "errs": errs, "counts": got["counts"]}
+
+
+def fuzz(count: int, seed: int, first: int = 0) -> dict:
+    """Phase 24: ``count`` draws from ``seed``, each held to ``PERF.md`` §2's
+    limits; fails if a draw fails or raises, or if one of K1-K9 and KT went
+    unlaunched across the draws.  ``first`` > 0 draws the configurations
+    before it without running them (to run a given draw again), and checks
+    no coverage."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop(MXU2D_ENV, None)
+    t0 = time.perf_counter()
+    built = _kernels.build()
+    t1 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    draws = []
+    with tiled_world("nccl" if DEVICE.type == "cuda" else "gloo", 0, 1, tiled_store("fuzz")), no_p2p():
+        for idx in range(count):
+            if idx < first:
+                fuzz_spec(rng, idx)
+                continue
+            draws.append(fuzz_draw(rng, idx))
+            torch.cuda.empty_cache()
+    per_kernel = {k: sum(1 for d in draws if d["counts"].get(k)) for k in _kernels.LAUNCHES}
+    worst = {}
+    for what in ("bands", "round_trip", "round_trip_vs_plain", "rec_vs_plain", "grads"):
+        for dtype in (torch.float32, torch.float64):
+            errs = [d["errs"][what] for d in draws if d["spec"]["dtype"] == dtype and what in d["errs"]]
+            if errs:
+                err, limit = max(errs, key=lambda e: e[0] / e[1])
+                worst[f"{what} {str(dtype).removeprefix('torch.')}"] = {"err": err, "limit": limit}
+    out = {"seed": seed, "count": count, "seconds": time.perf_counter() - t0, "draw_seconds": time.perf_counter() - t1,
+           "build": built, "worst": worst,
+           "draws_per_kernel": per_kernel,
+           "kinds": {k: sum(1 for d in draws if d["spec"]["kind"] == k) for k in dict.fromkeys(FUZZ_KINDS)}}
+    missed = [k for k, n in per_kernel.items() if not n]
+    if missed and not first:
+        raise AssertionError(f"the {count} draws of seed {seed} launched none of {missed}: {per_kernel}")
+    return out
+
+
+def fuzz_times() -> dict:
+    """``--fuzz N SEED [FIRST]``: phase 24's draws in a process of their own
+    (from draw ``FIRST`` on, to run a failing draw again)."""
+    i = sys.argv.index("--fuzz")
+    first = sys.argv[i + 3] if len(sys.argv) > i + 3 and sys.argv[i + 3].isdigit() else 0
+    return fuzz(int(sys.argv[i + 1]), int(sys.argv[i + 2]), int(first))
+
 
 
 def copy_bandwidth() -> float:
@@ -6437,18 +6909,35 @@ def main() -> int:
     second = times_process("--second-order-times")
     print(json.dumps({"second_order": second}))
 
-    phase("phase 22: the tiled transforms under torch.compile (ring steps and edge sums as functional collectives)")
-    tiled_compile = times_process("--tiled-compile-times", timeout=900)
-    print(json.dumps({"tiled_compile": tiled_compile}))
+    # phase 23's compiles and checks and phase 24's draws (no times) run
+    # beside phase 22's compiles; phase 22 times its rows once phase 24 has
+    # ended and phase 23 holds, and phase 23 times its rows after phase 22
+    phase("phase 22: the tiled transforms under torch.compile (ring steps and edge sums as functional collectives), "
+          "with phase 23's compiles and phase 24's draws beside it")
+    fuzz_proc = Beside("--fuzz", str(FUZZ_DRAWS), str(FUZZ_SEED), timeout=FUZZ_TIMEOUT_S)
+    func_proc = Beside("--compiled-func-times", timeout=FUNC_TIMEOUT_S, hold=True)
+    try:
+        tiled_compile = times_process("--tiled-compile-times", "--after",
+                                      os.pathsep.join((str(fuzz_proc.held), str(func_proc.held))), timeout=900)
+        print(json.dumps({"tiled_compile": tiled_compile}))
 
-    phase("phase 23: torch.compile over torch.func (grad, grad of grad, vmap of grad) through the ops of the kernels")
-    func = times_process("--compiled-func-times", timeout=FUNC_TIMEOUT_S)
+        phase("phase 23: torch.compile over torch.func (grad, grad of grad, vmap of grad) through the ops of the "
+              "kernels (compiled beside phase 22, timed now)")
+        func = func_proc.result()
+    finally:
+        fuzz_proc.stop()
+        func_proc.stop()
     for name, row in func["rows"].items():
         base = FUNC_PHASE21.get(name.removesuffix(" inductor"))
         if base is not None:  # phase 21's eager autograd step of the same row
             row["phase21_eager"] = {k: second["rows"][base][k] for k in ("device_ms", "events_ms", "wall_ms",
                                                                          "busy_share")}
     print(json.dumps({"compiled_func": func}))
+
+    phase(f"phase 24: {FUZZ_DRAWS} seeded draws (seed {FUZZ_SEED}) across every kernel's routing gate, "
+          "the kernel route against the plain route (drawn beside phase 22)")
+    fuzzed = fuzz_proc.result()
+    print(json.dumps({"fuzz": fuzzed}))
 
     kernels = []
     for name in ("K1", "K2", "K3", "K4"):
@@ -6793,7 +7282,7 @@ if __name__ == "__main__":
                         ("--prec-times", prec_times), ("--compile-times", compile_times),
                         ("--second-order-times", second_order_times),
                         ("--tiled-compile-times", tiled_compile_times),
-                        ("--compiled-func-times", compiled_func_times),
+                        ("--compiled-func-times", compiled_func_times), ("--fuzz", fuzz_times),
                         ("--kt-turns", lambda: kt_turns(Path(_arg("--kt-turns")).resolve()))):
         if flag in sys.argv:
             if not torch.cuda.is_available():

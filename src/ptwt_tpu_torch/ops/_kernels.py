@@ -34,6 +34,7 @@ from ._library import traced
 
 __all__ = [
     "LAUNCHES",
+    "MAX_TAPS",
     "build",
     "check_tensor",
     "filters_traced",
@@ -64,6 +65,10 @@ _LL = ctypes.c_longlong
 _D = ctypes.POINTER(ctypes.c_double)
 _IA = ctypes.POINTER(ctypes.c_int)
 _PA = ctypes.POINTER(ctypes.c_void_p)
+
+#: Most taps a launch takes (``PTWT_MAX_TAPS`` of ``csrc/common.cuh``: the
+#: taps travel in the kernel-parameter bank).
+MAX_TAPS = 128
 
 #: C entry point -> (source file, argument types).
 _ENTRY_POINTS = {

@@ -39,7 +39,7 @@ import torch
 
 from . import _kernels
 from ._library import call
-from ._pallas1d_multi import PADDED_MODES, _long_lane, lane_analysis, lane_synthesis
+from ._pallas1d_multi import PADDED_MODES, _long_lane, lane_analysis, lane_synthesis, plan_holds
 from ._pallas2 import _on_cpu, dwt_axis_plain, idwt_axis_plain
 
 __all__ = [
@@ -51,9 +51,10 @@ __all__ = [
 
 
 def flat_lane_applicable(n: int, filt_len: int, mode: str) -> bool:
-    """Static gate: a long last axis in a padded mode or ``valid``.  The
+    """Static gate: a long last axis in a padded mode or ``valid`` whose
+    one-level plan K7a holds (its edge strips within the bands).  The
     synthesis level is gated on its output length."""
-    return mode in (*PADDED_MODES, "valid") and _long_lane(n, filt_len)
+    return mode in (*PADDED_MODES, "valid") and _long_lane(n, filt_len) and plan_holds(n, filt_len, 1, mode)
 
 
 def dwt_lane_packed(x: torch.Tensor, dec_lo, dec_hi, mode: str) -> torch.Tensor:

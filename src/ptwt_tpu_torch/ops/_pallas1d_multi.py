@@ -79,6 +79,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..utils._preprocess import host_constant
 from . import _kernels
 from ._library import NAMESPACE, autograd, call, flatten_batch, flatten_list, split_batch
 from ._pallas2 import _on_cpu, dwt_axis_plain, idwt_axis_plain
@@ -94,6 +95,7 @@ __all__ = [
     "flat_waverec_lane_multi",
     "multi_analysis_plain",
     "multi_synthesis_plain",
+    "plan_holds",
     "sameshift_analysis",
     "sameshift_analysis_plain",
     "synthesis_pyramid",
@@ -108,7 +110,7 @@ PADDED_MODES = ("zero", "reflect", "periodic", "symmetric", "constant")
 _MODE_CODE = {mode: code for code, mode in enumerate(PADDED_MODES)}
 
 #: Longest filter the kernels take (``PTWT_MAX_TAPS`` in ``csrc/common.cuh``).
-MAX_TAPS = 128
+MAX_TAPS = _kernels.MAX_TAPS
 #: Level-0 samples of one tile: an analysis tile owns ``4096 >> D`` level-D
 #: outputs, a synthesis tile 4096 final outputs (each halved while the
 #: tile's buffers outgrow a block's shared memory).  A card sweep of 2048,
@@ -681,12 +683,27 @@ def flat_multi_depth(n: int, filt_len: int, mode: str, level: int) -> int:
     """Largest fused depth for the first levels of a wavedec (0: none).
 
     A padded mode on a last axis longer than :data:`FLAT_MIN_LANES`, runs
-    of at least 2 and at most :data:`MAX_FUSED_DEPTH` levels.
+    of at least 2 and at most :data:`MAX_FUSED_DEPTH` levels whose plan the
+    kernel holds: every band at least as long as the edge block's strips
+    (:func:`_multi_plan`), which a long filter's deep run outgrows on a
+    signal near a lowered floor.
     """
     if mode not in PADDED_MODES or not _long_lane(n, filt_len):
         return 0
-    depth = min(level, MAX_FUSED_DEPTH)
-    return depth if depth >= 2 else 0
+    return next((d for d in range(min(level, MAX_FUSED_DEPTH), 1, -1) if plan_holds(n, filt_len, d, mode)), 0)
+
+
+@host_constant(maxsize=256)  # the gates call it under torch.compile: a constant of the program
+def plan_holds(n: int, filt_len: int, depth: int, mode: str) -> bool:
+    """Does the analysis pyramid kernel hold a ``depth``-level run on ``n``
+    samples in ``mode`` (:func:`_multi_plan`: every band at least as long
+    as the edge block's strips; float64's shared memory, which bounds
+    float32's)?"""
+    try:
+        _multi_plan(n, filt_len, depth, mode, 8)
+    except ValueError:
+        return False
+    return True
 
 
 def flat_multi_syn_depth(out_lens: Sequence[int], filt_len: int, mode: str) -> int:

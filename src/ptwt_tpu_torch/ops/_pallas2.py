@@ -663,6 +663,19 @@ def _constant_taps(filt) -> Optional[list[float]]:
     return None if isinstance(filt, torch.Tensor) else _kernels.host_taps(filt)
 
 
+def _tap_runs(filt_len: int) -> list[tuple[int, int]]:
+    """``[start, stop)`` of the taps each K3/K4 launch of one level takes:
+    the whole bank, or for a bank longer than ``PTWT_MAX_TAPS``
+    (:data:`~._kernels.MAX_TAPS`; the kernel-parameter bank holds no
+    more) runs of at most that many taps, of one even length but the
+    last, so that each run starts on an even tap."""
+    if filt_len <= _kernels.MAX_TAPS:
+        return [(0, filt_len)]
+    runs = -(-filt_len // _kernels.MAX_TAPS)
+    size = 2 * -(-filt_len // (2 * runs))
+    return [(start, min(start + size, filt_len)) for start in range(0, filt_len, size)]
+
+
 def pallas_dwt_axis(
     x: torch.Tensor, axis: int, dec_lo, dec_hi, mode: str
 ) -> torch.Tensor:
@@ -672,16 +685,28 @@ def pallas_dwt_axis(
     ``get_filter_arrays(..., flip=True)`` returns them.  A CPU tensor runs
     :func:`dwt_axis_plain`; a CUDA tensor runs K3 on the unpadded input,
     every mode's extension applied by the kernel, and filters that
-    require grad get theirs from KT.
+    require grad get theirs from KT.  A bank longer than the kernel takes
+    runs as one K3 launch per run of taps (:func:`_tap_runs`), summed: the
+    run from tap ``2s`` gives band ``i`` what the whole bank's band ``i``
+    reads from ``2 (i + s) + k - pad``, so it launches ``m + s`` bands and
+    keeps the last ``m``.
     """
     if _on_cpu(x):
         return torch.stack(dwt_axis_plain(x, axis, dec_lo, dec_hi, mode))
     ax = axis % x.ndim
     m, period, pad, code = _analysis_plan(x.shape[ax], len(dec_lo), mode)
-    return call(
-        analysis_axis, x.contiguous(), _filter_input(dec_lo), _filter_input(dec_hi),
-        _constant_taps(dec_lo), _constant_taps(dec_hi), ax, m, period, pad, code,
-    )
+    x = x.contiguous()
+    out = None
+    for start, stop in _tap_runs(len(dec_lo)):
+        lo, hi = (dec_lo, dec_hi) if stop - start == len(dec_lo) else (dec_lo[start:stop], dec_hi[start:stop])
+        skip = start // 2
+        part = call(
+            analysis_axis, x, _filter_input(lo), _filter_input(hi),
+            _constant_taps(lo), _constant_taps(hi), ax, m + skip, period, pad, code,
+        )
+        part = part.narrow(ax + 1, skip, m) if skip else part
+        out = part if out is None else out + part
+    return out
 
 
 def pallas_idwt_axis(
@@ -700,7 +725,12 @@ def pallas_idwt_axis(
     reconstruction filters; ``padl``/``padr`` crop the transposed
     convolution (``periodization``: its circular fold).  A CPU tensor runs
     :func:`idwt_axis_plain`; a CUDA tensor runs K4, one launch for all
-    pairs (at most two).
+    pairs (at most two).  A bank longer than the kernel takes runs as one
+    K4 launch per run of taps (:func:`_tap_runs`), summed: output ``u``
+    of the run from tap ``t`` reads tap ``u + off - t - 2j`` of it, so it
+    launches with ``off - t``; where that is negative, for
+    ``periodization`` (whose bands repeat) with ``off - t`` modulo ``2m``,
+    else with ``0``, its outputs placed ``t - off`` later.
     """
     if _on_cpu(los[0]):
         return torch.stack(
@@ -714,14 +744,31 @@ def pallas_idwt_axis(
     m = los[0].shape[ax]
     los = [b.contiguous() for b in los]
     his = [b.contiguous() for b in his]
-    if mode == "periodization":
+    circular = mode == "periodization"
+    if circular:
         off = padl + filt_len // 2 - 1
         out_len = 2 * m - padl - padr
     else:
         off = padl
         out_len = 2 * (m - 1) + filt_len - padl - padr
-    return call(
-        synthesis_axis, los, his, _filter_input(rec_lo), _filter_input(rec_hi),
-        _constant_taps(rec_lo), _constant_taps(rec_hi),
-        ax, max(out_len, 0), off, mode == "periodization", _ZERO, 0,
-    )
+    out_len = max(out_len, 0)
+    out = None
+    for start, stop in _tap_runs(filt_len):
+        lo, hi = (rec_lo, rec_hi) if stop - start == filt_len else (rec_lo[start:stop], rec_hi[start:stop])
+        shift = off - start
+        if circular and m and shift < 0:
+            shift %= 2 * m
+        later = max(-shift, 0)
+        if out is not None and later >= out_len:
+            continue  # the run reaches no output
+        part = call(
+            synthesis_axis, los, his, _filter_input(lo), _filter_input(hi),
+            _constant_taps(lo), _constant_taps(hi),
+            ax, out_len - later, max(shift, 0), circular, _ZERO, 0,
+        )
+        if later:
+            front = list(part.shape)
+            front[ax + 1] = later
+            part = torch.cat((part.new_zeros(front), part), dim=ax + 1)
+        out = part if out is None else out + part
+    return out

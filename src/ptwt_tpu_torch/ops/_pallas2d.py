@@ -74,10 +74,12 @@ def _plan_pad(filt_len: int, mode: str) -> int:
 
 
 def _reach_ok(h: int, w: int, filt_len: int) -> bool:
-    """The half-size axes must cover the tap reach (the JAX package's
-    geometry gate without its TPU layout limits)."""
+    """The kernels hold the filter (at most ``PTWT_MAX_TAPS`` taps; a
+    longer bank runs per axis, where K3/K4 take it in runs of taps), and
+    the half-size axes cover the tap reach (the JAX package's geometry
+    gate without its TPU layout limits)."""
     reach = _std_pad(filt_len) // 2 + 2
-    return h // 2 > reach and w // 2 > reach
+    return filt_len <= _kernels.MAX_TAPS and h // 2 > reach and w // 2 > reach
 
 
 def fused2_analysis_applicable(h: int, w: int, filt_len: int, mode: str) -> bool:

@@ -20,6 +20,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 import ptwt_tpu_torch as tptwt  # noqa: E402
+from _torch_banks import lattice_bank  # noqa: E402
 from ptwt_tpu_torch.ops import _kernels  # noqa: E402
 from ptwt_tpu_torch.ops import _mxu2d as t9  # noqa: E402
 from ptwt_tpu_torch.ops import _pallas as t5  # noqa: E402
@@ -1887,3 +1888,69 @@ def test_cuda_compiled_learnable_second_derivatives(cuda_device, kind):
     got, launches = _compiled_like_eager(program_of(x.to(cuda_device)), [f.to(cuda_device) for f in bank])
     assert set(launches) == {"K3", "K4", "KT"}
     _close_f64(got, program_of(x)(bank))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [130, 258])
+@pytest.mark.parametrize("mode", ["zero", "reflect", "periodic", "symmetric", "constant", "periodization"])
+def test_cuda_bank_past_the_tap_limit_matches_cpu(cuda_device, taps, mode):
+    """A bank longer than ``PTWT_MAX_TAPS`` (128) on the card: K3/K4 in
+    runs of taps, K1/K2 declined, 1d and 2d (an even image K1 would take
+    but for the taps), float64, against the CPU plain path at 1e-10, the
+    round trip, and the input's and the bank's gradients (KT per run)."""
+    bank = lattice_bank(taps, taps)
+    gen = torch.Generator().manual_seed(taps)
+    for shape, fwd, inv in (
+        ((2, 701), tptwt.wavedec, tptwt.waverec),
+        ((2, 300, 264), tptwt.wavedec2, tptwt.waverec2),
+    ):
+        flat = list if len(shape) == 2 else _flat2
+        x = torch.randn(*shape, generator=gen, dtype=torch.float64)
+        _kernels.reset_launch_counts()
+        got = fwd(x.to(cuda_device), bank, mode=mode, level=2)
+        rec = inv(got, bank, mode=mode)
+        torch.cuda.synchronize()
+        assert {k for k, v in _kernels.LAUNCHES.items() if v} == {"K3", "K4"}
+        want = fwd(x, bank, mode=mode, level=2)
+        assert _rel_err([c.cpu() for c in flat(got)], flat(want)) <= 1e-10
+        assert float((rec.cpu() - inv(want, bank, mode=mode)).abs().max()) <= 1e-10
+        assert float((rec.cpu()[tuple(map(slice, shape))] - x).abs().max()) <= 1e-10
+
+        def grads(inp, device):
+            filters = [torch.tensor(f, device=device, requires_grad=True) for f in bank]
+            inp = inp.to(device).requires_grad_()
+            coeffs = fwd(inp, tuple(filters), mode=mode, level=2)
+            loss = sum((c**2).sum() for c in flat(coeffs)) + (inv(coeffs, tuple(filters), mode=mode) ** 2).sum()
+            return torch.autograd.grad(loss, [inp, *filters])
+
+        _kernels.reset_launch_counts()
+        got_grads = grads(x, cuda_device)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["KT"]
+        for g, w in zip(got_grads, grads(x, "cpu")):
+            assert float((g.cpu() - w).abs().max()) <= 1e-10 * max(1.0, float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "wavelet,mode,n,level",
+    [("db5", "zero", 129, 4), ("sym8", "reflect", 200, 4), ("coif5", "periodic", 300, 4),
+     ("db20", "constant", 300, 3), ("coif17", "symmetric", 129, 1), ("coif17", "reflect", 300, 2)],
+)
+def test_cuda_lowered_floor_matches_cpu(cuda_device, monkeypatch, wavelet, mode, n, level):
+    """The long-lane floor lowered to 128 samples: a long filter's run on a
+    signal just past it takes the deepest depth whose plan holds (K8a/K8b,
+    K7a, or none), whose edge strips nearly fill the bands; float64 on the
+    card against the CPU plain path, the round trip and the gradient."""
+    monkeypatch.setattr(t8, "FLAT_MIN_LANES", 128)
+    x = torch.randn(2, n, generator=torch.Generator().manual_seed(n + level), dtype=torch.float64)
+    got = tptwt.wavedec(x.to(cuda_device), wavelet, mode=mode, level=level)
+    want = tptwt.wavedec(x, wavelet, mode=mode, level=level)
+    assert _rel_err([c.cpu() for c in got], want) <= 1e-10
+    rec = tptwt.waverec(got, wavelet)
+    assert float((rec.cpu() - tptwt.waverec(want, wavelet)).abs().max()) <= 1e-10
+    xg = x.to(cuda_device).requires_grad_()
+    (grad,) = torch.autograd.grad(sum((c**2).sum() for c in tptwt.wavedec(xg, wavelet, mode=mode, level=level)), xg)
+    xc = x.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(sum((c**2).sum() for c in tptwt.wavedec(xc, wavelet, mode=mode, level=level)), xc)
+    assert float((grad.cpu() - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
